@@ -73,3 +73,42 @@ def from_jax_params(params, device="cuda") -> dict:
     if isinstance(out.get("layers"), dict):
         out["layers"] = _split_layers(out["layers"])
     return out
+
+
+def paged_pool_from_jax(jpool, cfg, device="cuda"):
+    """A port ``PagedKVPool`` holding a JAX ``PagedKVPool``'s state: the
+    arenas (as numpy, then tensors on ``device``), refcounts, free list and
+    cached-block marks, row tables, positions, free rows and the prefix
+    cache's entries and counters.  ``cfg`` is the port's config (its dtype
+    must be the arenas')."""
+    from .serving.paged import BlockTable, PagedKVPool
+    device = resolve(device)
+    pool = PagedKVPool(cfg, jpool.n_rows, jpool.max_len, device=device,
+                       block_size=jpool.block_size, n_blocks=jpool.n_blocks,
+                       prefix_caching=jpool.prefix_cache is not None,
+                       kv_dtype=jpool.kv_dtype)
+    jb, b = jpool.blocks, pool.blocks
+    b.k, b.v = to_torch(jb.k, device), to_torch(jb.v, device)
+    b.ref = np.array(jb.ref, np.int32)
+    b._free = [int(x) for x in jb._free]
+    b._cached = np.array(jb._cached, bool)
+    b.n_cached_idle = int(jb.n_cached_idle)
+    pool._trash = int(jpool.trash_block)
+    pool.tables = [None if t is None else
+                   BlockTable(t.block_size, [int(x) for x in t.blocks],
+                              int(t.n_cached_tokens))
+                   for t in jpool.tables]
+    pool._bt_np = np.array(jpool._bt_np, np.int32)
+    pool._bt_dirty = True
+    pool.pos = np.array(jpool._pos_np, np.int32)
+    pool._free_rows = [int(x) for x in jpool._free_rows]
+    pool.n_preemptions = int(jpool.n_preemptions)
+    jc, c = jpool.prefix_cache, pool.prefix_cache
+    if jc is not None:
+        c._entries.update((key, int(blk)) for key, blk in jc._entries.items())
+        c._key_of_block.update((int(blk), key)
+                               for blk, key in jc._key_of_block.items())
+        for name in ("lookups", "hits", "hit_tokens", "inserted_blocks",
+                     "evicted_blocks", "probes"):
+            setattr(c, name, int(getattr(jc, name)))
+    return pool

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc`` into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
-library goes to ``build/kernels/`` at the root of the checkout (listed in
+The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The library goes
+to ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``) on first use, named by the hash of the sources and flags, so
 a changed source is rebuilt and an unchanged one is loaded as it is.
 
@@ -21,7 +22,7 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,8 @@ SIGNATURES = {
     "nm_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fused_sparse_linear_bf16": [_P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P],
+    "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -58,25 +61,44 @@ def _digest(srcs: list[pathlib.Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands in parallel; raise with the output of any that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{output}")
+        elif verbose:
+            print(output, end="")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the sources into ``build/kernels/`` unless a library with the
     same hash is there already; returns the library's path."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = BUILD_DIR / f"libsparse_linear-{_digest(srcs)}.so"
+    lib_path = BUILD_DIR / f"libkernels-{_digest(srcs)}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+    _run([[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)],
+         verbose)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]],
+         verbose)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -9,6 +9,8 @@ product runs through the hand-written kernels.
   python -m repro_torch.launch.serve --arch llama3-8b --sparse
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --batch 2 --prompt-len 16 --gen 4 --sparse
+  python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
+      --device cpu --sparse --kv-layout paged --block-size 8
 """
 from __future__ import annotations
 
@@ -52,7 +54,11 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
     the finished requests and the engine."""
     engine = ServingEngine(cfg, params, device=device, n_slots=args.slots,
                            max_len=args.prompt_len + args.gen,
-                           token_budget=args.token_budget)
+                           token_budget=args.token_budget,
+                           kv_layout=args.kv_layout,
+                           block_size=args.block_size,
+                           n_blocks=args.n_blocks,
+                           prefix_caching=not args.no_prefix_cache)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=generator, device=generator.device)
     sp = SamplingParams(max_new_tokens=args.gen, temperature=args.temperature,
@@ -62,10 +68,16 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
     engine.run()
     wall = time.perf_counter() - t0
     n_tok = sum(len(r.tokens) for r in reqs)
-    print(f"engine[slot]: {args.batch} requests, {n_tok} tokens in "
-          f"{wall:.2f}s ({n_tok / max(wall, 1e-9):.1f} tok/s, "
-          f"{engine.stats()['n_steps']} steps, {args.slots} slots, "
-          f"{device})")
+    st = engine.stats()
+    print(f"engine[{args.kv_layout}]: {args.batch} requests, {n_tok} tokens "
+          f"in {wall:.2f}s ({n_tok / max(wall, 1e-9):.1f} tok/s, "
+          f"{st['n_steps']} steps, {args.slots} slots, "
+          f"{st['n_preemptions']} preemptions, {device})")
+    pc = st["pool"].get("prefix_cache")
+    if pc is not None:
+        print(f"prefix cache: {pc['hits']}/{pc['lookups']} lookups hit, "
+              f"{pc['hit_tokens']} hit tokens, {pc['entries']} entries, "
+              f"{pc['evicted_blocks']} evicted blocks")
     return reqs, engine
 
 
@@ -83,6 +95,15 @@ def parse_args(argv=None):
                     help="N:256 outlier pattern, or 'none' for plain N:M")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--token-budget", type=int, default=None)
+    ap.add_argument("--kv-layout", default="slot", choices=("slot", "paged"),
+                    help="contiguous per-slot KV vs paged block pool")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (paged layout)")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="paged arena size in blocks (default: the same "
+                         "device memory as the slot layout would reserve)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable prefix-cache block sharing (paged)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)

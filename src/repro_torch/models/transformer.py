@@ -8,8 +8,9 @@ projection is a dense [out, in] tensor or a ``SparseWeight``.
 
 ``unified_step`` is the only serving entry: chunked prefill (S = chunk),
 one-shot prefill (S = prompt, cursor 0) and fused decode (S = 1 over every
-lane) all write their fresh KV into the slot arena at the cursor and attend
-in place, with the cursor as a length mask.
+lane) all write their fresh KV into the arena at the cursor (slot rows, or
+paged blocks through the block tables) and attend in place, with the cursor
+as a length mask.
 """
 from __future__ import annotations
 
@@ -88,11 +89,15 @@ def _mlp(lp, x, cfg):
 
 
 def attend_over_pool(q, pool_view, *, window: int | None = None):
-    """``q`` [B, S, H, hd] attends directly against the slot arena slice in
-    ``pool_view`` with the per-lane cursor as a length mask (the JAX
-    primitive's slot branch; the paged branch is ROADMAP A5)."""
+    """``q`` [B, S, H, hd] attends directly against one layer's arena slice
+    in ``pool_view`` with the per-lane cursor as a length mask: slot rows
+    (``SlotPoolView``) or paged blocks through the block tables
+    (``PagedPoolView``, the paged-attention kernel on the card)."""
     if pool_view.block_tables is not None:
-        raise NotImplementedError("the paged KV layout is ROADMAP A5")
+        from ..serving.paged.paged_attention import paged_attention
+        return paged_attention(q, pool_view.k, pool_view.v,
+                               pool_view.block_tables, pool_view.cursor,
+                               window=window)
     k_rows, v_rows = pool_view.lane_kv(pool_view.k, pool_view.v)
     return attend_length_masked(q, k_rows, v_rows, pool_view.cursor,
                                 window=window)
@@ -113,7 +118,7 @@ def _block_step(lp, x, k_l, v_l, view, positions, cfg):
 
 
 def unified_step(params, view, batch, cfg):
-    """One attend-in-place step over the slot pool.
+    """One attend-in-place step over the pool (slot or paged view).
 
     ``batch["tokens"]`` [B, S] are the next S tokens of each lane, starting
     at ``view.cursor``.  Returns (logits [B, S, V], (k, v)); the arenas are

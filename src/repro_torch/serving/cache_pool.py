@@ -50,8 +50,8 @@ def arena_nbytes(*arrays) -> int:
 
 @runtime_checkable
 class KVCachePool(Protocol):
-    """What the engine requires of a KV layout (the slot layout is the only
-    one ported; the paged one is ROADMAP A5)."""
+    """What the engine requires of a KV layout: ``SlotKVPool`` here, and
+    ``paged.PagedKVPool`` (serving/paged/pool.py)."""
     n_slots: int
 
     @property

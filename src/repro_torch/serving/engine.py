@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine, dense family on the slot KV layout
-(port of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine, dense family on the slot and paged
+KV layouts (port of ``repro/serving/engine.py``).
 
 Every ``step()`` evicts expired queue entries, spends up to
 ``token_budget`` prompt tokens on prefill chunks (in-flight cursors first,
@@ -12,11 +12,24 @@ one-shot prefill does.  Chunks at the same cursor are padded to
 power-of-two length buckets (``_bucket``) and batched; padding lanes write
 nothing and their outputs are never read.
 
+Two KV layouts behind one API (``kv_layout=``):
+
+  "slot"   ``SlotKVPool``: contiguous [L, n_slots, max_len, KV, hd] arenas,
+           one slot reserved per request for its lifetime.
+  "paged"  ``PagedKVPool`` (serving/paged/): KV in ``block_size``-token
+           blocks allocated on demand from one shared arena, addressed
+           through per-request block tables and attended by the paged
+           attention kernel.  Allocation is chunk-aware; identical prefixes
+           share blocks read-only (prefix cache); decode or prefill
+           pressure preempts the youngest request back to the queue, after
+           publishing its fully written blocks to the prefix cache so the
+           resume restarts at the last full block.
+
 On the card every ``SparseWeight`` product goes through the hand-written
-kernels (``kernels/``).  Left out of this slice, each raising
-``NotImplementedError``: ``kv_layout="paged"`` (ROADMAP A5),
-``kv_dtype="int8"`` (A6), ``draft=`` (A8), ``tracer=`` (A9), ``mesh=``
-(A12).
+kernels (``kernels/``), and paged attention through
+``csrc/paged_attention.cu``.  Left out of this slice, each raising
+``NotImplementedError``: ``kv_dtype="int8"`` (ROADMAP A6), ``draft=`` (A8),
+``tracer=`` (A9), ``mesh=`` (A12).
 """
 from __future__ import annotations
 
@@ -28,14 +41,16 @@ import torch
 from ..device import resolve
 from .cache_pool import CachePoolError
 from .families import TransformerAdapter
+from .paged import OutOfBlocks
 from .request import Request, SamplingParams, Status
 from .sampling import sample_tokens_logprobs
-from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE, QueueFull,
-                        RequestQueue, pick_preemption_victim, plan_chunks,
+from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE,
+                        PREEMPT_PREFILL_PRESSURE, QueueFull, RequestQueue,
+                        pick_preemption_victim, plan_chunks,
                         resolve_token_budget)
 
 SUPPORTED_FAMILIES = ("dense",)
-KV_LAYOUTS = ("slot",)
+KV_LAYOUTS = ("slot", "paged")
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -56,13 +71,13 @@ class ServingEngine:
                  token_budget: int | None = None,
                  max_prefill_per_step: int | None = None,
                  kv_layout: str = "slot", kv_dtype: str = "bf16",
+                 block_size: int = 16, n_blocks: int | None = None,
+                 prefix_caching: bool = True, lookahead_blocks: int = 1,
                  mesh=None, clock=time.monotonic, tracer=None, draft=None):
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"ServingEngine supports {SUPPORTED_FAMILIES} families, not "
                 f"{cfg.family!r}")
-        if kv_layout == "paged":
-            raise _not_ported('kv_layout="paged"', "A5")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"not {kv_layout!r}")
@@ -80,8 +95,10 @@ class ServingEngine:
                              f"engine runs on {self.device}")
         self.cfg = cfg
         self.params = params
-        self.adapter = TransformerAdapter(cfg, params, n_slots=n_slots,
-                                          max_len=max_len, device=self.device)
+        self.adapter = TransformerAdapter(
+            cfg, params, n_slots=n_slots, max_len=max_len, device=self.device,
+            kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
+            prefix_caching=prefix_caching)
         self.kv_layout = kv_layout
         self.kv_dtype = kv_dtype
         self.pool = self.adapter.pool
@@ -89,6 +106,7 @@ class ServingEngine:
         self.token_budget = resolve_token_budget(
             token_budget, max_prefill_per_step, max_len)
         self.chunk_quantum = CHUNK_QUANTUM
+        self.lookahead_blocks = lookahead_blocks
         self.running: dict[int, Request] = {}        # slot -> request
         self.finished: list[Request] = []
         self._clock = clock
@@ -140,6 +158,14 @@ class ServingEngine:
             raise QueueFull(f"queue at capacity ({self.queue.max_size})")
         return req
 
+    def prefix_match_length(self, prompt) -> int:
+        """How many leading tokens of ``prompt`` the prefix cache holds: a
+        side-effect-free host probe (0 on the slot layout)."""
+        if self.kv_layout != "paged":
+            return 0
+        return self.pool.prefix_match_length(
+            [int(t) for t in np.asarray(prompt).reshape(-1)])
+
     # ------------------------------------------------------------ stepping
     @property
     def has_work(self) -> bool:
@@ -184,12 +210,32 @@ class ServingEngine:
                 "kv_dtype": self.kv_dtype, "token_budget": self.token_budget,
                 "device": str(self.device), "pool": self.pool.stats()}
 
+    def reset_stats(self) -> None:
+        """Zero the step, preemption, concurrency and prefix-cache counters
+        (cached KV is kept): benchmarks call this between a warm-up pass and
+        the measured window."""
+        self.n_steps = 0
+        self.n_preemptions = 0
+        self.max_running = 0
+        if self.kv_layout == "paged":
+            self.pool.reset_stats()
+
     # ------------------------------------------------------------ internals
     @staticmethod
     def _seq(req: Request) -> list[int]:
         """The tokens prefill must cover: the prompt plus anything generated
         before a preemption."""
         return list(req.prompt) + req.tokens
+
+    def _written_seq(self, req: Request) -> list[int]:
+        """The leading tokens whose KV the request has written: what a
+        preemption can publish to the prefix cache.  Mid-prefill that is the
+        cursor; for a decoding request everything but the last generated
+        token (its KV is written when it is fed to the next decode)."""
+        seq = self._seq(req)
+        if req.status is Status.PREFILLING:
+            return seq[:req.prefill_cursor]
+        return seq[:-1] if req.tokens else seq
 
     def _prefill_phase(self, stats: dict, now: float) -> None:
         """Spend up to the token budget: advance in-flight prefill cursors
@@ -203,27 +249,81 @@ class ServingEngine:
         queued = [(r, len(self._seq(r))) for r in self.queue]
 
         def try_admit(req, chunk):
-            row = self.pool.alloc()
-            if row is None:
-                return None
+            seq = self._seq(req)
+            if self.kv_layout == "paged":
+                if not self.pool.can_admit(chunk, self.lookahead_blocks):
+                    return None
+                try:
+                    row, n_cached = self.pool.admit(seq, alloc_tokens=0)
+                except OutOfBlocks:
+                    return None
+                end = n_cached + min(chunk, len(seq) - n_cached)
+                try:
+                    self.pool.ensure_capacity(row, end)
+                except OutOfBlocks:
+                    self.pool.release(row)
+                    return None
+            else:
+                row = self.pool.alloc()
+                if row is None:
+                    return None
+                n_cached = 0
             popped = self.queue.pop()          # the planned head, by FIFO
             if popped is not req:
                 raise CachePoolError("queue head changed during planning")
             self._install_running(req, row, now)
-            req.prefill_cursor = 0
+            req.prefill_cursor = n_cached
             stats["admitted"] += 1
-            return len(self._seq(req))
+            return len(seq) - n_cached
 
         chunk_plan = plan_chunks(flight, queued, self.token_budget,
                                  self.chunk_quantum, try_admit)
 
-        by_shape: dict[tuple[int, int], list] = {}
+        runnable = []
         for req, take in chunk_plan:
+            if self.running.get(req.slot) is not req:
+                continue                       # preempted by a prior chunk
+            if (self.kv_layout == "paged"
+                    and not self._ensure_chunk_capacity(req, take, stats)):
+                continue
+            runnable.append((req, take))
+
+        by_shape: dict[tuple[int, int], list] = {}
+        for req, take in runnable:
             by_shape.setdefault((req.prefill_cursor, _bucket(take)),
                                 []).append((req, take))
         for (cursor, bucket), group in sorted(by_shape.items()):
-            stats["finished"] += self._run_chunk_group(group, cursor, bucket,
-                                                       stats)
+            # a later plan entry's capacity loop may have preempted a request
+            # after it was validated into runnable: re-check each one
+            group = [(r, t) for r, t in group
+                     if self.running.get(r.slot) is r
+                     and r.prefill_cursor == cursor]
+            if group:
+                stats["finished"] += self._run_chunk_group(group, cursor,
+                                                           bucket, stats)
+
+    def _ensure_chunk_capacity(self, req: Request, take: int,
+                               stats: dict) -> bool:
+        """Grow the row's block table to hold the next chunk.  Under
+        pressure: if anything is decoding, skip the chunk this step (the
+        decoders drain and free blocks); otherwise preempt the youngest
+        other request and retry, so the oldest prefill always progresses."""
+        while True:
+            try:
+                self.pool.ensure_capacity(req.slot,
+                                          req.prefill_cursor + take)
+                return True
+            except OutOfBlocks:
+                if any(r.status is Status.RUNNING
+                       for r in self.running.values()):
+                    return False
+                if not any(r is not req for r in self.running.values()):
+                    # submit bounds prompt + generation by the pool's
+                    # capacity, so this is an accounting bug
+                    raise CachePoolError(
+                        "sole prefilling request cannot grow its KV")
+                self._preempt_one(stats, exclude=req,
+                                  reason=PREEMPT_PREFILL_PRESSURE)
 
     def _install_running(self, req: Request, slot: int, now: float) -> None:
         req.slot = slot
@@ -254,8 +354,11 @@ class ServingEngine:
             tokens[i, :take] = seq[cursor:cursor + take]
             cur[i] = cursor
             n_new[i] = take
-        self.pool.chunk_end_check(cursor, takes)
-        lanes = self.pool.lane_rows(rows, B)
+        if self.kv_layout == "paged":
+            lanes = self.pool.lane_tables(rows, B)
+        else:
+            self.pool.chunk_end_check(cursor, takes)
+            lanes = self.pool.lane_rows(rows, B)
         logits = self.adapter.step_chunk(lanes, cur, n_new, tokens)
         self.pool.advance_prefill(rows, [cursor + t for t in takes])
         stats["prefill_tokens"] += sum(takes)
@@ -267,6 +370,8 @@ class ServingEngine:
             req.metrics.prefill_chunks += 1
             if req.prefill_cursor == len(seq):
                 req.status = Status.RUNNING
+                if self.kv_layout == "paged":
+                    self.pool.register_prefix(req.slot, seq)
                 done_idx.append(i)
                 done_rows.append(req.slot)
                 done_last.append(take - 1)
@@ -283,14 +388,19 @@ class ServingEngine:
     def _preempt_one(self, stats: dict, exclude: Request | None = None,
                      reason: str = PREEMPT_DECODE_PRESSURE) -> None:
         """Push the youngest running request (never ``exclude``) back to
-        the queue head and release its slot.  On re-admission it
+        the queue head and release its slot or blocks.  On re-admission it
         re-prefills prompt + generated tokens, which recomputes the same KV,
-        so its token stream is unchanged."""
+        so its token stream is unchanged; on the paged layout its fully
+        written blocks are first published to the prefix cache, so the
+        resume starts at the last full block."""
         candidates = ({s: r for s, r in self.running.items()
                        if r is not exclude}
                       if exclude is not None else self.running)
         victim_slot = pick_preemption_victim(candidates)
         req = self.running.pop(victim_slot)
+        if self.kv_layout == "paged":
+            self.pool.register_prefix(victim_slot, self._written_seq(req))
+            self.pool.n_preemptions += 1
         self.pool.release(victim_slot)
         req.slot = None
         req.status = Status.QUEUED
@@ -310,11 +420,28 @@ class ServingEngine:
         """Advance every prefill-complete request one token in a single
         fused step (``unified_step`` at S=1 over every lane).  Rows
         mid-prefill and free rows share the batch but are masked out of
-        position updates and sampling; their lanes write a garbage token at
-        their position, which is overwritten before anyone reads it."""
+        position updates and sampling.  On the slot layout their lanes write
+        a garbage token at their position, which is overwritten before anyone
+        reads it; on the paged layout only the active rows write, into blocks
+        ``prepare_decode`` made private (it preempts under OutOfBlocks)."""
         active = self._decode_rows()
+        if self.kv_layout == "paged":
+            while True:
+                try:
+                    self.pool.prepare_decode(active)
+                    break
+                except OutOfBlocks:
+                    if len(self.running) <= 1:
+                        # submit bounds prompt + generation by the pool's
+                        # capacity, so this is an accounting bug
+                        raise CachePoolError(
+                            "sole running request cannot grow its KV")
+                    self._preempt_one(stats, reason=PREEMPT_DECODE_PRESSURE)
+                    active = self._decode_rows()
+            if not active:
+                return 0
         stats["decoded"] = len(active)
-        logits = self.adapter.step_decode(self._last_token[:, None])
+        logits = self.adapter.step_decode(self._last_token[:, None], active)
         self._slot_logits = logits[:, 0].to(torch.float32)
         n_finished = self._emit_tokens(active)
         advanced = np.zeros((self.pool.n_slots,), bool)

@@ -49,6 +49,7 @@ CHUNK_QUANTUM = 8
 # decode pressure = the arena ran dry growing a decode step; prefill
 # pressure = an in-flight chunk could not get blocks for its next cursor
 PREEMPT_DECODE_PRESSURE = "decode_pressure"
+PREEMPT_PREFILL_PRESSURE = "prefill_pressure"
 
 
 class QueueFull(RuntimeError):

@@ -107,3 +107,115 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                 sw.o_values[:, :, :8].contiguous(),
                                 sw.o_meta, n=8, m=16, o_n=16)
     assert (nms.launches, fsl.launches) == counts
+
+
+# ------------------------------------------------------------ paged attention
+def _paged_case(B, S, H, KV, hd, bs, cursors, seed, device):
+    """bf16 q and arenas with shuffled, non-contiguous block tables padded
+    with a trash block (id 0): each lane owns the blocks covering
+    cursor + S positions, in a random order of the arena."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    need = [-(-(c + S) // bs) for c in cursors]
+    nb = max(need) + 2                                 # trash-padded width
+    n_blocks = 1 + sum(need) + 3
+    perm = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((B, nb), dtype=torch.int32)
+    for b, n in enumerate(need):
+        tables[b, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    q = torch.randn((B, S, H, hd), generator=g).to(torch.bfloat16)
+    k = torch.randn((n_blocks, bs, KV, hd), generator=g).to(torch.bfloat16)
+    v = torch.randn((n_blocks, bs, KV, hd), generator=g).to(torch.bfloat16)
+    cur = torch.tensor(cursors, dtype=torch.int32)
+    return [t.to(device) for t in (q, k, v, tables, cur)]
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (16, 2)])
+@pytest.mark.parametrize("S,bs,cursors", [
+    (1, 16, [0, 15, 16, 77]), (3, 8, [5, 0, 40]), (37, 16, [9, 130]),
+    (70, 24, [0, 17]), (129, 32, [200])])
+def test_paged_attention_matches_plain(cuda, S, bs, cursors, H, KV, hd,
+                                       window):
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(len(cursors), S, H, KV, hd, bs,
+                                       cursors, S * 7 + H, cuda)
+    before = pa.launches
+    out = pa.paged_attention(q, k, v, tables, cur, window=window)
+    assert pa.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    _close(out, pa.plain(q, k, v, tables, cur, window=window))
+
+
+def test_paged_attention_padding_lanes_finite(cuda):
+    """A padding lane (cursor 0, all-trash table) reads only the trash block
+    and returns finite values."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(2, 8, 8, 2, 128, 16, [20, 0], 3, cuda)
+    tables[1] = 0
+    out = pa.paged_attention(q, k, v, tables, cur)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _close(out, pa.plain(q, k, v, tables, cur))
+
+
+def test_paged_attention_raises_on_unsupported(cuda):
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(2, 4, 8, 2, 128, 16, [3, 9], 4, cuda)
+    before = pa.launches
+    with pytest.raises(TypeError):                      # f32 q
+        pa.paged_attention(q.float(), k, v, tables, cur)
+    q96 = torch.zeros((2, 4, 8, 96), dtype=torch.bfloat16, device=cuda)
+    k96 = torch.zeros((k.shape[0], 16, 2, 96), dtype=torch.bfloat16,
+                      device=cuda)
+    with pytest.raises(ValueError):                     # hd 96
+        pa.paged_attention(q96, k96, k96, tables, cur)
+    k12 = torch.zeros((k.shape[0], 12, 2, 128), dtype=torch.bfloat16,
+                      device=cuda)
+    with pytest.raises(ValueError):                     # bs 12
+        pa.paged_attention(q, k12, k12, tables, cur)
+    with pytest.raises(ValueError):                     # int64 tables
+        pa.paged_attention(q, k, v, tables.long(), cur)
+    with pytest.raises(ValueError):                     # tables on the CPU
+        pa.paged_attention(q, k, v, tables.cpu(), cur)
+    with pytest.raises(ValueError):                     # not contiguous
+        pa.paged_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v, tables, cur)
+    q3 = torch.zeros((2, 4, 6, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):                     # H % KV != 0 (KV 4)
+        pa.paged_attention(q3, k.repeat(1, 1, 2, 1), v.repeat(1, 1, 2, 1),
+                           tables, cur)
+    assert pa.launches == before
+
+
+def test_paged_engine_runs_the_kernel(cuda):
+    """The smoke model served on the paged layout on the card: every layer
+    of every model call launches the paged kernel once."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import SamplingParams, ServingEngine, Status
+    from repro_torch.serving.paged import paged_attention as pa
+    cfg = dataclasses.replace(get_smoke("llama-paper"), dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = tfm.init_params(cfg, g, cuda)
+    engine = ServingEngine(cfg, params, device="cuda", n_slots=4,
+                           max_len=96, kv_layout="paged", block_size=16,
+                           token_budget=32)
+    before = pa.launches
+    shared = torch.randint(0, cfg.vocab, (32,), generator=g,
+                           device=cuda).tolist()
+    reqs = [engine.submit(shared + [i + 1] * (5 + 3 * i),
+                          SamplingParams(max_new_tokens=6)) for i in range(3)]
+    engine.run()
+    reqs.append(engine.submit(shared + [7] * 4,
+                              SamplingParams(max_new_tokens=6)))
+    engine.run()
+    assert all(r.status is Status.FINISHED and len(r.tokens) == 6
+               for r in reqs)
+    st = engine.stats()
+    assert pa.launches - before == cfg.n_layers * st["n_model_calls"]
+    assert st["pool"]["prefix_cache"]["hits"] >= 1

@@ -133,9 +133,19 @@ def test_default_device_raises_without_cuda(param_pairs):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kv_layout="paged"), "A5"), (dict(kv_dtype="int8"), "A6"),
+    (dict(kv_dtype="int8"), "A6"),
+    (dict(kv_layout="paged", kv_dtype="int8"), "A6"),
     (dict(draft=object()), "A8"), (dict(tracer=object()), "A9"),
     (dict(mesh=object()), "A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item, param_pairs):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(CFG, param_pairs["dense"][1], device="cpu", **kwargs)
+
+
+def test_paged_layout_constructs_and_serves(param_pairs):
+    engine = ServingEngine(CFG, param_pairs["dense"][1], device="cpu",
+                           kv_layout="paged", **ENGINE)
+    reqs = _drive(engine, SamplingParams(max_new_tokens=GEN))
+    assert all(r.status is Status.FINISHED and len(r.tokens) == GEN
+               for r in reqs)
+    assert engine.stats()["pool"]["layout"] == "paged"
