@@ -10,27 +10,32 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
-     8:16+16:256 weights, ``nm_spmm`` on plain 8:16), timed with CUDA events
-     beside the plain version, one ``F.linear`` on the densified weight (the
-     library yardstick, never called by the port) and the card's bound;
+     8:16+16:256 weights, ``nm_spmm`` on plain 8:16) in both variants (bf16
+     N:M values, and int8 values quantized from the same draws), timed with
+     CUDA events beside the plain version, one ``F.linear`` on the
+     densified weight (the library yardstick, never called by the port) and
+     the card's bound;
   3. a small-model reference check: the llama-paper smoke model served one
      step on the card (bf16, kernels), on the slot layout and on shuffled
      paged blocks, against the same weights in f32 on the CPU (plain
-     versions, slot layout);
+     versions, slot layout); and again with int8 weights on int8 KV
+     arenas, against the same int8 weights and int8 KV in f32 on the CPU;
   4. the main path: llama3-8b at full width and depth with every projection
      deployed as 8:16+16:256, served through ``ServingEngine`` (8 slots,
      max_len 1024, 8 greedy requests with prompts of 64..768 tokens, token
      budget 512, 32 new tokens each); the fused kernel must launch exactly
      7 x 32 times per model call;
   5. plain 8:16 (no outliers) at 4 layers, full width, which puts
-     ``nm_spmm`` on the engine path;
+     ``nm_spmm`` on the engine path; then the same with int8 values, which
+     puts ``nm_spmm``'s int8 variant there;
   2b. ``paged_attention`` against its plain version at llama3-8b's attention
      shapes (H 32, KV 8, hd 128, block size 16): decode (S=1, B=8, cursors
      up to 1000), chunks (S=512 at cursor 256; S=64 over 4 lanes, with and
-     without a 128-token window), shuffled trash-padded block tables; timed
+     without a 128-token window), shuffled trash-padded block tables, on
+     bf16 arenas and on int8 arenas quantized from the same K/V; timed
      beside the plain version, one ``scaled_dot_product_attention`` on the
-     pre-gathered K/V (the library yardstick, never called by the port) and
-     the card's bound;
+     pre-gathered (dequantized) K/V (the library yardstick, never called by
+     the port) and the card's bound;
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
      kernel launching once per layer per model call:
@@ -40,9 +45,21 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            4, the second after the first wave's prefills; gates prefix-cache
            hits, hit tokens >= 4 x 512 and a copy-on-write;
        (c) block pressure: (a)'s traffic with half the blocks it needs at
-           once; gates preemptions.
+           once; gates preemptions;
+  7. int8: llama3-8b at full width and depth with int8 8:16 values and
+     bf16 16:256 outliers, served by ``ServingEngine(kv_layout="paged",
+     kv_dtype="int8", block_size=16)``, with the int8 weight kernel
+     launching 7 x 32 times and the int8 paged kernel 32 times per model
+     call:
+       (a) phase 4's traffic in 512 blocks, with decode profile and greedy
+           agreement with 6(a)'s streams (reported, not gated);
+       (b) the same traffic in the device memory of 6(c)'s bf16 arena
+           (109 x 2 x 128 / 132 = 211 blocks); gates its arena bytes, scales
+           included, at most 6(c)'s; reports peak concurrency and
+           preemptions beside 6(c)'s.
 
-Prints the kernels line ``{"kernels": [...]}``, the serve numbers, the
+Prints the kernels line ``{"kernels": [...]}`` (six variants: the three
+kernels' bf16 and int8 variants), the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -73,6 +90,9 @@ KERNEL_TOL_REL = 2.0 ** -7
 MODEL_TOL_REL = 5e-2
 SERVE_PROMPT_LENS = [64, 160, 256, 352, 448, 544, 640, 768]
 SERVE_GEN = 32
+# phase 5: the 4-layer plain 8:16 model, bf16 values and int8 values
+PLAIN_PROMPT_LENS = [128, 96, 200, 64]
+PLAIN_GEN = 8
 # phase 2b: (name, lanes' cursors, S, window) at H 32, KV 8, hd 128, bs 16
 ATTN_SHAPE = dict(H=32, KV=8, hd=128, bs=16)
 ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
@@ -143,98 +163,122 @@ def bound(M, N, K, n, m, o_n, sw):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch, timer, log):
-    """Each kernel against its plain version at the main path's shapes."""
+def weight_case(timer, log, name, proj, x, sw, kernel_fn, plain_fn):
+    """One (projection, M) case of a weight kernel: the kernel against its
+    plain version on ``sw``'s buffers, gated at one bf16 ulp of the largest
+    output, and timed beside the plain version, one ``F.linear`` on the
+    densified (dequantized) weight and the bound."""
+    import torch
     import torch.nn.functional as F
+    from repro_torch.core import unpack_metadata, unpack_outlier_meta
+    from repro_torch.kernels.ref import decompress_nm, dequantize
+
+    M, K = x.shape
+    N = sw.nm_values.shape[0]
+    bufs = ((sw.nm_values, sw.nm_meta) if sw.o_values is None else
+            (sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta))
+    kw = dict(n=sw.n, m=sw.m, scale=sw.v_scale)
+    if sw.o_values is not None:
+        kw["o_n"] = sw.o_n
+
+    def kern():
+        return kernel_fn(x, *bufs, **kw)
+
+    def plain():
+        return plain_fn(x, *bufs, **kw)
+    y, y_plain = kern(), plain()
+    torch.cuda.synchronize()
+    check(y.shape == (M, N) and y.dtype == torch.bfloat16,
+          f"{name} {proj} M={M}: shape {tuple(y.shape)} {y.dtype}")
+    check(bool(torch.isfinite(y).all()),
+          f"{name} {proj} M={M}: non-finite output")
+    err = float((y.float() - y_plain.float()).abs().max())
+    tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
+    check(err <= tol, f"{name} {proj} M={M}: max|kernel-plain| "
+                      f"{err:.3e} > tol {tol:.3e}")
+    dense = decompress_nm(dequantize(sw.nm_values, sw.v_scale, x.dtype),
+                          unpack_metadata(sw.nm_meta, sw.n), sw.m,
+                          dtype=torch.float32)
+    if sw.o_values is not None:
+        dense += decompress_nm(sw.o_values.reshape(N, -1),
+                               unpack_outlier_meta(sw.o_meta, sw.o_n), 256,
+                               dtype=torch.float32)
+    dense = dense.to(torch.bfloat16)
+    b_ms, b_by = bound(M, N, K, sw.n, sw.m, sw.o_n, sw)
+    case = {"proj": proj, "N": N, "K": K, "M": M,
+            "max_abs_err": err, "tol": tol,
+            "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
+            "library_ms": timer.ms(lambda: F.linear(x, dense), 20),
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  {name:25s} {proj:12s} M={M:4d}: err {err:.2e} "
+        f"(tol {tol:.2e})  kernel {case['ms']:.4f} ms  plain "
+        f"{case['plain_ms']:.4f}  F.linear "
+        f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+    return case
+
+
+def kernel_phase(torch, timer, log):
+    """Each weight kernel, bf16 and int8, against its plain version at the
+    main path's shapes; the int8 weights are quantized from the same
+    draws."""
     from repro_torch.core import SparsifyConfig
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.kernels import nm_spmm as nms
-    from repro_torch.kernels.ref import decompress_nm
-    from repro_torch.core import unpack_metadata, unpack_outlier_meta
     from repro_torch.models.sparse_serving import to_sparse_weight
 
     g = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    for name, outlier in (("fused_sparse_linear", "16:256"),
-                          ("nm_spmm", None)):
+    for name, outlier, mod, fn in (
+            ("fused_sparse_linear", "16:256", fsl, fsl.fused_sparse_linear),
+            ("nm_spmm", None, nms, nms.nm_spmm)):
         scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern=outlier)
-        cases = []
+        cases, cases8 = [], []
         for proj, N, K in PROJECTIONS:
             w = (torch.randn((N, K), generator=g, device="cuda")
                  / math.sqrt(K)).to(torch.bfloat16)
             sw = to_sparse_weight(w, scfg)
+            sw8 = to_sparse_weight(w, scfg, quantize=True)
             del w
-            dense = decompress_nm(sw.nm_values, unpack_metadata(sw.nm_meta, 8),
-                                  16, dtype=torch.float32)
-            if outlier is not None:
-                dense += decompress_nm(
-                    sw.o_values.reshape(N, -1),
-                    unpack_outlier_meta(sw.o_meta, sw.o_n), 256,
-                    dtype=torch.float32)
-            dense = dense.to(torch.bfloat16)
-            if outlier is None:
-                def kern(x, sw=sw):
-                    return nms.nm_spmm(x, sw.nm_values, sw.nm_meta, n=8, m=16)
-
-                def plain(x, sw=sw):
-                    return nms.plain(x, sw.nm_values, sw.nm_meta, n=8, m=16)
-            else:
-                def kern(x, sw=sw):
-                    return fsl.fused_sparse_linear(
-                        x, sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta,
-                        n=8, m=16, o_n=sw.o_n)
-
-                def plain(x, sw=sw):
-                    return fsl.plain(x, sw.nm_values, sw.nm_meta, sw.o_values,
-                                     sw.o_meta, n=8, m=16, o_n=sw.o_n)
             for M in MS:
                 x = torch.randn((M, K), generator=g, device="cuda").to(
                     torch.bfloat16)
-                y = kern(x)
-                y_plain = plain(x)
-                torch.cuda.synchronize()
-                check(y.shape == (M, N) and y.dtype == torch.bfloat16,
-                      f"{name} {proj} M={M}: shape {tuple(y.shape)} {y.dtype}")
-                check(bool(torch.isfinite(y).all()),
-                      f"{name} {proj} M={M}: non-finite output")
-                err = float((y.float() - y_plain.float()).abs().max())
-                scale = float(y_plain.float().abs().max())
-                tol = KERNEL_TOL_REL * scale
-                check(err <= tol, f"{name} {proj} M={M}: max|kernel-plain| "
-                                  f"{err:.3e} > tol {tol:.3e}")
-                b_ms, b_by = bound(M, N, K, 8, 16, sw.o_n, sw)
-                case = {"proj": proj, "N": N, "K": K, "M": M,
-                        "max_abs_err": err, "tol": tol,
-                        "ms": timer.ms(lambda: kern(x), 20),
-                        "plain_ms": timer.ms(lambda: plain(x), 5),
-                        "library_ms": timer.ms(lambda: F.linear(x, dense), 20),
-                        "bound_ms": b_ms, "bound_by": b_by}
-                cases.append(case)
-                log(f"  {name:20s} {proj:12s} M={M:4d}: err {err:.2e} "
-                    f"(tol {tol:.2e})  kernel {case['ms']:.4f} ms  plain "
-                    f"{case['plain_ms']:.4f}  F.linear "
-                    f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
-            del sw, dense
+                cases.append(weight_case(timer, log, name, proj, x, sw, fn,
+                                         mod.plain))
+                cases8.append(weight_case(timer, log, f"{name}_int8", proj, x,
+                                          sw8, fn, mod.plain))
+            del sw, sw8
         results[name] = cases
+        results[f"{name}_int8"] = cases8
     return results
+
+
+KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
+    "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
+                            "src/repro_torch/csrc/sparse_linear.cu"),
+    "nm_spmm": ("src/repro/kernels/nm_spmm.py:86",
+                "src/repro_torch/csrc/sparse_linear.cu"),
+    "paged_attention": ("src/repro/serving/paged/paged_attention.py:180",
+                        "src/repro_torch/csrc/paged_attention.cu"),
+    "fused_sparse_linear_int8": (
+        "src/repro/kernels/fused_sparse_linear.py:50",
+        "src/repro_torch/csrc/sparse_linear.cu"),
+    "nm_spmm_int8": ("src/repro/kernels/nm_spmm.py:63",
+                     "src/repro_torch/csrc/sparse_linear.cu"),
+    "paged_attention_int8": (
+        "src/repro/serving/paged/paged_attention.py:124",
+        "src/repro_torch/csrc/paged_attention.cu")}
 
 
 def kernel_entry(name, cases, launches):
     b_bytes = sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes")
     b_ops = sum(c["bound_ms"] for c in cases if c["bound_by"] != "bytes")
-    replaces, source = {
-        "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
-                                "src/repro_torch/csrc/sparse_linear.cu"),
-        "nm_spmm": ("src/repro/kernels/nm_spmm.py:86",
-                    "src/repro_torch/csrc/sparse_linear.cu"),
-        "paged_attention": (
-            "src/repro/serving/paged/paged_attention.py:180",
-            "src/repro_torch/csrc/paged_attention.cu")}[name]
+    replaces, source = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             # times are sums over the cases below (16 (projection, M) cases
-            # of a weight kernel, the 4 phase-2b cases of paged attention)
+            # of a weight kernel, the 4 phase-2b cases of paged attention,
+            # for each variant)
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),
             "bound_ms": b_bytes + b_ops,
@@ -247,12 +291,13 @@ def kernel_entry(name, cases, launches):
 def small_model_phase(torch, log):
     """One prefill step of a small sparse model on the card, on the slot
     layout and on shuffled paged blocks, against the same weights in f32 on
-    the CPU."""
+    the CPU: bf16 weights and KV, and int8 weights (quantized from the same
+    draws) on int8 KV arenas."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.models.sparse_serving import SparseWeight
-    from repro_torch.serving.cache_pool import SlotPoolView
+    from repro_torch.serving.cache_pool import SlotPoolView, kv_arenas
     from repro_torch.serving.paged import PagedPoolView
 
     cfg = get_smoke("llama-paper")
@@ -260,6 +305,9 @@ def small_model_phase(torch, log):
                              "--sparse"])
     g = torch.Generator(device="cuda").manual_seed(2)
     params, _ = serve.build_params(cfg, args, "cuda", g)
+    params8, _ = serve.build_params(
+        cfg, args, "cuda", torch.Generator(device="cuda").manual_seed(2),
+        quantize=True)
 
     def to_cpu_f32(leaf):
         if isinstance(leaf, SparseWeight):
@@ -267,12 +315,18 @@ def small_model_phase(torch, log):
                             if t.is_floating_point() else t.to("cpu"))
         return leaf.to("cpu", torch.float32)
 
-    ref_params = {k: ([{n: to_cpu_f32(v) for n, v in lp.items()} for lp in p]
-                      if k == "layers" else to_cpu_f32(p))
-                  for k, p in params.items()}
-    check(all(isinstance(lp[n], SparseWeight) and lp[n].o_values is not None
-              for lp in params["layers"] for n in ("wq", "w_down")),
-          "small model: projections not deployed with outliers")
+    def ref(ps):
+        return {k: ([{n: to_cpu_f32(v) for n, v in lp.items()} for lp in p]
+                    if k == "layers" else to_cpu_f32(p))
+                for k, p in ps.items()}
+
+    for ps, dtype in ((params, torch.bfloat16), (params8, torch.int8)):
+        check(all(isinstance(lp[n], SparseWeight)
+                  and lp[n].o_values is not None
+                  and lp[n].nm_values.dtype == dtype
+                  for lp in ps["layers"] for n in ("wq", "w_down")),
+              f"small model: projections not deployed as {dtype} with "
+              f"outliers")
     B, S, max_len = 2, 48, 64
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda")
     bs, per_lane = 16, max_len // 16
@@ -280,40 +334,48 @@ def small_model_phase(torch, log):
                                 .manual_seed(2))[:B * per_lane]
     tables = tables.reshape(B, per_lane).numpy()        # block 0: trash
     outs = {}
-    for name, dev, p, dtype in (("cuda", "cuda", params, torch.bfloat16),
-                                ("cuda_paged", "cuda", params, torch.bfloat16),
-                                ("cpu", "cpu", ref_params, torch.float32)):
+    # name: (device, params, dtype, kv_dtype, paged)
+    runs = {"cuda": ("cuda", params, torch.bfloat16, "bf16", False),
+            "cuda_paged": ("cuda", params, torch.bfloat16, "bf16", True),
+            "cpu": ("cpu", ref(params), torch.float32, "bf16", False),
+            "cuda_int8": ("cuda", params8, torch.bfloat16, "int8", False),
+            "cuda_int8_paged": ("cuda", params8, torch.bfloat16, "int8", True),
+            "cpu_int8": ("cpu", ref(params8), torch.float32, "int8", False)}
+    for name, (dev, p, dtype, kv_dtype, paged) in runs.items():
         c = dataclasses.replace(cfg, dtype=dtype)
-        if name == "cuda_paged":
+        if paged:
             shape = (c.n_layers, B * per_lane + 4, bs, c.n_kv_heads, c.hd)
         else:
             shape = (c.n_layers, B, max_len, c.n_kv_heads, c.hd)
-        k = torch.zeros(shape, dtype=dtype, device=dev)
-        v = torch.zeros(shape, dtype=dtype, device=dev)
-        if name == "cuda_paged":
+        k, v, ks, vs = kv_arenas(shape, kv_dtype, dtype, dev)
+        if paged:
             view = PagedPoolView.build(k, v, tables, [0, 0], [S, S - 5], S,
-                                       trash=0)
+                                       trash=0, k_scale=ks, v_scale=vs)
         else:
-            view = SlotPoolView.build(k, v, [0, 1], [0, 0], [S, S - 5], S)
+            view = SlotPoolView.build(k, v, [0, 1], [0, 0], [S, S - 5], S,
+                                      k_scale=ks, v_scale=vs)
         with torch.no_grad():
             logits, _ = tfm.unified_step(p, view, {"tokens": tokens.to(dev)},
                                          c)
         outs[name] = logits.float().cpu()
-    scale = float(outs["cpu"].abs().max())
-    result = {"scale": scale}
-    for name in ("cuda", "cuda_paged"):
-        err = float((outs[name] - outs["cpu"]).abs().max())
-        agree = float((outs[name].argmax(-1) == outs["cpu"].argmax(-1))
+    result = {}
+    for name, ref_name, key in (("cuda", "cpu", ""),
+                                ("cuda_paged", "cpu", "paged_"),
+                                ("cuda_int8", "cpu_int8", "int8_"),
+                                ("cuda_int8_paged", "cpu_int8",
+                                 "int8_paged_")):
+        scale = float(outs[ref_name].abs().max())
+        err = float((outs[name] - outs[ref_name]).abs().max())
+        agree = float((outs[name].argmax(-1) == outs[ref_name].argmax(-1))
                       .float().mean())
-        log(f"  small model ({name}): max|card-cpu_f32| {err:.3e} of scale "
-            f"{scale:.3e}, greedy agreement {agree:.3f}")
+        log(f"  small model ({name}): max|card-{ref_name}_f32| {err:.3e} of "
+            f"scale {scale:.3e}, greedy agreement {agree:.3f}")
         check(bool(torch.isfinite(outs[name]).all()),
               f"small model ({name}): non-finite")
         check(err <= MODEL_TOL_REL * scale,
               f"small model ({name}): error {err:.3e} > {MODEL_TOL_REL} x "
               f"{scale:.3e}")
-        key = "" if name == "cuda" else "paged_"
-        result.update({f"{key}max_abs_err": err,
+        result.update({f"{key}scale": scale, f"{key}max_abs_err": err,
                        f"{key}greedy_agreement": agree})
     return result
 
@@ -338,15 +400,17 @@ def attention_case(torch, g, cursors, S, window, H, KV, hd, bs):
             + [tables.cuda(), cur.cuda()])
 
 
-def attention_bound(cursors, S, window, H, KV, hd, bs):
+def attention_bound(cursors, S, window, H, KV, hd, bs, int8=False):
     """Least time for the case: the KV blocks its queries can see read once
+    (bf16, or int8 values plus a 4-byte scale per position and KV head)
     plus q read and out written at the HBM rate, or the multiply-adds of
     the visible (query, key) pairs (QK^T and PV) at the bf16 peak."""
     kv_bytes = ops = 0
+    per_row = hd + 4 if int8 else 2 * hd     # bytes per (position, KV head)
     for c in cursors:
         lo = 0 if window is None else max(0, c - window + 1)
         blocks = -(-(c + S) // bs) - lo // bs
-        kv_bytes += blocks * bs * KV * hd * 2 * 2
+        kv_bytes += blocks * bs * KV * per_row * 2
         for i in range(S):
             keys = c + i + 1 if window is None else min(c + i + 1, window)
             ops += 4 * H * hd * keys
@@ -356,62 +420,89 @@ def attention_bound(cursors, S, window, H, KV, hd, bs):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def paged_attention_phase(torch, timer, log):
-    """``paged_attention`` against its plain version at llama3-8b's
-    attention shapes."""
+def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
+                  scales):
+    """One phase-2b case of one variant: kernel against plain version, gated
+    at one bf16 ulp of the largest output, timed beside the plain version,
+    SDPA on the pre-gathered (dequantized) K/V with the same boolean mask
+    (the library yardstick, never called by the port) and the bound."""
     import torch.nn.functional as F
     from repro_torch.serving.paged import paged_attention as pa
 
+    name, cursors, S, window = case_args
+    kw = dict(window=window)
+    if scales is not None:
+        kw.update(k_scale=scales[0], v_scale=scales[1])
+
+    def kern():
+        return pa.paged_attention(q, k, v, tables, cur, **kw)
+
+    def plain():
+        return pa.plain(q, k, v, tables, cur, **kw)
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    check(out.shape == q.shape and out.dtype == torch.bfloat16,
+          f"{label} {name}: {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out).all()),
+          f"{label} {name}: non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = KERNEL_TOL_REL * float(ref.float().abs().max())
+    check(err <= tol, f"{label} {name}: max|kernel-plain| {err:.3e} > tol "
+                      f"{tol:.3e}")
+    B, nb = tables.shape
+    bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
+    idx = tables.long()
+    kc, vc = k[idx], v[idx]
+    if scales is not None:
+        kc = (kc.float() * scales[0][idx][..., None]).to(torch.bfloat16)
+        vc = (vc.float() * scales[1][idx][..., None]).to(torch.bfloat16)
+    kc = kc.reshape(B, nb * bs, KV, hd).transpose(1, 2)
+    vc = vc.reshape(B, nb * bs, KV, hd).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    qpos = cur[:, None] + torch.arange(S, device="cuda")[None]
+    kpos = torch.arange(nb * bs, device="cuda")
+    mask = kpos[None, None] <= qpos[..., None]
+    if window is not None:
+        mask &= kpos[None, None] > qpos[..., None] - window
+    mask = mask[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                              enable_gqa=True)
+    b_ms, b_by = attention_bound(cursors, S, window, **ATTN_SHAPE,
+                                 int8=scales is not None)
+    case = {"case": name, "B": B, "S": S, "cursors": cursors,
+            "window": window, "max_abs_err": err, "tol": tol,
+            "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
+            "library_ms": timer.ms(library, 20),
+            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e})  "
+        f"kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}  "
+        f"sdpa {case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+    return case
+
+
+def paged_attention_phase(torch, timer, log):
+    """``paged_attention`` against its plain version at llama3-8b's
+    attention shapes, on bf16 arenas and on int8 arenas quantized from the
+    same K/V by ``quantize_kv``."""
+    from repro_torch.serving.cache_pool import quantize_kv
+
     g = torch.Generator().manual_seed(3)
-    cases = []
-    for name, cursors, S, window in ATTN_CASES:
+    cases, cases8 = [], []
+    for case_args in ATTN_CASES:
+        _, cursors, S, window = case_args
         q, k, v, tables, cur = attention_case(torch, g, cursors, S, window,
                                               **ATTN_SHAPE)
-
-        def kern():
-            return pa.paged_attention(q, k, v, tables, cur, window=window)
-
-        def plain():
-            return pa.plain(q, k, v, tables, cur, window=window)
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        check(out.shape == q.shape and out.dtype == torch.bfloat16,
-              f"paged_attention {name}: {tuple(out.shape)} {out.dtype}")
-        check(bool(torch.isfinite(out).all()),
-              f"paged_attention {name}: non-finite output")
-        err = float((out.float() - ref.float()).abs().max())
-        tol = KERNEL_TOL_REL * float(ref.float().abs().max())
-        check(err <= tol, f"paged_attention {name}: max|kernel-plain| "
-                          f"{err:.3e} > tol {tol:.3e}")
-        # the library yardstick: SDPA on the pre-gathered contiguous K/V
-        # with the same boolean mask
-        B, nb = tables.shape
-        bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
-        kc = k[tables.long()].reshape(B, nb * bs, KV, hd).transpose(1, 2)
-        vc = v[tables.long()].reshape(B, nb * bs, KV, hd).transpose(1, 2)
-        qt = q.transpose(1, 2)
-        qpos = cur[:, None] + torch.arange(S, device="cuda")[None]
-        kpos = torch.arange(nb * bs, device="cuda")
-        mask = kpos[None, None] <= qpos[..., None]
-        if window is not None:
-            mask &= kpos[None, None] > qpos[..., None] - window
-        mask = mask[:, None]
-
-        def library():
-            return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
-                                                  enable_gqa=True)
-        b_ms, b_by = attention_bound(cursors, S, window, **ATTN_SHAPE)
-        case = {"case": name, "B": B, "S": S, "cursors": cursors,
-                "window": window, "max_abs_err": err, "tol": tol,
-                "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
-                "library_ms": timer.ms(library, 20),
-                "bound_ms": b_ms, "bound_by": b_by}
-        cases.append(case)
-        log(f"  paged_attention {name:18s}: err {err:.2e} (tol {tol:.2e})  "
-            f"kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}  "
-            f"sdpa {case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
-        del q, k, v, kc, vc, qt, mask
-    return cases
+        cases.append(attention_run(torch, timer, log, "paged_attention",
+                                   case_args, q, k, v, tables, cur, None))
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        del k, v
+        cases8.append(attention_run(torch, timer, log, "paged_attention_int8",
+                                    case_args, q, k8, v8, tables, cur,
+                                    (ks, vs)))
+        del q, k8, v8, ks, vs
+    return cases, cases8
 
 
 def _kernel_class(name: str) -> str:
@@ -480,9 +571,11 @@ def profile_decode(torch, engine, g, n_steps=2):
             "top_kernels_ms_per_step": {k: v / n_steps / 1e3 for k, v in top}}
 
 
-def build_model(torch, log, *, n_layers=None, outlier="16:256"):
+def build_model(torch, log, *, n_layers=None, outlier="16:256",
+                quantize=False):
     """llama3-8b at full width (``n_layers`` deep), every projection a
-    SparseWeight, drawn from seed 0; returns (cfg, params, build numbers)."""
+    SparseWeight (int8 N:M values when ``quantize``), drawn from seed 0;
+    returns (cfg, params, build numbers)."""
     from repro_torch.configs import get
     from repro_torch.launch import serve
     from repro_torch.models.sparse_serving import SparseWeight
@@ -494,7 +587,8 @@ def build_model(torch, log, *, n_layers=None, outlier="16:256"):
                              "--outlier-pattern", outlier or "none"])
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params, report = serve.build_params(cfg, args, "cuda", g)
+    params, report = serve.build_params(cfg, args, "cuda", g,
+                                        quantize=quantize)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     sws = [lp[n] for lp in params["layers"] for n in
@@ -504,11 +598,15 @@ def build_model(torch, log, *, n_layers=None, outlier="16:256"):
           "not every projection is a SparseWeight")
     check(all((s.o_values is not None) == (outlier is not None) for s in sws),
           "outlier buffers do not match the pattern")
+    want = torch.int8 if quantize else torch.bfloat16
+    check(all(s.nm_values.dtype == want and (s.v_scale is not None) == quantize
+              for s in sws), f"N:M values are not {want}")
     log(f"  built {cfg.n_layers} layers in {build_s:.1f}s: "
         f"{report['n_layers_sparsified']} matrices, "
         f"{report['compressed_bytes'] / 1e9:.2f} GB compressed "
         f"({report['ratio']:.4f} of dense)")
     return cfg, params, {"build_s": build_s, "outliers": outlier,
+                         "values": "int8" if quantize else "bf16",
                          "compressed_gb": report["compressed_bytes"] / 1e9}
 
 
@@ -518,19 +616,24 @@ def prompts_for(torch, cfg, lens, seed):
                           device="cuda").tolist() for n in lens]
 
 
-def reset_launches():
+def _counters():
+    """(kernel name, module, counter attribute) of every kernel variant."""
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.kernels import nm_spmm as nms
     from repro_torch.serving.paged import paged_attention as pa
-    nms.launches = fsl.launches = pa.launches = 0
+    return [(name + suffix, mod, "launches" + suffix)
+            for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
+                              ("paged_attention", pa))
+            for suffix in ("", "_int8")]
+
+
+def reset_launches():
+    for _, mod, attr in _counters():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import fused_sparse_linear as fsl
-    from repro_torch.kernels import nm_spmm as nms
-    from repro_torch.serving.paged import paged_attention as pa
-    return {"nm_spmm": nms.launches, "fused_sparse_linear": fsl.launches,
-            "paged_attention": pa.launches}
+    return {name: getattr(mod, attr) for name, mod, attr in _counters()}
 
 
 def drive(torch, engine, waves, gen):
@@ -574,21 +677,23 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     from repro_torch.runtime.metrics import summarize
     cfg, st = engine.cfg, engine.stats()
     calls = st["n_model_calls"]
-    outlier = engine.params["layers"][0]["wq"].o_values is not None
-    want = 7 * cfg.n_layers * calls
-    key = "fused_sparse_linear" if outlier else "nm_spmm"
-    other = "nm_spmm" if outlier else "fused_sparse_linear"
-    check(launches[key] == want,
-          f"{key} launched {launches[key]} times, want 7 x {cfg.n_layers} x "
-          f"{calls} model calls = {want}")
-    check(launches[other] == 0, f"{other} launched {launches[other]} times")
-    paged = engine.kv_layout == "paged"
-    want_pa = cfg.n_layers * calls if paged else 0
-    check(launches["paged_attention"] == want_pa,
-          f"paged_attention launched {launches['paged_attention']} times, "
-          f"want {want_pa} ({engine.kv_layout} layout, {calls} model calls)")
+    wq = engine.params["layers"][0]["wq"]
+    suffix = "" if wq.v_scale is None else "_int8"
+    weight_key = ("fused_sparse_linear" if wq.o_values is not None
+                  else "nm_spmm") + suffix
+    want = {weight_key: 7 * cfg.n_layers * calls}
+    if engine.kv_layout == "paged":
+        attn_key = "paged_attention" + (
+            "_int8" if engine.kv_dtype == "int8" else "")
+        want[attn_key] = cfg.n_layers * calls
+    for key, n in launches.items():
+        check(n == want.get(key, 0),
+              f"{key} launched {n} times, want {want.get(key, 0)} "
+              f"({cfg.n_layers} layers, {calls} model calls, "
+              f"{engine.kv_layout} layout, {engine.kv_dtype} KV)")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
+            "kv_dtype": engine.kv_dtype,
             "requests": len(reqs), "tokens": s["total_tokens"],
             "wall_s": wall, "tok_per_s": s["tok_per_s"],
             "ttft_ms": {k: v * 1e3 for k, v in s["ttft"].items()},
@@ -598,6 +703,7 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
                 "mean": float(np.mean(decode_only)) * 1e3,
                 "n": len(decode_only)} if decode_only else None,
             "steps": st["n_steps"], "model_calls": calls,
+            "max_running": st["max_running"],
             "n_preemptions": st["n_preemptions"], "launches": launches,
             "pool": st["pool"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -655,11 +761,11 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
     engine = ServingEngine(cfg, params, **base)
     prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
     torch.cuda.reset_peak_memory_stats()
-    reqs, wall, decode_only, launches_a = drive(torch, engine, [prompts],
-                                                SERVE_GEN)
-    out = serve_numbers(torch, engine, reqs, wall, decode_only, launches_a)
-    same = [r.tokens == s for r, s in zip(reqs, slot_streams)]
-    agree = [a == b for r, s in zip(reqs, slot_streams)
+    reqs_a, wall, decode_only, launches_a = drive(torch, engine, [prompts],
+                                                  SERVE_GEN)
+    out = serve_numbers(torch, engine, reqs_a, wall, decode_only, launches_a)
+    same = [r.tokens == s for r, s in zip(reqs_a, slot_streams)]
+    agree = [a == b for r, s in zip(reqs_a, slot_streams)
              for a, b in zip(r.tokens, s)]
     out["slot_streams_identical"] = f"{sum(same)}/{len(same)}"
     out["slot_token_agreement"] = sum(agree) / len(agree)
@@ -714,6 +820,60 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
     log("  (c) " + json.dumps(out))
     del engine
     torch.cuda.empty_cache()
+    return results, launches_a, [r.tokens for r in reqs_a]
+
+
+def int8_serve_phase(torch, log, cfg, params, paged_streams, pressure):
+    """Phase 7: int8 weights on int8 paged KV arenas, (a) phase 4's traffic
+    and (b) phase 6(c)'s traffic in the bytes of 6(c)'s bf16 arena."""
+    from repro_torch.serving import ServingEngine
+
+    base = dict(device="cuda", n_slots=8, max_len=1024, token_budget=512,
+                kv_layout="paged", kv_dtype="int8",
+                block_size=ATTN_SHAPE["bs"])
+    prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+    results = {}
+
+    # (a) phase 4's traffic, 512 blocks as in 6(a)
+    engine = ServingEngine(cfg, params, **base)
+    torch.cuda.reset_peak_memory_stats()
+    reqs, wall, decode_only, launches_a = drive(torch, engine, [prompts],
+                                                SERVE_GEN)
+    out = serve_numbers(torch, engine, reqs, wall, decode_only, launches_a)
+    same = [r.tokens == s for r, s in zip(reqs, paged_streams)]
+    agree = [a == b for r, s in zip(reqs, paged_streams)
+             for a, b in zip(r.tokens, s)]
+    out["bf16_paged_streams_identical"] = f"{sum(same)}/{len(same)}"
+    out["bf16_paged_token_agreement"] = sum(agree) / len(agree)
+    add_profile(torch, engine, out, seed=11)
+    results["a_phase4_traffic"] = out
+    log("  (a) " + json.dumps(out))
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) equal device memory with 6(c): a bf16 position of one KV head
+    # takes 2 x hd bytes in each of K and V, an int8 one hd + 4 (its scale)
+    n_blocks = pressure["n_blocks"] * 2 * cfg.hd // (cfg.hd + 4)
+    engine = ServingEngine(cfg, params, n_blocks=n_blocks, **base)
+    torch.cuda.reset_peak_memory_stats()
+    reqs, wall, decode_only, launches = drive(torch, engine, [prompts],
+                                              SERVE_GEN)
+    out = serve_numbers(torch, engine, reqs, wall, decode_only, launches)
+    out["n_blocks"] = n_blocks
+    bf16_bytes = pressure["pool"]["arena_bytes"]
+    check(out["pool"]["arena_bytes"] <= bf16_bytes,
+          f"equal memory: int8 arena {out['pool']['arena_bytes']} bytes > "
+          f"6(c)'s bf16 arena {bf16_bytes}")
+    out["vs_6c"] = {"arena_bytes": [out["pool"]["arena_bytes"], bf16_bytes],
+                    "n_blocks": [n_blocks, pressure["n_blocks"]],
+                    "max_running": [out["max_running"],
+                                    pressure["max_running"]],
+                    "n_preemptions": [out["n_preemptions"],
+                                      pressure["n_preemptions"]]}
+    results["b_equal_memory_6c"] = out
+    log("  (b) " + json.dumps(out))
+    del engine
+    torch.cuda.empty_cache()
     return results, launches_a
 
 
@@ -734,6 +894,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     from repro_torch.kernels import build
@@ -744,10 +905,12 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
 
     timer = Timer(torch)
-    log("phase 2 kernels vs plain versions (bf16, L2 flushed per call)")
+    log("phase 2 weight kernels vs plain versions (bf16 and int8 values, L2 "
+        "flushed per call)")
     cases = kernel_phase(torch, timer, log)
-    log("phase 2b paged_attention vs plain version (bf16, L2 flushed)")
-    attn_cases = paged_attention_phase(torch, timer, log)
+    log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
+        "flushed)")
+    attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
     del timer
     log("phase 3 small-model reference check")
     small = small_model_phase(torch, log)
@@ -758,12 +921,29 @@ def main() -> int:
     log("phase 5 serve llama3-8b, 4 layers, plain 8:16")
     cfg5, params5, build5 = build_model(torch, log, n_layers=4, outlier=None)
     plain_serve, _, plain_launches = serve_phase(
-        torch, log, cfg5, params5, build5, prompt_lens=[128, 96, 200, 64],
-        gen=8, alone=False)
+        torch, log, cfg5, params5, build5, prompt_lens=PLAIN_PROMPT_LENS,
+        gen=PLAIN_GEN, alone=False)
+    del params5
+    log("phase 5 (int8) serve llama3-8b, 4 layers, plain 8:16, int8 values")
+    cfg5, params5, build5 = build_model(torch, log, n_layers=4, outlier=None,
+                                        quantize=True)
+    plain_serve8, _, plain_launches8 = serve_phase(
+        torch, log, cfg5, params5, build5, prompt_lens=PLAIN_PROMPT_LENS,
+        gen=PLAIN_GEN, alone=False)
     del params5
     log("phase 6 serve llama3-8b, 32 layers, 8:16+16:256, paged layout")
-    paged_serve, paged_launches = paged_serve_phase(torch, log, cfg, params,
-                                                    slot_streams)
+    paged_serve, paged_launches, paged_streams = paged_serve_phase(
+        torch, log, cfg, params, slot_streams)
+    del params
+    torch.cuda.empty_cache()
+    log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
+        "paged KV")
+    cfg, params, build_info8 = build_model(torch, log, quantize=True)
+    int8_serve, int8_launches = int8_serve_phase(
+        torch, log, cfg, params, paged_streams,
+        paged_serve["c_block_pressure"])
+    for run in int8_serve.values():
+        run.update(build_info8)
     del params
     torch.cuda.empty_cache()
 
@@ -772,15 +952,24 @@ def main() -> int:
                      main_launches["fused_sparse_linear"]),
         kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"]),
         kernel_entry("paged_attention", attn_cases,
-                     paged_launches["paged_attention"])]}
+                     paged_launches["paged_attention"]),
+        kernel_entry("fused_sparse_linear_int8",
+                     cases["fused_sparse_linear_int8"],
+                     int8_launches["fused_sparse_linear_int8"]),
+        kernel_entry("nm_spmm_int8", cases["nm_spmm_int8"],
+                     plain_launches8["nm_spmm_int8"]),
+        kernel_entry("paged_attention_int8", attn_cases8,
+                     int8_launches["paged_attention_int8"])]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
+              "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
+              "serve_int8_paged": int8_serve}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"device": smi, "kernels": kernels["kernels"], "small_model": small,
-         "serve": main_serve, "serve_plain_nm": plain_serve,
-         "serve_paged": paged_serve}, indent=1))
-    print(json.dumps({"serve": main_serve, "serve_plain_nm": plain_serve,
-                      "serve_paged": paged_serve}))
+        {"device": smi, "seconds": time.perf_counter() - t_start,
+         "kernels": kernels["kernels"], "small_model": small, **serves},
+        indent=1))
+    print(json.dumps(serves))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

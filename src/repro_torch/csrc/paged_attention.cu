@@ -3,20 +3,27 @@
 //
 // Replaces the Pallas TPU kernel
 //   paged_attention_pallas  src/repro/serving/paged/paged_attention.py:180
-//                           (_paged_attn_kernel :122)
-// and computes what it computes: query i of lane b sits at position
-// cursor[b] + i and sees positions j <= cursor[b] + i (and
-// j > cursor[b] + i - window when window > 0); position j's K/V is row
-// j % bs of physical block tables[b, j / bs]; q is scaled by 1/sqrt(hd) in
-// f32; q head h reads KV head h / n_rep; an online softmax keeps a running
-// max, sum and accumulator in f32 and out is written in bf16.  Masked scores
-// are the finite -1e30 and the final sum is clamped at 1e-30, as in the
-// Pallas kernel, so padded rows give finite values, never NaN.
+//                           (_paged_attn_kernel :122, its quantized branch
+//                           :124-130 and :147-149)
+// with one template over the arena's element type T: bf16 arenas, or int8
+// arenas whose position j of KV head h dequantizes as int8 * scale[j, h]
+// (f32 scales [n_blocks, bs, KV], found through the same table entry as the
+// values and applied as the tile is staged into shared memory, inside the
+// online softmax).  It computes what the Pallas kernel computes: query i
+// of lane b sits at position cursor[b] + i and sees positions
+// j <= cursor[b] + i (and j > cursor[b] + i - window when window > 0);
+// position j's K/V is row j % bs of physical block tables[b, j / bs]; q is
+// scaled by 1/sqrt(hd) in f32; q head h reads KV head h / n_rep; an online
+// softmax keeps a running max, sum and accumulator in f32 and out is
+// written in bf16.  Masked scores are the finite -1e30 and the final sum
+// is clamped at 1e-30, as in the Pallas kernel, so padded rows give finite
+// values, never NaN.
 //
 // Layout (bf16 unless stated; the wrapper serving/paged/paged_attention.py
 // checks it):
 //   q       [B, S, H, hd]
-//   k, v    [n_blocks, bs, KV, hd]   one layer's arena
+//   k, v    [n_blocks, bs, KV, hd]   one layer's arena (bf16 or int8)
+//   k_scale, v_scale [n_blocks, bs, KV] f32   int8 arenas only
 //   tables  [B, nb] int32            physical block of each bs-token page
 //   cursor  [B] int32
 //   out     [B, S, H, hd]
@@ -24,7 +31,9 @@
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): bytes.  Every
 // KV block a lane has written must be read once (bs * KV * hd * 2 B * 2 per
 // block), plus q and out.  A llama3-8b decode step over 8 lanes of ~500
-// tokens reads 16 MB a layer, 5 us.  Only a long prefill chunk is bound by
+// tokens reads 16 MB a layer, 5 us; int8 arenas read 132 B per (position,
+// KV head) of K or V instead of 256 B, so 8.3 MB, 2.5 us.  Only a long
+// prefill chunk is bound by
 // operations: 4 * B * H * S * T * hd (S = 512 at T = 1280: 10.7 GFLOP,
 // 11 us on the tensor cores).
 //
@@ -40,6 +49,9 @@
 //     first block, where the Pallas grid walks all nb blocks;
 //   * the block reads its own table entries (no scalar prefetch) and loads
 //     the next K/V tile into registers while it computes on the current one;
+//     a 16-byte load carries 8 bf16 or 16 int8 elements, and with int8 each
+//     thread also loads the scale of the row its chunk belongs to (the
+//     chunks of one row share a cache line of scales);
 //   * scores and PV run on the CUDA cores in f32 from shared memory: each
 //     warp owns RPW rows (1, 4 or 16, picked from S * n_rep so decode wastes
 //     no lanes), keeps their running max and sum in registers and their
@@ -52,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -61,7 +75,7 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr float NEG_INF = -1e30f;
 
-template <int HD, int RPW, int TK>
+template <int HD, int RPW, int TK, typename T>
 struct Geometry {
   static constexpr int R = NWARPS * RPW;                  // rows per block
   static constexpr int LPR = 32 / RPW;                    // lanes per row (scores)
@@ -69,7 +83,8 @@ struct Geometry {
   static constexpr int DS = LPR <= TK ? 1 : LPR / TK;     // lanes sharing one key
   static constexpr int QS = HD + 4;                       // q row stride (floats)
   static constexpr int KS = HD + 4;                       // k row stride
-  static constexpr int NCH = TK * HD / 8;                 // 16-byte chunks per K tile
+  static constexpr int EPC = 16 / sizeof(T);              // elements per 16-byte chunk
+  static constexpr int NCH = TK * HD / EPC;               // 16-byte chunks per K tile
   static constexpr int CPT = (2 * NCH + NTHREADS - 1) / NTHREADS;
   static constexpr int CPL = HD / 32;                     // out columns per lane
   static constexpr size_t SMEM =
@@ -94,15 +109,33 @@ __device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float scale,
   reinterpret_cast<float4*>(dst)[1] = hi;
 }
 
-template <int HD, int RPW, int TK>
+// 16 int8 elements, sign-extended, times their row's scale
+__device__ __forceinline__ void int8x16_to_f32(const uint4& raw, float scale,
+                                               float* dst) {
+  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float4 f;
+    f.x = static_cast<float>(e[4 * i + 0]) * scale;
+    f.y = static_cast<float>(e[4 * i + 1]) * scale;
+    f.z = static_cast<float>(e[4 * i + 2]) * scale;
+    f.w = static_cast<float>(e[4 * i + 3]) * scale;
+    reinterpret_cast<float4*>(dst)[i] = f;
+  }
+}
+
+template <int HD, int RPW, int TK, typename T>
 __global__ void __launch_bounds__(NTHREADS)
-paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
+paged_attention_kernel(const bf16* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int32_t* __restrict__ tables,
                        const int32_t* __restrict__ cursor,
                        bf16* __restrict__ out, int S, int H, int KV, int bs,
                        int nb, int n_arena, int window) {
-  using G = Geometry<HD, RPW, TK>;
+  using G = Geometry<HD, RPW, TK, T>;
+  constexpr bool INT8 = std::is_same<T, int8_t>::value;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                         // [R][QS]   q / sqrt(hd)
   float* sk = sq + G::R * G::QS;            // [TK][KS]
@@ -139,6 +172,7 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (window > 0) kv_begin = max(0, cur + r0 / n_rep - window + 1) / TK * TK;
 
   uint4 pre[G::CPT];
+  float pre_s[G::CPT];               // int8: the scale of each chunk's row
   auto fetch = [&](int j0) {
     const int blk = tables[size_t(b) * nb + j0 / bs];
     const bool ok = blk >= 0 && blk < n_arena;   // never read past the arena
@@ -147,14 +181,17 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < G::CPT; ++i) {
       const int it = tid + i * NTHREADS;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      float sc = 1.0f;
       if (ok && it < 2 * G::NCH) {
         const int rem = it % G::NCH;
-        const int t = rem / (HD / 8), c = (rem % (HD / 8)) * 8;
-        const bf16* base = it < G::NCH ? k : v;
-        val = *reinterpret_cast<const uint4*>(
-            base + ((size_t(blk) * bs + off + t) * KV + kvh) * HD + c);
+        const int t = rem / (HD / G::EPC), c = (rem % (HD / G::EPC)) * G::EPC;
+        const size_t pos = (size_t(blk) * bs + off + t) * KV + kvh;
+        const T* base = it < G::NCH ? k : v;
+        val = *reinterpret_cast<const uint4*>(base + pos * HD + c);
+        if (INT8) sc = (it < G::NCH ? k_scale : v_scale)[pos];
       }
       pre[i] = val;
+      pre_s[i] = sc;
     }
   };
   auto stash = [&]() {
@@ -163,9 +200,12 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int it = tid + i * NTHREADS;
       if (it < 2 * G::NCH) {
         const int rem = it % G::NCH;
-        const int t = rem / (HD / 8), c = (rem % (HD / 8)) * 8;
+        const int t = rem / (HD / G::EPC), c = (rem % (HD / G::EPC)) * G::EPC;
         float* dst = it < G::NCH ? sk + t * G::KS + c : sv + t * HD + c;
-        bf16x8_to_f32(pre[i], 1.0f, dst);
+        if (INT8)
+          int8x16_to_f32(pre[i], pre_s[i], dst);
+        else
+          bf16x8_to_f32(pre[i], 1.0f, dst);
       }
     }
   };
@@ -291,50 +331,62 @@ paged_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HD, int RPW, int TK>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* cursor, void* out, int B, int S, int H, int KV, int bs,
-           int nb, int n_arena, int window, void* stream) {
-  using G = Geometry<HD, RPW, TK>;
-  auto kernel = paged_attention_kernel<HD, RPW, TK>;
+template <int HD, int RPW, int TK, typename T>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* tables, const void* cursor, void* out,
+           int B, int S, int H, int KV, int bs, int nb, int n_arena,
+           int window, void* stream) {
+  using G = Geometry<HD, RPW, TK, T>;
+  auto kernel = paged_attention_kernel<HD, RPW, TK, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::SMEM));
   if (err != cudaSuccess) return int(err);
   const int rows = S * (H / KV);
   const dim3 grid((rows + G::R - 1) / G::R, KV, B);
   kernel<<<grid, NTHREADS, G::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int32_t*>(tables),
+      static_cast<const bf16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(tables),
       static_cast<const int32_t*>(cursor), static_cast<bf16*>(out), S, H, KV,
       bs, nb, n_arena, window);
   return int(cudaGetLastError());
 }
 
-template <int HD, int TK>
-int launch_rows(const void* q, const void* k, const void* v,
-                const void* tables, const void* cursor, void* out, int B,
-                int S, int H, int KV, int bs, int nb, int n_arena, int window,
-                void* stream) {
+template <int HD, int TK, typename T>
+int launch_rows(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const void* tables, const void* cursor,
+                void* out, int B, int S, int H, int KV, int bs, int nb,
+                int n_arena, int window, void* stream) {
   const int rows = S * (H / KV);
   if (rows <= 4)
-    return launch<HD, 1, TK>(q, k, v, tables, cursor, out, B, S, H, KV, bs,
-                             nb, n_arena, window, stream);
+    return launch<HD, 1, TK, T>(q, k, v, ks, vs, tables, cursor, out, B, S, H,
+                                KV, bs, nb, n_arena, window, stream);
   if (rows <= 16)
-    return launch<HD, 4, TK>(q, k, v, tables, cursor, out, B, S, H, KV, bs,
-                             nb, n_arena, window, stream);
-  return launch<HD, 16, TK>(q, k, v, tables, cursor, out, B, S, H, KV, bs, nb,
-                            n_arena, window, stream);
+    return launch<HD, 4, TK, T>(q, k, v, ks, vs, tables, cursor, out, B, S, H,
+                                KV, bs, nb, n_arena, window, stream);
+  return launch<HD, 16, TK, T>(q, k, v, ks, vs, tables, cursor, out, B, S, H,
+                               KV, bs, nb, n_arena, window, stream);
 }
 
-template <int HD>
-int launch_tk(const void* q, const void* k, const void* v, const void* tables,
-              const void* cursor, void* out, int B, int S, int H, int KV,
-              int bs, int nb, int n_arena, int window, void* stream) {
-  if (bs % 16 == 0)
-    return launch_rows<HD, 16>(q, k, v, tables, cursor, out, B, S, H, KV, bs,
-                               nb, n_arena, window, stream);
-  return launch_rows<HD, 8>(q, k, v, tables, cursor, out, B, S, H, KV, bs, nb,
-                            n_arena, window, stream);
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, const void* ks,
+              const void* vs, const void* tables, const void* cursor,
+              void* out, int B, int S, int H, int KV, int hd, int bs, int nb,
+              int n_arena, int window, void* stream) {
+  const bool tk16 = bs % 16 == 0;
+  if (hd == 64 && tk16)
+    return launch_rows<64, 16, T>(q, k, v, ks, vs, tables, cursor, out, B, S,
+                                  H, KV, bs, nb, n_arena, window, stream);
+  if (hd == 64)
+    return launch_rows<64, 8, T>(q, k, v, ks, vs, tables, cursor, out, B, S,
+                                 H, KV, bs, nb, n_arena, window, stream);
+  if (hd == 128 && tk16)
+    return launch_rows<128, 16, T>(q, k, v, ks, vs, tables, cursor, out, B, S,
+                                   H, KV, bs, nb, n_arena, window, stream);
+  if (hd == 128)
+    return launch_rows<128, 8, T>(q, k, v, ks, vs, tables, cursor, out, B, S,
+                                  H, KV, bs, nb, n_arena, window, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -348,11 +400,17 @@ extern "C" int paged_attention_bf16(const void* q, const void* k,
                                     int S, int H, int KV, int hd, int bs,
                                     int nb, int n_arena, int window,
                                     void* stream) {
-  if (hd == 64)
-    return launch_tk<64>(q, k, v, tables, cursor, out, B, S, H, KV, bs, nb,
-                         n_arena, window, stream);
-  if (hd == 128)
-    return launch_tk<128>(q, k, v, tables, cursor, out, B, S, H, KV, bs, nb,
-                          n_arena, window, stream);
-  return int(cudaErrorInvalidValue);
+  return launch_hd<bf16>(q, k, v, nullptr, nullptr, tables, cursor, out, B, S,
+                         H, KV, hd, bs, nb, n_arena, window, stream);
+}
+
+extern "C" int paged_attention_int8(const void* q, const void* k,
+                                    const void* v, const void* k_scale,
+                                    const void* v_scale, const void* tables,
+                                    const void* cursor, void* out, int B,
+                                    int S, int H, int KV, int hd, int bs,
+                                    int nb, int n_arena, int window,
+                                    void* stream) {
+  return launch_hd<int8_t>(q, k, v, k_scale, v_scale, tables, cursor, out, B,
+                           S, H, KV, hd, bs, nb, n_arena, window, stream);
 }

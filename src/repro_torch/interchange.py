@@ -77,7 +77,8 @@ def from_jax_params(params, device="cuda") -> dict:
 
 def paged_pool_from_jax(jpool, cfg, device="cuda"):
     """A port ``PagedKVPool`` holding a JAX ``PagedKVPool``'s state: the
-    arenas (as numpy, then tensors on ``device``), refcounts, free list and
+    arenas and, for an int8 pool, their scale arenas (as numpy, then
+    tensors on ``device``), refcounts, free list and
     cached-block marks, row tables, positions, free rows and the prefix
     cache's entries and counters.  ``cfg`` is the port's config (its dtype
     must be the arenas')."""
@@ -89,6 +90,9 @@ def paged_pool_from_jax(jpool, cfg, device="cuda"):
                        kv_dtype=jpool.kv_dtype)
     jb, b = jpool.blocks, pool.blocks
     b.k, b.v = to_torch(jb.k, device), to_torch(jb.v, device)
+    if jb.k_scale is not None:
+        b.k_scale = to_torch(jb.k_scale, device)
+        b.v_scale = to_torch(jb.v_scale, device)
     b.ref = np.array(jb.ref, np.int32)
     b._free = [int(x) for x in jb._free]
     b._cached = np.array(jb._cached, bool)

@@ -30,9 +30,14 @@ _I = ctypes.c_int
 # c_void_p (a plain int would be cut to 32 bits), sizes as c_int.
 SIGNATURES = {
     "nm_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "nm_spmm_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fused_sparse_linear_bf16": [_P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P],
+    "fused_sparse_linear_int8": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _P],
     "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -4,13 +4,16 @@
 With ``--sparse`` every projection is deployed as an 8:16 (+16:256
 outlier) ``SparseWeight`` as soon as its layer is drawn, so a full-size
 model never holds all its dense weights at once; on the card each sparse
-product runs through the hand-written kernels.
+product runs through the hand-written kernels.  ``--kv-dtype int8`` stores
+the KV arenas as int8 with per-position scales, on either layout.
 
   python -m repro_torch.launch.serve --arch llama3-8b --sparse
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --batch 2 --prompt-len 16 --gen 4 --sparse
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --block-size 8
+  python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
+      --device cpu --sparse --kv-layout paged --block-size 8 --kv-dtype int8
 """
 from __future__ import annotations
 
@@ -27,9 +30,11 @@ from ..models.sparse_serving import sparsify_for_serving
 from ..serving import SamplingParams, ServingEngine
 
 
-def build_params(cfg, args, device, generator: torch.Generator):
+def build_params(cfg, args, device, generator: torch.Generator, *,
+                 quantize: bool = False):
     """Draw the model from ``generator`` one layer at a time, deploying
-    compressed weights with ``--sparse``.  Returns (params, report)."""
+    compressed weights with ``--sparse`` (int8 N:M values with exact
+    outliers when ``quantize``).  Returns (params, report)."""
     report = {"n_layers_sparsified": 0, "dense_bytes": 0,
               "compressed_bytes": 0}
     layer_fn = None
@@ -40,7 +45,7 @@ def build_params(cfg, args, device, generator: torch.Generator):
                               outlier_pattern=outlier)
 
         def layer_fn(lp):
-            lp, rep = sparsify_for_serving(lp, scfg)
+            lp, rep = sparsify_for_serving(lp, scfg, quantize=quantize)
             for key in report:
                 report[key] += rep[key]
             return lp
@@ -58,7 +63,8 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
                            kv_layout=args.kv_layout,
                            block_size=args.block_size,
                            n_blocks=args.n_blocks,
-                           prefix_caching=not args.no_prefix_cache)
+                           prefix_caching=not args.no_prefix_cache,
+                           kv_dtype=args.kv_dtype)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=generator, device=generator.device)
     sp = SamplingParams(max_new_tokens=args.gen, temperature=args.temperature,
@@ -73,7 +79,10 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
           f"in {wall:.2f}s ({n_tok / max(wall, 1e-9):.1f} tok/s, "
           f"{st['n_steps']} steps, {args.slots} slots, "
           f"{st['n_preemptions']} preemptions, {device})")
-    pc = st["pool"].get("prefix_cache")
+    pool = st["pool"]
+    print(f"kv arena: {pool['kv_dtype']}, {pool['arena_bytes']} bytes "
+          f"({pool['scale_bytes']} of scales)")
+    pc = pool.get("prefix_cache")
     if pc is not None:
         print(f"prefix cache: {pc['hits']}/{pc['lookups']} lookups hit, "
               f"{pc['hit_tokens']} hit tokens, {pc['entries']} entries, "
@@ -104,6 +113,9 @@ def parse_args(argv=None):
                          "device memory as the slot layout would reserve)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable prefix-cache block sharing (paged)")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
+                    help="KV arena storage: bf16, or int8 with per-position "
+                         "f32 scales (either layout)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)

@@ -71,7 +71,9 @@ def _repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
 
 def attend_length_masked(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, q_offset: torch.Tensor, *,
-                         window: int | None = None) -> torch.Tensor:
+                         window: int | None = None,
+                         k_scale: torch.Tensor | None = None,
+                         v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Length-masked attention over full-size caches (the slot layout).
 
     ``q`` [B,S,H,hd]: query i of row b sits at position ``q_offset[b] + i``
@@ -80,8 +82,15 @@ def attend_length_masked(q: torch.Tensor, k_cache: torch.Tensor,
     scores are the finite ``-1e30``, whose exp underflows to exactly 0, so
     stale tokens and padding contribute nothing.  Plain einsum + softmax in
     f32, as in the JAX package: the f32 scores [B,H,S,T] are materialised.
+
+    ``k_scale``/``v_scale`` [B,T,KV] dequantize int8 caches: each position's
+    values are upcast to f32 and multiplied by its scale, as the JAX
+    package's ``attend_length_masked`` does.
     """
     B, S, H, hd = q.shape
+    if k_scale is not None:
+        k_cache = k_cache.to(torch.float32) * k_scale[..., None]
+        v_cache = v_cache.to(torch.float32) * v_scale[..., None]
     k = _repeat_kv(k_cache, H)
     v = _repeat_kv(v_cache, H)
     qf = q.to(torch.float32) / math.sqrt(hd)

@@ -10,7 +10,8 @@ projection is a dense [out, in] tensor or a ``SparseWeight``.
 one-shot prefill (S = prompt, cursor 0) and fused decode (S = 1 over every
 lane) all write their fresh KV into the arena at the cursor (slot rows, or
 paged blocks through the block tables) and attend in place, with the cursor
-as a length mask.
+as a length mask.  A view with scale arenas (int8 KV) quantizes the fresh
+KV as it scatters it and dequantizes inside attention.
 """
 from __future__ import annotations
 
@@ -92,43 +93,62 @@ def attend_over_pool(q, pool_view, *, window: int | None = None):
     """``q`` [B, S, H, hd] attends directly against one layer's arena slice
     in ``pool_view`` with the per-lane cursor as a length mask: slot rows
     (``SlotPoolView``) or paged blocks through the block tables
-    (``PagedPoolView``, the paged-attention kernel on the card)."""
+    (``PagedPoolView``, the paged-attention kernel on the card).  An int8
+    arena's scale slices (``k_scale``/``v_scale``) dequantize it."""
+    ks, vs = pool_view.k_scale, pool_view.v_scale
     if pool_view.block_tables is not None:
         from ..serving.paged.paged_attention import paged_attention
         return paged_attention(q, pool_view.k, pool_view.v,
                                pool_view.block_tables, pool_view.cursor,
-                               window=window)
+                               window=window, k_scale=ks, v_scale=vs)
     k_rows, v_rows = pool_view.lane_kv(pool_view.k, pool_view.v)
+    if ks is not None:
+        ks, vs = pool_view.lane_kv(ks, vs)
     return attend_length_masked(q, k_rows, v_rows, pool_view.cursor,
-                                window=window)
+                                window=window, k_scale=ks, v_scale=vs)
 
 
-def _block_step(lp, x, k_l, v_l, view, positions, cfg):
+def _block_step(lp, x, k_l, v_l, view, positions, cfg, ks_l=None,
+                vs_l=None):
     """One block: project q/k/v at the lane positions, scatter the fresh KV
-    into the layer's arena slice in place, attend over the pool."""
+    into the layer's arena slice in place (quantized per position when the
+    layer's scale slices ``ks_l``/``vs_l`` are given), attend over the
+    pool."""
     B, S, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(lp, h, cfg, positions)
-    k_l, v_l = view.write_layer(k_l, v_l, k, v)
-    attn = attend_over_pool(q, dataclasses.replace(view, k=k_l, v=v_l),
-                            window=cfg.window)
+    if ks_l is not None:
+        view.write_layer_quantized(k_l, v_l, ks_l, vs_l, k, v)
+    else:
+        view.write_layer(k_l, v_l, k, v)
+    attn = attend_over_pool(
+        q, dataclasses.replace(view, k=k_l, v=v_l, k_scale=ks_l,
+                               v_scale=vs_l),
+        window=cfg.window)
     x = x + linear(lp["wo"], attn.reshape(B, S, -1))
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp(lp, h, cfg), k_l, v_l
+    return x + _mlp(lp, h, cfg)
 
 
 def unified_step(params, view, batch, cfg):
     """One attend-in-place step over the pool (slot or paged view).
 
     ``batch["tokens"]`` [B, S] are the next S tokens of each lane, starting
-    at ``view.cursor``.  Returns (logits [B, S, V], (k, v)); the arenas are
-    ``view.k``/``view.v``, updated in place."""
+    at ``view.cursor``.  Returns (logits [B, S, V], (k, v)), or
+    (logits, (k, v, k_scale, v_scale)) for an int8 view; the arenas are the
+    view's, updated in place."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = params["embed"][tokens]
     positions = view.cursor[:, None] + torch.arange(S, device=tokens.device)
+    quantized = view.k_scale is not None
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = _block_step(lp, x, view.k[i], view.v[i], view, positions,
-                              cfg)
+        scales = ((view.k_scale[i], view.v_scale[i]) if quantized
+                  else (None, None))
+        x = _block_step(lp, x, view.k[i], view.v[i], view, positions, cfg,
+                        *scales)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return linear(params["lm_head"], x), (view.k, view.v)
+    arenas = (view.k, view.v)
+    if quantized:
+        arenas += (view.k_scale, view.v_scale)
+    return linear(params["lm_head"], x), arenas

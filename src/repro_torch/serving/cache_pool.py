@@ -1,12 +1,17 @@
 """The slot KV layout and the view the unified attention primitive consumes
-(port of ``repro/serving/cache_pool.py``, bf16 arenas).
+(port of ``repro/serving/cache_pool.py``).
 
 ``SlotKVPool`` allocates k/v arenas [L, n_slots, max_len, KV, hd] once at
-engine start; a request holds one slot for its lifetime.  Every KV write
-happens inside ``models/transformer.unified_step``: the engine hands it a
-``SlotPoolView`` (arena + lane->slot rows + cursors) and each layer
-scatters its fresh KV at the cursor and attends in place, with the cursor
-as a length mask.
+engine start; a request holds one slot for its lifetime.  With
+``kv_dtype="int8"`` the arenas are int8 and two f32 scale arenas
+[L, n_slots, max_len, KV] (one scale per position and KV head, initialised
+to 1) ride beside them: every write quantizes the fresh KV per position
+(``quantize_kv``) and scatters values and scales with the same indices.
+
+Every KV write happens inside ``models/transformer.unified_step``: the
+engine hands it a ``SlotPoolView`` (arena + lane->slot rows + cursors) and
+each layer scatters its fresh KV at the cursor and attends in place, with
+the cursor as a length mask.
 
 Freed slots are reusable at once, and rows mid-prefill share the fused
 decode step with decoding rows: every position a request's attention can
@@ -30,6 +35,11 @@ from typing import Any, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+# quantize_kv(fresh [..., KV, hd]) -> (int8 values, f32 scales [..., KV]):
+# symmetric per position and KV head, the bytes of the JAX package's
+# quantize_kv (an all-zero row gets scale 1)
+from ..kernels.ref import quantize_int8 as quantize_kv
+
 
 class CachePoolError(RuntimeError):
     """Cache-pool invariant violation (an engine bug, not workload
@@ -44,8 +54,51 @@ class CapacityError(CachePoolError):
     """A write or admission exceeded what the pool can physically hold."""
 
 
+KV_DTYPES = ("bf16", "int8")
+
+
 def arena_nbytes(*arrays) -> int:
     return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+
+
+def _scatter_rows(arena: torch.Tensor, dst: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """``arena`` viewed as [n_positions, ...] gets ``rows`` at the flat
+    positions ``dst``, in place; works for value arenas [.., KV, hd] and
+    scale arenas [.., KV] alike."""
+    flat = arena.view(-1, *arena.shape[2:])
+    flat.index_copy_(0, dst, rows.to(arena.dtype))
+
+
+class ArenaWrites:
+    """The KV writes of a pool view with ``write_src``/``write_dst``: the
+    flat indices of the step's real (lane, i < n_new) pairs in its [B*S]
+    fresh KV and in one layer's arena viewed as [n_positions, ...] (slot
+    rows or paged blocks alike).  Padding pairs are never written."""
+
+    def _real_pairs(self, fresh):
+        return fresh.reshape(-1, *fresh.shape[2:]).index_select(
+            0, self.write_src)
+
+    def write_layer(self, k_l, v_l, fresh_k, fresh_v):
+        """Scatter fresh [B, S, KV, hd] KV into one layer's arena slice at
+        each lane's cursor, in place."""
+        for arena, fresh in ((k_l, fresh_k), (v_l, fresh_v)):
+            _scatter_rows(arena, self.write_dst, self._real_pairs(fresh))
+        return k_l, v_l
+
+    def write_layer_quantized(self, k_l, v_l, ks_l, vs_l, fresh_k, fresh_v):
+        """Quantize-on-scatter: the real pairs are quantized per position
+        (``quantize_kv``) and their int8 values and f32 scales written at
+        the same positions, in place.  Quantization is per position, so
+        every written position holds the bytes the JAX package's
+        ``write_layer_quantized`` writes there."""
+        for arena, scales, fresh in ((k_l, ks_l, fresh_k),
+                                     (v_l, vs_l, fresh_v)):
+            q, s = quantize_kv(self._real_pairs(fresh))
+            _scatter_rows(arena, self.write_dst, q)
+            _scatter_rows(scales, self.write_dst, s)
+        return k_l, v_l, ks_l, vs_l
 
 
 @runtime_checkable
@@ -68,7 +121,7 @@ class KVCachePool(Protocol):
 
 
 @dataclasses.dataclass(frozen=True)
-class SlotPoolView:
+class SlotPoolView(ArenaWrites):
     """What ``transformer.attend_over_pool`` sees of a slot pool.
 
     ``k``/``v`` are the [L, n_slots, max_len, KV, hd] arenas; inside the
@@ -79,16 +132,22 @@ class SlotPoolView:
     indices of the real (lane, i < n_new) pairs in the step's [B*S] fresh
     KV and in the [n_slots*max_len] arena: what the JAX package's
     ``_flat_write_idx`` routes, minus the pairs its scatter drops
-    (padding, past the arena)."""
+    (padding, past the arena).  ``k_scale``/``v_scale``
+    ([L, n_slots, max_len, KV] f32, or None for bf16 arenas) are an int8
+    arena's scales, sliced per layer like ``k``/``v`` and written with the
+    same indices."""
     k: Any
     v: Any
     rows: torch.Tensor | None
     cursor: torch.Tensor
     write_src: torch.Tensor
     write_dst: torch.Tensor
+    k_scale: Any | None = None
+    v_scale: Any | None = None
 
     @classmethod
-    def build(cls, k, v, rows, cursor, n_new, S: int) -> "SlotPoolView":
+    def build(cls, k, v, rows, cursor, n_new, S: int, *, k_scale=None,
+              v_scale=None) -> "SlotPoolView":
         """A view for S fresh positions per lane from host arrays ``rows``
         (or None), ``cursor`` and ``n_new``."""
         ns, ml = k.shape[1], k.shape[2]
@@ -107,7 +166,7 @@ class SlotPoolView:
             return torch.as_tensor(a, dtype=torch.int64, device=dev)
         return cls(k=k, v=v, rows=None if rows is None else up(lane_rows),
                    cursor=up(cursor), write_src=up(src),
-                   write_dst=up(dst))
+                   write_dst=up(dst), k_scale=k_scale, v_scale=v_scale)
 
     @property
     def block_tables(self):
@@ -122,23 +181,30 @@ class SlotPoolView:
         rows = self.rows.clamp(max=k_l.shape[0] - 1)
         return k_l[rows], v_l[rows]
 
-    def write_layer(self, k_l, v_l, fresh_k, fresh_v):
-        """Scatter fresh [B, S, KV, hd] KV into one layer's arena slice at
-        each lane's cursor, in place; padding pairs are not written."""
-        for arena, fresh in ((k_l, fresh_k), (v_l, fresh_v)):
-            flat = arena.view(-1, *arena.shape[2:])
-            vals = fresh.reshape(-1, *fresh.shape[2:]).index_select(
-                0, self.write_src)
-            flat.index_copy_(0, self.write_dst, vals.to(arena.dtype))
-        return k_l, v_l
+
+def kv_arenas(shape: tuple, kv_dtype: str, dtype: torch.dtype, device):
+    """Zeroed k/v arenas of ``shape`` and, for int8, their f32 scale arenas
+    (``shape`` without the head dim, initialised to 1, so an unwritten
+    position dequantizes to finite zeros); (k, v, k_scale, v_scale)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+                         f"not {kv_dtype!r}")
+    arena_dtype = torch.int8 if kv_dtype == "int8" else dtype
+    k = torch.zeros(shape, dtype=arena_dtype, device=device)
+    v = torch.zeros(shape, dtype=arena_dtype, device=device)
+    if kv_dtype != "int8":
+        return k, v, None, None
+    return (k, v, torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            torch.ones(shape[:-1], dtype=torch.float32, device=device))
 
 
 class SlotKVPool:
-    def __init__(self, cfg, n_slots: int, max_len: int, device):
+    def __init__(self, cfg, n_slots: int, max_len: int, device,
+                 kv_dtype: str = "bf16"):
         L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
-        shape = (L, n_slots, max_len, KV, hd)
-        self.k = torch.zeros(shape, dtype=cfg.dtype, device=device)
-        self.v = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        self.k, self.v, self.k_scale, self.v_scale = kv_arenas(
+            (L, n_slots, max_len, KV, hd), kv_dtype, cfg.dtype, device)
+        self.kv_dtype = kv_dtype
         self.pos = np.zeros((n_slots,), np.int64)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -161,10 +227,14 @@ class SlotKVPool:
         self._free.append(slot)
 
     def stats(self) -> dict:
+        """Occupancy and the arena's whole device bill: int8 values and
+        their f32 scales (``scale_bytes``), as the JAX pool reports it."""
+        scale_bytes = arena_nbytes(self.k_scale, self.v_scale)
         return {"layout": "slot", "n_slots": self.n_slots,
                 "n_free": self.n_free, "max_len": self.max_len,
-                "dtype": str(self.k.dtype).removeprefix("torch."),
-                "arena_bytes": arena_nbytes(self.k, self.v)}
+                "kv_dtype": self.kv_dtype,
+                "arena_bytes": arena_nbytes(self.k, self.v) + scale_bytes,
+                "scale_bytes": scale_bytes}
 
     def lane_rows(self, rows: list[int], n_rows_padded: int) -> np.ndarray:
         """Host lane->slot map for a chunk group; padding lanes point past

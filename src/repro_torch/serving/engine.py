@@ -25,10 +25,14 @@ Two KV layouts behind one API (``kv_layout=``):
            publishing its fully written blocks to the prefix cache so the
            resume restarts at the last full block.
 
+Either layout stores bf16 KV or, with ``kv_dtype="int8"``, int8 KV with an
+f32 scale per position and KV head (quantized as it is written, dequantized
+inside attention).
+
 On the card every ``SparseWeight`` product goes through the hand-written
-kernels (``kernels/``), and paged attention through
-``csrc/paged_attention.cu``.  Left out of this slice, each raising
-``NotImplementedError``: ``kv_dtype="int8"`` (ROADMAP A6), ``draft=`` (A8),
+kernels (``kernels/``; int8 N:M values through their int8 variants), and
+paged attention through ``csrc/paged_attention.cu``.  Left out of this
+slice, each raising ``NotImplementedError``: ``draft=`` (ROADMAP A8),
 ``tracer=`` (A9), ``mesh=`` (A12).
 """
 from __future__ import annotations
@@ -81,8 +85,6 @@ class ServingEngine:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"not {kv_layout!r}")
-        if kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype={kv_dtype!r}", "A6")
         if draft is not None:
             raise _not_ported("speculative decoding (draft=)", "A8")
         if tracer is not None:
@@ -98,7 +100,7 @@ class ServingEngine:
         self.adapter = TransformerAdapter(
             cfg, params, n_slots=n_slots, max_len=max_len, device=self.device,
             kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
-            prefix_caching=prefix_caching)
+            prefix_caching=prefix_caching, kv_dtype=kv_dtype)
         self.kv_layout = kv_layout
         self.kv_dtype = kv_dtype
         self.pool = self.adapter.pool

@@ -1,11 +1,14 @@
 """Ref-counted block allocator over one preallocated paged KV arena (port
-of ``repro/serving/paged/block_pool.py``, bf16 arenas).
+of ``repro/serving/paged/block_pool.py``).
 
 The arena is a single pair of k/v tensors shaped
 ``[L, n_blocks, block_size, KV, hd]`` allocated once at engine start and
 handed out in ``block_size``-token units with reference counts, so
 physical blocks can be shared read-only between requests (prefix caching)
-and copied on write when a sharer needs to mutate one.
+and copied on write when a sharer needs to mutate one.  An int8 arena
+(``kv_dtype="int8"``) carries f32 scale arenas ``[L, n_blocks, block_size,
+KV]`` blocked like the values, so sharing and copy-on-write move a block's
+scales with it.
 
 The pool is policy-free: it allocates, increfs, decrefs and copies blocks.
 Who shares what (``prefix_cache.py``) and who owns which block when
@@ -15,9 +18,8 @@ are host state (numpy and a list); only the arenas live on the device.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..cache_pool import arena_nbytes
+from ..cache_pool import arena_nbytes, kv_arenas
 
 
 class BlockPoolError(RuntimeError):
@@ -34,12 +36,9 @@ class BlockPool:
                  kv_dtype: str = "bf16"):
         if n_blocks < 1:
             raise ValueError("need at least one block")
-        if kv_dtype != "bf16":           # unquantized arenas only
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} is not ported yet (ROADMAP A6)")
         shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-        self.k = torch.zeros(shape, dtype=cfg.dtype, device=device)
-        self.v = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        self.k, self.v, self.k_scale, self.v_scale = kv_arenas(
+            shape, kv_dtype, cfg.dtype, device)
         self.kv_dtype = kv_dtype
         self.n_blocks = n_blocks
         self.block_size = block_size
@@ -57,11 +56,15 @@ class BlockPool:
         return len(self._free)
 
     def occupancy(self) -> dict:
+        """Allocated, free and evictable blocks, and the arena's whole
+        device bill: int8 values and their f32 scales (``scale_bytes``)."""
+        scale_bytes = arena_nbytes(self.k_scale, self.v_scale)
         return {"n_blocks": self.n_blocks, "n_free": self.n_free,
                 "n_allocated": self.n_blocks - self.n_free,
                 "n_cached_idle": self.n_cached_idle,
                 "kv_dtype": self.kv_dtype,
-                "arena_bytes": arena_nbytes(self.k, self.v)}
+                "arena_bytes": arena_nbytes(self.k, self.v) + scale_bytes,
+                "scale_bytes": scale_bytes}
 
     def alloc(self) -> int:
         """Hand out a free block with refcount 1."""
@@ -105,11 +108,12 @@ class BlockPool:
     def copy_on_write(self, block: int) -> int:
         """Give the caller a private copy of ``block``: allocates a fresh
         block, copies its KV in every layer in place on the device (on the
-        current stream, so it lands before the next step reads it), and
-        drops one reference on the original.  Raises OutOfBlocks when no
-        block is free."""
+        current stream, so it lands before the next step reads it), with an
+        int8 arena's scales, and drops one reference on the original.
+        Raises OutOfBlocks when no block is free."""
         dst = self.alloc()
-        for arena in (self.k, self.v):
-            arena[:, dst].copy_(arena[:, block])
+        for arena in (self.k, self.v, self.k_scale, self.v_scale):
+            if arena is not None:
+                arena[:, dst].copy_(arena[:, block])
         self.decref(block)
         return dst

@@ -2,8 +2,11 @@
 (S > 1) through one entry point.
 
 Port of the Pallas TPU kernel ``repro/serving/paged/paged_attention.py:180``
-(``paged_attention_pallas``, ``_paged_attn_kernel`` :122) as the
-hand-written Hopper kernel ``csrc/paged_attention.cu``.
+(``paged_attention_pallas``, ``_paged_attn_kernel`` :122 with its quantized
+branch :124-130, :147-149) as the hand-written Hopper kernel
+``csrc/paged_attention.cu``: bf16 arenas, or int8 arenas with per-position
+f32 scales ``k_scale``/``v_scale`` [n_blocks, bs, KV] read through the same
+tables and applied as the kernel stages each K/V tile.
 
 ``q`` is [B, S, H, hd]; ``cursor`` [B] counts the tokens of each lane that
 were visible before this step's S fresh ones.  Query i of lane b sits at
@@ -15,9 +18,9 @@ chunk's KV is scattered into the arena before attention, so the causal mask
 alone hides this step's not-yet-visible writes, stale tokens of earlier
 block occupants and the trash block.  q head h reads KV head ``h // n_rep``.
 
-``plain`` gathers the lane's blocks into a contiguous view and runs
-``models/layers.attend_length_masked``: what ``paged_attention_ref`` (:91)
-computes.  ``paged_attention`` runs ``plain`` for a CPU tensor; for a CUDA
+``plain`` gathers the lane's blocks (and scales) into a contiguous view and
+runs ``models/layers.attend_length_masked``: what ``paged_attention_ref``
+(:91) computes.  ``paged_attention`` runs ``plain`` for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -28,8 +31,10 @@ from ...kernels import build
 from ...models.layers import attend_length_masked
 
 launches = 0
-"""Kernel launches made through ``paged_attention`` (plain runs are not
-counted)."""
+"""Launches of the bf16 kernel made through ``paged_attention`` (plain runs
+are not counted)."""
+launches_int8 = 0
+"""Launches of the int8 kernel made through ``paged_attention``."""
 
 HEAD_DIMS = (64, 128)
 GRID_LIMIT = 65535               # CUDA's bound on grid.y (KV) and grid.z (B)
@@ -37,22 +42,31 @@ GRID_LIMIT = 65535               # CUDA's bound on grid.y (KV) and grid.z (B)
 
 def plain(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
           block_tables: torch.Tensor, cursor: torch.Tensor, *,
-          window: int | None = None) -> torch.Tensor:
+          window: int | None = None, k_scale: torch.Tensor | None = None,
+          v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version: gather every table entry's block (a table
-    maps sequence position p to gathered index p), then the contiguous
-    length-masked attention in f32."""
+    maps sequence position p to gathered index p), and an int8 arena's
+    scales through the same tables, then the contiguous length-masked
+    attention in f32."""
     B, S, H, hd = q.shape
     _, bs, KV, _ = k_arena.shape
     nb = block_tables.shape[1]
     idx = block_tables.long()
     k = k_arena[idx].reshape(B, nb * bs, KV, hd)
     v = v_arena[idx].reshape(B, nb * bs, KV, hd)
-    return attend_length_masked(q, k, v, cursor, window=window)
+    ks = vs = None
+    if k_scale is not None:
+        ks = k_scale[idx].reshape(B, nb * bs, KV)
+        vs = v_scale[idx].reshape(B, nb * bs, KV)
+    return attend_length_masked(q, k, v, cursor, window=window, k_scale=ks,
+                                v_scale=vs)
 
 
-def _check_cuda_operands(q, k_arena, v_arena, block_tables, cursor):
-    """Dtypes, shapes, devices, contiguity and alignment the kernel takes;
-    raises on anything else."""
+def _check_cuda_operands(q, k_arena, v_arena, block_tables, cursor,
+                         k_scale=None, v_scale=None):
+    """Dtypes, shapes, devices, contiguity and alignment the kernel takes:
+    bf16 arenas without scales, or int8 arenas with f32 scales
+    [n_blocks, bs, KV]; raises on anything else."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"paged_attention kernel takes bf16 q, got {q.dtype}")
     if q.dim() != 4 or k_arena.dim() != 4:
@@ -74,19 +88,25 @@ def _check_cuda_operands(q, k_arena, v_arena, block_tables, cursor):
             or block_tables.shape[1] < 1):
         raise ValueError(f"block_tables must be [B={B}, nb >= 1], got "
                          f"{tuple(block_tables.shape)}")
-    for name, t, dtype, shape in (
-            ("k_arena", k_arena, torch.bfloat16, tuple(k_arena.shape)),
-            ("v_arena", v_arena, torch.bfloat16, tuple(k_arena.shape)),
-            ("block_tables", block_tables, torch.int32,
-             tuple(block_tables.shape)),
-            ("cursor", cursor, torch.int32, (B,))):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    arena_dtype = torch.bfloat16 if k_scale is None else torch.int8
+    operands = [
+        ("k_arena", k_arena, arena_dtype, tuple(k_arena.shape)),
+        ("v_arena", v_arena, arena_dtype, tuple(k_arena.shape)),
+        ("block_tables", block_tables, torch.int32,
+         tuple(block_tables.shape)),
+        ("cursor", cursor, torch.int32, (B,))]
+    if k_scale is not None:
+        operands += [("k_scale", k_scale, torch.float32, (n_blocks, bs, KV)),
+                     ("v_scale", v_scale, torch.float32, (n_blocks, bs, KV))]
+    for name, t, dtype, shape in operands:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena),
-                    ("block_tables", block_tables), ("cursor", cursor)):
+    for name, t in [("q", q)] + [(o[0], o[1]) for o in operands]:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
@@ -97,24 +117,36 @@ def _check_cuda_operands(q, k_arena, v_arena, block_tables, cursor):
 
 def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
                     v_arena: torch.Tensor, block_tables: torch.Tensor,
-                    cursor: torch.Tensor, *,
-                    window: int | None = None) -> torch.Tensor:
-    """out [B, S, H, hd] in q's dtype; see the module docstring."""
-    global launches
+                    cursor: torch.Tensor, *, window: int | None = None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """out [B, S, H, hd] in q's dtype; see the module docstring.
+    ``k_scale``/``v_scale`` [n_blocks, bs, KV] f32 dequantize int8 arenas;
+    None for bf16 arenas."""
+    global launches, launches_int8
     if not q.is_cuda:
         return plain(q, k_arena, v_arena, block_tables, cursor,
-                     window=window)
+                     window=window, k_scale=k_scale, v_scale=v_scale)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     B, S, H, KV, hd, bs, n_blocks = _check_cuda_operands(
-        q, k_arena, v_arena, block_tables, cursor)
+        q, k_arena, v_arena, block_tables, cursor, k_scale, v_scale)
     out = torch.empty_like(q)
-    status = build.library().paged_attention_bf16(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-        block_tables.data_ptr(), cursor.data_ptr(), out.data_ptr(),
-        B, S, H, KV, hd, bs, block_tables.shape[1], n_blocks,
-        0 if window is None else int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    launches += 1
+    dims = (B, S, H, KV, hd, bs, block_tables.shape[1], n_blocks,
+            0 if window is None else int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = build.library()
+    if k_scale is None:
+        status = lib.paged_attention_bf16(
+            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+            block_tables.data_ptr(), cursor.data_ptr(), out.data_ptr(),
+            *dims)
+        launches += 1
+    else:
+        status = lib.paged_attention_int8(
+            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            cursor.data_ptr(), out.data_ptr(), *dims)
+        launches_int8 += 1
     build.check(status, "paged_attention")
     return out

@@ -1,5 +1,5 @@
 """PagedKVPool: the engine-facing facade over the paged KV machinery (port
-of ``repro/serving/paged/pool.py``, bf16 arenas).
+of ``repro/serving/paged/pool.py``; bf16 or int8 arenas).
 
 It meets the same protocol as ``SlotKVPool`` (``serving/cache_pool.py``):
 ``n_free`` rows, a ``max_request_tokens`` admission bound, and the
@@ -40,14 +40,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..cache_pool import CachePoolError, CapacityError, DoubleFree
+from ..cache_pool import (ArenaWrites, CachePoolError, CapacityError,
+                          DoubleFree)
 from .block_pool import BlockPool, OutOfBlocks
 from .block_table import BlockTable, blocks_needed
 from .prefix_cache import PrefixCache
 
 
 @dataclasses.dataclass(frozen=True)
-class PagedPoolView:
+class PagedPoolView(ArenaWrites):
     """What ``transformer.attend_over_pool`` sees of a paged pool.
 
     ``k``/``v`` are the [L, n_blocks, block_size, KV, hd] arenas; inside
@@ -57,18 +58,23 @@ class PagedPoolView:
     carry all-trash tables); ``cursor`` [B] int32 counts tokens already
     written per lane.  ``write_src``/``write_dst`` are the flat indices of
     the real (lane, i < n_new) pairs in the step's [B*S] fresh KV and in
-    the [n_blocks*block_size] arena."""
+    the [n_blocks*block_size] arena.  ``k_scale``/``v_scale``
+    ([L, n_blocks, block_size, KV] f32, or None for bf16 arenas) are an
+    int8 arena's scales, addressed through the same tables and written with
+    the same indices."""
     k: Any
     v: Any
     block_tables: torch.Tensor
     cursor: torch.Tensor
     write_src: torch.Tensor
     write_dst: torch.Tensor
+    k_scale: Any | None = None
+    v_scale: Any | None = None
 
     @classmethod
     def build(cls, k, v, tables: np.ndarray, cursor, n_new, S: int, *,
-              trash: int, device_tables: torch.Tensor | None = None
-              ) -> "PagedPoolView":
+              trash: int, device_tables: torch.Tensor | None = None,
+              k_scale=None, v_scale=None) -> "PagedPoolView":
         """A view for S fresh positions per lane from the host ``tables``
         [B, nb], ``cursor`` and ``n_new``.  ``device_tables`` is the same
         table already on the device (the pool's cached upload), else
@@ -97,18 +103,9 @@ class PagedPoolView:
                    write_src=torch.as_tensor(src, dtype=torch.int64,
                                              device=dev),
                    write_dst=torch.as_tensor(dst, dtype=torch.int64,
-                                             device=dev))
+                                             device=dev),
+                   k_scale=k_scale, v_scale=v_scale)
 
-    def write_layer(self, k_l, v_l, fresh_k, fresh_v):
-        """Scatter fresh [B, S, KV, hd] KV into one layer's
-        [n_blocks, block_size, KV, hd] arena slice through the tables, in
-        place; padding pairs are not written."""
-        for arena, fresh in ((k_l, fresh_k), (v_l, fresh_v)):
-            flat = arena.view(-1, *arena.shape[2:])
-            vals = fresh.reshape(-1, *fresh.shape[2:]).index_select(
-                0, self.write_src)
-            flat.index_copy_(0, self.write_dst, vals.to(arena.dtype))
-        return k_l, v_l
 
 
 class PagedKVPool:
@@ -147,6 +144,14 @@ class PagedKVPool:
     @property
     def v(self):
         return self.blocks.v
+
+    @property
+    def k_scale(self):
+        return self.blocks.k_scale
+
+    @property
+    def v_scale(self):
+        return self.blocks.v_scale
 
     @property
     def n_slots(self) -> int:
@@ -375,6 +380,7 @@ class PagedKVPool:
                "free_blocks": self.blocks.n_free, "occupancy": occ,
                "kv_dtype": self.kv_dtype,
                "arena_bytes": occ["arena_bytes"],
+               "scale_bytes": occ["scale_bytes"],
                "n_preemptions": self.n_preemptions}
         if self.prefix_cache is not None:
             out["prefix_cache"] = self.prefix_cache.stats()

@@ -156,12 +156,6 @@ def test_sparsify_for_serving_matches_jax(weight_pattern, outlier_pattern,
     assert isinstance(tparams["embed"], torch.Tensor)
 
 
-def test_quantize_raises_naming_roadmap():
-    _, ttree = _small_params(2, jnp.bfloat16)
-    with pytest.raises(NotImplementedError, match="A6"):
-        sparsify_for_serving(ttree, _cfgs("8:16", "16:256")[1], quantize=True)
-
-
 @pytest.mark.parametrize("scorer", ["wanda", "ria"])
 def test_unported_scorers_raise_naming_roadmap(scorer):
     cfg = dataclasses.replace(_cfgs("8:16", None)[1], scorer=scorer)

@@ -133,8 +133,6 @@ def test_default_device_raises_without_cuda(param_pairs):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(kv_dtype="int8"), "A6"),
-    (dict(kv_layout="paged", kv_dtype="int8"), "A6"),
     (dict(draft=object()), "A8"), (dict(tracer=object()), "A9"),
     (dict(mesh=object()), "A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item, param_pairs):

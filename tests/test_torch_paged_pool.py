@@ -198,11 +198,6 @@ def test_copy_on_write_copies_every_layer():
     _assert_same(jp, tp)
 
 
-def test_int8_arena_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="A6"):
-        PagedKVPool(CFG, 2, 16, device="cpu", kv_dtype="int8")
-
-
 def test_decode_writes_only_decoding_rows_into_private_blocks():
     """Row 0 decodes; row 1 is mid-prefill and shares row 0's cached
     prefix blocks; rows 2 and 3 are free.  One fused decode step may change

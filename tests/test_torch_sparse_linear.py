@@ -100,10 +100,3 @@ def test_bf16_buffers_cross_exactly():
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(jv.astype(jnp.float32)))
-
-
-def test_int8_weights_raise_naming_roadmap():
-    _, tsw = _sparse_weight_pair("16:256")
-    tsw.v_scale = torch.ones(OUT)
-    with pytest.raises(NotImplementedError, match="A6"):
-        sparse_apply(tsw, torch.zeros(2, IN))
