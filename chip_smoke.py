@@ -58,8 +58,40 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            included, at most 6(c)'s; reports peak concurrency and
            preemptions beside 6(c)'s.
 
-Prints the kernels line ``{"kernels": [...]}`` (six variants: the three
-kernels' bf16 and int8 variants), the serve numbers, the
+  8. the paper's pipeline on llama3-8b, full width and depth, from seed 0
+     (the same dense weights phase 4 compressed by magnitude):
+       (a) calibrate: the dense bf16 model's own forward over 4
+           ``SyntheticLM`` batches of 4 x 512 tokens (8,192 tokens) collects
+           each projection's input statistics; gates 7 x 32 leaves, finite
+           values and counts of 8,192;
+       (b) compress with the reference's defaults, RIA + SmoothQuant +
+           variance correction, to 8:16 + 16:256, one layer at a time on the
+           card; gates the containers (bf16 values, 16 distinct outlier
+           indices per group, the N:M invariant, W_nm zero at every salient
+           slot), layer 0's indices against the same pipeline on the CPU from
+           the same bf16 weights and statistics (agreement >= 0.999: only
+           reduction orders differ, so only near-ties may flip) and layer 0
+           in the unstructured mode (salient density 16/256 within one
+           entry);
+       (c) serve phase 6(a)'s traffic from the compressed params on the
+           paged layout in 512 blocks, with the fused and paged kernels'
+           launches gated per model call as in phase 6;
+       (d) the ``kernels/ops`` path on layer 0's four projection shapes with
+           16:256, 8:256 and 4:256 outliers, M in {1, 8, 37, 512}: each
+           ``ops.outlier_matmul`` launches ``outlier_spmm`` (kernel B4),
+           gated at one bf16 ulp against its plain version and timed beside
+           it, ``F.linear`` on the densified outlier matrix and the bound;
+           at 16:256 the unfused ``ops.nm_matmul + ops.outlier_matmul``
+           against the fused ``ops.sparse_linear_apply``, both timed;
+       (e) perplexity (reported, not gated: the weights are random) of the
+           dense model, of ``sparsify_model``'s dense-effective weights and
+           of the compressed params, over 2 batches of 2 x 512 tokens; gates
+           the compressed params' forward (fused kernel) against the
+           dense-effective params' (``torch.matmul``) on one batch.
+
+Prints the kernels line ``{"kernels": [...]}`` (seven entries: the three
+serving kernels' bf16 and int8 variants, and ``outlier_spmm``), the serve
+numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -105,6 +137,22 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
 PREFIX_LEN = 512
 PREFIX_SUFFIX_LENS = [[32, 96, 160, 256], [64, 128, 200]]
 PREFIX_REPEAT = (1, 48)          # wave-1 suffix 1, its first 48 tokens
+# phase 8: the paper's pipeline
+PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
+PPL = dict(n_batches=2, batch=2, seq_len=512)
+OPS_PROJ = ("wq", "wk", "w_gate", "w_down")              # the four shapes
+OPS_PATTERNS = ("16:256", "8:256", "4:256")
+# The card's pipeline against the CPU's: the same f32 arithmetic in another
+# reduction order, so only indices whose scores are within an ulp or so of
+# a neighbour's may differ.
+PIPELINE_AGREE = 0.999
+# ops.nm_matmul(x) + ops.outlier_matmul(x) against the fused
+# ops.sparse_linear_apply(x): W_nm is exactly zero at the salient slots, so
+# the two differ only by the rounding of each partial product to bf16 and of
+# their bf16 sum (half an ulp each), besides the fused product's own
+# rounding: one bf16 ulp of each of the three magnitudes bounds it.
+UNFUSED_TOL_REL = 2.0 ** -7
 
 
 class SmokeFailure(RuntimeError):
@@ -231,7 +279,8 @@ def kernel_phase(torch, timer, log):
     for name, outlier, mod, fn in (
             ("fused_sparse_linear", "16:256", fsl, fsl.fused_sparse_linear),
             ("nm_spmm", None, nms, nms.nm_spmm)):
-        scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern=outlier)
+        scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern=outlier,
+                              scorer="magnitude", use_smoothquant=False)
         cases, cases8 = [], []
         for proj, N, K in PROJECTIONS:
             w = (torch.randn((N, K), generator=g, device="cuda")
@@ -266,7 +315,19 @@ KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
                      "src/repro_torch/csrc/sparse_linear.cu"),
     "paged_attention_int8": (
         "src/repro/serving/paged/paged_attention.py:124",
-        "src/repro_torch/csrc/paged_attention.cu")}
+        "src/repro_torch/csrc/paged_attention.cu"),
+    "outlier_spmm": ("src/repro/kernels/outlier_spmm.py:74",
+                     "src/repro_torch/csrc/outlier_spmm.cu")}
+
+
+def outlier_bound(M, N, K, n):
+    """Least time for y = x @ O^T at N:256: each outlier's 2-byte value and
+    1-byte index, x and y moved once at the HBM rate, or the 2*M*N*K*n/256
+    multiply-adds at the bf16 peak, whichever is larger."""
+    bytes_moved = N * (K // 256) * n * 3 + M * K * 2 + M * N * 2
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * N * K * n / 256 / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_entry(name, cases, launches):
@@ -278,7 +339,8 @@ def kernel_entry(name, cases, launches):
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             # times are sums over the cases below (16 (projection, M) cases
             # of a weight kernel, the 4 phase-2b cases of paged attention,
-            # for each variant)
+            # for each variant; 48 (projection, pattern, M) cases of
+            # outlier_spmm in phase 8(d))
             "ms": sum(c["ms"] for c in cases),
             "plain_ms": sum(c["plain_ms"] for c in cases),
             "bound_ms": b_bytes + b_ops,
@@ -620,11 +682,12 @@ def _counters():
     """(kernel name, module, counter attribute) of every kernel variant."""
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.kernels import nm_spmm as nms
+    from repro_torch.kernels import outlier_spmm as osp
     from repro_torch.serving.paged import paged_attention as pa
     return [(name + suffix, mod, "launches" + suffix)
             for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                               ("paged_attention", pa))
-            for suffix in ("", "_int8")]
+            for suffix in ("", "_int8")] + [("outlier_spmm", osp, "launches")]
 
 
 def reset_launches():
@@ -877,6 +940,360 @@ def int8_serve_phase(torch, log, cfg, params, paged_streams, pressure):
     return results, launches_a
 
 
+# ------------------------------------------------------- phase 8: pipeline
+def calibrate(torch, log, cfg):
+    """8(a): the dense bf16 model from seed 0 and its own calibration
+    statistics over 4 SyntheticLM batches."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.eval import harness
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    dense = tfm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=CALIB["seq_len"],
+                       batch=CALIB["batch"], seed=0)
+    batches = data.calibration(CALIB["n_batches"])
+    t0 = time.perf_counter()
+    stats = harness.collect_activation_stats(cfg, dense, batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    tokens = CALIB["n_batches"] * CALIB["batch"] * CALIB["seq_len"]
+    want = {f"layers/{i}/{p}" for i in range(cfg.n_layers)
+            for p in PROJ_NAMES}
+    check(set(stats) == want,
+          f"calibration: {len(stats)} leaves, want {len(want)}")
+    for name, st in stats.items():
+        check(float(st.count) == tokens,
+              f"calibration: {name} counted {float(st.count)} tokens")
+        check(bool(torch.isfinite(st.sq_sum).all()
+                   and torch.isfinite(st.max_abs).all()),
+              f"calibration: non-finite statistics for {name}")
+    out = {"leaves": len(stats), "tokens": tokens, "init_s": init_s,
+           "calibrate_s": calib_s}
+    log(f"  (a) {json.dumps(out)}")
+    return dense, stats, out
+
+
+def check_container(torch, name, sw, o_n):
+    """8(b)'s gates on one compressed projection: bf16 values, the N:M
+    invariant, ``o_n`` distinct ascending outlier indices in every 256-group
+    and W_nm zero at every salient slot."""
+    from repro_torch.core import (unpack_metadata, unpack_outlier_meta,
+                                  validate_nm_mask)
+    from repro_torch.core.packing import scatter_blocks
+    from repro_torch.models.sparse_serving import SparseWeight
+
+    check(isinstance(sw, SparseWeight) and sw.v_scale is None
+          and sw.nm_values.dtype == torch.bfloat16
+          and sw.o_values is not None and sw.o_n == o_n
+          and sw.o_values.dtype == torch.bfloat16,
+          f"{name}: not a bf16 SparseWeight with {o_n}:256 outliers")
+    N = sw.nm_values.shape[0]
+    idx = unpack_metadata(sw.nm_meta, sw.n).long()
+    kept = torch.zeros((N, sw.in_dim // sw.m, sw.m), dtype=torch.bool,
+                       device=idx.device).scatter_(-1, idx, True)
+    check(validate_nm_mask(kept.reshape(N, -1), (sw.n, sw.m)),
+          f"{name}: the {sw.n}:{sw.m} invariant does not hold")
+    o_idx = unpack_outlier_meta(sw.o_meta, sw.o_n).long()
+    check(bool((o_idx[..., 1:] > o_idx[..., :-1]).all()),
+          f"{name}: outlier indices not distinct and ascending")
+    salient = torch.zeros((N, sw.in_dim // 256, 256), dtype=torch.bool,
+                          device=idx.device).scatter_(-1, o_idx, True)
+    w_nm = scatter_blocks(sw.nm_values.reshape(*idx.shape), idx, sw.m)
+    check(bool((w_nm.reshape(N, -1)[salient.reshape(N, -1)] == 0).all()),
+          f"{name}: W_nm is not zero at every salient slot")
+
+
+def layer0_checks(torch, log, lp, sparse_lp, st, scfg):
+    """8(b) on layer 0: the card's containers against the same pipeline on
+    the CPU from the same bf16 weights and statistics, and the unstructured
+    mode's salient density."""
+    from repro_torch.core import (ActStats, sparsify_linear, unpack_metadata,
+                                  unpack_outlier_meta)
+
+    agree = {"nm": [0, 0], "outliers": [0, 0]}
+    unstructured, t0 = {}, time.perf_counter()
+    for p in PROJ_NAMES:
+        sw, s = sparse_lp[p], st[p]
+        ref = sparsify_linear(lp[p].cpu(), ActStats(
+            s.sq_sum.cpu(), s.max_abs.cpu(), s.count.cpu()), scfg)
+        for key, ours, theirs in (
+                ("nm", unpack_metadata(sw.nm_meta, sw.n).cpu(),
+                 ref.nm.indices),
+                ("outliers", unpack_outlier_meta(sw.o_meta, sw.o_n).cpu(),
+                 ref.outliers.indices)):
+            same = ours == theirs
+            agree[key][0] += int(same.sum())
+            agree[key][1] += same.numel()
+            if key == "outliers":       # copies of the weights: exact
+                check(torch.equal(sw.o_values.cpu()[same],
+                                  ref.outliers.values[same]),
+                      f"layer 0 {p}: salient values differ from the CPU's")
+    cpu_s = time.perf_counter() - t0
+    for p in PROJ_NAMES:
+        w = lp[p]
+        sl = sparsify_linear(w, st[p], dataclasses.replace(
+            scfg, unstructured_outliers=True))
+        k = round(w.numel() * 16 / 256)
+        extra = int(sl.salient_mask.sum()) - k
+        check(sl.outliers is None and 0 <= extra <= 1,
+              f"layer 0 {p} unstructured: {extra:+d} salient entries against "
+              f"the 16/256 budget of {k}")
+        unstructured[p] = {"salient": k + extra, "budget": k,
+                           "density": (k + extra) / w.numel()}
+    share = {k: a / n for k, (a, n) in agree.items()}
+    for key, val in share.items():
+        check(val >= PIPELINE_AGREE, f"layer 0: {key} index agreement with "
+                                     f"the CPU {val:.6f} < {PIPELINE_AGREE}")
+    out = {"cpu_index_agreement": share,
+           "cpu_indices_compared": {k: n for k, (_, n) in agree.items()},
+           "cpu_pipeline_s": cpu_s, "unstructured": unstructured}
+    log(f"  (b) layer 0: {json.dumps(out)}")
+    return out
+
+
+def compress(torch, log, cfg, dense, stats):
+    """8(b): RIA + SmoothQuant + VC to 8:16 + 16:256, one layer at a time on
+    the card.  Returns (compressed params, numbers)."""
+    from repro_torch.core import SparsifyConfig, compression_report
+    from repro_torch.models.sparse_serving import sparsify_for_serving
+
+    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256")
+    report = {"n_layers_sparsified": 0, "dense_bytes": 0,
+              "compressed_bytes": 0}
+    paper_bytes, layers, seconds = 0, [], []
+    for i, lp in enumerate(dense["layers"]):
+        st = {p: stats[f"layers/{i}/{p}"] for p in PROJ_NAMES}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, rep = sparsify_for_serving(lp, scfg, st)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        for p in PROJ_NAMES:
+            check_container(torch, f"layer {i} {p}", new[p], 16)
+            paper_bytes += compression_report(
+                *lp[p].shape, "8:16", "16:256")["compressed_bytes"]
+        for key in report:
+            report[key] += rep[key]
+        layers.append(new)
+    sparse = dict(dense, layers=layers)
+    out = {"config": dataclasses.asdict(scfg), "seconds_per_layer": {
+        "mean": sum(seconds) / len(seconds), "max": max(seconds),
+        "total": sum(seconds)},
+        "compressed_gb": report["compressed_bytes"] / 1e9,
+        "dense_gb": report["dense_bytes"] / 1e9,
+        "ratio": report["compressed_bytes"] / report["dense_bytes"],
+        "paper_accounting_gb": paper_bytes / 1e9,
+        "matrices": report["n_layers_sparsified"]}
+    log(f"  (b) {json.dumps(out)}")
+    out["layer0"] = layer0_checks(torch, log, dense["layers"][0], layers[0],
+                                  {p: stats[f"layers/0/{p}"]
+                                   for p in PROJ_NAMES}, scfg)
+    return sparse, scfg, out
+
+
+def pipeline_serve(torch, log, cfg, sparse, paged_a):
+    """8(c): phase 6(a)'s traffic on the paged layout from the compressed
+    params, with 6(a)'s numbers of the same run beside."""
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, sparse, device="cuda", n_slots=8,
+                           max_len=1024, token_budget=512, kv_layout="paged",
+                           block_size=ATTN_SHAPE["bs"])
+    prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+    torch.cuda.reset_peak_memory_stats()
+    reqs, wall, decode_only, launches = drive(torch, engine, [prompts],
+                                              SERVE_GEN)
+    out = serve_numbers(torch, engine, reqs, wall, decode_only, launches)
+    add_profile(torch, engine, out, seed=11)
+    out["vs_6a"] = {
+        "decode_step_p50_ms": [out["decode_step_ms"]["p50"],
+                               paged_a["decode_step_ms"]["p50"]],
+        "tok_per_s": [out["tok_per_s"], paged_a["tok_per_s"]],
+        "ttft_p50_ms": [out["ttft_ms"]["p50"], paged_a["ttft_ms"]["p50"]],
+        "itl_p50_ms": [out["itl_ms"]["p50"], paged_a["itl_ms"]["p50"]]}
+    log(f"  (c) {json.dumps(out)}")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def ops_phase(torch, timer, log, lp, st):
+    """8(d): ``kernels/ops`` on layer 0's four projection shapes, each
+    outlier pattern and M; the counts are set to 0 just before each group of
+    ``ops`` calls and read just after, and the comparisons and timings
+    run outside them.  Returns (cases, launches)."""
+    import torch.nn.functional as F
+    from repro_torch.core import (SparsifyConfig, pack_outlier_meta,
+                                  sparsify_linear)
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.kernels import nm_spmm as nms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import outlier_spmm as osp
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases, launches = [], {}
+    for p in OPS_PROJ:
+        w = lp[p]
+        N, K = w.shape
+        for pat in OPS_PATTERNS:
+            sl = sparsify_linear(w, st[p], SparsifyConfig(
+                weight_pattern="8:16", outlier_pattern=pat))
+            o, nm = sl.outliers, sl.nm
+            vals, meta = o.values, pack_outlier_meta(o.indices)
+            nm_meta = nm.packed_metadata()
+            dense_o = o.to_dense()
+            del sl
+            for M in MS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                torch.cuda.synchronize()
+                reset_launches()
+                y = ops.outlier_matmul(x, o)
+                if pat == "16:256":
+                    y_nm = ops.nm_matmul(x, nm)
+                    y_fused = ops.sparse_linear_apply(x, nm, o)
+                torch.cuda.synchronize()
+                for key, n in read_launches().items():
+                    launches[key] = launches.get(key, 0) + n
+                y_plain = osp.plain(x, vals, meta, n=o.n)
+                check(y.shape == (M, N) and y.dtype == torch.bfloat16
+                      and bool(torch.isfinite(y).all()),
+                      f"outlier_spmm {p} {pat} M={M}: {tuple(y.shape)} "
+                      f"{y.dtype} or non-finite")
+                err = float((y.float() - y_plain.float()).abs().max())
+                tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
+                check(err <= tol, f"outlier_spmm {p} {pat} M={M}: "
+                                  f"max|kernel-plain| {err:.3e} > {tol:.3e}")
+                b_ms, b_by = outlier_bound(M, N, K, o.n)
+                case = {"proj": p, "pattern": pat, "N": N, "K": K, "M": M,
+                        "max_abs_err": err, "tol": tol,
+                        "ms": timer.ms(lambda: osp.outlier_spmm(
+                            x, vals, meta, n=o.n), 20),
+                        "plain_ms": timer.ms(lambda: osp.plain(
+                            x, vals, meta, n=o.n), 5),
+                        "library_ms": timer.ms(lambda: F.linear(x, dense_o),
+                                               20),
+                        "bound_ms": b_ms, "bound_by": b_by}
+                if pat == "16:256":
+                    pair = y_nm + y
+                    u_err = float((pair.float() - y_fused.float()).abs().max())
+                    u_tol = UNFUSED_TOL_REL * sum(
+                        float(t.float().abs().max()) for t in (y_nm, y,
+                                                               y_fused))
+                    check(u_err <= u_tol, f"ops {p} M={M}: unfused pair vs "
+                                          f"fused {u_err:.3e} > {u_tol:.3e}")
+                    case.update(
+                        unfused_err=u_err, unfused_tol=u_tol,
+                        unfused_ms=timer.ms(lambda: nms.nm_spmm(
+                            x, nm.values, nm_meta, n=nm.n, m=nm.m)
+                            + osp.outlier_spmm(x, vals, meta, n=o.n), 20),
+                        fused_ms=timer.ms(lambda: fsl.fused_sparse_linear(
+                            x, nm.values, nm_meta, vals, meta, n=nm.n,
+                            m=nm.m, o_n=o.n), 20))
+                cases.append(case)
+                log(f"  (d) outlier_spmm {p:7s} {pat:6s} M={M:4d}: err "
+                    f"{err:.2e} (tol {tol:.2e})  kernel {case['ms']:.4f} ms  "
+                    f"plain {case['plain_ms']:.4f}  F.linear "
+                    f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})"
+                    + (f"  unfused {case['unfused_ms']:.4f} fused "
+                       f"{case['fused_ms']:.4f}" if pat == "16:256" else ""))
+            del o, nm, vals, meta, nm_meta, dense_o
+    n16 = len(OPS_PROJ) * len(MS)
+    want = {"outlier_spmm": len(OPS_PATTERNS) * n16, "nm_spmm": n16,
+            "fused_sparse_linear": n16}
+    for key, n in launches.items():
+        check(n == want.get(key, 0),
+              f"ops path: {key} launched {n} times, want {want.get(key, 0)}")
+    return cases, launches
+
+
+def perplexity_phase(torch, log, cfg, dense, sparse, stats, scfg):
+    """8(e): perplexities, reported; the compressed params' forward (fused
+    kernel) against the dense-effective params' (torch.matmul), gated."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.eval import harness
+    from repro_torch.models import transformer as tfm
+
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=PPL["seq_len"],
+                       batch=PPL["batch"], seed=0)
+    n = PPL["n_batches"]
+    out = {"tokens": n * PPL["batch"] * PPL["seq_len"],
+           "ppl_dense": harness.eval_ppl(cfg, dense, data, n_batches=n)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    effective = harness.sparsify_model(cfg, dense, stats, scfg)
+    torch.cuda.synchronize()
+    out["sparsify_model_s"] = time.perf_counter() - t0
+    check(all(isinstance(lp[p], torch.Tensor) for lp in effective["layers"]
+              for p in PROJ_NAMES),
+          "sparsify_model: a projection is not a dense tensor")
+    out["ppl_dense_effective"] = harness.eval_ppl(cfg, effective, data,
+                                                  n_batches=n)
+    out["ppl_compressed"] = harness.eval_ppl(cfg, sparse, data, n_batches=n)
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in data.batch_at(50_000).items()}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        logits, _ = tfm.forward(sparse, batch, cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        reset_launches()
+        ref, _ = tfm.forward(effective, batch, cfg)
+        torch.cuda.synchronize()
+        dense_launches = read_launches()
+    del effective
+    torch.cuda.empty_cache()
+    for key, count in launches.items():
+        want = 7 * cfg.n_layers if key == "fused_sparse_linear" else 0
+        check(count == want, f"forward: {key} launched {count}, want {want}")
+    check(not any(dense_launches.values()),
+          f"dense-effective forward launched sparse kernels: "
+          f"{dense_launches}")
+    check(bool(torch.isfinite(logits).all()), "forward: non-finite logits")
+    scale = float(ref.float().abs().max())
+    err = float((logits.float() - ref.float()).abs().max())
+    out.update(layers=cfg.n_layers, logit_scale=scale, max_abs_err=err,
+               tol=MODEL_TOL_REL * scale,
+               greedy_agreement=float((logits.argmax(-1) == ref.argmax(-1))
+                                      .float().mean()))
+    log(f"  (e) {json.dumps(out)}")
+    check(err <= MODEL_TOL_REL * scale,
+          f"forward: compressed vs dense-effective {err:.3e} > "
+          f"{MODEL_TOL_REL} x {scale:.3e}")
+    return out
+
+
+def pipeline_phase(torch, log, paged_a):
+    """Phase 8: the paper's pipeline on llama3-8b, (a) to (e)."""
+    from repro_torch.configs import get
+
+    cfg = get("llama3-8b")
+    dense, stats, calib = calibrate(torch, log, cfg)
+    sparse, scfg, comp = compress(torch, log, cfg, dense, stats)
+    served = pipeline_serve(torch, log, cfg, sparse, paged_a)
+    timer = Timer(torch)
+    cases, launches = ops_phase(torch, timer, log, dense["layers"][0],
+                                {p: stats[f"layers/0/{p}"]
+                                 for p in PROJ_NAMES})
+    del timer
+    ppl = perplexity_phase(torch, log, cfg, dense, sparse, stats, scfg)
+    del dense, sparse
+    torch.cuda.empty_cache()
+    fused = [c for c in cases if "fused_ms" in c]
+    out = {"calibrate": calib, "compress": comp, "serve": served,
+           "ops": {"launches": launches,
+                   "outlier_spmm_ms": sum(c["ms"] for c in cases),
+                   "unfused_ms": sum(c["unfused_ms"] for c in fused),
+                   "fused_ms": sum(c["fused_ms"] for c in fused)},
+           "perplexity": ppl}
+    return out, cases, launches
+
+
 def main() -> int:
     import torch
 
@@ -946,6 +1363,10 @@ def main() -> int:
         run.update(build_info8)
     del params
     torch.cuda.empty_cache()
+    log("phase 8 the paper's pipeline on llama3-8b, 32 layers: calibrate, "
+        "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
+    pipeline, ops_cases, ops_launches = pipeline_phase(
+        torch, log, paged_serve["a_phase4_traffic"])
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
@@ -959,12 +1380,14 @@ def main() -> int:
         kernel_entry("nm_spmm_int8", cases["nm_spmm_int8"],
                      plain_launches8["nm_spmm_int8"]),
         kernel_entry("paged_attention_int8", attn_cases8,
-                     int8_launches["paged_attention_int8"])]}
+                     int8_launches["paged_attention_int8"]),
+        kernel_entry("outlier_spmm", ops_cases,
+                     ops_launches["outlier_spmm"])]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
-              "serve_int8_paged": int8_serve}
+              "serve_int8_paged": int8_serve, "pipeline": pipeline}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "small_model": small, **serves},

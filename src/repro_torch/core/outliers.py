@@ -1,9 +1,11 @@
-"""Structured salient-weight ("outlier") extraction (port of
-``repro/core/outliers.py``), plus the 8-bit outlier metadata packing the JAX
-package keeps in ``repro/kernels/outlier_spmm.py``.
+"""Salient-weight ("outlier") extraction, structured and unstructured (port
+of ``repro/core/outliers.py``), plus the 8-bit outlier metadata packing the
+JAX package keeps in ``repro/kernels/outlier_spmm.py``.
 
 The most important weights of each 256-wide input block of a row are kept
-exactly, in an N:256 pattern (4, 8 or 16 per block).
+exactly, in an N:256 pattern (4, 8 or 16 per block).  The unstructured
+baseline (a global top-k at the same budget) is the paper's Table 7
+comparison.
 """
 from __future__ import annotations
 
@@ -11,8 +13,8 @@ import dataclasses
 
 import torch
 
-from .packing import pack_fields, unpack_fields
-from .patterns import block_topn_indices, parse_pattern
+from .packing import pack_fields, scatter_blocks, unpack_fields
+from .patterns import block_topn_indices, parse_pattern, topn_block_mask
 
 OUTLIER_M = 256
 
@@ -27,6 +29,18 @@ class StructuredOutliers:
     indices: torch.Tensor
     n: int
     m: int
+
+    @property
+    def out_dim(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def in_dim(self) -> int:
+        return self.values.shape[1] * self.m
+
+    def to_dense(self) -> torch.Tensor:
+        """Scatter back to a dense [out, in] matrix (zeros elsewhere)."""
+        return scatter_blocks(self.values, self.indices, self.m)
 
     def mask(self) -> torch.Tensor:
         """Boolean [out, in] mask of salient positions."""
@@ -45,6 +59,22 @@ def extract_structured_outliers(w: torch.Tensor, scores: torch.Tensor,
     out, nb, _ = idx.shape
     values = torch.gather(w.reshape(out, nb, p.m), -1, idx.long())
     return StructuredOutliers(values=values, indices=idx, n=p.n, m=p.m)
+
+
+def unstructured_outlier_mask(scores: torch.Tensor,
+                              budget_fraction: float) -> torch.Tensor:
+    """Global top-k mask at a matched budget (the Table 7 baseline): every
+    score at least the k-th largest, ties at the threshold included, as in
+    the JAX package."""
+    k = max(1, int(round(budget_fraction * scores.numel())))
+    flat = scores.reshape(-1)
+    thresh = torch.topk(flat, k, sorted=False).values.min()
+    return scores >= thresh
+
+
+def structured_outlier_mask(scores: torch.Tensor, pattern) -> torch.Tensor:
+    p = parse_pattern(pattern)
+    return topn_block_mask(scores, p.n, p.m)
 
 
 def pack_outlier_meta(indices: torch.Tensor) -> torch.Tensor:

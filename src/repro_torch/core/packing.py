@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from .patterns import block_topn_indices, parse_pattern
+from .patterns import Pattern, block_topn_indices, parse_pattern
 
 
 def pack_fields(fields: torch.Tensor, bits: int) -> torch.Tensor:
@@ -49,12 +49,46 @@ class PackedNM:
     m: int
     in_dim: int
 
+    @property
+    def out_dim(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.in_dim // self.m
+
+    def to_dense(self) -> torch.Tensor:
+        """Each kept value scattered back to its slot, zeros elsewhere (the
+        one-hot sum of the JAX package: every slot receives at most one
+        value)."""
+        return scatter_blocks(self.values.reshape(self.out_dim, self.n_blocks,
+                                                  self.n),
+                              self.indices, self.m)
+
     def packed_metadata(self) -> torch.Tensor:
         """4-bit-packed indices, one int32 word per block (m<=16, n<=8)."""
         if self.m > 16 or self.n > 8:
             raise ValueError(
                 f"word packing supports m<=16,n<=8; got {self.n}:{self.m}")
         return pack_fields(self.indices, 4)
+
+    def storage_bytes(self, value_bytes: int = 2) -> int:
+        """Deployed bytes: values plus enumerative metadata (paper
+        accounting)."""
+        meta_bits = Pattern(self.n, self.m).bits_per_element(
+            pack_blocks=2 if (self.n, self.m) == (4, 8) else 1)
+        return int(self.values.numel() * value_bytes
+                   + self.out_dim * self.in_dim * meta_bits / 8)
+
+
+def scatter_blocks(values: torch.Tensor, indices: torch.Tensor,
+                   m: int) -> torch.Tensor:
+    """[out, nb, n] values at [out, nb, n] in-block indices -> dense
+    [out, nb * m] in the values' dtype."""
+    out, nb, _ = indices.shape
+    dense = torch.zeros((out, nb, m), dtype=values.dtype, device=values.device)
+    dense.scatter_(-1, indices.long(), values)
+    return dense.reshape(out, nb * m)
 
 
 def unpack_metadata(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -73,3 +107,29 @@ def pack_nm(w_pruned: torch.Tensor, mask: torch.Tensor, pattern) -> PackedNM:
     values = torch.gather(blocks, -1, idx.long())
     return PackedNM(values=values.reshape(out, -1), indices=idx,
                     n=p.n, m=p.m, in_dim=in_dim)
+
+
+def dense_bytes(out_dim: int, in_dim: int, value_bytes: int = 2) -> int:
+    return out_dim * in_dim * value_bytes
+
+
+def compression_report(out_dim: int, in_dim: int, weight_pattern,
+                       outlier_pattern=None, value_bytes: int = 2) -> dict:
+    """Static storage accounting for one linear layer, as the JAX package
+    counts it: N:M values and enumerative metadata, and for outliers their
+    values plus one 8-bit index each."""
+    wp = parse_pattern(weight_pattern)
+    total = out_dim * in_dim
+    meta_bits = wp.bits_per_element(
+        pack_blocks=2 if (wp.n, wp.m) == (4, 8) else 1)
+    rep = {"dense_bytes": dense_bytes(out_dim, in_dim, value_bytes),
+           "nm_value_bytes": int(total * wp.density * value_bytes),
+           "nm_meta_bytes": int(total * meta_bits / 8)}
+    if outlier_pattern is not None:
+        op = parse_pattern(outlier_pattern)
+        rep["outlier_value_bytes"] = int(total * op.density * value_bytes)
+        rep["outlier_meta_bytes"] = int(total * op.n / op.m)
+    rep["compressed_bytes"] = sum(v for k, v in rep.items()
+                                  if k != "dense_bytes")
+    rep["ratio"] = rep["compressed_bytes"] / rep["dense_bytes"]
+    return rep

@@ -12,18 +12,56 @@ functions here rank with a stable descending sort instead.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+# Patterns the paper evaluates for the main weights and for salient weights.
+WEIGHT_PATTERNS = ((2, 4), (4, 8), (8, 16), (16, 32))
+OUTLIER_PATTERNS = ((4, 256), (8, 256), (16, 256))
 
 
 @dataclasses.dataclass(frozen=True)
 class Pattern:
+    """An N:M sparsity pattern with its metadata accounting."""
+
     n: int
     m: int
 
     def __post_init__(self):
         if not (0 < self.n <= self.m):
             raise ValueError(f"invalid pattern {self.n}:{self.m}")
+
+    @property
+    def density(self) -> float:
+        return self.n / self.m
+
+    @property
+    def configurations(self) -> int:
+        """Number of distinct block layouts, C(M, N) (paper Table 1)."""
+        return math.comb(self.m, self.n)
+
+    def bits_per_element(self, pack_blocks: int = 1,
+                         word_align: bool = False) -> float:
+        """Metadata bits per element by enumerative coding of the block
+        layout: ``ceil(log2 C(M,N) * pack_blocks) / (M * pack_blocks)``,
+        rounded up to a 32-bit word with ``word_align``."""
+        bits = math.ceil(math.log2(self.configurations) * pack_blocks)
+        if word_align:
+            bits = 32 * math.ceil(bits / 32)
+        return bits / (self.m * pack_blocks)
+
+    def paper_bits_per_element(self) -> float:
+        """The Table 1 accounting: two blocks share a code at 4:8, a
+        word-aligned bitmap at 16:32."""
+        if (self.n, self.m) == (4, 8):
+            return self.bits_per_element(pack_blocks=2)
+        if (self.n, self.m) == (16, 32):
+            return self.bits_per_element(word_align=True)
+        return self.bits_per_element()
+
+    def __str__(self) -> str:
+        return f"{self.n}:{self.m}"
 
 
 
@@ -61,6 +99,19 @@ def topn_block_mask(scores: torch.Tensor, n: int, m: int) -> torch.Tensor:
 def nm_mask(scores: torch.Tensor, pattern) -> torch.Tensor:
     p = parse_pattern(pattern)
     return topn_block_mask(scores, p.n, p.m)
+
+
+def mask_sparsity(mask: torch.Tensor) -> torch.Tensor:
+    """Fraction of zeros."""
+    return 1.0 - mask.to(torch.float32).mean()
+
+
+def validate_nm_mask(mask: torch.Tensor, pattern) -> bool:
+    """True iff every M-block holds exactly N kept entries."""
+    p = parse_pattern(pattern)
+    _check_blockable(mask.shape[-1], p.m)
+    blocks = mask.reshape(*mask.shape[:-1], -1, p.m)
+    return bool((blocks.sum(-1) == p.n).all())
 
 
 def block_topn_indices(scores: torch.Tensor, n: int, m: int) -> torch.Tensor:

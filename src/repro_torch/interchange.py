@@ -10,12 +10,18 @@ list of per-layer dicts, so that entry is split along its first axis.
 bf16 arrays come out of ``np.asarray`` as ``ml_dtypes`` bfloat16, which
 ``torch.from_numpy`` rejects; they cross as their 16-bit patterns and are
 viewed as ``torch.bfloat16``, which is exact.
+
+``stats_from_jax`` and ``sparsified_from_jax`` carry the pipeline's
+calibration statistics and per-layer results across, so that tests compare
+the two packages' containers field by field.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .core import (ActStats, PackedNM, SparsifiedLinear,
+                   StructuredOutliers)
 from .device import resolve
 from .models.sparse_serving import SparseWeight
 
@@ -73,6 +79,42 @@ def from_jax_params(params, device="cuda") -> dict:
     if isinstance(out.get("layers"), dict):
         out["layers"] = _split_layers(out["layers"])
     return out
+
+
+def stats_from_jax(stats: dict, device="cpu") -> dict:
+    """The JAX harness's ``{"layers/wq": ActStats[L, in]}`` (stacked
+    layers, ``count`` [L]) as the port's ``{"layers/{i}/wq": ActStats[in]}``
+    with a scalar ``count``; an entry without the leading [L] keeps its
+    name."""
+    out = {}
+    for name, st in stats.items():
+        sq, mx, cnt = (to_torch(a, device) for a in
+                       (st.sq_sum, st.max_abs, st.count))
+        if sq.ndim == 1:
+            out[name] = ActStats(sq_sum=sq, max_abs=mx, count=cnt)
+            continue
+        head, leaf = name.rsplit("/", 1)
+        for i in range(sq.shape[0]):
+            out[f"{head}/{i}/{leaf}"] = ActStats(
+                sq_sum=sq[i].contiguous(), max_abs=mx[i].contiguous(),
+                count=cnt[i].contiguous())
+    return out
+
+
+def sparsified_from_jax(sl, device="cpu") -> SparsifiedLinear:
+    """A JAX ``SparsifiedLinear`` (one layer) as the port's."""
+    nm = PackedNM(values=to_torch(sl.nm.values, device),
+                  indices=to_torch(sl.nm.indices, device), n=int(sl.nm.n),
+                  m=int(sl.nm.m), in_dim=int(sl.nm.in_dim))
+    outliers = None
+    if sl.outliers is not None:
+        outliers = StructuredOutliers(
+            values=to_torch(sl.outliers.values, device),
+            indices=to_torch(sl.outliers.indices, device),
+            n=int(sl.outliers.n), m=int(sl.outliers.m))
+    return SparsifiedLinear(nm=nm, outliers=outliers,
+                            nm_mask=to_torch(sl.nm_mask, device),
+                            salient_mask=to_torch(sl.salient_mask, device))
 
 
 def paged_pool_from_jax(jpool, cfg, device="cuda"):

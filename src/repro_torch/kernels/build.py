@@ -35,6 +35,7 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _P],
     "fused_sparse_linear_int8": [_P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P],
+    "outlier_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.packing import scatter_blocks
+
 
 def decompress_nm(values: torch.Tensor, indices: torch.Tensor, m: int,
                   dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -19,10 +21,8 @@ def decompress_nm(values: torch.Tensor, indices: torch.Tensor, m: int,
     ``indices[o, b, k]`` is the column offset inside block ``b`` of value
     ``values[o, b*n + k]``."""
     out, nb, n = indices.shape
-    vals = values.reshape(out, nb, n).to(dtype or values.dtype)
-    dense = torch.zeros((out, nb, m), dtype=vals.dtype, device=vals.device)
-    dense.scatter_(-1, indices.long(), vals)
-    return dense.reshape(out, nb * m)
+    return scatter_blocks(values.reshape(out, nb, n).to(dtype or values.dtype),
+                          indices, m)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -56,6 +56,16 @@ def nm_spmm_ref(x: torch.Tensor, values: torch.Tensor, indices: torch.Tensor,
     """y = x @ W^T with W the N:M-compressed matrix; f32 accumulation.
     ``scale`` [out] f32 dequantizes int8 ``values``."""
     w = decompress_nm(dequantize(values, scale, x.dtype), indices, m,
+                      dtype=torch.float32)
+    return (x.to(torch.float32) @ w.T).to(x.dtype)
+
+
+def outlier_spmm_ref(x: torch.Tensor, values: torch.Tensor,
+                     indices: torch.Tensor, m: int = 256) -> torch.Tensor:
+    """y = x @ O^T with O the N:256 structured outlier matrix;
+    values/indices [out, in//m, n]; f32 accumulation, y in x's dtype."""
+    out, nb, n = values.shape
+    w = decompress_nm(values.reshape(out, nb * n), indices, m,
                       dtype=torch.float32)
     return (x.to(torch.float32) @ w.T).to(x.dtype)
 

@@ -41,8 +41,11 @@ def build_params(cfg, args, device, generator: torch.Generator, *,
     if args.sparse:
         outlier = None if args.outlier_pattern == "none" \
             else args.outlier_pattern
+        # random weights have no calibration statistics: magnitude scores
+        # without SmoothQuant, as the JAX package's serve passes them
         scfg = SparsifyConfig(weight_pattern=args.weight_pattern,
-                              outlier_pattern=outlier)
+                              outlier_pattern=outlier, scorer="magnitude",
+                              use_smoothquant=False)
 
         def layer_fn(lp):
             lp, rep = sparsify_for_serving(lp, scfg, quantize=quantize)

@@ -69,6 +69,46 @@ def _repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
     return torch.repeat_interleave(k, H // KV, dim=2)
 
 
+def _sdpa_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int | None,
+               q_offset: int = 0) -> torch.Tensor:
+    """q [B,Sq,H,hd], k/v [B,Sk,KV,hd]; repeats KV groups; returns
+    [B,Sq,H,hd].  f32 scores, the finite -1e30 mask and softmax, as the JAX
+    package computes them."""
+    B, Sq, H, hd = q.shape
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    qf = q.to(torch.float32) / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32))
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = torch.where(mask[None, None], scores,
+                         torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: int | None = None, q_chunks: int = 1,
+         q_offset: int = 0) -> torch.Tensor:
+    """Scaled dot-product attention over a full sequence, with optional
+    query chunking: ``q_chunks > 1`` attends one chunk of queries at a time
+    against all keys, which bounds the f32 scores' memory and changes no
+    result."""
+    if q_chunks <= 1 or q.shape[1] % q_chunks:
+        return _sdpa_full(q, k, v, causal, window, q_offset)
+    cs = q.shape[1] // q_chunks
+    return torch.cat([_sdpa_full(q[:, i * cs:(i + 1) * cs], k, v, causal,
+                                 window, q_offset + i * cs)
+                      for i in range(q_chunks)], dim=1)
+
+
 def attend_length_masked(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, q_offset: torch.Tensor, *,
                          window: int | None = None,

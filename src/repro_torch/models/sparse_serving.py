@@ -18,9 +18,9 @@ import re
 
 import torch
 
-from ..core.outliers import OUTLIER_M, pack_outlier_meta
-from ..core.patterns import parse_pattern
-from ..core.pipeline import SparsifyConfig, sparsify_linear
+from ..core.outliers import pack_outlier_meta
+from ..core.pipeline import (SparsifyConfig, fit_config, map_leaves,
+                             sparsify_linear)
 from ..kernels.fused_sparse_linear import fused_sparse_linear
 from ..kernels.nm_spmm import nm_spmm
 from ..kernels.ref import quantize_int8
@@ -110,21 +110,7 @@ def leaf_cfg(name: str, leaf, scfg: SparsifyConfig) -> SparsifyConfig | None:
         return None
     if not PRUNABLE.fullmatch(name.split("/")[-1]):
         return None
-    wp = parse_pattern(scfg.weight_pattern)
-    if leaf.shape[-1] % wp.m:
-        return None
-    if scfg.outlier_pattern is not None and leaf.shape[-1] % OUTLIER_M:
-        return dataclasses.replace(scfg, outlier_pattern=None)
-    return scfg
-
-
-def _walk(tree, prefix: str, fn):
-    """Apply ``fn(name, leaf)`` to every leaf of nested dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: _walk(v, f"{prefix}{k}/", fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_walk(v, f"{prefix}{i}/", fn) for i, v in enumerate(tree)]
-    return fn(prefix[:-1], tree)
+    return fit_config(leaf.shape[-1], scfg)
 
 
 def sparsify_for_serving(params, scfg: SparsifyConfig, stats_by_name=None,
@@ -148,6 +134,6 @@ def sparsify_for_serving(params, scfg: SparsifyConfig, stats_by_name=None,
         report["compressed_bytes"] += sw.deployed_bytes()
         return sw
 
-    new_params = _walk(params, "", convert)
+    new_params = map_leaves(params, convert)
     report["ratio"] = report["compressed_bytes"] / max(report["dense_bytes"], 1)
     return new_params, report

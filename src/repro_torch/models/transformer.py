@@ -12,6 +12,11 @@ lane) all write their fresh KV into the arena at the cursor (slot rows, or
 paged blocks through the block tables) and attend in place, with the cursor
 as a length mask.  A view with scale arenas (int8 KV) quantizes the fresh
 KV as it scatters it and dequantizes inside attention.
+
+``forward`` and ``loss_fn`` are the full-sequence entries of calibration
+and evaluation (``eval/harness.py``): each block attends over its own
+sequence with ``layers.sdpa``, and every projection goes through
+``layers.linear``, so ``SparseWeight`` params take the sparse kernels.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import math
 import torch
 
 from ..device import resolve
-from .layers import activation, apply_rope, attend_length_masked, linear, rms_norm
+from .layers import (activation, apply_rope, attend_length_masked, linear,
+                     rms_norm, sdpa)
 
 
 def _dense_init(out_dim: int, in_dim: int, dtype, generator, device):
@@ -152,3 +158,61 @@ def unified_step(params, view, batch, cfg):
     if quantized:
         arenas += (view.k_scale, view.v_scale)
     return linear(params["lm_head"], x), arenas
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward (calibration, evaluation)
+# --------------------------------------------------------------------------
+
+def _embed_inputs(params, batch):
+    """(x [B, S, d], positions [B, S]) of a token batch."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    return params["embed"][tokens], positions
+
+
+def block_forward(lp, x, positions, cfg, q_chunks: int = 1):
+    """One causal block over a full sequence.  Returns (y, (k, v))."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(lp, h, cfg, positions)
+    attn = sdpa(q, k, v, causal=True, window=cfg.window, q_chunks=q_chunks)
+    x = x + linear(lp["wo"], attn.reshape(*attn.shape[:2], -1))
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _mlp(lp, h, cfg), (k, v)
+
+
+def _auto_q_chunks(S: int) -> int:
+    return max(1, S // 4096) if S > 8192 else 1
+
+
+def forward(params, batch, cfg, collect_kv: bool = False):
+    """Full-sequence forward.  Returns (logits [B, S, V], caches): caches
+    are the stacked (k, v) [L, B, S, KV, hd] with ``collect_kv``, else
+    None."""
+    x, positions = _embed_inputs(params, batch)
+    q_chunks = _auto_q_chunks(x.shape[1])
+    kvs = []
+    for lp in params["layers"]:
+        x, kv = block_forward(lp, x, positions, cfg, q_chunks)
+        if collect_kv:
+            kvs.append(kv)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    caches = None
+    if collect_kv:
+        caches = (torch.stack([k for k, _ in kvs]),
+                  torch.stack([v for _, v in kvs]))
+    return linear(params["lm_head"], x), caches
+
+
+def loss_fn(params, batch, cfg):
+    """Mean next-token cross-entropy over labels >= 0, in f32.  Returns
+    (loss, aux); aux is empty for the dense family."""
+    logits, _ = forward(params, batch, cfg)
+    labels = batch["labels"]
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0)
+    return loss, {}

@@ -5,8 +5,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import dataclasses  # noqa: E402
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -156,20 +154,6 @@ def test_sparsify_for_serving_matches_jax(weight_pattern, outlier_pattern,
     assert isinstance(tparams["embed"], torch.Tensor)
 
 
-@pytest.mark.parametrize("scorer", ["wanda", "ria"])
-def test_unported_scorers_raise_naming_roadmap(scorer):
-    cfg = dataclasses.replace(_cfgs("8:16", None)[1], scorer=scorer)
-    with pytest.raises(NotImplementedError, match="A7"):
-        sparsify_linear(torch.zeros(16, 32), None, cfg)
-
-
-@pytest.mark.parametrize("field", ["use_smoothquant", "unstructured_outliers"])
-def test_unported_modes_raise_naming_roadmap(field):
-    cfg = dataclasses.replace(SparsifyConfig(), **{field: True})
-    with pytest.raises(NotImplementedError, match="A7"):
-        sparsify_linear(torch.zeros(16, 256), None, cfg)
-
-
 def test_only_dense_family_projections_are_sparsified():
     """Embed, lm_head, norms and leaves of unported families stay dense."""
     rng = np.random.default_rng(3)
@@ -178,9 +162,48 @@ def test_only_dense_family_projections_are_sparsified():
     tree = {"embed": to_torch(rng.standard_normal((64, 256)).astype(np.float32)),
             "layers": [{k: to_torch(rng.standard_normal((32, 256))
                                     .astype(np.float32)) for k in names}]}
-    sparse, report = sparsify_for_serving(tree, SparsifyConfig())
+    sparse, report = sparsify_for_serving(tree, _cfgs("8:16", "16:256")[1])
     kept = {k for k, v in sparse["layers"][0].items()
             if isinstance(v, torch.Tensor)}
     assert kept == {"lm_head", "in_proj", "ws_up", "attn_norm"}
     assert isinstance(sparse["embed"], torch.Tensor)
     assert report["n_layers_sparsified"] == 7
+
+
+# The first 16 hex digits of the sha256 over every leaf ``build_params``
+# deploys for the llama-paper smoke model from seed 0 on the CPU (names,
+# shapes, dtypes and bytes), as the serving path built them while the port's
+# SparsifyConfig defaulted to magnitude scores without SmoothQuant.  Since
+# the config took the reference's defaults (RIA + SmoothQuant), the CLI
+# passes magnitude and no SmoothQuant itself, as the JAX package's serve
+# does, and must build the same bytes.
+BUILD_DIGESTS = {(False, "16:256"): "47194b36455becd5",
+                 (False, "none"): "1824bfbcdfcc1a38",
+                 (True, "16:256"): "47c3e8f34ceca8f9",
+                 (True, "none"): "e96f2d4029157f69"}
+
+
+@pytest.mark.parametrize("quantize,outlier", sorted(BUILD_DIGESTS))
+def test_build_params_weights_unchanged(quantize, outlier):
+    import hashlib
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models.sparse_serving import SparseWeight
+
+    args = serve.parse_args(["--arch", "llama-paper", "--smoke-arch",
+                             "--sparse", "--device", "cpu",
+                             "--outlier-pattern", outlier])
+    params, _ = serve.build_params(get_smoke("llama-paper"), args,
+                                   torch.device("cpu"),
+                                   torch.Generator().manual_seed(0),
+                                   quantize=quantize)
+    h = hashlib.sha256()
+    for lp in params["layers"]:
+        for name in sorted(lp):
+            leaf = lp[name]
+            for t in (leaf.buffers() if isinstance(leaf, SparseWeight)
+                      else (leaf,)):
+                h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+                h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    assert h.hexdigest()[:16] == BUILD_DIGESTS[(quantize, outlier)]

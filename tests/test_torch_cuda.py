@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card, bf16 and int8 variants: each against
-its plain version at small and ragged shapes (M, N and K not multiples of
-the tiles), and the wrappers' refusals — a CUDA tensor reaching a wrapper launches the kernel or
-raises, it never falls back to the plain version.
+"""The port's CUDA kernels on the card, bf16 and int8 variants and
+``outlier_spmm``: each against its plain version at small and ragged shapes
+(M, N and K not multiples of the tiles), ``kernels/ops`` and the paper's
+pipeline on the card, and the wrappers' refusals — a CUDA tensor reaching
+a wrapper launches the kernel or raises, it never falls back to the plain
+version.
 
 Needs a card and nvcc; skips elsewhere.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
@@ -38,7 +40,8 @@ def _sparse(N, K, weight_pattern, outlier_pattern, seed, device,
     w = (torch.randn((N, K), generator=g, device=device)
          / math.sqrt(K)).to(torch.bfloat16)
     cfg = SparsifyConfig(weight_pattern=weight_pattern,
-                         outlier_pattern=outlier_pattern)
+                         outlier_pattern=outlier_pattern, scorer="magnitude",
+                         use_smoothquant=False)
     return to_sparse_weight(w, cfg, quantize=quantize), g
 
 
@@ -410,3 +413,128 @@ def test_int8_engine_runs_the_int8_kernels(cuda, kv_layout):
     want_pa = cfg.n_layers * calls if kv_layout == "paged" else 0
     assert delta == [0, 0, 0, without_o * calls, with_o * calls, want_pa]
     assert st["pool"]["kv_dtype"] == "int8" and st["pool"]["scale_bytes"] > 0
+
+
+# ----------------------------------------------------- outlier_spmm and ops
+
+def _outliers(N, K, n, g, device):
+    """Random N:256 outliers: distinct ascending indices per group, index
+    255 in the last slot of a few groups (the top byte of a word, which
+    makes it negative)."""
+    from repro_torch.core import pack_outlier_meta
+    groups = K // 256
+    idx = torch.rand((N, groups, 256), generator=g, device=device)
+    idx = torch.sort(idx.argsort(-1)[..., :n], dim=-1).values.int()
+    idx[::7, :, -1] = 255
+    vals = torch.randn((N, groups, n), generator=g, device=device)
+    return vals.to(torch.bfloat16), pack_outlier_meta(idx)
+
+
+@pytest.mark.parametrize("o_n", [4, 8, 16])
+@pytest.mark.parametrize("N,K", [(96, 4096), (1000, 4096), (70, 14336),
+                                 (37, 512)])
+@pytest.mark.parametrize("M", [1, 7, 37, 130])
+def test_outlier_spmm_matches_plain(cuda, M, N, K, o_n):
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(M * N + o_n)
+    vals, meta = _outliers(N, K, o_n, g, cuda)
+    assert bool((meta < 0).any())
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    before = osp.launches
+    y = osp.outlier_spmm(x, vals, meta, n=o_n)
+    assert osp.launches == before + 1
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    _close(y, osp.plain(x, vals, meta, n=o_n))
+
+
+def test_outlier_spmm_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vals, meta = _outliers(64, 512, 8, g, cuda)
+    x = torch.randn((4, 512), generator=g, device=cuda).to(torch.bfloat16)
+    before = osp.launches
+    with pytest.raises(TypeError):                      # f32 x on CUDA
+        osp.outlier_spmm(x.float(), vals, meta, n=8)
+    with pytest.raises(TypeError):                      # f32 values
+        osp.outlier_spmm(x, vals.float(), meta, n=8)
+    with pytest.raises(TypeError):                      # int64 meta
+        osp.outlier_spmm(x, vals, meta.long(), n=8)
+    with pytest.raises(ValueError):                     # values on the CPU
+        osp.outlier_spmm(x, vals.cpu(), meta, n=8)
+    with pytest.raises(ValueError):                     # not contiguous
+        osp.outlier_spmm(x, vals.transpose(0, 1).contiguous()
+                         .transpose(0, 1), meta, n=8)
+    with pytest.raises(ValueError):                     # K % 256
+        osp.outlier_spmm(x[:, :384], vals, meta, n=8)
+    with pytest.raises(ValueError):                     # n does not match
+        osp.outlier_spmm(x, vals, meta, n=4)
+    with pytest.raises(ValueError):                     # not 8-byte aligned
+        flat = torch.empty(vals.numel() + 1, dtype=torch.bfloat16,
+                           device=cuda)
+        osp.outlier_spmm(x, flat[1:].view(vals.shape), meta, n=8)
+    assert osp.launches == before
+
+
+@pytest.mark.parametrize("o_pattern", ["4:256", "16:256"])
+def test_ops_on_cuda_launch_the_kernels(cuda, o_pattern):
+    """``kernels/ops`` on the pipeline's output (RIA + SmoothQuant + VC on
+    the card): each entry point launches its kernel once and agrees with
+    its plain version; the unfused pair agrees with the fused kernel to the
+    two extra bf16 roundings of the partial products and their bf16 sum."""
+    from repro_torch.core import ActStats, sparsify_linear
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = (torch.randn((200, 1024), generator=g, device=cuda) / 32).to(
+        torch.bfloat16)
+    st = ActStats.init(1024, device=cuda).update(
+        torch.randn((64, 1024), generator=g, device=cuda))
+    sl = sparsify_linear(w, st, SparsifyConfig(outlier_pattern=o_pattern))
+    x = torch.randn((2, 9, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    counts = lambda: (nms.launches, osp.launches, fsl.launches)  # noqa: E731
+    before = counts()
+    y_nm = ops.nm_matmul(x[0], sl.nm)
+    y_o = ops.outlier_matmul(x[0], sl.outliers)
+    y = ops.sparse_linear_apply(x, sl.nm, sl.outliers)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1]
+    torch.cuda.synchronize()
+    assert y.shape == (2, 9, 200)
+    ref, xc = _to_cpu(sl), x[0].cpu()        # the plain versions
+    _close(y_o.cpu(), ops.outlier_matmul(xc, ref.outliers))
+    _close(y_nm.cpu(), ops.nm_matmul(xc, ref.nm))
+    _close(y[0].cpu(), ops.sparse_linear_apply(xc, ref.nm, ref.outliers))
+    pair = y_nm + y_o
+    tol = TOL_REL * float(y_nm.float().abs().max() + y_o.float().abs().max()
+                          + y[0].float().abs().max())
+    assert float((pair.float() - y[0].float()).abs().max()) <= tol
+
+
+def _to_cpu(sl):
+    import dataclasses
+    return dataclasses.replace(
+        sl, nm=dataclasses.replace(sl.nm, values=sl.nm.values.cpu(),
+                                   indices=sl.nm.indices.cpu()),
+        outliers=dataclasses.replace(sl.outliers,
+                                     values=sl.outliers.values.cpu(),
+                                     indices=sl.outliers.indices.cpu()),
+        nm_mask=sl.nm_mask.cpu(), salient_mask=sl.salient_mask.cpu())
+
+
+def test_pipeline_on_cuda_matches_cpu(cuda):
+    """The paper's pipeline (RIA + SmoothQuant + VC) on the card against the
+    same pipeline on the CPU, from the same bf16 weights and statistics:
+    only reduction orders differ, so all but near-tied indices agree."""
+    from repro_torch.core import ActStats, sparsify_linear
+    g = torch.Generator(device=cuda).manual_seed(6)
+    w = (torch.randn((512, 2048), generator=g, device=cuda) / 45).to(
+        torch.bfloat16)
+    st = ActStats.init(2048, device=cuda).update(
+        torch.randn((256, 2048), generator=g, device=cuda))
+    st_cpu = ActStats(st.sq_sum.cpu(), st.max_abs.cpu(), st.count.cpu())
+    for cfg in (SparsifyConfig(), SparsifyConfig(unstructured_outliers=True)):
+        a = sparsify_linear(w, st, cfg)
+        b = sparsify_linear(w.cpu(), st_cpu, cfg)
+        assert (a.nm.indices.cpu() == b.nm.indices).float().mean() >= 0.999
+        assert (a.salient_mask.cpu() == b.salient_mask).float().mean() \
+            >= 0.999

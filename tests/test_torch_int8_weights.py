@@ -107,7 +107,9 @@ def test_to_sparse_weight_quantized_matches_jax(outlier_pattern, dtype):
     w = _weight(2, dtype)
     jsw = _to_sparse_weight(w, _jcfg(outlier_pattern), quantize=True)
     tsw = to_sparse_weight(to_torch(np.asarray(w)),
-                           SparsifyConfig(outlier_pattern=outlier_pattern),
+                           SparsifyConfig(outlier_pattern=outlier_pattern,
+                                          scorer="magnitude",
+                                          use_smoothquant=False),
                            quantize=True)
     assert tsw.nm_values.dtype == torch.int8 and tsw.nm_values.is_contiguous()
     np.testing.assert_array_equal(tsw.nm_meta.numpy(), np.asarray(jsw.nm_meta))
@@ -209,8 +211,9 @@ def test_sparsify_for_serving_quantized_report_matches_jax(dtype):
     jtree, ttree = _trees(getattr(jnp, dtype))
     jparams, jrep = jax_sparsify_for_serving(jtree, _jcfg("16:256"),
                                              quantize=True)
-    tparams, trep = sparsify_for_serving(ttree, SparsifyConfig(),
-                                         quantize=True)
+    tparams, trep = sparsify_for_serving(
+        ttree, SparsifyConfig(scorer="magnitude", use_smoothquant=False),
+        quantize=True)
     assert trep["n_layers_sparsified"] == 2 * jrep["n_layers_sparsified"]
     for key in ("dense_bytes", "compressed_bytes", "ratio"):
         assert trep[key] == pytest.approx(jrep[key])

@@ -23,7 +23,9 @@ def _port_files():
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
             "build, repro_torch.serving, repro_torch.interchange, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.core.equalize, "
+            "repro_torch.kernels.ops, repro_torch.kernels.outlier_spmm, "
+            "repro_torch.data.pipeline, repro_torch.eval.harness\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n")
