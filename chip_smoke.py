@@ -6,7 +6,10 @@
 Phases, each a hard check (any failure exits non-zero and prints no result):
 
   1. device and build: the card's name and power limit; the CUDA kernels
-     built from ``src/repro_torch/csrc/`` into ``build/kernels/``;
+     built from ``src/repro_torch/csrc/`` into ``build/kernels/``; the
+     library's resource usage (``cuobjdump --dump-resource-usage``), gated
+     at no local memory (no spill) for the fused decode kernel's 8:16 +
+     16:256 instantiations;
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -14,7 +17,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      N:M values, and int8 values quantized from the same draws), timed with
      CUDA events beside the plain version, one ``F.linear`` on the
      densified weight (the library yardstick, never called by the port) and
-     the card's bound;
+     the card's bound.  The fused wrapper takes its decode kernel
+     (``csrc/fused_sparse_linear.cu``) at M <= T and the tile kernel
+     (``csrc/sparse_linear.cu``) above; at M <= T two calls must give the
+     same bits, and the tile kernel is timed beside it (``tile_ms``,
+     reported).  Then the sweep that sets T: both fused kernels, both
+     variants, at w_gate and w_down for M in ``SWEEP_MS``, each case gated
+     against the plain version, the times reported;
   3. a small-model reference check: the llama-paper smoke model served one
      step on the card (bf16, kernels), on the slot layout and on shuffled
      paged blocks, against the same weights in f32 on the CPU (plain
@@ -90,8 +99,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            dense-effective params' (``torch.matmul``) on one batch.
 
 Prints the kernels line ``{"kernels": [...]}`` (seven entries: the three
-serving kernels' bf16 and int8 variants, and ``outlier_spmm``), the serve
-numbers, the
+serving kernels' bf16 and int8 variants, and ``outlier_spmm``; each fused
+entry names both its sources and splits its cases and launches by path),
+the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -102,6 +112,8 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +124,9 @@ BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
 PROJECTIONS = [("wq/wo", 4096, 4096), ("wk/wv", 1024, 4096),
                ("w_gate/w_up", 14336, 4096), ("w_down", 4096, 14336)]
 MS = [1, 8, 37, 512]
+# the sweep that sets the fused kernel's threshold T (w_gate, w_down)
+SWEEP_PROJ = [("w_gate/w_up", 14336, 4096), ("w_down", 4096, 14336)]
+SWEEP_MS = [1, 2, 4, 8, 12, 16, 24, 32, 37, 48, 64]
 # Kernel vs plain: both multiply exact bf16 products and accumulate in f32;
 # only the summation order and the final rounding to bf16 differ, so they
 # may differ by one bf16 ulp of an output, at most 2**-7 of the largest
@@ -258,11 +273,120 @@ def weight_case(timer, log, name, proj, x, sw, kernel_fn, plain_fn):
             "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
             "library_ms": timer.ms(lambda: F.linear(x, dense), 20),
             "bound_ms": b_ms, "bound_by": b_by}
+    tile = ""
+    if sw.o_values is not None:
+        # the fused wrapper's path; at M <= T the same inputs twice give the
+        # same bits, and the tile kernel is timed beside the decode kernel
+        from repro_torch.kernels import fused_sparse_linear as fsl
+        p = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch))
+        case["path"] = p.path
+        if p.path == "decode":
+            again = kern()
+            torch.cuda.synchronize()
+            check(torch.equal(y, again),
+                  f"{name} {proj} M={M}: two calls give different bits")
+            tile_plan = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch),
+                                 decode_max_m=0)
+            case.update(splits=p.splits, rows=p.rows, tile_ms=timer.ms(
+                lambda: kernel_fn(x, *bufs, force_plan=tile_plan, **kw), 20))
+            tile = f"  tile {case['tile_ms']:.4f} (S={p.splits})"
     log(f"  {name:25s} {proj:12s} M={M:4d}: err {err:.2e} "
         f"(tol {tol:.2e})  kernel {case['ms']:.4f} ms  plain "
         f"{case['plain_ms']:.4f}  F.linear "
-        f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+        f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by}){tile}")
     return case
+
+
+def sm_count(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def sweep_phase(torch, timer, log):
+    """The fused wrapper's decode kernel and tile kernel side by side, each
+    forced by its plan, bf16 and int8 values, at w_gate and w_down for every
+    M of ``SWEEP_MS``; every case is gated against the plain version.  T
+    is the largest M at which the decode kernel was no slower than the tile
+    kernel in all four (projection, variant) cases."""
+    from repro_torch.core import SparsifyConfig
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.models.sparse_serving import to_sparse_weight
+
+    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256",
+                          scorer="magnitude", use_smoothquant=False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for proj, N, K in SWEEP_PROJ:
+        w = (torch.randn((N, K), generator=g, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        for variant, sw in (("bf16", to_sparse_weight(w, scfg)),
+                            ("int8", to_sparse_weight(w, scfg,
+                                                      quantize=True))):
+            bufs = (sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta)
+            kw = dict(n=sw.n, m=sw.m, o_n=sw.o_n, scale=sw.v_scale)
+            for M in SWEEP_MS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                plans = {path: fsl.plan(M, K, N, sw.n, sw.m, sw.o_n,
+                                        sm_count(torch), decode_max_m=limit)
+                         for path, limit in (("decode", max(SWEEP_MS)),
+                                             ("tile", 0))}
+                y_plain = fsl.plain(x, *bufs, **kw)
+                tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
+                case = {"proj": proj, "variant": variant, "M": M,
+                        "splits": plans["decode"].splits,
+                        "rows": plans["decode"].rows}
+                for path, pl in plans.items():
+                    def run(pl=pl):
+                        return fsl.fused_sparse_linear(x, *bufs, force_plan=pl,
+                                                       **kw)
+                    y = run()
+                    torch.cuda.synchronize()
+                    err = float((y.float() - y_plain.float()).abs().max())
+                    check(bool(torch.isfinite(y).all()) and err <= tol,
+                          f"sweep {proj} {variant} M={M} {path}: max|kernel-"
+                          f"plain| {err:.3e} > tol {tol:.3e}")
+                    case[f"{path}_ms"] = timer.ms(run, 20)
+                    case[f"{path}_err"] = err
+                cases.append(case)
+                log(f"  sweep {proj:12s} {variant} M={M:3d}: decode "
+                    f"{case['decode_ms']:.4f} ms (S={case['splits']}, "
+                    f"R={case['rows']})  tile {case['tile_ms']:.4f}")
+            del sw, bufs
+        del w
+    faster = [M for M in SWEEP_MS
+              if all(c["decode_ms"] <= c["tile_ms"] for c in cases
+                     if c["M"] == M)]
+    out = {"T_measured": max(faster) if faster else 0,
+           "T_in_module": fsl.DECODE_MAX_M,
+           "decode_no_slower_at": faster, "cases": cases}
+    log(f"  sweep: decode no slower than tile at M in {faster}; T measured "
+        f"{out['T_measured']}, module T {fsl.DECODE_MAX_M}")
+    return out
+
+
+def resource_usage(lib_path, log):
+    """Registers, stack, shared and local memory of every kernel of the
+    built library (``cuobjdump --dump-resource-usage``); gates no local
+    memory and no stack (no spill) for the fused decode kernel's 8:16 +
+    16:256 instantiations (three row counts, bf16 and int8)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    found = re.findall(r"Function\s+(\S+?):\s*REG:(\d+)\s+STACK:(\d+)\s+"
+                       r"SHARED:(\d+)\s+LOCAL:(\d+)", out.stdout)
+    kernels = {name: dict(zip(("reg", "stack", "shared", "local"),
+                              map(int, vals))) for name, *vals in found}
+    main = {k: v for k, v in kernels.items() if "fused_decode_816_kernel" in k}
+    check(len(main) == 6, f"cuobjdump shows {len(main)} fused_decode_816 "
+                          f"kernels, want 6:\n{out.stdout[-3000:]}")
+    for name, use in main.items():
+        check(use["local"] == 0 and use["stack"] == 0,
+              f"{name} uses local memory (spills): {use}")
+    decode = {k: v for k, v in kernels.items() if "fused_decode" in k}
+    log(f"  resource usage of {len(kernels)} kernels; fused decode: "
+        + json.dumps(decode))
+    return {"kernels": len(kernels), "fused_decode": decode}
 
 
 def kernel_phase(torch, timer, log):
@@ -301,16 +425,18 @@ def kernel_phase(torch, timer, log):
     return results
 
 
+# the fused wrapper's two kernels: decode (M <= T) and tile (M > T)
+FUSED_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T) + "
+                 "src/repro_torch/csrc/sparse_linear.cu (M > T)")
 KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
     "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
-                            "src/repro_torch/csrc/sparse_linear.cu"),
+                            FUSED_SOURCES),
     "nm_spmm": ("src/repro/kernels/nm_spmm.py:86",
                 "src/repro_torch/csrc/sparse_linear.cu"),
     "paged_attention": ("src/repro/serving/paged/paged_attention.py:180",
                         "src/repro_torch/csrc/paged_attention.cu"),
     "fused_sparse_linear_int8": (
-        "src/repro/kernels/fused_sparse_linear.py:50",
-        "src/repro_torch/csrc/sparse_linear.cu"),
+        "src/repro/kernels/fused_sparse_linear.py:50", FUSED_SOURCES),
     "nm_spmm_int8": ("src/repro/kernels/nm_spmm.py:63",
                      "src/repro_torch/csrc/sparse_linear.cu"),
     "paged_attention_int8": (
@@ -330,23 +456,38 @@ def outlier_bound(M, N, K, n):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_entry(name, cases, launches):
+def case_sums(cases):
+    """Times summed over ``cases``; the bound is bytes-bound if most of its
+    time is."""
     b_bytes = sum(c["bound_ms"] for c in cases if c["bound_by"] == "bytes")
     b_ops = sum(c["bound_ms"] for c in cases if c["bound_by"] != "bytes")
+    out = {"ms": sum(c["ms"] for c in cases),
+           "plain_ms": sum(c["plain_ms"] for c in cases),
+           "bound_ms": b_bytes + b_ops,
+           "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+           "library_ms": sum(c["library_ms"] for c in cases)}
+    if cases and all("tile_ms" in c for c in cases):
+        out["tile_ms"] = sum(c["tile_ms"] for c in cases)
+    return out
+
+
+def kernel_entry(name, cases, launches, launches_decode=None):
+    """One entry of the kernels line; times are sums over the cases (16
+    (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
+    attention, for each variant; 48 (projection, pattern, M) cases of
+    outlier_spmm in phase 8(d)).  A fused entry also splits its cases and
+    its main-path launches by path: decode (M <= T) and tile (M > T)."""
     replaces, source = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            # times are sums over the cases below (16 (projection, M) cases
-            # of a weight kernel, the 4 phase-2b cases of paged attention,
-            # for each variant; 48 (projection, pattern, M) cases of
-            # outlier_spmm in phase 8(d))
-            "ms": sum(c["ms"] for c in cases),
-            "plain_ms": sum(c["plain_ms"] for c in cases),
-            "bound_ms": b_bytes + b_ops,
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": sum(c["library_ms"] for c in cases),
-            "cases": cases}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max(c["max_abs_err"] for c in cases),
+             **case_sums(cases), "cases": cases}
+    if launches_decode is not None:
+        for path, n in (("decode", launches_decode),
+                        ("tile", launches - launches_decode)):
+            part = [c for c in cases if c.get("path") == path]
+            entry[path] = dict(case_sums(part), launches=n, cases=len(part))
+    return entry
 
 
 # ------------------------------------------------------------------ model
@@ -568,6 +709,8 @@ def paged_attention_phase(torch, timer, log):
 
 
 def _kernel_class(name: str) -> str:
+    if "fused_decode" in name:
+        return "fused_decode"
     if "sparse_linear_kernel" in name:
         return "sparse_linear"
     if "paged_attention_kernel" in name:
@@ -687,7 +830,10 @@ def _counters():
     return [(name + suffix, mod, "launches" + suffix)
             for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                               ("paged_attention", pa))
-            for suffix in ("", "_int8")] + [("outlier_spmm", osp, "launches")]
+            for suffix in ("", "_int8")] + [
+        ("fused_sparse_linear_decode" + suffix, fsl,
+         "launches_decode" + suffix) for suffix in ("", "_int8")] + [
+        ("outlier_spmm", osp, "launches")]
 
 
 def reset_launches():
@@ -750,10 +896,22 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
             "_int8" if engine.kv_dtype == "int8" else "")
         want[attn_key] = cfg.n_layers * calls
     for key, n in launches.items():
+        if key.startswith("fused_sparse_linear_decode"):
+            continue
         check(n == want.get(key, 0),
               f"{key} launched {n} times, want {want.get(key, 0)} "
               f"({cfg.n_layers} layers, {calls} model calls, "
               f"{engine.kv_layout} layout, {engine.kv_dtype} KV)")
+    # the fused wrapper's calls split by path: decode steps (M <= T) take
+    # the decode kernel, prefill chunks longer than T the tile kernel
+    for suffix in ("", "_int8"):
+        n = launches["fused_sparse_linear_decode" + suffix]
+        total = launches["fused_sparse_linear" + suffix]
+        if weight_key == "fused_sparse_linear" + suffix:
+            check(0 < n < total, f"fused decode kernel{suffix} launched {n} "
+                                 f"of the wrapper's {total} launches")
+        else:
+            check(n == 0, f"fused decode kernel{suffix} launched {n} times")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
@@ -1204,7 +1362,9 @@ def ops_phase(torch, timer, log, lp, st):
             del o, nm, vals, meta, nm_meta, dense_o
     n16 = len(OPS_PROJ) * len(MS)
     want = {"outlier_spmm": len(OPS_PATTERNS) * n16, "nm_spmm": n16,
-            "fused_sparse_linear": n16}
+            "fused_sparse_linear": n16,
+            "fused_sparse_linear_decode": len(OPS_PROJ) * sum(
+                M <= fsl.DECODE_MAX_M for M in MS)}
     for key, n in launches.items():
         check(n == want.get(key, 0),
               f"ops path: {key} launched {n} times, want {want.get(key, 0)}")
@@ -1320,11 +1480,15 @@ def main() -> int:
     build.library()
     log(f"phase 1 build: {lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.1f}s")
+    resources = resource_usage(lib, log)
 
     timer = Timer(torch)
     log("phase 2 weight kernels vs plain versions (bf16 and int8 values, L2 "
         "flushed per call)")
     cases = kernel_phase(torch, timer, log)
+    log("phase 2 sweep: fused decode kernel vs tile kernel, w_gate and "
+        "w_down")
+    sweep = sweep_phase(torch, timer, log)
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
@@ -1370,13 +1534,15 @@ def main() -> int:
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
-                     main_launches["fused_sparse_linear"]),
+                     main_launches["fused_sparse_linear"],
+                     main_launches["fused_sparse_linear_decode"]),
         kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"]),
         kernel_entry("paged_attention", attn_cases,
                      paged_launches["paged_attention"]),
         kernel_entry("fused_sparse_linear_int8",
                      cases["fused_sparse_linear_int8"],
-                     int8_launches["fused_sparse_linear_int8"]),
+                     int8_launches["fused_sparse_linear_int8"],
+                     int8_launches["fused_sparse_linear_decode_int8"]),
         kernel_entry("nm_spmm_int8", cases["nm_spmm_int8"],
                      plain_launches8["nm_spmm_int8"]),
         kernel_entry("paged_attention_int8", attn_cases8,
@@ -1390,7 +1556,8 @@ def main() -> int:
               "serve_int8_paged": int8_serve, "pipeline": pipeline}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
-         "kernels": kernels["kernels"], "small_model": small, **serves},
+         "kernels": kernels["kernels"], "resources": resources,
+         "fused_sweep": sweep, "small_model": small, **serves},
         indent=1))
     print(json.dumps(serves))
     print(json.dumps(kernels))

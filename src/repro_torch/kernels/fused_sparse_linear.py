@@ -3,18 +3,32 @@
 Port of the Pallas TPU kernel ``repro/kernels/fused_sparse_linear.py:75``
 (``fused_sparse_linear``: ``_kernel`` :31 for bf16 values, ``_kernel_int8``
 :50 for int8 values with a per-row scale).  y = x @ (W_nm + O)^T in one
-pass: both compressed streams are decompressed into the same shared-memory
-tile of the hand-written Hopper kernel (``csrc/sparse_linear.cu``,
-OUTLIERS=true), so x is read once and y written once.  int8 N:M values are
-dequantized by their row's scale as they land in the tile, and the exact
-outliers are added after, unscaled.  On a CPU tensor the wrapper runs
+pass, x read once and y written once, by one of two hand-written Hopper
+kernels that ``plan`` picks by the number of rows M of x:
+
+- M <= ``DECODE_MAX_M`` (T, decode): ``csrc/fused_sparse_linear.cu``.  The
+  lanes of a warp decompress consecutive N:M blocks and the outliers of one
+  output row in registers and gather x from a shared-memory slice; K is
+  split into slices on multiples of 256, and the partial sums are reduced
+  in split order by the last block to arrive, through a workspace cached
+  per device.
+- M > T (prefill chunks): ``csrc/sparse_linear.cu`` (OUTLIERS=true), which
+  decompresses each 256-wide K step into a shared-memory tile and runs bf16
+  tensor-core products.
+
+Both dequantize int8 N:M values by their row's scale, rounded once to bf16,
+and add the exact outliers unscaled.  On a CPU tensor the wrapper runs
 ``plain``.
 
-Layout: nm_values [out, in*n/m] bf16, or int8 with ``scale`` [out] f32;
-nm_meta [out, in/m] int32 (4-bit indices); o_values [out, in/256, o_n]
-bf16; o_meta [out, in/256, o_n/4] int32 (8-bit indices).  in % 256 == 0.
+Layout: nm_values [out, in*n/m] bf16 (16-byte aligned), or int8 (8-byte
+aligned) with ``scale`` [out] f32; nm_meta [out, in/m] int32 (4-bit
+indices); o_values [out, in/256, o_n] bf16; o_meta [out, in/256, o_n/4]
+int32 (8-bit indices).  in % 256 == 0.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -25,10 +39,68 @@ from .nm_spmm import check_cuda_operands
 from .ref import fused_sparse_linear_ref
 
 launches = 0
-"""Launches of the bf16 kernel made through ``fused_sparse_linear`` (plain
-runs are not counted)."""
+"""Launches of the bf16 kernels (either path) made through
+``fused_sparse_linear`` (plain runs are not counted)."""
 launches_int8 = 0
-"""Launches of the int8 kernel made through ``fused_sparse_linear``."""
+"""Launches of the int8 kernels made through ``fused_sparse_linear``."""
+launches_decode = 0
+"""Of ``launches``, those of the decode kernel (M <= T)."""
+launches_decode_int8 = 0
+"""Of ``launches_int8``, those of the decode kernel (M <= T)."""
+
+DECODE_MAX_M = 24
+"""T: the largest M that takes the decode kernel: the largest M at which it
+was no slower than the tile kernel at w_gate and w_down, bf16 and int8, in
+the sweep of ``chip_smoke.py``'s phase 2 on an H100 (PERF.md)."""
+BLOCK_ROWS = 32
+"""Output rows of one decode block: 8 warps of 4 rows
+(``kBlockRows`` in ``csrc/fused_sparse_linear.cu``)."""
+X_SLICE_BYTES = 32768
+"""Shared memory a decode block stages its x slice in, [columns][R rows]
+bf16 (``kMaxSliceBytes``): it bounds the columns per split."""
+BLOCKS_PER_SM = 2
+"""The split aims at this many decode blocks per SM."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    path: str             # "decode" (fused_sparse_linear.cu) or "tile"
+    rows: int             # x rows per block: R = 2, 4 or 8; tile: 16 or 64
+    splits: int           # S slices of K (always 1 for "tile")
+    k_per_split: int      # columns per slice, a multiple of 256
+    workspace_bytes: int  # f32 partials [S, M, N]; 0 when S == 1
+    blocks: int           # the grid
+    counters: int         # int32 arrival counters, one per output tile
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
+         *, decode_max_m: int = DECODE_MAX_M) -> Plan:
+    """How ``fused_sparse_linear`` computes an [M, K] x [N, K]^T product on
+    a card with ``sm_count`` SMs.  For M <= ``decode_max_m`` the decode
+    kernel: R x rows per block (x tiles of R rows beyond 8), and the fewest
+    splits S of K on multiples of 256 that give ``BLOCKS_PER_SM`` blocks per
+    SM and keep each slice within ``X_SLICE_BYTES``; the slices are equal
+    but for the last.  Otherwise the tile kernel."""
+    if K % OUTLIER_M or M < 1 or N < 1:
+        raise ValueError(f"plan needs in % 256 == 0 and M, N >= 1; got "
+                         f"M={M}, in={K}, out={N}")
+    if M > decode_max_m:
+        bm = 16 if M <= 16 else 64
+        return Plan("tile", bm, 1, K, 0, -(-N // 64) * -(-M // bm), 0)
+    rows = 2 if M <= 2 else 4 if M <= 4 else 8
+    tiles = -(-M // rows)
+    row_blocks = -(-N // BLOCK_ROWS)
+    groups = K // OUTLIER_M
+    max_groups = max(1, X_SLICE_BYTES // (2 * rows) // OUTLIER_M)
+    want = -(-BLOCKS_PER_SM * sm_count // (row_blocks * tiles))
+    splits = min(groups, max(want, -(-groups // max_groups)))
+    per = -(-groups // splits)
+    splits = -(-groups // per)
+    return Plan("decode", rows, splits, per * OUTLIER_M,
+                splits * M * N * 4 if splits > 1 else 0,
+                row_blocks * tiles * splits,
+                row_blocks * tiles if splits > 1 else 0)
 
 
 def plain(x: torch.Tensor, nm_values: torch.Tensor, nm_meta: torch.Tensor,
@@ -42,13 +114,35 @@ def plain(x: torch.Tensor, nm_values: torch.Tensor, nm_meta: torch.Tensor,
                                    scale=scale)
 
 
+_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(device: torch.device, p: Plan):
+    """The decode kernel's workspace and counters on ``device``: cached and
+    grown when a plan needs more, so a call allocates nothing and launches
+    no memset (the counters are zeroed once, when allocated, and each launch
+    leaves them 0).  Launches on one device share them, so they must be
+    ordered, as on one stream."""
+    ws, cnt = _scratch.get(device.index, (None, None))
+    if ws is None or ws.numel() * 4 < p.workspace_bytes:
+        ws = torch.empty(max(p.workspace_bytes // 4, 1), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < p.counters:
+        cnt = torch.zeros(max(p.counters, 1), dtype=torch.int32,
+                          device=device)
+    _scratch[device.index] = (ws, cnt)
+    return ws, cnt
+
+
 def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
                         nm_meta: torch.Tensor, o_values: torch.Tensor,
                         o_meta: torch.Tensor, *, n: int, m: int, o_n: int,
-                        scale: torch.Tensor | None = None) -> torch.Tensor:
+                        scale: torch.Tensor | None = None,
+                        force_plan: Plan | None = None) -> torch.Tensor:
     """y[b, out] = x[b, in] @ (W_nm + O)^T, y in x's dtype.  ``scale``
-    [out] f32 dequantizes int8 ``nm_values``; None for bf16."""
-    global launches, launches_int8
+    [out] f32 dequantizes int8 ``nm_values``; None for bf16.  ``force_plan``
+    replaces ``plan``'s choice (to time one kernel against the other)."""
+    global launches, launches_int8, launches_decode, launches_decode_int8
     if not x.is_cuda:
         return plain(x, nm_values, nm_meta, o_values, o_meta, n=n, m=m,
                      o_n=o_n, scale=scale)
@@ -56,6 +150,8 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
     if K % OUTLIER_M or o_n % 4 or not 0 < o_n <= OUTLIER_M:
         raise ValueError(f"fused kernel needs in % 256 == 0 and o_n a "
                          f"positive multiple of 4; got in={K}, o_n={o_n}")
+    if scale is None and nm_values.data_ptr() % 16:
+        raise ValueError("bf16 values must be 16-byte aligned")
     groups = K // OUTLIER_M
     for name, t, shape, dtype in (
             ("o_values", o_values, (N, groups, o_n), torch.bfloat16),
@@ -70,19 +166,33 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
+    p = force_plan or plan(M, K, N, n, m, o_n, _sm_count(x.device))
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if scale is None:
-        status = lib.fused_sparse_linear_bf16(
-            x.data_ptr(), nm_values.data_ptr(), nm_meta.data_ptr(),
-            o_values.data_ptr(), o_meta.data_ptr(), y.data_ptr(),
-            M, K, N, n, m, o_n, stream)
-        launches += 1
+    ptrs = [x.data_ptr(), nm_values.data_ptr(), nm_meta.data_ptr(),
+            o_values.data_ptr(), o_meta.data_ptr()]
+    if scale is not None:
+        ptrs.append(scale.data_ptr())
+    suffix = "_bf16" if scale is None else "_int8"
+    if p.path == "decode":
+        ws, cnt = _scratch_for(x.device, p)
+        status = getattr(lib, "fused_sparse_linear_decode" + suffix)(
+            *ptrs, y.data_ptr(), ws.data_ptr(), cnt.data_ptr(), M, K, N, n,
+            m, o_n, p.rows, p.splits, p.k_per_split, stream)
     else:
-        status = lib.fused_sparse_linear_int8(
-            x.data_ptr(), nm_values.data_ptr(), nm_meta.data_ptr(),
-            o_values.data_ptr(), o_meta.data_ptr(), scale.data_ptr(),
-            y.data_ptr(), M, K, N, n, m, o_n, stream)
+        status = getattr(lib, "fused_sparse_linear" + suffix)(
+            *ptrs, y.data_ptr(), M, K, N, n, m, o_n, stream)
+    decode = p.path == "decode"
+    if scale is None:
+        launches += 1
+        launches_decode += decode
+    else:
         launches_int8 += 1
-    build.check(status, "fused_sparse_linear")
+        launches_decode_int8 += decode
+    build.check(status, f"fused_sparse_linear ({p.path})")
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -8,6 +8,7 @@ version.
 Needs a card and nvcc; skips elsewhere.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
+import dataclasses
 import math
 
 import pytest
@@ -123,6 +124,162 @@ def test_int8_zero_row_and_exact_outliers(cuda):
     torch.cuda.synchronize()
     assert not y[:, 3].any()
     _close(y, fsl.plain(*args, **kw))
+
+
+# ------------------------------------- the fused kernel's decode path (M <= T)
+T = fsl.DECODE_MAX_M
+
+
+def _fused_args(sw, x):
+    return ((x, sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta),
+            dict(n=sw.n, m=sw.m, o_n=sw.o_n, scale=sw.v_scale))
+
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("o_n", [4, 8, 16])
+@pytest.mark.parametrize("K", [256, 768, 14336])
+@pytest.mark.parametrize("N", [96, 200, 1024])
+@pytest.mark.parametrize("M", [1, 3, 8, T, T + 1])
+def test_fused_decode_matches_plain(cuda, M, N, K, o_n, quantize):
+    """At M <= T the decode kernel (``csrc/fused_sparse_linear.cu``), at
+    T + 1 the tile kernel; one launch counted per call either way."""
+    sw, g = _sparse(N, K, "8:16", f"{o_n}:256", M * 7 + N + K, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    p = fsl.plan(M, K, N, sw.n, sw.m, o_n, _sm_count())
+    assert p.path == ("decode" if M <= T else "tile")
+    before = (fsl.launches, fsl.launches_int8, fsl.launches_decode,
+              fsl.launches_decode_int8)
+    y = fsl.fused_sparse_linear(*args, **kw)
+    decode = int(p.path == "decode")
+    assert (fsl.launches, fsl.launches_int8, fsl.launches_decode,
+            fsl.launches_decode_int8) == (
+        before[0] + (not quantize), before[1] + quantize,
+        before[2] + decode * (not quantize), before[3] + decode * quantize)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("weight_pattern,o_n", [("4:8", 16), ("2:4", 4),
+                                                ("8:16", 32)])
+@pytest.mark.parametrize("M", [1, 8])
+def test_fused_decode_other_shapes_match_plain(cuda, M, weight_pattern, o_n,
+                                               quantize):
+    """Shapes other than 8:16 + 16:256 take the same kernel body with
+    runtime n, m and o_n (no plain fallback)."""
+    sw, g = _sparse(200, 1024, weight_pattern, f"{o_n}:256", M, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    before = fsl.launches_decode + fsl.launches_decode_int8
+    y = fsl.fused_sparse_linear(*args, **kw)
+    assert fsl.launches_decode + fsl.launches_decode_int8 == before + 1
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
+
+
+def _with_index_255(sw, g):
+    """Outlier indices with 255 in the last slot of every seventh row's
+    groups: the top byte of a meta word, which makes the int32 negative."""
+    from repro_torch.core import pack_outlier_meta
+    N, G, o_n = sw.o_values.shape
+    fresh = torch.rand((N, G, 256), generator=g, device=sw.o_values.device)
+    idx = torch.sort(fresh.argsort(-1)[..., :o_n], dim=-1).values.int()
+    idx[::7, :, -1] = 255
+    idx = torch.sort(idx, dim=-1).values
+    meta = pack_outlier_meta(idx)
+    assert bool((meta < 0).any())
+    return meta
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_fused_decode_index_255(cuda, M, quantize):
+    sw, g = _sparse(200, 768, "8:16", "16:256", 11 + M, cuda,
+                    quantize=quantize)
+    sw = dataclasses.replace(sw, o_meta=_with_index_255(sw, g))
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    y = fsl.fused_sparse_linear(*args, **kw)
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_fused_decode_int8_zero_row(cuda, M):
+    sw, g = _sparse(96, 768, "8:16", "16:256", 12 + M, cuda, quantize=True)
+    sw.nm_values[3] = 0
+    sw.v_scale[3] = 1.0
+    sw.o_values[3] = 0
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    assert fsl.plan(M, 768, 96, 8, 16, 16, _sm_count()).path == "decode"
+    y = fsl.fused_sparse_linear(*args, **kw)
+    torch.cuda.synchronize()
+    assert not y[:, 3].any()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M,N,K", [(8, 4096, 14336), (1, 1024, 4096),
+                                   (T, 200, 768)])
+def test_fused_decode_is_deterministic(cuda, M, N, K, quantize):
+    """Split-K partials are summed in split order by the last block: two
+    calls give the same bits (and leave the counters ready for a third)."""
+    sw, g = _sparse(N, K, "8:16", "16:256", 13, cuda, quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    assert fsl.plan(M, K, N, 8, 16, 16, _sm_count()).path == "decode"
+    ys = [fsl.fused_sparse_linear(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[1], ys[2])
+    _close(ys[0], fsl.plain(*args, **kw))
+
+
+def test_fused_decode_never_reaches_plain(cuda, monkeypatch):
+    """On a CUDA tensor at M <= T the wrapper launches the decode kernel;
+    the plain version is not called."""
+    cases = []
+    for quantize in (False, True):
+        sw, g = _sparse(200, 768, "8:16", "16:256", 14, cuda,
+                        quantize=quantize)
+        for M in (1, 8, T):
+            x = torch.randn((M, 768), generator=g, device=cuda).to(
+                torch.bfloat16)
+            args, kw = _fused_args(sw, x)
+            cases.append((args, kw, fsl.plain(*args, **kw)))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version was called on CUDA tensors")
+    monkeypatch.setattr(fsl, "plain", refuse)
+    monkeypatch.setattr(fsl, "fused_sparse_linear_ref", refuse)
+    before = fsl.launches_decode + fsl.launches_decode_int8
+    for args, kw, want in cases:
+        y = fsl.fused_sparse_linear(*args, **kw)
+        torch.cuda.synchronize()
+        _close(y, want)
+    assert fsl.launches_decode + fsl.launches_decode_int8 == before + 6
+
+
+def test_fused_raises_on_misaligned_bf16_values(cuda):
+    sw, g = _sparse(64, 256, "8:16", "16:256", 15, cuda)
+    x = torch.randn((4, 256), generator=g, device=cuda).to(torch.bfloat16)
+    flat = torch.zeros(sw.nm_values.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    values = flat[1:].view(sw.nm_values.shape)          # 2-byte offset
+    values.copy_(sw.nm_values)
+    before = (fsl.launches, fsl.launches_decode)
+    with pytest.raises(ValueError):
+        fsl.fused_sparse_linear(x, values, sw.nm_meta, sw.o_values,
+                                sw.o_meta, n=8, m=16, o_n=16)
+    assert (fsl.launches, fsl.launches_decode) == before
 
 
 def test_sparse_apply_routes_to_the_kernels(cuda):
