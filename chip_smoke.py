@@ -8,8 +8,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
   1. device and build: the card's name and power limit; the CUDA kernels
      built from ``src/repro_torch/csrc/`` into ``build/kernels/``; the
      library's resource usage (``cuobjdump --dump-resource-usage``), gated
-     at no local memory (no spill) for the fused decode kernel's 8:16 +
-     16:256 instantiations;
+     at no local memory (no spill) for the fused decode and prefill
+     kernels' 8:16 + 16:256 instantiations;
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -18,12 +18,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      CUDA events beside the plain version, one ``F.linear`` on the
      densified weight (the library yardstick, never called by the port) and
      the card's bound.  The fused wrapper takes its decode kernel
-     (``csrc/fused_sparse_linear.cu``) at M <= T and the tile kernel
-     (``csrc/sparse_linear.cu``) above; at M <= T two calls must give the
-     same bits, and the tile kernel is timed beside it (``tile_ms``,
-     reported).  Then the sweep that sets T: both fused kernels, both
-     variants, at w_gate and w_down for M in ``SWEEP_MS``, each case gated
-     against the plain version, the times reported;
+     (``csrc/fused_sparse_linear.cu``) at M <= T and its prefill kernel
+     (``csrc/fused_sparse_linear_prefill.cu``) above; two calls must give
+     the same bits, and the old tile kernel (``csrc/sparse_linear.cu``) is
+     timed beside either (``tile_ms``, reported).  Then the sweep that sets
+     T: the decode and prefill kernels and the old tile, both variants, at
+     w_gate and w_down for M in ``SWEEP_MS``, each case gated against the
+     plain version, the times reported;
   3. a small-model reference check: the llama-paper smoke model served one
      step on the card (bf16, kernels), on the slot layout and on shuffled
      paged blocks, against the same weights in f32 on the CPU (plain
@@ -48,8 +49,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
      kernel launching once per layer per model call:
-       (a) phase 4's traffic, with decode profile and greedy agreement with
-           phase 4's slot streams (reported, not gated);
+       (a) phase 4's traffic, with decode profile, prefill profile (one
+           512-token chunk: device ms and launches by kernel class, busy
+           share) and greedy agreement with phase 4's slot streams
+           (reported, not gated);
        (b) prefix sharing: 8 requests on one 512-token prefix in two waves of
            4, the second after the first wave's prefills; gates prefix-cache
            hits, hit tokens >= 4 x 512 and a copy-on-write;
@@ -98,9 +101,11 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            the compressed params' forward (fused kernel) against the
            dense-effective params' (``torch.matmul``) on one batch.
 
-Prints the kernels line ``{"kernels": [...]}`` (seven entries: the three
-serving kernels' bf16 and int8 variants, and ``outlier_spmm``; each fused
-entry names both its sources and splits its cases and launches by path),
+Every serve with a decode profile (4, 6(a), 7(a), 8(c)) also profiles one
+512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
+(seven entries: the three serving kernels' bf16 and int8 variants, and
+``outlier_spmm``; each fused entry names its sources and splits its cases
+and launches by path, decode and prefill),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -136,6 +141,8 @@ KERNEL_TOL_REL = 2.0 ** -7
 # reference; a wrong kernel gives errors of the order of the logits.
 MODEL_TOL_REL = 5e-2
 SERVE_PROMPT_LENS = [64, 160, 256, 352, 448, 544, 640, 768]
+# the prefill profile: one chunk of the serves' 512-token budget
+PREFILL_PROFILE_TOKENS = 512
 SERVE_GEN = 32
 # phase 5: the 4-layer plain 8:16 model, bf16 values and int8 values
 PLAIN_PROMPT_LENS = [128, 96, 200, 64]
@@ -275,21 +282,22 @@ def weight_case(timer, log, name, proj, x, sw, kernel_fn, plain_fn):
             "bound_ms": b_ms, "bound_by": b_by}
     tile = ""
     if sw.o_values is not None:
-        # the fused wrapper's path; at M <= T the same inputs twice give the
-        # same bits, and the tile kernel is timed beside the decode kernel
+        # the fused wrapper's path (decode at M <= T, prefill above): the
+        # same inputs twice give the same bits, and the old tile kernel is
+        # timed beside it on the same inputs
         from repro_torch.kernels import fused_sparse_linear as fsl
         p = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch))
         case["path"] = p.path
-        if p.path == "decode":
-            again = kern()
-            torch.cuda.synchronize()
-            check(torch.equal(y, again),
-                  f"{name} {proj} M={M}: two calls give different bits")
-            tile_plan = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch),
-                                 decode_max_m=0)
-            case.update(splits=p.splits, rows=p.rows, tile_ms=timer.ms(
-                lambda: kernel_fn(x, *bufs, force_plan=tile_plan, **kw), 20))
-            tile = f"  tile {case['tile_ms']:.4f} (S={p.splits})"
+        again = kern()
+        torch.cuda.synchronize()
+        check(torch.equal(y, again),
+              f"{name} {proj} M={M}: two calls give different bits")
+        forced = fsl.tile_plan(M, K, N)
+        case.update(splits=p.splits, rows=p.rows, cols=p.cols,
+                    tile_ms=timer.ms(lambda: kernel_fn(
+                        x, *bufs, force_plan=forced, **kw), 20))
+        tile = (f"  {p.path} {p.rows}x{p.cols} S={p.splits}  tile "
+                f"{case['tile_ms']:.4f}")
     log(f"  {name:25s} {proj:12s} M={M:4d}: err {err:.2e} "
         f"(tol {tol:.2e})  kernel {case['ms']:.4f} ms  plain "
         f"{case['plain_ms']:.4f}  F.linear "
@@ -302,11 +310,12 @@ def sm_count(torch) -> int:
 
 
 def sweep_phase(torch, timer, log):
-    """The fused wrapper's decode kernel and tile kernel side by side, each
-    forced by its plan, bf16 and int8 values, at w_gate and w_down for every
-    M of ``SWEEP_MS``; every case is gated against the plain version.  T
-    is the largest M at which the decode kernel was no slower than the tile
-    kernel in all four (projection, variant) cases."""
+    """The fused wrapper's decode kernel, prefill kernel and old tile kernel
+    side by side, each forced by its plan, bf16 and int8 values, at w_gate
+    and w_down for every M of ``SWEEP_MS``; every case is gated against the
+    plain version.  T is the largest M at which the decode kernel was no
+    slower than the prefill kernel in all four (projection, variant) cases;
+    the tile kernel is reported only."""
     from repro_torch.core import SparsifyConfig
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.models.sparse_serving import to_sparse_weight
@@ -329,12 +338,16 @@ def sweep_phase(torch, timer, log):
                 plans = {path: fsl.plan(M, K, N, sw.n, sw.m, sw.o_n,
                                         sm_count(torch), decode_max_m=limit)
                          for path, limit in (("decode", max(SWEEP_MS)),
-                                             ("tile", 0))}
+                                             ("prefill", 0))}
+                plans["tile"] = fsl.tile_plan(M, K, N)
                 y_plain = fsl.plain(x, *bufs, **kw)
                 tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
                 case = {"proj": proj, "variant": variant, "M": M,
                         "splits": plans["decode"].splits,
-                        "rows": plans["decode"].rows}
+                        "rows": plans["decode"].rows,
+                        "prefill_tiles": [plans["prefill"].rows,
+                                          plans["prefill"].cols,
+                                          plans["prefill"].splits]}
                 for path, pl in plans.items():
                     def run(pl=pl):
                         return fsl.fused_sparse_linear(x, *bufs, force_plan=pl,
@@ -350,25 +363,29 @@ def sweep_phase(torch, timer, log):
                 cases.append(case)
                 log(f"  sweep {proj:12s} {variant} M={M:3d}: decode "
                     f"{case['decode_ms']:.4f} ms (S={case['splits']}, "
-                    f"R={case['rows']})  tile {case['tile_ms']:.4f}")
+                    f"R={case['rows']})  prefill {case['prefill_ms']:.4f} "
+                    f"(BMxBN,S={case['prefill_tiles']})  tile "
+                    f"{case['tile_ms']:.4f}")
             del sw, bufs
         del w
     faster = [M for M in SWEEP_MS
-              if all(c["decode_ms"] <= c["tile_ms"] for c in cases
+              if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
                      if c["M"] == M)]
     out = {"T_measured": max(faster) if faster else 0,
            "T_in_module": fsl.DECODE_MAX_M,
            "decode_no_slower_at": faster, "cases": cases}
-    log(f"  sweep: decode no slower than tile at M in {faster}; T measured "
-        f"{out['T_measured']}, module T {fsl.DECODE_MAX_M}")
+    log(f"  sweep: decode no slower than prefill at M in {faster}; T "
+        f"measured {out['T_measured']}, module T {fsl.DECODE_MAX_M}")
     return out
 
 
 def resource_usage(lib_path, log):
     """Registers, stack, shared and local memory of every kernel of the
     built library (``cuobjdump --dump-resource-usage``); gates no local
-    memory and no stack (no spill) for the fused decode kernel's 8:16 +
-    16:256 instantiations (three row counts, bf16 and int8)."""
+    memory and no stack (no spill) for the fused kernels' 8:16 + 16:256
+    instantiations: six of the decode kernel (three row counts, bf16 and
+    int8) and ten of the prefill kernel (BM x BN of 64 x 64, 64 x 128,
+    128 x 64, 128 x 128 and 256 x 128, bf16 and int8)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -377,16 +394,20 @@ def resource_usage(lib_path, log):
                        r"SHARED:(\d+)\s+LOCAL:(\d+)", out.stdout)
     kernels = {name: dict(zip(("reg", "stack", "shared", "local"),
                               map(int, vals))) for name, *vals in found}
-    main = {k: v for k, v in kernels.items() if "fused_decode_816_kernel" in k}
-    check(len(main) == 6, f"cuobjdump shows {len(main)} fused_decode_816 "
-                          f"kernels, want 6:\n{out.stdout[-3000:]}")
-    for name, use in main.items():
-        check(use["local"] == 0 and use["stack"] == 0,
-              f"{name} uses local memory (spills): {use}")
-    decode = {k: v for k, v in kernels.items() if "fused_decode" in k}
-    log(f"  resource usage of {len(kernels)} kernels; fused decode: "
-        + json.dumps(decode))
-    return {"kernels": len(kernels), "fused_decode": decode}
+    result = {"kernels": len(kernels)}
+    for key, tag, want in (("fused_decode", "fused_decode_816_kernel", 6),
+                           ("fused_prefill", "fused_prefill_816_kernel", 10)):
+        main = {k: v for k, v in kernels.items() if tag in k}
+        check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
+                                 f"kernels, want {want}:\n"
+                                 f"{out.stdout[-3000:]}")
+        for name, use in main.items():
+            check(use["local"] == 0 and use["stack"] == 0,
+                  f"{name} uses local memory (spills): {use}")
+        result[key] = {k: v for k, v in kernels.items() if key in k}
+        log(f"  resource usage, {key}: " + json.dumps(result[key]))
+    log(f"  resource usage of {len(kernels)} kernels")
+    return result
 
 
 def kernel_phase(torch, timer, log):
@@ -425,9 +446,12 @@ def kernel_phase(torch, timer, log):
     return results
 
 
-# the fused wrapper's two kernels: decode (M <= T) and tile (M > T)
+# the fused wrapper's kernels: decode (M <= T) and prefill (M > T); the old
+# tile kernel is timed beside them only
 FUSED_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T) + "
-                 "src/repro_torch/csrc/sparse_linear.cu (M > T)")
+                 "src/repro_torch/csrc/fused_sparse_linear_prefill.cu "
+                 "(M > T); src/repro_torch/csrc/sparse_linear.cu (old tile, "
+                 "timed only)")
 KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
     "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
                             FUSED_SOURCES),
@@ -471,22 +495,27 @@ def case_sums(cases):
     return out
 
 
-def kernel_entry(name, cases, launches, launches_decode=None):
+def fused_paths(launches, suffix):
+    """A serve's fused launches by path, for ``kernel_entry``."""
+    return {path: launches[f"fused_sparse_linear_{path}{suffix}"]
+            for path in ("decode", "prefill")}
+
+
+def kernel_entry(name, cases, launches, by_path=None):
     """One entry of the kernels line; times are sums over the cases (16
     (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
     attention, for each variant; 48 (projection, pattern, M) cases of
     outlier_spmm in phase 8(d)).  A fused entry also splits its cases and
-    its main-path launches by path: decode (M <= T) and tile (M > T)."""
+    its main-path launches by path (``by_path``: decode at M <= T, prefill
+    above), each with the old tile kernel's time on the same cases."""
     replaces, source = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
              "max_abs_err": max(c["max_abs_err"] for c in cases),
              **case_sums(cases), "cases": cases}
-    if launches_decode is not None:
-        for path, n in (("decode", launches_decode),
-                        ("tile", launches - launches_decode)):
-            part = [c for c in cases if c.get("path") == path]
-            entry[path] = dict(case_sums(part), launches=n, cases=len(part))
+    for path, n in (by_path or {}).items():
+        part = [c for c in cases if c.get("path") == path]
+        entry[path] = dict(case_sums(part), launches=n, cases=len(part))
     return entry
 
 
@@ -711,6 +740,8 @@ def paged_attention_phase(torch, timer, log):
 def _kernel_class(name: str) -> str:
     if "fused_decode" in name:
         return "fused_decode"
+    if "fused_prefill" in name:
+        return "fused_prefill"
     if "sparse_linear_kernel" in name:
         return "sparse_linear"
     if "paged_attention_kernel" in name:
@@ -728,7 +759,6 @@ def profile_decode(torch, engine, g, n_steps=2):
     wall time it sees, so the idle share is also given against the
     unprofiled decode step).  None when the profiler records no device
     kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams, Status
 
@@ -749,10 +779,27 @@ def profile_decode(torch, engine, g, n_steps=2):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     engine.run()
+    got = _device_time(prof, n_steps)
+    if got is None:
+        return None
+    busy, by_class, _, top, count = got
+    return {"steps": n_steps, "profiled_step_ms": wall_us / n_steps / 1e3,
+            "device_busy_ms_per_step": busy,
+            "idle_share_profiled": 1.0 - busy * 1e3 * n_steps / wall_us,
+            "device_ms_per_step_by_class": by_class,
+            "kernels_per_step": count, "top_kernels_ms_per_step": top}
+
+
+def _device_time(prof, n_steps):
+    """From a profile over ``n_steps`` steps: device-busy ms per step (the
+    union of the kernels' spans), ms and launches per step by kernel class,
+    the six costliest kernels' ms per step, and kernels per step; None when
+    the profiler recorded no device kernels."""
+    from torch.autograd import DeviceType
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return None
-    by_class, by_name = {}, {}
+    by_class, count_by_class, by_name = {}, {}, {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -763,17 +810,46 @@ def profile_decode(torch, engine, g, n_steps=2):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_class[_kernel_class(e.name)] = by_class.get(
-            _kernel_class(e.name), 0.0) + us / n_steps / 1e3
+        us, cls = e.time_range.elapsed_us(), _kernel_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + us / n_steps / 1e3
+        count_by_class[cls] = count_by_class.get(cls, 0) + 1 / n_steps
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"steps": n_steps, "profiled_step_ms": wall_us / n_steps / 1e3,
-            "device_busy_ms_per_step": busy / n_steps / 1e3,
-            "idle_share_profiled": 1.0 - busy / wall_us,
-            "device_ms_per_step_by_class": by_class,
-            "kernels_per_step": len(kernels) / n_steps,
-            "top_kernels_ms_per_step": {k: v / n_steps / 1e3 for k, v in top}}
+    return (busy / n_steps / 1e3, by_class, count_by_class,
+            {k: v / n_steps / 1e3 for k, v in top}, len(kernels) / n_steps)
+
+
+def profile_prefill(torch, engine, g, tokens=PREFILL_PROFILE_TOKENS):
+    """Device time by kernel class over one model call that prefills one
+    ``tokens``-long prompt as a single chunk on an idle engine
+    (torch.profiler), with its launches by class and the device's busy
+    share of the profiled call's wall time.  None when the profiler records
+    no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import SamplingParams
+
+    engine.submit(torch.randint(0, engine.cfg.vocab, (tokens,), generator=g,
+                                device="cuda").tolist(),
+                  SamplingParams(max_new_tokens=1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(st["prefill_tokens"] == tokens and st["decoded"] == 0,
+          f"profiled prefill call was not one {tokens}-token chunk: {st}")
+    engine.run()
+    got = _device_time(prof, 1)
+    if got is None:
+        return None
+    busy, by_class, count_by_class, top, count = got
+    return {"chunk_tokens": tokens, "profiled_call_ms": wall_ms,
+            "device_busy_ms": busy, "busy_share_profiled": busy / wall_ms,
+            "device_ms_by_class": by_class,
+            "launches_by_class": count_by_class, "kernels": count,
+            "top_kernels_ms": top}
 
 
 def build_model(torch, log, *, n_layers=None, outlier="16:256",
@@ -831,8 +907,9 @@ def _counters():
             for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                               ("paged_attention", pa))
             for suffix in ("", "_int8")] + [
-        ("fused_sparse_linear_decode" + suffix, fsl,
-         "launches_decode" + suffix) for suffix in ("", "_int8")] + [
+        (f"fused_sparse_linear_{path}{suffix}", fsl,
+         f"launches_{path}{suffix}") for path in ("decode", "prefill")
+        for suffix in ("", "_int8")] + [
         ("outlier_spmm", osp, "launches")]
 
 
@@ -896,22 +973,29 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
             "_int8" if engine.kv_dtype == "int8" else "")
         want[attn_key] = cfg.n_layers * calls
     for key, n in launches.items():
-        if key.startswith("fused_sparse_linear_decode"):
+        if key.startswith(("fused_sparse_linear_decode",
+                           "fused_sparse_linear_prefill")):
             continue
         check(n == want.get(key, 0),
               f"{key} launched {n} times, want {want.get(key, 0)} "
               f"({cfg.n_layers} layers, {calls} model calls, "
               f"{engine.kv_layout} layout, {engine.kv_dtype} KV)")
-    # the fused wrapper's calls split by path: decode steps (M <= T) take
-    # the decode kernel, prefill chunks longer than T the tile kernel
+    # the fused wrapper's calls split by path: every call is a decode
+    # kernel launch (M <= T, decode steps) or a prefill kernel launch
+    # (chunks longer than T); both run in a serve while T >= 1
+    from repro_torch.kernels import fused_sparse_linear as fsl
     for suffix in ("", "_int8"):
-        n = launches["fused_sparse_linear_decode" + suffix]
+        dec = launches["fused_sparse_linear_decode" + suffix]
+        pre = launches["fused_sparse_linear_prefill" + suffix]
         total = launches["fused_sparse_linear" + suffix]
+        check(dec + pre == total, f"fused{suffix}: decode {dec} + prefill "
+                                  f"{pre} launches != the wrapper's {total}")
         if weight_key == "fused_sparse_linear" + suffix:
-            check(0 < n < total, f"fused decode kernel{suffix} launched {n} "
-                                 f"of the wrapper's {total} launches")
+            check(pre > 0 and (dec > 0 or fsl.DECODE_MAX_M == 0),
+                  f"fused{suffix}: decode kernel launched {dec}, prefill "
+                  f"kernel {pre} of the wrapper's {total}")
         else:
-            check(n == 0, f"fused decode kernel{suffix} launched {n} times")
+            check(total == 0, f"fused kernel{suffix} launched {total} times")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
@@ -937,6 +1021,7 @@ def add_profile(torch, engine, out, seed):
         prof["idle_share_vs_unprofiled_step"] = 1.0 - (
             prof["device_busy_ms_per_step"] / out["decode_step_ms"]["p50"])
     out["decode_profile"] = prof
+    out["prefill_profile"] = profile_prefill(torch, engine, g)
 
 
 def serve_phase(torch, log, cfg, params, build, *, prompt_lens=SERVE_PROMPT_LENS,
@@ -1364,7 +1449,9 @@ def ops_phase(torch, timer, log, lp, st):
     want = {"outlier_spmm": len(OPS_PATTERNS) * n16, "nm_spmm": n16,
             "fused_sparse_linear": n16,
             "fused_sparse_linear_decode": len(OPS_PROJ) * sum(
-                M <= fsl.DECODE_MAX_M for M in MS)}
+                M <= fsl.DECODE_MAX_M for M in MS),
+            "fused_sparse_linear_prefill": len(OPS_PROJ) * sum(
+                M > fsl.DECODE_MAX_M for M in MS)}
     for key, n in launches.items():
         check(n == want.get(key, 0),
               f"ops path: {key} launched {n} times, want {want.get(key, 0)}")
@@ -1409,7 +1496,9 @@ def perplexity_phase(torch, log, cfg, dense, sparse, stats, scfg):
     del effective
     torch.cuda.empty_cache()
     for key, count in launches.items():
-        want = 7 * cfg.n_layers if key == "fused_sparse_linear" else 0
+        # 2 x 512 rows a projection: the prefill kernel
+        want = 7 * cfg.n_layers if key in (
+            "fused_sparse_linear", "fused_sparse_linear_prefill") else 0
         check(count == want, f"forward: {key} launched {count}, want {want}")
     check(not any(dense_launches.values()),
           f"dense-effective forward launched sparse kernels: "
@@ -1486,8 +1575,8 @@ def main() -> int:
     log("phase 2 weight kernels vs plain versions (bf16 and int8 values, L2 "
         "flushed per call)")
     cases = kernel_phase(torch, timer, log)
-    log("phase 2 sweep: fused decode kernel vs tile kernel, w_gate and "
-        "w_down")
+    log("phase 2 sweep: fused decode kernel vs prefill kernel (and the old "
+        "tile kernel), w_gate and w_down")
     sweep = sweep_phase(torch, timer, log)
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
@@ -1535,14 +1624,14 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
                      main_launches["fused_sparse_linear"],
-                     main_launches["fused_sparse_linear_decode"]),
+                     fused_paths(main_launches, "")),
         kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"]),
         kernel_entry("paged_attention", attn_cases,
                      paged_launches["paged_attention"]),
         kernel_entry("fused_sparse_linear_int8",
                      cases["fused_sparse_linear_int8"],
                      int8_launches["fused_sparse_linear_int8"],
-                     int8_launches["fused_sparse_linear_decode_int8"]),
+                     fused_paths(int8_launches, "_int8")),
         kernel_entry("nm_spmm_int8", cases["nm_spmm_int8"],
                      plain_launches8["nm_spmm_int8"]),
         kernel_entry("paged_attention_int8", attn_cases8,

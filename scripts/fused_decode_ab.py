@@ -158,7 +158,7 @@ def main() -> int:
                     ms = timer.ms(run, 20)
                     totals[name] += ms
                     line += f"  {name} {ms * 1e3:.1f}"
-                tile = fsl.plan(M, K, N, 8, 16, 16, sms, decode_max_m=0)
+                tile = fsl.tile_plan(M, K, N)
                 tile_ms = timer.ms(lambda: fsl.fused_sparse_linear(
                     x, *bufs, force_plan=tile, **kw), 20)
                 b_ms, _ = cs.bound(M, N, K, 8, 16, 16, sw)

@@ -37,6 +37,8 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _P],
     "fused_sparse_linear_decode_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "fused_sparse_linear_decode_int8": [_P] * 9 + [_I] * 9 + [_P],
+    "fused_sparse_linear_prefill_bf16": [_P] * 8 + [_I] * 10 + [_P],
+    "fused_sparse_linear_prefill_int8": [_P] * 9 + [_I] * 10 + [_P],
     "outlier_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -146,21 +146,25 @@ def _sm_count():
 @pytest.mark.parametrize("M", [1, 3, 8, T, T + 1])
 def test_fused_decode_matches_plain(cuda, M, N, K, o_n, quantize):
     """At M <= T the decode kernel (``csrc/fused_sparse_linear.cu``), at
-    T + 1 the tile kernel; one launch counted per call either way."""
+    T + 1 the prefill kernel; one launch counted per call either way."""
     sw, g = _sparse(N, K, "8:16", f"{o_n}:256", M * 7 + N + K, cuda,
                     quantize=quantize)
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
     args, kw = _fused_args(sw, x)
     p = fsl.plan(M, K, N, sw.n, sw.m, o_n, _sm_count())
-    assert p.path == ("decode" if M <= T else "tile")
+    assert p.path == ("decode" if M <= T else "prefill")
     before = (fsl.launches, fsl.launches_int8, fsl.launches_decode,
-              fsl.launches_decode_int8)
+              fsl.launches_decode_int8, fsl.launches_prefill,
+              fsl.launches_prefill_int8)
     y = fsl.fused_sparse_linear(*args, **kw)
     decode = int(p.path == "decode")
     assert (fsl.launches, fsl.launches_int8, fsl.launches_decode,
-            fsl.launches_decode_int8) == (
+            fsl.launches_decode_int8, fsl.launches_prefill,
+            fsl.launches_prefill_int8) == (
         before[0] + (not quantize), before[1] + quantize,
-        before[2] + decode * (not quantize), before[3] + decode * quantize)
+        before[2] + decode * (not quantize), before[3] + decode * quantize,
+        before[4] + (1 - decode) * (not quantize),
+        before[5] + (1 - decode) * quantize)
     torch.cuda.synchronize()
     assert y.shape == (M, N) and y.dtype == torch.bfloat16
     _close(y, fsl.plain(*args, **kw))
@@ -266,6 +270,164 @@ def test_fused_decode_never_reaches_plain(cuda, monkeypatch):
         torch.cuda.synchronize()
         _close(y, want)
     assert fsl.launches_decode + fsl.launches_decode_int8 == before + 6
+
+
+# ------------------------------------ the fused kernel's prefill path (M > T)
+def _prefill_counts():
+    return (fsl.launches, fsl.launches_int8, fsl.launches_prefill,
+            fsl.launches_prefill_int8)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("o_n", [4, 8, 16])
+@pytest.mark.parametrize("K", [256, 768, 14336])
+@pytest.mark.parametrize("N", [96, 200, 1024])
+@pytest.mark.parametrize("M", [T + 1, 37, 64, 65, 129, 512])
+def test_fused_prefill_matches_plain(cuda, M, N, K, o_n, quantize):
+    """At M > T the prefill kernel (``csrc/fused_sparse_linear_prefill.cu``)
+    against the plain version, ragged M and N included; one launch counted
+    per call, as a prefill launch."""
+    sw, g = _sparse(N, K, "8:16", f"{o_n}:256", M * 7 + N + K + 1, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    assert fsl.plan(M, K, N, sw.n, sw.m, o_n, _sm_count()).path == "prefill"
+    before = _prefill_counts()
+    y = fsl.fused_sparse_linear(*args, **kw)
+    assert _prefill_counts() == (
+        before[0] + (not quantize), before[1] + quantize,
+        before[2] + (not quantize), before[3] + quantize)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("weight_pattern,o_n", [("4:8", 16), ("2:4", 4),
+                                                ("8:16", 32), ("1:4", 8)])
+@pytest.mark.parametrize("M", [37, 130])
+def test_fused_prefill_other_shapes_match_plain(cuda, M, weight_pattern, o_n,
+                                                quantize):
+    """Shapes other than 8:16 + 16:256 take the prefill kernel's generic
+    instance (runtime n, m and o_n), never the plain version."""
+    sw, g = _sparse(200, 1024, weight_pattern, f"{o_n}:256", M, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    before = fsl.launches_prefill + fsl.launches_prefill_int8
+    y = fsl.fused_sparse_linear(*args, **kw)
+    assert fsl.launches_prefill + fsl.launches_prefill_int8 == before + 1
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_fused_prefill_unaligned_meta_takes_the_generic_instance(cuda,
+                                                                 quantize):
+    """Meta words 4 bytes off a 16-byte boundary cannot be staged with
+    16-byte copies: the same kernel body reads them from device memory."""
+    sw, g = _sparse(200, 768, "8:16", "16:256", 21, cuda, quantize=quantize)
+    flat = torch.zeros(sw.nm_meta.numel() + 1, dtype=torch.int32,
+                       device=cuda)
+    meta = flat[1:].view(sw.nm_meta.shape)
+    meta.copy_(sw.nm_meta)
+    assert meta.data_ptr() % 16
+    sw = dataclasses.replace(sw, nm_meta=meta)
+    x = torch.randn((37, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    y = fsl.fused_sparse_linear(*args, **kw)
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M", [37, 512])
+def test_fused_prefill_index_255(cuda, M, quantize):
+    sw, g = _sparse(200, 768, "8:16", "16:256", 31 + M, cuda,
+                    quantize=quantize)
+    sw = dataclasses.replace(sw, o_meta=_with_index_255(sw, g))
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    y = fsl.fused_sparse_linear(*args, **kw)
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("M", [37, 512])
+def test_fused_prefill_int8_zero_row(cuda, M):
+    sw, g = _sparse(96, 768, "8:16", "16:256", 32 + M, cuda, quantize=True)
+    sw.nm_values[3] = 0
+    sw.v_scale[3] = 1.0
+    sw.o_values[3] = 0
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    assert fsl.plan(M, 768, 96, 8, 16, 16, _sm_count()).path == "prefill"
+    y = fsl.fused_sparse_linear(*args, **kw)
+    torch.cuda.synchronize()
+    assert not y[:, 3].any()
+    _close(y, fsl.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M,N,K", [(37, 4096, 14336), (37, 1024, 4096),
+                                   (512, 4096, 4096), (T + 1, 200, 768)])
+def test_fused_prefill_is_deterministic(cuda, M, N, K, quantize):
+    """Split-K partials are summed in split order by the last block: two
+    calls give the same bits (and leave the counters ready for a third)."""
+    sw, g = _sparse(N, K, "8:16", "16:256", 33, cuda, quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    p = fsl.plan(M, K, N, 8, 16, 16, _sm_count())
+    assert p.path == "prefill"
+    ys = [fsl.fused_sparse_linear(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[1], ys[2])
+    _close(ys[0], fsl.plain(*args, **kw))
+
+
+def test_fused_prefill_never_reaches_plain_or_the_tile(cuda, monkeypatch):
+    """On a CUDA tensor at M > T the wrapper launches the prefill kernel;
+    neither the plain version nor the old tile kernel is called."""
+    from repro_torch.kernels import build
+    cases = []
+    for quantize in (False, True):
+        sw, g = _sparse(200, 768, "8:16", "16:256", 34, cuda,
+                        quantize=quantize)
+        for M in (T + 1, 37, 130):
+            x = torch.randn((M, 768), generator=g, device=cuda).to(
+                torch.bfloat16)
+            args, kw = _fused_args(sw, x)
+            cases.append((args, kw, fsl.plain(*args, **kw)))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version or the tile kernel was "
+                             "called on CUDA tensors")
+    monkeypatch.setattr(fsl, "plain", refuse)
+    monkeypatch.setattr(fsl, "fused_sparse_linear_ref", refuse)
+    lib = build.library()
+    for name in ("fused_sparse_linear_bf16", "fused_sparse_linear_int8"):
+        monkeypatch.setattr(lib, name, refuse)
+    before = fsl.launches_prefill + fsl.launches_prefill_int8
+    for args, kw, want in cases:
+        y = fsl.fused_sparse_linear(*args, **kw)
+        torch.cuda.synchronize()
+        _close(y, want)
+    assert fsl.launches_prefill + fsl.launches_prefill_int8 == before + 6
+
+
+def test_fused_tile_kernel_still_forced(cuda):
+    """The old tile kernel stays callable through ``force_plan`` (to be
+    timed beside the prefill kernel) and agrees with the plain version."""
+    sw, g = _sparse(200, 768, "8:16", "16:256", 35, cuda)
+    x = torch.randn((37, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _fused_args(sw, x)
+    before = (fsl.launches, fsl.launches_decode, fsl.launches_prefill)
+    y = fsl.fused_sparse_linear(*args, force_plan=fsl.tile_plan(37, 768, 200),
+                                **kw)
+    assert (fsl.launches, fsl.launches_decode, fsl.launches_prefill) == (
+        before[0] + 1, before[1], before[2])
+    torch.cuda.synchronize()
+    _close(y, fsl.plain(*args, **kw))
 
 
 def test_fused_raises_on_misaligned_bf16_values(cuda):

@@ -5,7 +5,8 @@ the JAX package.
 - ``plan``: the split of K that the wrapper hands the kernel, for llama3-8b's
   four projection shapes and for ragged ones: the slices cover K exactly on
   multiples of 256, the workspace is S x M x N f32 (none for one slice), the
-  decode grid fills a 132-SM card at M = 8, and M > T takes the tile kernel.
+  decode grid fills a 132-SM card at M = 8, and M > T takes the prefill
+  kernel.
 - ``kernel_model``: the kernel's arithmetic, step by step, in f32 on the
   CPU: each lane's partial sum over its N:M blocks (kept values in order)
   and its outlier entries, the warp's shuffle butterfly, and the splits
@@ -89,9 +90,14 @@ def test_plan_fills_the_card_at_decode(N, K):
 @pytest.mark.parametrize("N,K", LLAMA + RAGGED)
 @pytest.mark.parametrize("M", [T + 1, 37, 512])
 def test_plan_takes_the_tile_kernel_above_t(M, N, K):
+    """Above T the plan takes the prefill kernel
+    (``csrc/fused_sparse_linear_prefill.cu``), which replaced the tile
+    kernel there; the tile kernel is reachable only through
+    ``force_plan=tile_plan(...)``."""
     p = fsl.plan(M, K, N, 8, 16, 16, SMS)
-    assert p.path == "tile" and p.splits == 1 and p.workspace_bytes == 0
-    assert p.k_per_split == K
+    assert p.path == "prefill" and p.rows in (64, 128, 256)
+    assert p.splits * p.k_per_split >= K > (p.splits - 1) * p.k_per_split
+    assert p.workspace_bytes == (p.splits * M * N * 4 if p.splits > 1 else 0)
 
 
 def test_plan_rejects_what_the_kernel_does_not_take():
