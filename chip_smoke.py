@@ -8,8 +8,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
   1. device and build: the card's name and power limit; the CUDA kernels
      built from ``src/repro_torch/csrc/`` into ``build/kernels/``; the
      library's resource usage (``cuobjdump --dump-resource-usage``), gated
-     at no local memory (no spill) for the fused decode and prefill
-     kernels' 8:16 + 16:256 instantiations;
+     at no local memory (no spill) for the decode and prefill bodies'
+     constant-shape 8:16 instantiations, with 16:256 outliers (the fused
+     kernel) and without (``nm_spmm``);
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -17,14 +18,15 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      N:M values, and int8 values quantized from the same draws), timed with
      CUDA events beside the plain version, one ``F.linear`` on the
      densified weight (the library yardstick, never called by the port) and
-     the card's bound.  The fused wrapper takes its decode kernel
+     the card's bound.  Each wrapper takes its decode kernel
      (``csrc/fused_sparse_linear.cu``) at M <= T and its prefill kernel
-     (``csrc/fused_sparse_linear_prefill.cu``) above; two calls must give
-     the same bits, and the old tile kernel (``csrc/sparse_linear.cu``) is
-     timed beside either (``tile_ms``, reported).  Then the sweep that sets
-     T: the decode and prefill kernels and the old tile, both variants, at
-     w_gate and w_down for M in ``SWEEP_MS``, each case gated against the
-     plain version, the times reported;
+     (``csrc/fused_sparse_linear_prefill.cu``) above, ``nm_spmm`` their
+     instances without an outlier stream; two calls must give the same
+     bits, and the old tile kernel (``csrc/sparse_linear.cu``) is timed
+     beside either (``tile_ms``, reported).  Then the sweep that sets T:
+     each wrapper's decode and prefill kernels and the old tile, both
+     variants, at w_gate and w_down for M in ``SWEEP_MS``, each case gated
+     against the plain version, the times reported;
   3. a small-model reference check: the llama-paper smoke model served one
      step on the card (bf16, kernels), on the slot layout and on shuffled
      paged blocks, against the same weights in f32 on the CPU (plain
@@ -37,7 +39,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      7 x 32 times per model call;
   5. plain 8:16 (no outliers) at 4 layers, full width, which puts
      ``nm_spmm`` on the engine path; then the same with int8 values, which
-     puts ``nm_spmm``'s int8 variant there;
+     puts ``nm_spmm``'s int8 variant there; each gated as the fused serves
+     are (decode + prefill launches == the wrapper's, both > 0), with a
+     decode and a prefill profile;
   2b. ``paged_attention`` against its plain version at llama3-8b's attention
      shapes (H 32, KV 8, hd 128, block size 16): decode (S=1, B=8, cursors
      up to 1000), chunks (S=512 at cursor 256; S=64 over 4 lanes, with and
@@ -101,11 +105,11 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            the compressed params' forward (fused kernel) against the
            dense-effective params' (``torch.matmul``) on one batch.
 
-Every serve with a decode profile (4, 6(a), 7(a), 8(c)) also profiles one
-512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
+Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
+one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
-``outlier_spmm``; each fused entry names its sources and splits its cases
-and launches by path, decode and prefill),
+``outlier_spmm``; each weight kernel's entry names its sources and splits
+its cases and launches by path, decode and prefill),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -280,24 +284,22 @@ def weight_case(timer, log, name, proj, x, sw, kernel_fn, plain_fn):
             "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
             "library_ms": timer.ms(lambda: F.linear(x, dense), 20),
             "bound_ms": b_ms, "bound_by": b_by}
-    tile = ""
-    if sw.o_values is not None:
-        # the fused wrapper's path (decode at M <= T, prefill above): the
-        # same inputs twice give the same bits, and the old tile kernel is
-        # timed beside it on the same inputs
-        from repro_torch.kernels import fused_sparse_linear as fsl
-        p = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch))
-        case["path"] = p.path
-        again = kern()
-        torch.cuda.synchronize()
-        check(torch.equal(y, again),
-              f"{name} {proj} M={M}: two calls give different bits")
-        forced = fsl.tile_plan(M, K, N)
-        case.update(splits=p.splits, rows=p.rows, cols=p.cols,
-                    tile_ms=timer.ms(lambda: kernel_fn(
-                        x, *bufs, force_plan=forced, **kw), 20))
-        tile = (f"  {p.path} {p.rows}x{p.cols} S={p.splits}  tile "
-                f"{case['tile_ms']:.4f}")
+    # the wrapper's path (decode at M <= T, prefill above; o_n = 0 is
+    # nm_spmm's plan): the same inputs twice give the same bits, and the old
+    # tile kernel is timed beside it on the same inputs
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    p = fsl.plan(M, K, N, sw.n, sw.m, sw.o_n, sm_count(torch))
+    case["path"] = p.path
+    again = kern()
+    torch.cuda.synchronize()
+    check(torch.equal(y, again),
+          f"{name} {proj} M={M}: two calls give different bits")
+    forced = fsl.tile_plan(M, K, N)
+    case.update(splits=p.splits, rows=p.rows, cols=p.cols,
+                tile_ms=timer.ms(lambda: kernel_fn(
+                    x, *bufs, force_plan=forced, **kw), 20))
+    tile = (f"  {p.path} {p.rows}x{p.cols} S={p.splits}  tile "
+            f"{case['tile_ms']:.4f}")
     log(f"  {name:25s} {proj:12s} M={M:4d}: err {err:.2e} "
         f"(tol {tol:.2e})  kernel {case['ms']:.4f} ms  plain "
         f"{case['plain_ms']:.4f}  F.linear "
@@ -310,82 +312,94 @@ def sm_count(torch) -> int:
 
 
 def sweep_phase(torch, timer, log):
-    """The fused wrapper's decode kernel, prefill kernel and old tile kernel
-    side by side, each forced by its plan, bf16 and int8 values, at w_gate
-    and w_down for every M of ``SWEEP_MS``; every case is gated against the
-    plain version.  T is the largest M at which the decode kernel was no
-    slower than the prefill kernel in all four (projection, variant) cases;
-    the tile kernel is reported only."""
+    """Each weight wrapper's decode kernel, prefill kernel and old tile
+    kernel side by side, each forced by its plan, bf16 and int8 values, at
+    w_gate and w_down for every M of ``SWEEP_MS``: ``fused_sparse_linear``
+    on 8:16 + 16:256 weights, ``nm_spmm`` on plain 8:16 ones; every case is
+    gated against the plain version.  A kernel's T is the largest M at
+    which its decode kernel was no slower than its prefill kernel in all
+    four (projection, variant) cases; the tile kernel is reported only."""
     from repro_torch.core import SparsifyConfig
     from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.kernels import nm_spmm as nms
     from repro_torch.models.sparse_serving import to_sparse_weight
 
-    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256",
-                          scorer="magnitude", use_smoothquant=False)
     g = torch.Generator(device="cuda").manual_seed(4)
-    cases = []
-    for proj, N, K in SWEEP_PROJ:
-        w = (torch.randn((N, K), generator=g, device="cuda")
-             / math.sqrt(K)).to(torch.bfloat16)
-        for variant, sw in (("bf16", to_sparse_weight(w, scfg)),
-                            ("int8", to_sparse_weight(w, scfg,
-                                                      quantize=True))):
-            bufs = (sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta)
-            kw = dict(n=sw.n, m=sw.m, o_n=sw.o_n, scale=sw.v_scale)
-            for M in SWEEP_MS:
-                x = torch.randn((M, K), generator=g, device="cuda").to(
-                    torch.bfloat16)
-                plans = {path: fsl.plan(M, K, N, sw.n, sw.m, sw.o_n,
-                                        sm_count(torch), decode_max_m=limit)
-                         for path, limit in (("decode", max(SWEEP_MS)),
-                                             ("prefill", 0))}
-                plans["tile"] = fsl.tile_plan(M, K, N)
-                y_plain = fsl.plain(x, *bufs, **kw)
-                tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
-                case = {"proj": proj, "variant": variant, "M": M,
-                        "splits": plans["decode"].splits,
-                        "rows": plans["decode"].rows,
-                        "prefill_tiles": [plans["prefill"].rows,
-                                          plans["prefill"].cols,
-                                          plans["prefill"].splits]}
-                for path, pl in plans.items():
-                    def run(pl=pl):
-                        return fsl.fused_sparse_linear(x, *bufs, force_plan=pl,
-                                                       **kw)
-                    y = run()
-                    torch.cuda.synchronize()
-                    err = float((y.float() - y_plain.float()).abs().max())
-                    check(bool(torch.isfinite(y).all()) and err <= tol,
-                          f"sweep {proj} {variant} M={M} {path}: max|kernel-"
-                          f"plain| {err:.3e} > tol {tol:.3e}")
-                    case[f"{path}_ms"] = timer.ms(run, 20)
-                    case[f"{path}_err"] = err
-                cases.append(case)
-                log(f"  sweep {proj:12s} {variant} M={M:3d}: decode "
-                    f"{case['decode_ms']:.4f} ms (S={case['splits']}, "
-                    f"R={case['rows']})  prefill {case['prefill_ms']:.4f} "
-                    f"(BMxBN,S={case['prefill_tiles']})  tile "
-                    f"{case['tile_ms']:.4f}")
-            del sw, bufs
-        del w
-    faster = [M for M in SWEEP_MS
-              if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
-                     if c["M"] == M)]
-    out = {"T_measured": max(faster) if faster else 0,
-           "T_in_module": fsl.DECODE_MAX_M,
-           "decode_no_slower_at": faster, "cases": cases}
-    log(f"  sweep: decode no slower than prefill at M in {faster}; T "
-        f"measured {out['T_measured']}, module T {fsl.DECODE_MAX_M}")
+    out = {"T_in_module": fsl.DECODE_MAX_M}
+    for kernel, outlier, mod, fn in (
+            ("fused_sparse_linear", "16:256", fsl, fsl.fused_sparse_linear),
+            ("nm_spmm", None, nms, nms.nm_spmm)):
+        scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern=outlier,
+                              scorer="magnitude", use_smoothquant=False)
+        cases = []
+        for proj, N, K in SWEEP_PROJ:
+            w = (torch.randn((N, K), generator=g, device="cuda")
+                 / math.sqrt(K)).to(torch.bfloat16)
+            for variant, sw in (("bf16", to_sparse_weight(w, scfg)),
+                                ("int8", to_sparse_weight(w, scfg,
+                                                          quantize=True))):
+                bufs = (sw.nm_values, sw.nm_meta) + (
+                    () if outlier is None else (sw.o_values, sw.o_meta))
+                kw = dict(n=sw.n, m=sw.m, scale=sw.v_scale)
+                if outlier is not None:
+                    kw["o_n"] = sw.o_n
+                for M in SWEEP_MS:
+                    x = torch.randn((M, K), generator=g, device="cuda").to(
+                        torch.bfloat16)
+                    plans = {path: fsl.plan(M, K, N, sw.n, sw.m, sw.o_n,
+                                            sm_count(torch),
+                                            decode_max_m=limit)
+                             for path, limit in (("decode", max(SWEEP_MS)),
+                                                 ("prefill", 0))}
+                    plans["tile"] = fsl.tile_plan(M, K, N)
+                    y_plain = mod.plain(x, *bufs, **kw)
+                    tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
+                    case = {"proj": proj, "variant": variant, "M": M,
+                            "splits": plans["decode"].splits,
+                            "rows": plans["decode"].rows,
+                            "prefill_tiles": [plans["prefill"].rows,
+                                              plans["prefill"].cols,
+                                              plans["prefill"].splits]}
+                    for path, pl in plans.items():
+                        def run(pl=pl):
+                            return fn(x, *bufs, force_plan=pl, **kw)
+                        y = run()
+                        torch.cuda.synchronize()
+                        err = float((y.float() - y_plain.float()).abs().max())
+                        check(bool(torch.isfinite(y).all()) and err <= tol,
+                              f"sweep {kernel} {proj} {variant} M={M} {path}:"
+                              f" max|kernel-plain| {err:.3e} > tol {tol:.3e}")
+                        case[f"{path}_ms"] = timer.ms(run, 20)
+                        case[f"{path}_err"] = err
+                    cases.append(case)
+                    log(f"  sweep {kernel:19s} {proj:12s} {variant} M={M:3d}:"
+                        f" decode {case['decode_ms']:.4f} ms (S="
+                        f"{case['splits']}, R={case['rows']})  prefill "
+                        f"{case['prefill_ms']:.4f} (BMxBN,S="
+                        f"{case['prefill_tiles']})  tile "
+                        f"{case['tile_ms']:.4f}")
+                del sw, bufs
+            del w
+        faster = [M for M in SWEEP_MS
+                  if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
+                         if c["M"] == M)]
+        out[kernel] = {"T_measured": max(faster) if faster else 0,
+                       "decode_no_slower_at": faster, "cases": cases}
+        log(f"  sweep {kernel}: decode no slower than prefill at M in "
+            f"{faster}; T measured {out[kernel]['T_measured']}, module T "
+            f"{fsl.DECODE_MAX_M}")
     return out
 
 
 def resource_usage(lib_path, log):
     """Registers, stack, shared and local memory of every kernel of the
     built library (``cuobjdump --dump-resource-usage``); gates no local
-    memory and no stack (no spill) for the fused kernels' 8:16 + 16:256
-    instantiations: six of the decode kernel (three row counts, bf16 and
-    int8) and ten of the prefill kernel (BM x BN of 64 x 64, 64 x 128,
-    128 x 64, 128 x 128 and 256 x 128, bf16 and int8)."""
+    memory and no stack (no spill) for the constant-shape instantiations of
+    the two weight kernels' bodies, with 16:256 outliers (the fused kernel)
+    and without (``nm_spmm``), 8:16 each: six of each decode body (three
+    row counts, bf16 and int8) and ten of each prefill body (BM x BN of
+    64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
+    int8)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -396,7 +410,9 @@ def resource_usage(lib_path, log):
                               map(int, vals))) for name, *vals in found}
     result = {"kernels": len(kernels)}
     for key, tag, want in (("fused_decode", "fused_decode_816_kernel", 6),
-                           ("fused_prefill", "fused_prefill_816_kernel", 10)):
+                           ("fused_prefill", "fused_prefill_816_kernel", 10),
+                           ("nm_decode", "nm_decode_816_kernel", 6),
+                           ("nm_prefill", "nm_prefill_816_kernel", 10)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
                                  f"kernels, want {want}:\n"
@@ -452,17 +468,20 @@ FUSED_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T) + "
                  "src/repro_torch/csrc/fused_sparse_linear_prefill.cu "
                  "(M > T); src/repro_torch/csrc/sparse_linear.cu (old tile, "
                  "timed only)")
+# nm_spmm: the same two bodies without an outlier stream
+NM_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T, "
+              "nm_decode_*) + src/repro_torch/csrc/fused_sparse_linear_"
+              "prefill.cu (M > T, nm_prefill_*); src/repro_torch/csrc/"
+              "sparse_linear.cu (old tile, timed only)")
 KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
     "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
                             FUSED_SOURCES),
-    "nm_spmm": ("src/repro/kernels/nm_spmm.py:86",
-                "src/repro_torch/csrc/sparse_linear.cu"),
+    "nm_spmm": ("src/repro/kernels/nm_spmm.py:86", NM_SOURCES),
     "paged_attention": ("src/repro/serving/paged/paged_attention.py:180",
                         "src/repro_torch/csrc/paged_attention.cu"),
     "fused_sparse_linear_int8": (
         "src/repro/kernels/fused_sparse_linear.py:50", FUSED_SOURCES),
-    "nm_spmm_int8": ("src/repro/kernels/nm_spmm.py:63",
-                     "src/repro_torch/csrc/sparse_linear.cu"),
+    "nm_spmm_int8": ("src/repro/kernels/nm_spmm.py:63", NM_SOURCES),
     "paged_attention_int8": (
         "src/repro/serving/paged/paged_attention.py:124",
         "src/repro_torch/csrc/paged_attention.cu"),
@@ -495,9 +514,12 @@ def case_sums(cases):
     return out
 
 
-def fused_paths(launches, suffix):
-    """A serve's fused launches by path, for ``kernel_entry``."""
-    return {path: launches[f"fused_sparse_linear_{path}{suffix}"]
+def paths(launches, kernel):
+    """A serve's launches of a weight kernel (``fused_sparse_linear``,
+    ``nm_spmm``, with ``_int8`` for that variant) by path, for
+    ``kernel_entry``."""
+    name, int8, _ = kernel.partition("_int8")
+    return {path: launches[f"{name}_{path}{int8}"]
             for path in ("decode", "prefill")}
 
 
@@ -505,9 +527,10 @@ def kernel_entry(name, cases, launches, by_path=None):
     """One entry of the kernels line; times are sums over the cases (16
     (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
     attention, for each variant; 48 (projection, pattern, M) cases of
-    outlier_spmm in phase 8(d)).  A fused entry also splits its cases and
-    its main-path launches by path (``by_path``: decode at M <= T, prefill
-    above), each with the old tile kernel's time on the same cases."""
+    outlier_spmm in phase 8(d)).  A weight kernel's entry also splits its
+    cases and its main-path launches by path (``by_path``: decode at M <=
+    T, prefill above), each with the old tile kernel's time on the same
+    cases."""
     replaces, source = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -738,10 +761,9 @@ def paged_attention_phase(torch, timer, log):
 
 
 def _kernel_class(name: str) -> str:
-    if "fused_decode" in name:
-        return "fused_decode"
-    if "fused_prefill" in name:
-        return "fused_prefill"
+    for cls in ("fused_decode", "fused_prefill", "nm_decode", "nm_prefill"):
+        if cls in name:
+            return cls
     if "sparse_linear_kernel" in name:
         return "sparse_linear"
     if "paged_attention_kernel" in name:
@@ -907,9 +929,9 @@ def _counters():
             for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                               ("paged_attention", pa))
             for suffix in ("", "_int8")] + [
-        (f"fused_sparse_linear_{path}{suffix}", fsl,
-         f"launches_{path}{suffix}") for path in ("decode", "prefill")
-        for suffix in ("", "_int8")] + [
+        (f"{name}_{path}{suffix}", mod, f"launches_{path}{suffix}")
+        for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms))
+        for path in ("decode", "prefill") for suffix in ("", "_int8")] + [
         ("outlier_spmm", osp, "launches")]
 
 
@@ -972,30 +994,32 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
         attn_key = "paged_attention" + (
             "_int8" if engine.kv_dtype == "int8" else "")
         want[attn_key] = cfg.n_layers * calls
+    split = tuple(f"{name}_{path}" for name in ("fused_sparse_linear",
+                                                "nm_spmm")
+                  for path in ("decode", "prefill"))
     for key, n in launches.items():
-        if key.startswith(("fused_sparse_linear_decode",
-                           "fused_sparse_linear_prefill")):
+        if key.startswith(split):
             continue
         check(n == want.get(key, 0),
               f"{key} launched {n} times, want {want.get(key, 0)} "
               f"({cfg.n_layers} layers, {calls} model calls, "
               f"{engine.kv_layout} layout, {engine.kv_dtype} KV)")
-    # the fused wrapper's calls split by path: every call is a decode
+    # each weight wrapper's calls split by path: every call is a decode
     # kernel launch (M <= T, decode steps) or a prefill kernel launch
     # (chunks longer than T); both run in a serve while T >= 1
     from repro_torch.kernels import fused_sparse_linear as fsl
-    for suffix in ("", "_int8"):
-        dec = launches["fused_sparse_linear_decode" + suffix]
-        pre = launches["fused_sparse_linear_prefill" + suffix]
-        total = launches["fused_sparse_linear" + suffix]
-        check(dec + pre == total, f"fused{suffix}: decode {dec} + prefill "
-                                  f"{pre} launches != the wrapper's {total}")
-        if weight_key == "fused_sparse_linear" + suffix:
-            check(pre > 0 and (dec > 0 or fsl.DECODE_MAX_M == 0),
-                  f"fused{suffix}: decode kernel launched {dec}, prefill "
-                  f"kernel {pre} of the wrapper's {total}")
-        else:
-            check(total == 0, f"fused kernel{suffix} launched {total} times")
+    for name in ("fused_sparse_linear", "nm_spmm"):
+        for suffix in ("", "_int8"):
+            dec = launches[f"{name}_decode{suffix}"]
+            pre = launches[f"{name}_prefill{suffix}"]
+            total = launches[name + suffix]
+            check(dec + pre == total,
+                  f"{name}{suffix}: decode {dec} + prefill {pre} launches "
+                  f"!= the wrapper's {total}")
+            if weight_key == name + suffix:
+                check(pre > 0 and (dec > 0 or fsl.DECODE_MAX_M == 0),
+                      f"{name}{suffix}: decode kernel launched {dec}, "
+                      f"prefill kernel {pre} of the wrapper's {total}")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
@@ -1046,7 +1070,7 @@ def serve_phase(torch, log, cfg, params, build, *, prompt_lens=SERVE_PROMPT_LENS
             solo, *_ = drive(torch, engine, [[p]], gen)
             match += solo[0].tokens == r.tokens
         out["alone_matches_batch"] = f"{match}/{len(reqs)}"
-        add_profile(torch, engine, out, seed=11)
+    add_profile(torch, engine, out, seed=11)
     log("  " + json.dumps(out))
     del engine
     torch.cuda.empty_cache()
@@ -1447,11 +1471,12 @@ def ops_phase(torch, timer, log, lp, st):
             del o, nm, vals, meta, nm_meta, dense_o
     n16 = len(OPS_PROJ) * len(MS)
     want = {"outlier_spmm": len(OPS_PATTERNS) * n16, "nm_spmm": n16,
-            "fused_sparse_linear": n16,
-            "fused_sparse_linear_decode": len(OPS_PROJ) * sum(
-                M <= fsl.DECODE_MAX_M for M in MS),
-            "fused_sparse_linear_prefill": len(OPS_PROJ) * sum(
-                M > fsl.DECODE_MAX_M for M in MS)}
+            "fused_sparse_linear": n16}
+    for name in ("nm_spmm", "fused_sparse_linear"):   # split by path
+        want[f"{name}_decode"] = len(OPS_PROJ) * sum(
+            M <= fsl.DECODE_MAX_M for M in MS)
+        want[f"{name}_prefill"] = len(OPS_PROJ) * sum(
+            M > fsl.DECODE_MAX_M for M in MS)
     for key, n in launches.items():
         check(n == want.get(key, 0),
               f"ops path: {key} launched {n} times, want {want.get(key, 0)}")
@@ -1575,8 +1600,8 @@ def main() -> int:
     log("phase 2 weight kernels vs plain versions (bf16 and int8 values, L2 "
         "flushed per call)")
     cases = kernel_phase(torch, timer, log)
-    log("phase 2 sweep: fused decode kernel vs prefill kernel (and the old "
-        "tile kernel), w_gate and w_down")
+    log("phase 2 sweep: decode kernel vs prefill kernel (and the old tile "
+        "kernel) of fused_sparse_linear and nm_spmm, w_gate and w_down")
     sweep = sweep_phase(torch, timer, log)
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
@@ -1624,16 +1649,18 @@ def main() -> int:
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
                      main_launches["fused_sparse_linear"],
-                     fused_paths(main_launches, "")),
-        kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"]),
+                     paths(main_launches, "fused_sparse_linear")),
+        kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"],
+                     paths(plain_launches, "nm_spmm")),
         kernel_entry("paged_attention", attn_cases,
                      paged_launches["paged_attention"]),
         kernel_entry("fused_sparse_linear_int8",
                      cases["fused_sparse_linear_int8"],
                      int8_launches["fused_sparse_linear_int8"],
-                     fused_paths(int8_launches, "_int8")),
+                     paths(int8_launches, "fused_sparse_linear_int8")),
         kernel_entry("nm_spmm_int8", cases["nm_spmm_int8"],
-                     plain_launches8["nm_spmm_int8"]),
+                     plain_launches8["nm_spmm_int8"],
+                     paths(plain_launches8, "nm_spmm_int8")),
         kernel_entry("paged_attention_int8", attn_cases8,
                      int8_launches["paged_attention_int8"]),
         kernel_entry("outlier_spmm", ops_cases,
@@ -1646,7 +1673,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,
-         "fused_sweep": sweep, "small_model": small, **serves},
+         "sweep": sweep, "small_model": small, **serves},
         indent=1))
     print(json.dumps(serves))
     print(json.dumps(kernels))

@@ -105,6 +105,7 @@ def main() -> int:
     from repro_torch.core import SparsifyConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.kernels.common import scratch_for
     from repro_torch.models.sparse_serving import to_sparse_weight
 
     print(cs.nvidia_smi_line(), flush=True)
@@ -139,7 +140,7 @@ def main() -> int:
                     if rows != fsl.BLOCK_ROWS:     # one counter per block
                         p = dataclasses.replace(
                             p, counters=-(-N // rows) * -(-M // p.rows))
-                    ws, cnt = fsl._scratch_for(x.device, p)
+                    ws, cnt = scratch_for(x.device, p)
                     fn = getattr(lib, "fused_sparse_linear_decode_"
                                  + values)
 

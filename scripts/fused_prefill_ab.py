@@ -2,13 +2,16 @@
 """Variants of the fused prefill kernel timed side by side on one card.
 
     python3 scripts/fused_prefill_ab.py [--ms 37,512] [--values bf16,int8]
+                                        [--kernel fused|nm]
 
 Each variant is ``src/repro_torch/csrc/fused_sparse_linear_prefill.cu``
 with a few text substitutions, built with the port's nvcc flags into its
 own library under ``build/ab_prefill/`` and called through its C entry
 points with the plan of ``kernels/fused_sparse_linear.plan`` (prefill path).
-Every variant runs on the same llama3-8b projection weights (8:16 + 16:256)
-and x, case by case in turn, timed like ``chip_smoke.py`` (CUDA events, L2
+``--kernel nm`` calls the same variants' no-outlier instance, ``nm_spmm``'s
+prefill kernel, on 8:16 weights without outliers (the outlier variants then
+change nothing).  Every variant runs on the same llama3-8b projection
+weights (8:16 + 16:256, or 8:16) and x, case by case in turn, timed like ``chip_smoke.py`` (CUDA events, L2
 flushed, mean of 20 calls); the bound stands beside them.  The diagnostic
 variants compute wrong results on purpose and are marked so: each takes
 out one part of the work to show what it costs.
@@ -62,7 +65,8 @@ VARIANTS = {
     "nodecomp_now": ([NODECOMP, ("      if (tw < steps) {",
                                   "      if (false) {")], False),
 }
-ENTRY = ("fused_sparse_linear_prefill_bf16", "fused_sparse_linear_prefill_int8")
+ENTRY = ("fused_sparse_linear_prefill_bf16", "fused_sparse_linear_prefill_int8",
+         "nm_spmm_prefill_bf16", "nm_spmm_prefill_int8")
 
 
 def build_variants(build, names):
@@ -95,16 +99,16 @@ def build_variants(build, names):
     return libs
 
 
-def forced_plan(fsl, M, K, N, sms, bm):
+def forced_plan(fsl, M, K, N, o_n, sms, bm):
     """The plan's prefill choice, or BM = ``bm`` with BN = 128 and the
     plan's split rule."""
-    p = fsl.plan(M, K, N, 8, 16, 16, sms, decode_max_m=0)
+    p = fsl.plan(M, K, N, 8, 16, o_n, sms, decode_max_m=0)
     if bm == "plan":
         return p
-    bm, groups = int(bm), K // 256
+    bm, groups = int(bm), -(-K // 256)
     tiles = -(-M // bm) * -(-N // 128)
     S = fsl._prefill_splits(tiles, groups,
-                            fsl.PREFILL_BLOCKS_PER_SM[bm] * sms)
+                            fsl.prefill_blocks_per_sm(bm, o_n) * sms)
     return fsl.Plan("prefill", bm, S, -(-groups // S) * 256,
                     S * M * N * 4 if S > 1 else 0, tiles * S,
                     tiles if S > 1 else 0, 128)
@@ -122,6 +126,9 @@ def main() -> int:
                     help="x rows per block, comma-separated: 'plan' (the "
                          "plan's choice) or 64, 128, 256 (BN 128, the "
                          "plan's split rule)")
+    ap.add_argument("--kernel", default="fused", choices=("fused", "nm"),
+                    help="the fused kernel (8:16 + 16:256) or nm_spmm's "
+                         "no-outlier instance (8:16)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -132,13 +139,20 @@ def main() -> int:
     from repro_torch.core import SparsifyConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.kernels import nm_spmm as nms
+    from repro_torch.kernels.common import scratch_for
     from repro_torch.models.sparse_serving import to_sparse_weight
 
     print(cs.nvidia_smi_line(), flush=True)
+    fused = args.kernel == "fused"
+    o_n = 16 if fused else 0
+    plain = fsl.plain if fused else nms.plain
+    entry = "fused_sparse_linear_prefill_" if fused else "nm_spmm_prefill_"
     names = args.variants.split(",")
     libs = build_variants(build, names)
     timer = cs.Timer(torch)
-    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256",
+    scfg = SparsifyConfig(weight_pattern="8:16",
+                          outlier_pattern="16:256" if fused else None,
                           scorer="magnitude", use_smoothquant=False)
     g = torch.Generator(device="cuda").manual_seed(0)
     sms = cs.sm_count(torch)
@@ -149,8 +163,10 @@ def main() -> int:
              / math.sqrt(K)).to(torch.bfloat16)
         for values in args.values.split(","):
             sw = to_sparse_weight(w, scfg, quantize=values == "int8")
-            bufs = (sw.nm_values, sw.nm_meta, sw.o_values, sw.o_meta)
-            kw = dict(n=sw.n, m=sw.m, o_n=sw.o_n, scale=sw.v_scale)
+            bufs = (sw.nm_values, sw.nm_meta) + (
+                (sw.o_values, sw.o_meta) if fused else ())
+            kw = dict(n=sw.n, m=sw.m, scale=sw.v_scale,
+                      **(dict(o_n=sw.o_n) if fused else {}))
             ptrs = [t.data_ptr() for t in bufs]
             if sw.v_scale is not None:
                 ptrs.append(sw.v_scale.data_ptr())
@@ -158,27 +174,27 @@ def main() -> int:
                 x = torch.randn((M, K), generator=g, device="cuda").to(
                     torch.bfloat16)
                 y = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
-                y_plain = fsl.plain(x, *bufs, **kw)
+                y_plain = plain(x, *bufs, **kw)
                 tol = cs.KERNEL_TOL_REL * float(y_plain.float().abs().max())
-                plans = [forced_plan(fsl, M, K, N, sms, bm)
+                plans = [forced_plan(fsl, M, K, N, o_n, sms, bm)
                          for bm in args.bms.split(",")]
                 line = f"{proj:12s} {values} M={M:4d}"
                 for name, p in ((n, p) for p in plans for n in names):
-                    ws, cnt = fsl._scratch_for(x.device, p)
+                    ws, cnt = scratch_for(x.device, p)
                     if len(plans) > 1:
                         name_p = f"{name}@{p.rows}x{p.cols}/{p.splits}"
                     else:
                         name_p = name
                         line += f" {p.rows}x{p.cols} S={p.splits}" * (
                             name == names[0])
-                    fn = getattr(libs[name], f"fused_sparse_linear_prefill_"
-                                             f"{values}")
+                    fn = getattr(libs[name], entry + values)
 
                     def run():
                         status = fn(x.data_ptr(), *ptrs, y.data_ptr(),
                                     ws.data_ptr(), cnt.data_ptr(), M, K, N,
-                                    8, 16, 16, p.rows, p.cols, p.splits,
-                                    p.k_per_split, stream)
+                                    8, 16, *((o_n,) if fused else ()),
+                                    p.rows, p.cols, p.splits, p.k_per_split,
+                                    stream)
                         build.check(status, name)
                     run()
                     torch.cuda.synchronize()
@@ -189,7 +205,7 @@ def main() -> int:
                     ms = timer.ms(run, 20)
                     totals[name_p] = totals.get(name_p, 0.0) + ms
                     line += f"  {name_p} {ms * 1e3:.1f}"
-                b_ms, _ = cs.bound(M, N, K, 8, 16, 16, sw)
+                b_ms, _ = cs.bound(M, N, K, 8, 16, o_n, sw)
                 print(f"{line}  bound {b_ms * 1e3:.1f} (us)", flush=True)
             del sw, bufs
         del w

@@ -60,7 +60,13 @@
 //   * compile-time shapes: 8:16 with o_n = 16 is one instantiation per R
 //     (fused_decode_816_kernel) whose arrays are all indexed by constants;
 //     every other n <= 8, m <= 16, o_n (a multiple of 4 up to 256) runs the
-//     same body with runtime shapes (fused_decode_kernel).
+//     same body with runtime shapes (fused_decode_kernel);
+//   * nm_spmm (src/repro/kernels/nm_spmm.py:86, _kernel :46, _kernel_int8
+//     :63), y = x @ W_nm^T, is the same body with no outlier stream (OUT =
+//     false: the outlier loads and FMAs are not compiled): 8:16 on aligned
+//     values in nm_decode_816_kernel, the rest in nm_decode_kernel.  Its K
+//     need only be a multiple of m and of 8: the slices stay multiples of
+//     256 but for the last, which is cut at K.
 // What bounds it (scripts/fused_decode_ab.py times variants of this source
 // side by side; PERF.md): the weight loads alone, with no gathers and no
 // FMAs, take about twice the byte bound, and at M = 8 the gathers from
@@ -187,7 +193,9 @@ __device__ __forceinline__ float value_at(const uint32_t (&w)[4], int k,
   }
 }
 
-template <int R, typename VT, int NT, int MT, int ONT>
+// OUT = false is nm_spmm's product, y = x @ W_nm^T: no outlier stream, and
+// K need only be a multiple of m and of 8 (the last slice may be ragged).
+template <int R, typename VT, int NT, int MT, int ONT, bool OUT>
 __device__ __forceinline__ void decode_body(
     const bf16* __restrict__ x, const VT* __restrict__ values,
     const float* __restrict__ scale, const uint32_t* __restrict__ meta,
@@ -215,7 +223,7 @@ __device__ __forceinline__ void decode_body(
   const int nblocks = K / m, groups = K / kGroup, owords = o_n / 4;
   const int b0 = k0 / m, nb = cols / m;          // N:M blocks of the slice
   const int g0 = k0 / kGroup;
-  const int ne = (cols / kGroup) * o_n;          // outliers of the slice
+  const int ne = OUT ? (cols / kGroup) * o_n : 0;  // outliers of the slice
   const int steps = max((nb + 31) / 32, (ne + 31) / 32);
   const int obase = rb * kBlockRows + warp * kRowsPerWarp;
 
@@ -235,11 +243,13 @@ __device__ __forceinline__ void decode_body(
         raw[r].word = __ldg(meta + blk);
         raw[r].vals = load_vals<VT, NT>(values + blk * n, n);
       }
-      if (o < N && e < ne) {
-        const size_t og = size_t(o) * groups + g0 + e / o_n;
-        const int j = e % o_n;
-        raw[r].oval = __ldg(o_values + og * o_n + j);
-        raw[r].oword = __ldg(o_meta + og * owords + j / 4);
+      if constexpr (OUT) {
+        if (o < N && e < ne) {
+          const size_t og = size_t(o) * groups + g0 + e / o_n;
+          const int j = e % o_n;
+          raw[r].oval = __ldg(o_values + og * o_n + j);
+          raw[r].oword = __ldg(o_meta + og * owords + j / 4);
+        }
       }
     }
   };
@@ -265,12 +275,14 @@ __device__ __forceinline__ void decode_body(
         }
       }
     }
-    if (e < ne) {
-      const int gbase = (e / o_n) * kGroup, shift = 8 * ((e % o_n) % 4);
+    if constexpr (OUT) {
+      if (e < ne) {
+        const int gbase = (e / o_n) * kGroup, shift = 8 * ((e % o_n) % 4);
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int c = padded(gbase + ((raw[r].oword >> shift) & 0xFFu));
-        fma_col<R>(acc[r], lo_bf16(raw[r].oval), load_col<R>(xs, c));
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          const int c = padded(gbase + ((raw[r].oword >> shift) & 0xFFu));
+          fma_col<R>(acc[r], lo_bf16(raw[r].oval), load_col<R>(xs, c));
+        }
       }
     }
   };
@@ -380,38 +392,60 @@ __device__ __forceinline__ void decode_body(
 template <int R, typename VT>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_816_kernel(DECODE_PARAMS) {
-  decode_body<R, VT, 8, 16, 16>(DECODE_ARGS);
+  decode_body<R, VT, 8, 16, 16, true>(DECODE_ARGS);
 }
 
 // every other n <= 8, m <= 16 and o_n the wrapper accepts
 template <int R, typename VT>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_kernel(DECODE_PARAMS) {
-  decode_body<R, VT, 0, 0, 0>(DECODE_ARGS);
+  decode_body<R, VT, 0, 0, 0, true>(DECODE_ARGS);
 }
 
+// nm_spmm's main shape: 8:16 values, no outliers
 template <int R, typename VT>
+__global__ void __launch_bounds__(kThreads)
+nm_decode_816_kernel(DECODE_PARAMS) {
+  decode_body<R, VT, 8, 16, 0, false>(DECODE_ARGS);
+}
+
+// nm_spmm at every other n <= 8, m <= 16, or on unaligned bf16 values
+template <int R, typename VT>
+__global__ void __launch_bounds__(kThreads)
+nm_decode_kernel(DECODE_PARAMS) {
+  decode_body<R, VT, 0, 0, 0, false>(DECODE_ARGS);
+}
+
+template <int R, typename VT, bool OUT>
 void launch_r(dim3 grid, size_t smem, cudaStream_t stream, bool main_shape,
               DECODE_PARAMS) {
-  auto kernel = main_shape ? fused_decode_816_kernel<R, VT>
-                           : fused_decode_kernel<R, VT>;
+  auto kernel = OUT ? (main_shape ? fused_decode_816_kernel<R, VT>
+                                  : fused_decode_kernel<R, VT>)
+                    : (main_shape ? nm_decode_816_kernel<R, VT>
+                                  : nm_decode_kernel<R, VT>);
   kernel<<<grid, kThreads, smem, stream>>>(DECODE_ARGS);
 }
 
-template <typename VT>
+template <typename VT, bool OUT>
 int launch(const void* x, const void* values, const void* scale,
            const void* meta, const void* o_values, const void* o_meta,
            void* y, void* ws, void* counters, int M, int K, int N, int n,
            int m, int o_n, int R, int S, int kps, void* stream) {
   if ((R != 2 && R != 4 && R != 8) || S < 1 || kps <= 0 || kps % kGroup ||
       size_t(kps) * 2 * R > size_t(kMaxSliceBytes) ||
-      size_t(S) * kps < size_t(K) || size_t(S - 1) * kps >= size_t(K))
+      size_t(S) * kps < size_t(K) || size_t(S - 1) * kps >= size_t(K) ||
+      (!OUT && (n < 1 || n > 8 || m < n || m > 16 || K % m || K % 8)))
     return int(cudaErrorInvalidValue);
   const int tiles = (M + R - 1) / R;
   const int row_blocks = (N + kBlockRows - 1) / kBlockRows;
   const dim3 grid(tiles * S * row_blocks);
   const size_t smem = size_t(padded(kps)) * R * 2;  // < 48 KB
-  const bool main_shape = n == 8 && m == 16 && o_n == 16;
+  // the 8:16 instances read a block's 8 bf16 values in one 16-byte load
+  const bool main_shape =
+      n == 8 && m == 16 && (OUT ? o_n == 16
+                                : (std::is_same<VT, int8_t>::value ||
+                                   (reinterpret_cast<uintptr_t>(values) &
+                                    15u) == 0));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
   const VT* vp = static_cast<const VT*>(values);
@@ -423,8 +457,8 @@ int launch(const void* x, const void* values, const void* scale,
   float* wp = static_cast<float*>(ws);
   int* cp = static_cast<int*>(counters);
 #define LAUNCH(RR)                                                            \
-  launch_r<RR, VT>(grid, smem, st, main_shape, xp, vp, sp, mp, ovp, omp, yp, \
-                   wp, cp, M, K, N, n, m, o_n, S, kps)
+  launch_r<RR, VT, OUT>(grid, smem, st, main_shape, xp, vp, sp, mp, ovp, omp, \
+                        yp, wp, cp, M, K, N, n, m, o_n, S, kps)
   if (R == 2)
     LAUNCH(2);
   else if (R == 4)
@@ -451,9 +485,9 @@ extern "C" int fused_sparse_linear_decode_bf16(
     const void* o_meta, void* y, void* workspace, void* counters, int M,
     int K, int N, int n, int m, int o_n, int rows, int splits,
     int k_per_split, void* stream) {
-  return launch<bf16>(x, values, nullptr, meta, o_values, o_meta, y,
-                      workspace, counters, M, K, N, n, m, o_n, rows, splits,
-                      k_per_split, stream);
+  return launch<bf16, true>(x, values, nullptr, meta, o_values, o_meta, y,
+                            workspace, counters, M, K, N, n, m, o_n, rows,
+                            splits, k_per_split, stream);
 }
 
 extern "C" int fused_sparse_linear_decode_int8(
@@ -461,7 +495,30 @@ extern "C" int fused_sparse_linear_decode_int8(
     const void* o_meta, const void* scale, void* y, void* workspace,
     void* counters, int M, int K, int N, int n, int m, int o_n, int rows,
     int splits, int k_per_split, void* stream) {
-  return launch<int8_t>(x, values, scale, meta, o_values, o_meta, y,
-                        workspace, counters, M, K, N, n, m, o_n, rows, splits,
-                        k_per_split, stream);
+  return launch<int8_t, true>(x, values, scale, meta, o_values, o_meta, y,
+                              workspace, counters, M, K, N, n, m, o_n, rows,
+                              splits, k_per_split, stream);
+}
+
+// nm_spmm's decode path (kernels/nm_spmm.py): the same plan, with K a
+// multiple of m and of 8 and the last slice ragged where K % 256 != 0.
+extern "C" int nm_spmm_decode_bf16(const void* x, const void* values,
+                                   const void* meta, void* y, void* workspace,
+                                   void* counters, int M, int K, int N, int n,
+                                   int m, int rows, int splits,
+                                   int k_per_split, void* stream) {
+  return launch<bf16, false>(x, values, nullptr, meta, nullptr, nullptr, y,
+                             workspace, counters, M, K, N, n, m, 0, rows,
+                             splits, k_per_split, stream);
+}
+
+extern "C" int nm_spmm_decode_int8(const void* x, const void* values,
+                                   const void* meta, const void* scale,
+                                   void* y, void* workspace, void* counters,
+                                   int M, int K, int N, int n, int m, int rows,
+                                   int splits, int k_per_split,
+                                   void* stream) {
+  return launch<int8_t, false>(x, values, scale, meta, nullptr, nullptr, y,
+                               workspace, counters, M, K, N, n, m, 0, rows,
+                               splits, k_per_split, stream);
 }

@@ -99,6 +99,15 @@
 // with runtime shapes, reading the weight stream straight from device
 // memory (fused_prefill_kernel); x is staged in both.
 //
+// nm_spmm (src/repro/kernels/nm_spmm.py:86, _kernel :46, _kernel_int8 :63),
+// y = x @ W_nm^T, is the same body with no outlier stream (OUT = false: no
+// outlier copies, no run search, a slot without the outlier bytes):
+// nm_prefill_816_kernel for 8:16 on aligned buffers with K % 64 == 0,
+// nm_prefill_kernel for the rest.  Its K need only be a multiple of m and
+// of 8: the slices stay multiples of 256 but for the last, the last stage
+// zero-fills the x columns past K (8-column chunks, whole since K % 8 ==
+// 0), and the generic instance builds no N:M block that starts past K.
+//
 // The products are exact in f32 (bf16 x bf16), so only the summation order
 // differs from the plain version (kernels/ref.fused_sparse_linear_ref).
 #include <cuda_bf16.h>
@@ -226,13 +235,14 @@ __device__ __forceinline__ void add_at(float (&w)[16], int slot, float o) {
 }
 
 // Bytes of one ring slot and of one B buffer.
-template <int BM, int BN, typename VT, bool MAIN>
+template <int BM, int BN, typename VT, bool MAIN, bool OUT>
 struct Smem {
   static constexpr int kX = BM * kBK * 2;
   static constexpr int kV = MAIN ? BN * 8 * 4 * int(sizeof(VT)) : 0;
   static constexpr int kMeta = MAIN ? BN * 16 : 0;
-  static constexpr int kOv = MAIN ? BN * 32 : 0;  // 16 bf16 outliers a row
-  static constexpr int kOm = MAIN ? BN * 16 : 0;  // their 4 meta words
+  // 16 bf16 outliers a row and their 4 meta words
+  static constexpr int kOv = MAIN && OUT ? BN * 32 : 0;
+  static constexpr int kOm = MAIN && OUT ? BN * 16 : 0;
   static constexpr int kSlot = kX + kV + kMeta + kOv + kOm;
   static constexpr int kB = BN * kBK * 2;
   // + 1 KB to align the base to the swizzle's 1024-byte period
@@ -253,9 +263,12 @@ struct Args {
   int M, K, N, n, m, o_n, S, kps;
 };
 
-template <int BM, int BN, typename VT, bool MAIN>
+// OUT = false is nm_spmm's product, y = x @ W_nm^T: no outlier stream, and
+// K need only be a multiple of m and of 8.  The last stage of a ragged K
+// zero-fills the x columns past K and builds zero weights there.
+template <int BM, int BN, typename VT, bool MAIN, bool OUT>
 __device__ __forceinline__ void prefill_body(const Args& a) {
-  using L = Smem<BM, BN, VT, MAIN>;
+  using L = Smem<BM, BN, VT, MAIN, OUT>;
   constexpr bool INT8 = std::is_same<VT, int8_t>::value;
   // the two warpgroups split the tile by rows (BM >= 128) or by columns
   // (BM = 64); each covers SLABS x 64 rows by PIECES x WI columns, one
@@ -281,7 +294,7 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
   const int wg_col = BM >= 128 ? 0 : wg * WG_N;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, s = blockIdx.z;
   const int k0 = s * a.kps, cols = min(a.kps, K - k0);
-  const int steps = cols / kBK;
+  const int steps = OUT ? cols / kBK : (cols + kBK - 1) / kBK;
   const int groups = K / kGroup;
 
   // the output rows and 16-column blocks this thread decompresses
@@ -327,7 +340,7 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
 #pragma unroll
       for (int j = 0; j < XJ; ++j) {
         const int r = xr + j * (kThreads / 8);
-        const bool ok = m0 + r < M;
+        const bool ok = m0 + r < M && (OUT || kc + xc < K);
         cp_async16(xs + swz(r, xc),
                    ok ? xsrc + size_t(j) * (kThreads / 8) * K + kc : a.x, ok);
       }
@@ -355,11 +368,12 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
         if (tid < BN) {  // meta: 4 words a row per step
           cp_async16(p + orow * 16, a.meta + obase * (K / 16) + kc / 16,
                      o_ok);
-        } else if (tid < 2 * BN) {  // the group's 4 outlier meta words
+        } else if (OUT && tid < 2 * BN) {  // the group's 4 outlier meta words
           cp_async16(p + L::kMeta + L::kOv + orow * 16,
                      a.o_meta + (obase * groups + g) * 4, o_ok);
         }
-        if (tid < 2 * BN) {  // the group's 16 outlier values, half a thread
+        // the group's 16 outlier values, half a row a thread
+        if (OUT && tid < 2 * BN) {
           const int r = tid >> 1, c = tid & 1;
           const bool ok = n0 + r < N;
           const size_t og = size_t(ok ? n0 + r : 0) * groups + g;
@@ -416,11 +430,11 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
         }
         // the group's outliers with index in [16 jj, 16 jj + 16): sorted,
         // so entries [c, e) of the group
-        const unsigned char* om = p8 + L::kV + L::kMeta + L::kOv + r * 16;
-        const unsigned short* ov = reinterpret_cast<const unsigned short*>(
-            p8 + L::kV + L::kMeta) + r * 16;
-        const uint4 ow = *reinterpret_cast<const uint4*>(om);
-        {
+        if constexpr (OUT) {
+          const unsigned char* om = p8 + L::kV + L::kMeta + L::kOv + r * 16;
+          const unsigned short* ov = reinterpret_cast<const unsigned short*>(
+              p8 + L::kV + L::kMeta) + r * 16;
+          const uint4 ow = *reinterpret_cast<const uint4*>(om);
           // c = #(block ids < jj), e = c + #(block ids == jj), counted on
           // the high nibbles four bytes at a time: each byte (id | 0x80) - t
           // keeps its borrow inside the byte, its top bit set exactly when
@@ -442,7 +456,9 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
         const int n = a.n, m = a.m, o_n = a.o_n;
         const int col0 = kc + 16 * j;
         const size_t nb = size_t(K / m);
-        for (int bb = 0; bb < 16 / m; ++bb) {
+        // the N:M blocks of this 16-column block that lie before K
+        const int blocks = OUT ? 16 / m : max(0, min(16, K - col0)) / m;
+        for (int bb = 0; bb < blocks; ++bb) {
           const size_t blk = size_t(o) * nb + col0 / m + bb;
           const uint32_t word = __ldg(a.meta + blk);
           for (int k = 0; k < n; ++k) {
@@ -457,13 +473,15 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
             add_at(w, bb * m + int((word >> (4 * k)) & 0xFu), v);
           }
         }
-        const size_t og = size_t(o) * groups + kc / kGroup;
-        for (int i = 0; i < o_n; ++i) {
-          const uint32_t ow = __ldg(a.o_meta + og * (o_n / 4) + i / 4);
-          const int idx = (ow >> (8 * (i & 3))) & 0xFF;
-          if ((idx >> 4) == jj)
-            add_at(w, idx & 15,
-                   bf16_bits_to_float(__ldg(a.o_values + og * o_n + i)));
+        if constexpr (OUT) {
+          const size_t og = size_t(o) * groups + kc / kGroup;
+          for (int i = 0; i < o_n; ++i) {
+            const uint32_t ow = __ldg(a.o_meta + og * (o_n / 4) + i / 4);
+            const int idx = (ow >> (8 * (i & 3))) & 0xFF;
+            if ((idx >> 4) == jj)
+              add_at(w, idx & 15,
+                     bf16_bits_to_float(__ldg(a.o_values + og * o_n + i)));
+          }
         }
       }
       uint32_t pk[8];
@@ -603,23 +621,39 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
 template <int BM, int BN, typename VT>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_prefill_816_kernel(Args a) {
-  prefill_body<BM, BN, VT, true>(a);
+  prefill_body<BM, BN, VT, true, true>(a);
 }
 
 // every other n <= 8, m <= 16 and o_n the wrapper accepts
 template <int BM, int BN, typename VT>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_prefill_kernel(Args a) {
-  prefill_body<BM, BN, VT, false>(a);
+  prefill_body<BM, BN, VT, false, true>(a);
 }
 
+// nm_spmm's main shape: 8:16 values, no outliers, staged (K % 64 == 0)
 template <int BM, int BN, typename VT>
+__global__ void __launch_bounds__(kThreads, 1)
+nm_prefill_816_kernel(Args a) {
+  prefill_body<BM, BN, VT, true, false>(a);
+}
+
+// nm_spmm at every other n <= 8, m <= 16, K or alignment
+template <int BM, int BN, typename VT>
+__global__ void __launch_bounds__(kThreads, 1)
+nm_prefill_kernel(Args a) {
+  prefill_body<BM, BN, VT, false, false>(a);
+}
+
+template <int BM, int BN, typename VT, bool OUT>
 int launch_tile(const Args& a, bool main_shape, cudaStream_t stream) {
   const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN, a.S);
-  auto kernel = main_shape ? fused_prefill_816_kernel<BM, BN, VT>
-                           : fused_prefill_kernel<BM, BN, VT>;
-  const int smem = main_shape ? Smem<BM, BN, VT, true>::kTotal
-                              : Smem<BM, BN, VT, false>::kTotal;
+  auto kernel = OUT ? (main_shape ? fused_prefill_816_kernel<BM, BN, VT>
+                                  : fused_prefill_kernel<BM, BN, VT>)
+                    : (main_shape ? nm_prefill_816_kernel<BM, BN, VT>
+                                  : nm_prefill_kernel<BM, BN, VT>);
+  const int smem = main_shape ? Smem<BM, BN, VT, true, OUT>::kTotal
+                              : Smem<BM, BN, VT, false, OUT>::kTotal;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return int(err);
@@ -631,21 +665,26 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename VT>
+template <typename VT, bool OUT>
 int launch(const void* x, const void* values, const void* scale,
            const void* meta, const void* o_values, const void* o_meta,
            void* y, void* ws, void* counters, int M, int K, int N, int n,
            int m, int o_n, int bm, int bn, int S, int kps, void* stream) {
   if ((bm != 64 && bm != 128 && bm != 256) || (bn != 64 && bn != 128) ||
       (bm == 256 && bn != 128) || M < 1 ||
-      N < 1 || K % kGroup || n < 1 || n > 8 || m < n || m > 16 ||
-      16 % m || o_n < 4 || o_n > kGroup || o_n % 4 || S < 1 || kps <= 0 ||
+      N < 1 || n < 1 || n > 8 || m < n || m > 16 || 16 % m ||
+      (OUT ? K % kGroup || o_n < 4 || o_n > kGroup || o_n % 4
+           : K % m || K % 8) ||
+      S < 1 || kps <= 0 ||
       kps % kGroup || size_t(S) * kps < size_t(K) ||
       size_t(S - 1) * kps >= size_t(K) || !aligned16(x))
     return int(cudaErrorInvalidValue);
+  // the staged instances copy whole 64-column stages with 16-byte (int8
+  // values: 8-byte) copies
   const bool main_shape =
-      n == 8 && m == 16 && o_n == 16 && aligned16(meta) &&
-      aligned16(o_values) && aligned16(o_meta) &&
+      n == 8 && m == 16 && aligned16(meta) &&
+      (OUT ? o_n == 16 && aligned16(o_values) && aligned16(o_meta)
+           : K % kBK == 0) &&
       (std::is_same<VT, int8_t>::value
            ? (reinterpret_cast<uintptr_t>(values) & 7u) == 0
            : aligned16(values));
@@ -660,12 +699,12 @@ int launch(const void* x, const void* values, const void* scale,
          static_cast<int*>(counters),
          M, K, N, n, m, o_n, S, kps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bm == 256) return launch_tile<256, 128, VT>(a, main_shape, st);
+  if (bm == 256) return launch_tile<256, 128, VT, OUT>(a, main_shape, st);
   if (bm == 64)
-    return bn == 64 ? launch_tile<64, 64, VT>(a, main_shape, st)
-                    : launch_tile<64, 128, VT>(a, main_shape, st);
-  return bn == 64 ? launch_tile<128, 64, VT>(a, main_shape, st)
-                  : launch_tile<128, 128, VT>(a, main_shape, st);
+    return bn == 64 ? launch_tile<64, 64, VT, OUT>(a, main_shape, st)
+                    : launch_tile<64, 128, VT, OUT>(a, main_shape, st);
+  return bn == 64 ? launch_tile<128, 64, VT, OUT>(a, main_shape, st)
+                  : launch_tile<128, 128, VT, OUT>(a, main_shape, st);
 }
 
 }  // namespace
@@ -684,9 +723,9 @@ extern "C" int fused_sparse_linear_prefill_bf16(
     const void* o_meta, void* y, void* workspace, void* counters, int M,
     int K, int N, int n, int m, int o_n, int bm, int bn, int splits,
     int k_per_split, void* stream) {
-  return launch<bf16>(x, values, nullptr, meta, o_values, o_meta, y,
-                      workspace, counters, M, K, N, n, m, o_n, bm, bn, splits,
-                      k_per_split, stream);
+  return launch<bf16, true>(x, values, nullptr, meta, o_values, o_meta, y,
+                            workspace, counters, M, K, N, n, m, o_n, bm, bn,
+                            splits, k_per_split, stream);
 }
 
 extern "C" int fused_sparse_linear_prefill_int8(
@@ -694,7 +733,31 @@ extern "C" int fused_sparse_linear_prefill_int8(
     const void* o_meta, const void* scale, void* y, void* workspace,
     void* counters, int M, int K, int N, int n, int m, int o_n, int bm,
     int bn, int splits, int k_per_split, void* stream) {
-  return launch<int8_t>(x, values, scale, meta, o_values, o_meta, y,
-                        workspace, counters, M, K, N, n, m, o_n, bm, bn,
-                        splits, k_per_split, stream);
+  return launch<int8_t, true>(x, values, scale, meta, o_values, o_meta, y,
+                              workspace, counters, M, K, N, n, m, o_n, bm, bn,
+                              splits, k_per_split, stream);
+}
+
+// nm_spmm's prefill path (kernels/nm_spmm.py): the same plan, with K a
+// multiple of m and of 8 and the last slice ragged where K % 256 != 0.
+extern "C" int nm_spmm_prefill_bf16(const void* x, const void* values,
+                                    const void* meta, void* y,
+                                    void* workspace, void* counters, int M,
+                                    int K, int N, int n, int m, int bm, int bn,
+                                    int splits, int k_per_split,
+                                    void* stream) {
+  return launch<bf16, false>(x, values, nullptr, meta, nullptr, nullptr, y,
+                             workspace, counters, M, K, N, n, m, 0, bm, bn,
+                             splits, k_per_split, stream);
+}
+
+extern "C" int nm_spmm_prefill_int8(const void* x, const void* values,
+                                    const void* meta, const void* scale,
+                                    void* y, void* workspace, void* counters,
+                                    int M, int K, int N, int n, int m, int bm,
+                                    int bn, int splits, int k_per_split,
+                                    void* stream) {
+  return launch<int8_t, false>(x, values, scale, meta, nullptr, nullptr, y,
+                               workspace, counters, M, K, N, n, m, 0, bm, bn,
+                               splits, k_per_split, stream);
 }

@@ -39,6 +39,10 @@ SIGNATURES = {
     "fused_sparse_linear_decode_int8": [_P] * 9 + [_I] * 9 + [_P],
     "fused_sparse_linear_prefill_bf16": [_P] * 8 + [_I] * 10 + [_P],
     "fused_sparse_linear_prefill_int8": [_P] * 9 + [_I] * 10 + [_P],
+    "nm_spmm_decode_bf16": [_P] * 6 + [_I] * 8 + [_P],
+    "nm_spmm_decode_int8": [_P] * 7 + [_I] * 8 + [_P],
+    "nm_spmm_prefill_bf16": [_P] * 6 + [_I] * 9 + [_P],
+    "nm_spmm_prefill_int8": [_P] * 7 + [_I] * 9 + [_P],
     "outlier_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

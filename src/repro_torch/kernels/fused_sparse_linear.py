@@ -23,7 +23,8 @@ their row's scale, rounded once to bf16, and add the exact outliers
 unscaled.  ``csrc/sparse_linear.cu``'s tile kernel (OUTLIERS=true), which
 served M > T before, stays reachable through ``force_plan=tile_plan(...)``
 to be timed beside them; ``plan`` never picks it.  On a CPU tensor the
-wrapper runs ``plain``.
+wrapper runs ``plain``.  ``plan`` also drives ``nm_spmm``, which runs the
+same two bodies without an outlier stream (``o_n = 0``).
 
 Layout: nm_values [out, in*n/m] bf16 (16-byte aligned), or int8 (8-byte
 aligned) with ``scale`` [out] f32; nm_meta [out, in/m] int32 (4-bit
@@ -40,7 +41,7 @@ import torch
 from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from ..core.packing import unpack_metadata
 from . import build
-from .nm_spmm import check_cuda_operands
+from .common import check_cuda_operands, scratch_for, sm_count
 from .ref import fused_sparse_linear_ref
 
 launches = 0
@@ -71,11 +72,29 @@ X_SLICE_BYTES = 32768
 bf16 (``kMaxSliceBytes``): it bounds the columns per split."""
 BLOCKS_PER_SM = 2
 """The split aims at this many decode blocks per SM."""
-PREFILL_BLOCKS_PER_SM = {64: 2, 128: 1, 256: 1}
-"""By BM, the prefill blocks one SM holds at once (shared memory: three
-ring slots and two B tiles, 105 KB at BM = 64 and BN = 128, 129 KB at
-BM = 128, 177 KB at BM = 256): the slots a wave of the prefill grid
-fills."""
+SM_SHARED_BYTES = 233472
+"""Shared memory an H100 SM holds for its blocks (228 KB, of which each
+block reserves 1 KB)."""
+
+
+def prefill_smem_bytes(bm: int, o_n: int) -> int:
+    """Shared memory of one prefill block of BM rows and BN = 128 of the
+    staged 8:16 instance with bf16 values (``Smem::kTotal`` in
+    ``csrc/fused_sparse_linear_prefill.cu``): three ring slots of x tile,
+    values, meta and (``o_n`` > 0) the outlier group, two B tiles, 1 KB of
+    alignment."""
+    bn = 128
+    slot = bm * 128 + bn * 64 + bn * 16 + (bn * 48 if o_n else 0)
+    return 3 * slot + 2 * bn * 128 + 1024
+
+
+def prefill_blocks_per_sm(bm: int, o_n: int) -> int:
+    """The prefill blocks of BM rows (BN = 128) one SM holds at once, by
+    shared memory: with outliers 2 at BM = 64 (105 KB), 1 at 128 (129 KB)
+    and 256 (177 KB); without, 2 at 64 (87 KB) and 128 (111 KB), 1 at 256
+    (159 KB).  Registers allow as many (at most 128 a thread at BM = 128,
+    ``cuobjdump``; PERF.md).  The slots a wave of the prefill grid fills."""
+    return SM_SHARED_BYTES // (prefill_smem_bytes(bm, o_n) + 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +114,11 @@ class Plan:
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
          *, decode_max_m: int = DECODE_MAX_M) -> Plan:
-    """How ``fused_sparse_linear`` computes an [M, K] x [N, K]^T product on
-    a card with ``sm_count`` SMs.  For M <= ``decode_max_m`` the decode
+    """How ``fused_sparse_linear`` (``o_n`` > 0) or ``nm_spmm`` (``o_n`` =
+    0: no outlier stream) computes an [M, K] x [N, K]^T product on a card
+    with ``sm_count`` SMs.  K counts in slices of 256 columns; without
+    outliers K need not be a multiple of 256, and the last slice is cut at
+    K (ragged).  For M <= ``decode_max_m`` the decode
     kernel: R x rows per block (x tiles of R rows beyond 8), and the fewest
     splits S of K on multiples of 256 that give ``BLOCKS_PER_SM`` blocks per
     SM and keep each slice within ``X_SLICE_BYTES``.  Otherwise the prefill
@@ -104,19 +126,20 @@ def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
     (with BN 128) above M = 128 where 256-row tiles still make a quarter
     of a wave; BN = 128 output features, or 64 where 128-wide tiles
     split as far as they go cannot fill one wave of
-    ``PREFILL_BLOCKS_PER_SM`` blocks per SM; and the split of K on
+    ``prefill_blocks_per_sm`` blocks per SM; and the split of K on
     multiples of 256 that ``_prefill_splits`` picks.  The slices are equal
     but for the last."""
-    if K % OUTLIER_M or M < 1 or N < 1:
-        raise ValueError(f"plan needs in % 256 == 0 and M, N >= 1; got "
-                         f"M={M}, in={K}, out={N}")
-    groups = K // OUTLIER_M
+    if (o_n and K % OUTLIER_M) or K < 1 or M < 1 or N < 1:
+        raise ValueError(f"plan needs M, N, in >= 1 and, with outliers, "
+                         f"in % 256 == 0; got M={M}, in={K}, out={N}, "
+                         f"o_n={o_n}")
+    groups = -(-K // OUTLIER_M)
     if M > decode_max_m:
         bm = 64 if M <= 64 else 128
         if M > 128 and (-(-M // 256) * -(-N // 128) * 4
-                        >= PREFILL_BLOCKS_PER_SM[256] * sm_count):
+                        >= prefill_blocks_per_sm(256, o_n) * sm_count):
             bm = 256
-        wave = PREFILL_BLOCKS_PER_SM[bm] * sm_count
+        wave = prefill_blocks_per_sm(bm, o_n) * sm_count
         m_tiles = -(-M // bm)
         bn = 128 if (bm == 256
                      or -(-N // 128) * m_tiles * groups >= wave) else 64
@@ -178,26 +201,6 @@ def plain(x: torch.Tensor, nm_values: torch.Tensor, nm_meta: torch.Tensor,
                                    scale=scale)
 
 
-_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _scratch_for(device: torch.device, p: Plan):
-    """The split kernels' workspace and counters on ``device``: cached and
-    grown when a plan needs more, so a call allocates nothing and launches
-    no memset (the counters are zeroed once, when allocated, and each launch
-    leaves them 0).  Launches on one device share them, so they must be
-    ordered, as on one stream."""
-    ws, cnt = _scratch.get(device.index, (None, None))
-    if ws is None or ws.numel() * 4 < p.workspace_bytes:
-        ws = torch.empty(max(p.workspace_bytes // 4, 1), dtype=torch.float32,
-                         device=device)
-    if cnt is None or cnt.numel() < p.counters:
-        cnt = torch.zeros(max(p.counters, 1), dtype=torch.int32,
-                          device=device)
-    _scratch[device.index] = (ws, cnt)
-    return ws, cnt
-
-
 def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
                         nm_meta: torch.Tensor, o_values: torch.Tensor,
                         o_meta: torch.Tensor, *, n: int, m: int, o_n: int,
@@ -231,7 +234,7 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return y
-    p = force_plan or plan(M, K, N, n, m, o_n, _sm_count(x.device))
+    p = force_plan or plan(M, K, N, n, m, o_n, sm_count(x.device))
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [x.data_ptr(), nm_values.data_ptr(), nm_meta.data_ptr(),
@@ -243,7 +246,7 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
         status = getattr(lib, "fused_sparse_linear" + suffix)(
             *ptrs, y.data_ptr(), M, K, N, n, m, o_n, stream)
     else:
-        ws, cnt = _scratch_for(x.device, p)
+        ws, cnt = scratch_for(x.device, p)
         tiles = ((p.rows,) if p.path == "decode" else (p.rows, p.cols))
         status = getattr(lib, f"fused_sparse_linear_{p.path}{suffix}")(
             *ptrs, y.data_ptr(), ws.data_ptr(), cnt.data_ptr(), M, K, N, n,
@@ -260,7 +263,3 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
     build.check(status, f"fused_sparse_linear ({p.path})")
     return y
 
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -514,6 +514,166 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda):
     assert (nms.launches_int8, fsl.launches_int8) == counts
 
 
+# ------------------------------ nm_spmm's decode (M <= T) and prefill paths
+def _nm_counts():
+    return (nms.launches, nms.launches_int8, nms.launches_decode,
+            nms.launches_decode_int8, nms.launches_prefill,
+            nms.launches_prefill_int8)
+
+
+def _nm_args(sw, x):
+    return ((x, sw.nm_values, sw.nm_meta),
+            dict(n=sw.n, m=sw.m, scale=sw.v_scale))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("K", [256, 272, 768, 14336])
+@pytest.mark.parametrize("N", [96, 200, 1024])
+@pytest.mark.parametrize("M", [1, 3, T, T + 1, 37, 64, 65, 129, 512])
+def test_nm_paths_match_plain(cuda, M, N, K, quantize):
+    """At M <= T the decode body without outliers, above it the prefill
+    body, at K on and off multiples of 256; one launch counted per call, on
+    its path."""
+    sw, g = _sparse(N, K, "8:16", None, M * 7 + N + K + 2, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _nm_args(sw, x)
+    p = fsl.plan(M, K, N, 8, 16, 0, _sm_count())
+    assert p.path == ("decode" if M <= T else "prefill")
+    before = _nm_counts()
+    y = nms.nm_spmm(*args, **kw)
+    decode = int(p.path == "decode")
+    assert _nm_counts() == (
+        before[0] + (not quantize), before[1] + quantize,
+        before[2] + decode * (not quantize), before[3] + decode * quantize,
+        before[4] + (1 - decode) * (not quantize),
+        before[5] + (1 - decode) * quantize)
+    torch.cuda.synchronize()
+    assert y.shape == (M, N) and y.dtype == torch.bfloat16
+    _close(y, nms.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("weight_pattern,K", [("4:8", 392), ("2:4", 392),
+                                              ("4:8", 1024), ("2:4", 520),
+                                              ("8:16", 400)])
+@pytest.mark.parametrize("M", [1, 8, 37, 130])
+def test_nm_paths_generic_instance(cuda, M, weight_pattern, K, quantize):
+    """Shapes other than 8:16 take the generic instances (runtime n and m;
+    16-column blocks that reach past K), as 8:16 at K % 64 != 0 does in the
+    prefill body; never the plain version."""
+    sw, g = _sparse(200, K, weight_pattern, None, M + K, cuda,
+                    quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _nm_args(sw, x)
+    before = sum(_nm_counts()[2:])
+    y = nms.nm_spmm(*args, **kw)
+    assert sum(_nm_counts()[2:]) == before + 1
+    torch.cuda.synchronize()
+    _close(y, nms.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("M", [1, 8, 37, 130])
+def test_nm_paths_unaligned_bf16_values(cuda, M):
+    """bf16 values 2 bytes off a 16-byte boundary cannot be read 16 bytes
+    at a time: the generic instances read them one by one."""
+    sw, g = _sparse(200, 768, "8:16", None, 40 + M, cuda)
+    flat = torch.zeros(sw.nm_values.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    values = flat[1:].view(sw.nm_values.shape)
+    values.copy_(sw.nm_values)
+    assert values.data_ptr() % 16
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    y = nms.nm_spmm(x, values, sw.nm_meta, n=8, m=16)
+    torch.cuda.synchronize()
+    _close(y, nms.plain(x, values, sw.nm_meta, n=8, m=16))
+
+
+@pytest.mark.parametrize("M", [1, 8, 37, 512])
+def test_nm_paths_int8_zero_row(cuda, M):
+    sw, g = _sparse(96, 784, "8:16", None, 41 + M, cuda, quantize=True)
+    sw.nm_values[3] = 0
+    sw.v_scale[3] = 1.0
+    x = torch.randn((M, 784), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _nm_args(sw, x)
+    y = nms.nm_spmm(*args, **kw)
+    torch.cuda.synchronize()
+    assert not y[:, 3].any()
+    _close(y, nms.plain(*args, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M,N,K", [(8, 4096, 14336), (1, 1024, 4096),
+                                   (37, 4096, 14336), (37, 1024, 4096),
+                                   (512, 4096, 4096), (T + 1, 200, 784)])
+def test_nm_paths_are_deterministic(cuda, M, N, K, quantize):
+    """Split-K partials are summed in split order by the last block: three
+    calls give the same bits."""
+    sw, g = _sparse(N, K, "8:16", None, 42, cuda, quantize=quantize)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _nm_args(sw, x)
+    ys = [nms.nm_spmm(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[1], ys[2])
+    _close(ys[0], nms.plain(*args, **kw))
+
+
+def test_nm_paths_never_reach_plain_or_the_tile(cuda, monkeypatch):
+    """On a CUDA tensor ``nm_spmm`` launches its decode or prefill kernel;
+    neither the plain version nor the old tile kernel is called."""
+    from repro_torch.kernels import build
+    cases = []
+    for quantize in (False, True):
+        sw, g = _sparse(200, 784, "8:16", None, 43, cuda, quantize=quantize)
+        for M in (1, T, T + 1, 37, 130):
+            x = torch.randn((M, 784), generator=g, device=cuda).to(
+                torch.bfloat16)
+            args, kw = _nm_args(sw, x)
+            cases.append((args, kw, nms.plain(*args, **kw)))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version or the tile kernel was "
+                             "called on CUDA tensors")
+    monkeypatch.setattr(nms, "plain", refuse)
+    monkeypatch.setattr(nms, "nm_spmm_ref", refuse)
+    lib = build.library()
+    for name in ("nm_spmm_bf16", "nm_spmm_int8"):
+        monkeypatch.setattr(lib, name, refuse)
+    before = sum(_nm_counts()[2:])
+    for args, kw, want in cases:
+        y = nms.nm_spmm(*args, **kw)
+        torch.cuda.synchronize()
+        _close(y, want)
+    assert sum(_nm_counts()[2:]) == before + 10
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_nm_tile_kernel_still_forced(cuda, quantize):
+    """The old tile kernel (OUTLIERS=false) stays callable through
+    ``force_plan``, counted on neither path, and agrees with plain."""
+    sw, g = _sparse(200, 768, "8:16", None, 44, cuda, quantize=quantize)
+    x = torch.randn((37, 768), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw = _nm_args(sw, x)
+    before = _nm_counts()
+    y = nms.nm_spmm(*args, force_plan=fsl.tile_plan(37, 768, 200), **kw)
+    after = _nm_counts()
+    assert after[:2] == (before[0] + (not quantize), before[1] + quantize)
+    assert after[2:] == before[2:]
+    torch.cuda.synchronize()
+    _close(y, nms.plain(*args, **kw))
+
+
+def test_nm_raises_on_misaligned_x(cuda):
+    sw, g = _sparse(64, 256, "8:16", None, 45, cuda)
+    flat = torch.zeros(4 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(4, 256)
+    x.copy_(torch.randn((4, 256), generator=g, device=cuda))
+    before = _nm_counts()
+    with pytest.raises(ValueError):
+        nms.nm_spmm(x, sw.nm_values, sw.nm_meta, n=8, m=16)
+    assert _nm_counts() == before
+
+
 # ------------------------------------------------------------ paged attention
 def _paged_case(B, S, H, KV, hd, bs, cursors, seed, device):
     """bf16 q and arenas with shuffled, non-contiguous block tables padded

@@ -3,8 +3,17 @@ on the CPU, against the JAX package: its Pallas ``outlier_spmm`` in
 interpret mode, its ``outlier_spmm_ref`` oracle and its ``ops`` entry points
 (both backends), on containers the JAX pipeline built and carried across.
 
-Tolerances: at f32 the two packages differ only in summation order,
-rtol = atol = 1e-5.  In bf16 (x and values) every product is exact in f32
+Tolerances: at f32 the two packages differ only in summation order.  In
+``test_plain_matches_jax_f32`` rtol = atol = 1e-5.  The ``ops`` comparisons
+(``test_ops_match_jax``, ``test_unfused_pair_equals_fused_on_cpu``) hold
+each output to a bound on two summation orders instead,
+|y - want| <= 1e-5 |want| + sqrt(K) eps_f32 (|x| @ |W|^T), W the dense
+effective weight (``_assert_within_summation_order``): a flat 1e-5 is no
+bound on the order of a sum that cancels to near zero (one output of 0.059
+over a sum |x||w| of 220.6 differed by 1.24e-5, 0.47 eps of that sum, and
+which CPU ran the test decided the verdict).  sqrt(K) eps |x||w| is the
+usual probabilistic bound of recursive summation; a wrong index or value
+gives errors of the order of |x||w| itself, ~1e7 eps.  In bf16 (x and values) every product is exact in f32
 and the sums are rounded once to bf16, so outputs may differ by one bf16
 ulp (``_assert_within_one_ulp``).  Meta words are compared bit for bit."""
 import pytest
@@ -30,6 +39,7 @@ from repro_torch.kernels import outlier_spmm as port_osp  # noqa: E402
 from repro_torch.kernels.ref import outlier_spmm_ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+EPS_F32 = float(np.finfo(np.float32).eps)
 TILES = dict(block_b=8, block_o=64, block_k=256)
 
 
@@ -52,6 +62,21 @@ def _x(b, kdim, seed, dtype=np.float32):
     x = np.random.default_rng(seed).standard_normal((b, kdim))
     jx = jnp.asarray(x.astype(np.float32)).astype(dtype)
     return jx, to_torch(np.asarray(jx))
+
+
+def _assert_within_summation_order(y, want, x, w):
+    """|y - want| <= 1e-5 |want| + sqrt(K) eps_f32 (|x| @ |w|^T),
+    elementwise, for f32 outputs of x [..., K] times the dense w [N, K]^T
+    summed in two orders."""
+    y = np.asarray(y, np.float64)
+    want = np.asarray(want, np.float64)
+    x = np.abs(np.asarray(x, np.float64))
+    w = np.abs(np.asarray(w, np.float64))
+    k = x.shape[-1]
+    bound = 1e-5 * np.abs(want) + np.sqrt(k) * EPS_F32 * (x @ w.T)
+    gap = np.abs(y - want)
+    assert y.shape == want.shape and (gap <= bound).all(), \
+        (gap.max(), (gap / bound).max())
 
 
 def _assert_within_one_ulp(y, want):
@@ -149,14 +174,17 @@ def test_ops_match_jax(case, backend):
     if case == "nm_matmul":
         y = ops.nm_matmul(tx, tsl.nm)
         want = jax_ops.nm_matmul(jx, jsl.nm, **kw)
+        dense = tsl.nm.to_dense()
     elif case == "outlier_matmul":
         y = ops.outlier_matmul(tx, tsl.outliers)
         want = jax_ops.outlier_matmul(jx, jsl.outliers, **kw)
+        dense = tsl.outliers.to_dense()
     else:
         y = ops.sparse_linear_apply(tx, tsl.nm, tsl.outliers)
         want = jax_ops.sparse_linear_apply(jx, jsl.nm, jsl.outliers, **kw)
+        dense = tsl.to_dense()
     assert tuple(y.shape) == tuple(want.shape)
-    np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
+    _assert_within_summation_order(y.numpy(), want, tx.numpy(), dense.numpy())
 
 
 def test_unfused_pair_equals_fused_on_cpu():
@@ -166,6 +194,8 @@ def test_unfused_pair_equals_fused_on_cpu():
     _, tx = _x(8, 512, 7)
     fused = ops.sparse_linear_apply(tx, tsl.nm, tsl.outliers)
     pair = ops.nm_matmul(tx, tsl.nm) + ops.outlier_matmul(tx, tsl.outliers)
-    np.testing.assert_allclose(pair.numpy(), fused.numpy(), **TOL)
     dense = tsl.to_dense()
-    np.testing.assert_allclose(fused.numpy(), (tx @ dense.T).numpy(), **TOL)
+    _assert_within_summation_order(pair.numpy(), fused.numpy(), tx.numpy(),
+                                   dense.numpy())
+    _assert_within_summation_order(fused.numpy(), (tx @ dense.T).numpy(),
+                                   tx.numpy(), dense.numpy())
