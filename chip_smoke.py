@@ -10,7 +10,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      library's resource usage (``cuobjdump --dump-resource-usage``), gated
      at no local memory (no spill) for the decode and prefill bodies'
      constant-shape 8:16 instantiations, with 16:256 outliers (the fused
-     kernel) and without (``nm_spmm``);
+     kernel) and without (``nm_spmm``), and for ``outlier_spmm``'s two
+     bodies;
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -26,7 +27,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      beside either (``tile_ms``, reported).  Then the sweep that sets T:
      each wrapper's decode and prefill kernels and the old tile, both
      variants, at w_gate and w_down for M in ``SWEEP_MS``, each case gated
-     against the plain version, the times reported;
+     against the plain version, the times reported; and the same for
+     ``outlier_spmm``'s two bodies and its old kernel at 16:256 and 4:256
+     for M in ``OUTLIER_SWEEP_MS``;
   3. a small-model reference check: the llama-paper smoke model served one
      step on the card (bf16, kernels), on the slot layout and on shuffled
      paged blocks, against the same weights in f32 on the CPU (plain
@@ -94,9 +97,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            launches gated per model call as in phase 6;
        (d) the ``kernels/ops`` path on layer 0's four projection shapes with
            16:256, 8:256 and 4:256 outliers, M in {1, 8, 37, 512}: each
-           ``ops.outlier_matmul`` launches ``outlier_spmm`` (kernel B4),
-           gated at one bf16 ulp against its plain version and timed beside
-           it, ``F.linear`` on the densified outlier matrix and the bound;
+           ``ops.outlier_matmul`` launches ``outlier_spmm`` (kernel B4:
+           its decode body at M <= T, its prefill body above, each
+           counted), gated at one bf16 ulp against its plain version, the
+           same bits on two calls, and timed beside it, the old kernel
+           (``csrc/outlier_spmm_gather8.cu``, ``old_ms``), ``F.linear`` on
+           the densified outlier matrix and the bound (the gather ceiling,
+           worked out, in the log and the ops section of the JSON);
            at 16:256 the unfused ``ops.nm_matmul + ops.outlier_matmul``
            against the fused ``ops.sparse_linear_apply``, both timed;
        (e) perplexity (reported, not gated: the weights are random) of the
@@ -108,8 +115,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
 one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
-``outlier_spmm``; each weight kernel's entry names its sources and splits
-its cases and launches by path, decode and prefill),
+``outlier_spmm``; each weight kernel's entry and ``outlier_spmm``'s name
+their sources and split their cases and launches by path, decode and
+prefill),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -169,6 +177,14 @@ CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
 PPL = dict(n_batches=2, batch=2, seq_len=512)
 OPS_PROJ = ("wq", "wk", "w_gate", "w_down")              # the four shapes
 OPS_PATTERNS = ("16:256", "8:256", "4:256")
+# the sweep that sets outlier_spmm's threshold T (w_gate, w_down; n 16, 4)
+OUTLIER_SWEEP_MS = [1, 2, 4, 8, 12, 16, 24, 37, 64]
+OUTLIER_SWEEP_N = (16, 4)
+# The gather ceiling of an outlier product on the CUDA cores: each
+# multiply-add reads 2 B of x from shared memory at 128 B a clock an SM, 64
+# a clock an SM, at the SM clock of the data sheet's bf16 peak (989e12 / (132
+# SMs x 4096 operations a clock) = 1.83 GHz), over 132 SMs: 15.5e12/s.
+GATHER_FMA_PER_S = BF16_OPS_PER_S / 4096 * 64
 # The card's pipeline against the CPU's: the same f32 arithmetic in another
 # reduction order, so only indices whose scores are within an ulp or so of
 # a neighbour's may differ.
@@ -399,7 +415,8 @@ def resource_usage(lib_path, log):
     and without (``nm_spmm``), 8:16 each: six of each decode body (three
     row counts, bf16 and int8) and ten of each prefill body (BM x BN of
     64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
-    int8)."""
+    int8); and ``outlier_spmm``'s two bodies: three decode instances (R =
+    2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -412,7 +429,9 @@ def resource_usage(lib_path, log):
     for key, tag, want in (("fused_decode", "fused_decode_816_kernel", 6),
                            ("fused_prefill", "fused_prefill_816_kernel", 10),
                            ("nm_decode", "nm_decode_816_kernel", 6),
-                           ("nm_prefill", "nm_prefill_816_kernel", 10)):
+                           ("nm_prefill", "nm_prefill_816_kernel", 10),
+                           ("outlier_decode", "outlier_decode_kernel", 3),
+                           ("outlier_prefill", "outlier_prefill_kernel", 6)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
                                  f"kernels, want {want}:\n"
@@ -486,7 +505,9 @@ KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
         "src/repro/serving/paged/paged_attention.py:124",
         "src/repro_torch/csrc/paged_attention.cu"),
     "outlier_spmm": ("src/repro/kernels/outlier_spmm.py:74",
-                     "src/repro_torch/csrc/outlier_spmm.cu")}
+                     "src/repro_torch/csrc/outlier_spmm.cu (decode body at "
+                     "M <= T, prefill body above); src/repro_torch/csrc/"
+                     "outlier_spmm_gather8.cu (old kernel, timed only)")}
 
 
 def outlier_bound(M, N, K, n):
@@ -499,6 +520,80 @@ def outlier_bound(M, N, K, n):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def outlier_gather_ceiling(M, N, K, n):
+    """Least time for the M*N*K*n/256 multiply-adds of y = x @ O^T as
+    gathers of x from shared memory on the CUDA cores (``GATHER_FMA_PER_S``),
+    which no body that reads x per outlier can beat; worked out, not
+    measured, so it goes to the log and to phase 8's ops section, not to
+    the kernels line."""
+    return M * N * (K // 256) * n / GATHER_FMA_PER_S * 1e3
+
+
+def random_outliers(torch, N, K, n, g):
+    """Random N:256 outliers on the card: distinct ascending indices per
+    group, index 255 in the last slot of every seventh row."""
+    from repro_torch.core import pack_outlier_meta
+    idx = torch.rand((N, K // 256, 256), generator=g, device="cuda")
+    idx = torch.sort(idx.argsort(-1)[..., :n], dim=-1).values.int()
+    idx[::7, :, -1] = 255
+    vals = torch.randn((N, K // 256, n), generator=g, device="cuda")
+    return vals.to(torch.bfloat16), pack_outlier_meta(idx)
+
+
+def outlier_sweep_phase(torch, timer, log):
+    """``outlier_spmm``'s decode body, prefill body and old kernel side by
+    side, each forced, at w_gate and w_down with 16:256 and 4:256 outliers,
+    for every M of ``OUTLIER_SWEEP_MS``; every case is gated against the
+    plain version.  T is the largest M at which the decode body was no
+    slower than the prefill body in all four (projection, n) rows."""
+    from repro_torch.kernels import outlier_spmm as osp
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = []
+    for proj, N, K in SWEEP_PROJ:
+        for n in OUTLIER_SWEEP_N:
+            vals, meta = random_outliers(torch, N, K, n, g)
+            for M in OUTLIER_SWEEP_MS:
+                x = torch.randn((M, K), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                plans = {path: osp.plan(M, K, N, n, sm_count(torch),
+                                        decode_max_m=limit)
+                         for path, limit in (("decode", max(OUTLIER_SWEEP_MS)),
+                                             ("prefill", 0))}
+                plans["old"] = osp.gather8_plan(M, K, N)
+                y_plain = osp.plain(x, vals, meta, n=n)
+                tol = KERNEL_TOL_REL * float(y_plain.float().abs().max())
+                case = {"proj": proj, "n": n, "M": M}
+                for path, pl in plans.items():
+                    def run(pl=pl):
+                        return osp.outlier_spmm(x, vals, meta, n=n,
+                                                force_plan=pl)
+                    y = run()
+                    torch.cuda.synchronize()
+                    err = float((y.float() - y_plain.float()).abs().max())
+                    check(bool(torch.isfinite(y).all()) and err <= tol,
+                          f"outlier sweep {proj} n={n} M={M} {path}: "
+                          f"max|kernel-plain| {err:.3e} > tol {tol:.3e}")
+                    case[f"{path}_ms"] = timer.ms(run, 20)
+                    case[f"{path}_plan"] = [pl.rows, pl.cols, pl.splits]
+                cases.append(case)
+                log(f"  sweep outlier_spmm {proj:12s} {n:2d}:256 M={M:3d}: "
+                    f"decode {case['decode_ms']:.4f} ms {case['decode_plan']}"
+                    f"  prefill {case['prefill_ms']:.4f} "
+                    f"{case['prefill_plan']}  old {case['old_ms']:.4f}")
+            del vals, meta
+    faster = [M for M in OUTLIER_SWEEP_MS
+              if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
+                     if c["M"] == M)]
+    out = {"T_in_module": osp.DECODE_MAX_M,
+           "T_measured": max(faster) if faster else 0,
+           "decode_no_slower_at": faster, "cases": cases}
+    log(f"  sweep outlier_spmm: decode no slower than prefill at M in "
+        f"{faster}; T measured {out['T_measured']}, module T "
+        f"{osp.DECODE_MAX_M}")
+    return out
+
+
 def case_sums(cases):
     """Times summed over ``cases``; the bound is bytes-bound if most of its
     time is."""
@@ -509,8 +604,9 @@ def case_sums(cases):
            "bound_ms": b_bytes + b_ops,
            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
            "library_ms": sum(c["library_ms"] for c in cases)}
-    if cases and all("tile_ms" in c for c in cases):
-        out["tile_ms"] = sum(c["tile_ms"] for c in cases)
+    for key in ("tile_ms", "old_ms"):
+        if cases and all(key in c for c in cases):
+            out[key] = sum(c[key] for c in cases)
     return out
 
 
@@ -527,10 +623,11 @@ def kernel_entry(name, cases, launches, by_path=None):
     """One entry of the kernels line; times are sums over the cases (16
     (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
     attention, for each variant; 48 (projection, pattern, M) cases of
-    outlier_spmm in phase 8(d)).  A weight kernel's entry also splits its
-    cases and its main-path launches by path (``by_path``: decode at M <=
-    T, prefill above), each with the old tile kernel's time on the same
-    cases."""
+    outlier_spmm in phase 8(d)).  A weight kernel's entry, and
+    outlier_spmm's, also splits its cases and its main-path launches by
+    path (``by_path``: decode at M <= T, prefill above), each with the old
+    kernel's time on the same cases (``tile_ms``; ``old_ms`` for
+    outlier_spmm)."""
     replaces, source = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -932,7 +1029,9 @@ def _counters():
         (f"{name}_{path}{suffix}", mod, f"launches_{path}{suffix}")
         for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms))
         for path in ("decode", "prefill") for suffix in ("", "_int8")] + [
-        ("outlier_spmm", osp, "launches")]
+        ("outlier_spmm", osp, "launches"),
+        ("outlier_spmm_decode", osp, "launches_decode"),
+        ("outlier_spmm_prefill", osp, "launches_prefill")]
 
 
 def reset_launches():
@@ -1392,7 +1491,9 @@ def ops_phase(torch, timer, log, lp, st):
     """8(d): ``kernels/ops`` on layer 0's four projection shapes, each
     outlier pattern and M; the counts are set to 0 just before each group of
     ``ops`` calls and read just after, and the comparisons and timings
-    run outside them.  Returns (cases, launches)."""
+    run outside them.  Returns (cases, launches, ceilings): ``ceilings``
+    gives each case's gather ceiling, worked out, not measured, so it
+    stays out of the cases of the kernels line."""
     import torch.nn.functional as F
     from repro_torch.core import (SparsifyConfig, pack_outlier_meta,
                                   sparsify_linear)
@@ -1402,7 +1503,7 @@ def ops_phase(torch, timer, log, lp, st):
     from repro_torch.kernels import outlier_spmm as osp
 
     g = torch.Generator(device="cuda").manual_seed(8)
-    cases, launches = [], {}
+    cases, launches, ceilings = [], {}, []
     for p in OPS_PROJ:
         w = lp[p]
         N, K = w.shape
@@ -1445,6 +1546,21 @@ def ops_phase(torch, timer, log, lp, st):
                         "library_ms": timer.ms(lambda: F.linear(x, dense_o),
                                                20),
                         "bound_ms": b_ms, "bound_by": b_by}
+                ceiling = outlier_gather_ceiling(M, N, K, o.n)
+                # the plan's body (decode at M <= T, prefill above): the
+                # same inputs twice give the same bits, and the old kernel
+                # is timed beside it on the same inputs
+                op = osp.plan(M, K, N, o.n, sm_count(torch))
+                again = osp.outlier_spmm(x, vals, meta, n=o.n)
+                torch.cuda.synchronize()
+                check(torch.equal(y, again), f"outlier_spmm {p} {pat} M={M}: "
+                                             f"two calls give different bits")
+                old_plan = osp.gather8_plan(M, K, N)
+                case.update(path=op.path, rows=op.rows, cols=op.cols,
+                            splits=op.splits,
+                            old_ms=timer.ms(lambda: osp.outlier_spmm(
+                                x, vals, meta, n=o.n, force_plan=old_plan),
+                                20))
                 if pat == "16:256":
                     pair = y_nm + y
                     u_err = float((pair.float() - y_fused.float()).abs().max())
@@ -1462,10 +1578,14 @@ def ops_phase(torch, timer, log, lp, st):
                             x, nm.values, nm_meta, vals, meta, n=nm.n,
                             m=nm.m, o_n=o.n), 20))
                 cases.append(case)
+                ceilings.append({"proj": p, "pattern": pat, "M": M,
+                                 "path": op.path, "ms": ceiling})
                 log(f"  (d) outlier_spmm {p:7s} {pat:6s} M={M:4d}: err "
-                    f"{err:.2e} (tol {tol:.2e})  kernel {case['ms']:.4f} ms  "
-                    f"plain {case['plain_ms']:.4f}  F.linear "
-                    f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})"
+                    f"{err:.2e} (tol {tol:.2e})  {op.path} {op.rows}x"
+                    f"{op.cols} S={op.splits} {case['ms']:.4f} ms  old "
+                    f"{case['old_ms']:.4f}  plain {case['plain_ms']:.4f}  "
+                    f"F.linear {case['library_ms']:.4f}  bound {b_ms:.4f} "
+                    f"({b_by})  gather ceiling {ceiling:.4f}"
                     + (f"  unfused {case['unfused_ms']:.4f} fused "
                        f"{case['fused_ms']:.4f}" if pat == "16:256" else ""))
             del o, nm, vals, meta, nm_meta, dense_o
@@ -1477,10 +1597,14 @@ def ops_phase(torch, timer, log, lp, st):
             M <= fsl.DECODE_MAX_M for M in MS)
         want[f"{name}_prefill"] = len(OPS_PROJ) * sum(
             M > fsl.DECODE_MAX_M for M in MS)
+    for path, count in (("decode", sum(M <= osp.DECODE_MAX_M for M in MS)),
+                        ("prefill", sum(M > osp.DECODE_MAX_M for M in MS))):
+        want[f"outlier_spmm_{path}"] = (len(OPS_PATTERNS) * len(OPS_PROJ)
+                                        * count)
     for key, n in launches.items():
         check(n == want.get(key, 0),
               f"ops path: {key} launched {n} times, want {want.get(key, 0)}")
-    return cases, launches
+    return cases, launches, ceilings
 
 
 def perplexity_phase(torch, log, cfg, dense, sparse, stats, scfg):
@@ -1551,9 +1675,10 @@ def pipeline_phase(torch, log, paged_a):
     sparse, scfg, comp = compress(torch, log, cfg, dense, stats)
     served = pipeline_serve(torch, log, cfg, sparse, paged_a)
     timer = Timer(torch)
-    cases, launches = ops_phase(torch, timer, log, dense["layers"][0],
-                                {p: stats[f"layers/0/{p}"]
-                                 for p in PROJ_NAMES})
+    cases, launches, ceilings = ops_phase(torch, timer, log,
+                                          dense["layers"][0],
+                                          {p: stats[f"layers/0/{p}"]
+                                           for p in PROJ_NAMES})
     del timer
     ppl = perplexity_phase(torch, log, cfg, dense, sparse, stats, scfg)
     del dense, sparse
@@ -1562,8 +1687,21 @@ def pipeline_phase(torch, log, paged_a):
     out = {"calibrate": calib, "compress": comp, "serve": served,
            "ops": {"launches": launches,
                    "outlier_spmm_ms": sum(c["ms"] for c in cases),
+                   "outlier_spmm_old_ms": sum(c["old_ms"] for c in cases),
                    "unfused_ms": sum(c["unfused_ms"] for c in fused),
-                   "fused_ms": sum(c["fused_ms"] for c in fused)},
+                   "fused_ms": sum(c["fused_ms"] for c in fused),
+                   # worked out from the shapes (outlier_gather_ceiling)
+                   "outlier_spmm_gather_ceiling_ms": {
+                       "decode": sum(c["ms"] for c in ceilings
+                                     if c["path"] == "decode"),
+                       "prefill": sum(c["ms"] for c in ceilings
+                                      if c["path"] == "prefill"),
+                       "prefill_by_pattern": {
+                           pat: sum(c["ms"] for c in ceilings
+                                    if c["path"] == "prefill"
+                                    and c["pattern"] == pat)
+                           for pat in OPS_PATTERNS},
+                       "cases": ceilings}},
            "perplexity": ppl}
     return out, cases, launches
 
@@ -1603,6 +1741,9 @@ def main() -> int:
     log("phase 2 sweep: decode kernel vs prefill kernel (and the old tile "
         "kernel) of fused_sparse_linear and nm_spmm, w_gate and w_down")
     sweep = sweep_phase(torch, timer, log)
+    log("phase 2 sweep: outlier_spmm's decode body vs prefill body (and the "
+        "old kernel), w_gate and w_down, 16:256 and 4:256")
+    sweep["outlier_spmm"] = outlier_sweep_phase(torch, timer, log)
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
@@ -1664,7 +1805,9 @@ def main() -> int:
         kernel_entry("paged_attention_int8", attn_cases8,
                      int8_launches["paged_attention_int8"]),
         kernel_entry("outlier_spmm", ops_cases,
-                     ops_launches["outlier_spmm"])]}
+                     ops_launches["outlier_spmm"],
+                     {path: ops_launches[f"outlier_spmm_{path}"]
+                      for path in ("decode", "prefill")})]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,

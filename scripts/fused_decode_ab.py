@@ -74,9 +74,9 @@ def build_variants(build):
         cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [build._nvcc(), *build.NVCC_FLAGS, *build.include_flags(),
+             "-shared", "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         output, _ = proc.communicate()

@@ -83,9 +83,9 @@ def build_variants(build, names):
         cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            [build._nvcc(), *build.NVCC_FLAGS, *build.include_flags(),
+             "-shared", "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         output, _ = proc.communicate()
@@ -102,13 +102,14 @@ def build_variants(build, names):
 def forced_plan(fsl, M, K, N, o_n, sms, bm):
     """The plan's prefill choice, or BM = ``bm`` with BN = 128 and the
     plan's split rule."""
+    from repro_torch.kernels.common import prefill_splits
     p = fsl.plan(M, K, N, 8, 16, o_n, sms, decode_max_m=0)
     if bm == "plan":
         return p
     bm, groups = int(bm), -(-K // 256)
     tiles = -(-M // bm) * -(-N // 128)
-    S = fsl._prefill_splits(tiles, groups,
-                            fsl.prefill_blocks_per_sm(bm, o_n) * sms)
+    S = prefill_splits(tiles, groups,
+                       fsl.prefill_blocks_per_sm(bm, o_n) * sms)
     return fsl.Plan("prefill", bm, S, -(-groups // S) * 256,
                     S * M * N * 4 if S > 1 else 0, tiles * S,
                     tiles if S > 1 else 0, 128)

@@ -56,7 +56,8 @@
 //     butterfly, then, for S > 1, each block writes its partials to the
 //     workspace and the last block to arrive for an output tile (a per-tile
 //     counter, reset to 0 by that block) sums them in split order, 0 + p0 +
-//     p1 + ...: no float atomics, no memset launch, the same bits every call;
+//     p1 + ...: no float atomics, no memset launch, the same bits every call
+//     (csrc/split_reduce.cuh);
 //   * compile-time shapes: 8:16 with o_n = 16 is one instantiation per R
 //     (fused_decode_816_kernel) whose arrays are all indexed by constants;
 //     every other n <= 8, m <= 16, o_n (a multiple of 4 up to 256) runs the
@@ -82,6 +83,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "split_reduce.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -207,7 +210,6 @@ __device__ __forceinline__ void decode_body(
   const int n = NT ? NT : n_rt, m = MT ? MT : m_rt, o_n = ONT ? ONT : on_rt;
   extern __shared__ uint4 smem[];
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem);
-  __shared__ int last;
 
   // block -> (x row tile, split, block of output rows); the row tile runs
   // fastest so the tiles of one weight slice run side by side
@@ -356,25 +358,8 @@ __device__ __forceinline__ void decode_body(
     return;
   }
   if (writes) ws[(size_t(s) * M + mm) * N + o] = mine;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* cnt = counters + rb * tiles + tile;
-    last = atomicAdd(cnt, 1) == S - 1;
-    if (last) *cnt = 0;  // every split has arrived: ready for the next call
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int t = threadIdx.x; t < kBlockRows * R; t += kThreads) {
-    const int oo = rb * kBlockRows + t % kBlockRows, mr = m0 + t / kBlockRows;
-    if (oo < N && mr < M) {
-      float sum = 0.f;
-      for (int ss = 0; ss < S; ++ss)
-        sum += __ldcg(ws + (size_t(ss) * M + mr) * N + oo);
-      y[size_t(mr) * N + oo] = __float2bfloat16(sum);
-    }
-  }
+  splitk::reduce_splits(ws, counters + rb * tiles + tile, y, M, N, S, m0, R,
+                        rb * kBlockRows, kBlockRows, kThreads);
 }
 
 #define DECODE_PARAMS                                                      \

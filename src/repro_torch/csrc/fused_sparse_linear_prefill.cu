@@ -79,7 +79,7 @@
 //      one; partials go to the f32 workspace and the last block to arrive
 //      for a tile (an int32 counter it resets to 0) sums them in split
 //      order, 0 + p0 + p1 + ...: no float atomics, no memset launch, the
-//      same bits every call;
+//      same bits every call (csrc/split_reduce.cuh);
 //   5. WMMA from an unswizzled tile -> wgmma.mma_async m64n64k16 (m64n32k16
 //      at BM = BN = 64) bf16 -> f32, both operands read by the tensor cores
 //      straight from K-major tiles in the 128-byte swizzle (16-byte chunk c
@@ -115,6 +115,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "split_reduce.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -282,7 +284,6 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
   constexpr int UNITS = (NUNITS + kThreads - 1) / kThreads;  // a thread's
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ int last;
   unsigned char* smem = smem_raw + ((1024 - (static_cast<unsigned>(
       __cvta_generic_to_shared(smem_raw)) & 1023)) & 1023);
   bf16* bt = reinterpret_cast<bf16*>(smem + kStages * L::kSlot);
@@ -596,25 +597,8 @@ __device__ __forceinline__ void prefill_body(const Args& a) {
           if (col < N) dst[0] = acc[i][jp][4 * jn + 2 * h];
           if (col + 1 < N) dst[1] = acc[i][jp][4 * jn + 2 * h + 1];
         }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    int* cnt = a.counters + blockIdx.y * gridDim.x + blockIdx.x;
-    last = atomicAdd(cnt, 1) == a.S - 1;
-    if (last) *cnt = 0;  // every split has arrived: ready for the next call
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int row = m0 + i / BN, col = n0 + i % BN;
-    if (row < M && col < N) {
-      float sum = 0.f;
-      for (int ss = 0; ss < a.S; ++ss)
-        sum += __ldcg(a.ws + (size_t(ss) * M + row) * N + col);
-      a.y[size_t(row) * N + col] = __float2bfloat16(sum);
-    }
-  }
+  splitk::reduce_splits(a.ws, a.counters + blockIdx.y * gridDim.x + blockIdx.x,
+                        a.y, M, N, a.S, m0, BM, n0, BN, kThreads);
 }
 
 // the main path's shape: 8:16 values with 16:256 outliers, staged

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``src/repro_torch/csrc/`` are compiled with ``nvcc``, one
-process per source, all started together, and linked into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library goes
-to ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``) on first use, named by the hash of the sources and flags, so
-a changed source is rebuilt and an unchanged one is loaded as it is.
+The sources under ``src/repro_torch/csrc/`` (``*.cu``, which include the
+``*.cuh`` headers there) are compiled with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library goes to
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``) on
+first use, named by the hash of the sources, headers and flags, so a changed
+source is rebuilt and an unchanged one is loaded as it is.
 
 Nothing falls back: a missing ``nvcc`` or a failed build raises.
 """
@@ -43,7 +44,9 @@ SIGNATURES = {
     "nm_spmm_decode_int8": [_P] * 7 + [_I] * 8 + [_P],
     "nm_spmm_prefill_bf16": [_P] * 6 + [_I] * 9 + [_P],
     "nm_spmm_prefill_int8": [_P] * 7 + [_I] * 9 + [_P],
-    "outlier_spmm_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "outlier_spmm_decode_bf16": [_P] * 6 + [_I] * 8 + [_P],
+    "outlier_spmm_prefill_bf16": [_P] * 6 + [_I] * 8 + [_P],
+    "outlier_spmm_gather8_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "paged_attention_bf16": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -55,6 +58,16 @@ _lib: ctypes.CDLL | None = None
 
 def sources() -> list[pathlib.Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def include_flags() -> list[str]:
+    """For a copy of a source compiled outside ``csrc/`` (the A/B scripts):
+    its headers' directory."""
+    return ["-I", str(CSRC_DIR)]
 
 
 def _nvcc() -> str:
@@ -99,7 +112,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    lib_path = BUILD_DIR / f"libkernels-{_digest(srcs)}.so"
+    lib_path = BUILD_DIR / f"libkernels-{_digest(srcs + headers())}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

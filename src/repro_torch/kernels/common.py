@@ -1,6 +1,7 @@
-"""What the weight kernels' wrappers (``nm_spmm``, ``fused_sparse_linear``)
-share on the card: the operand checks of the N:M stream, the split kernels'
-workspace and counters, and the SM count their plans are sized for."""
+"""What the kernels' wrappers (``nm_spmm``, ``fused_sparse_linear``,
+``outlier_spmm``) share on the card: the operand checks of the N:M stream,
+the prefill bodies' split rule, the split kernels' workspace and counters,
+and the SM count their plans are sized for."""
 from __future__ import annotations
 
 import functools
@@ -46,6 +47,25 @@ def check_cuda_operands(x: torch.Tensor, values: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     return M, K, N
+
+
+def prefill_splits(tiles: int, groups: int, wave: int) -> int:
+    """No split when the output tiles fill a wave of ``wave`` blocks;
+    otherwise, of the equal splits (slices of whole groups) that keep the
+    grid within two waves (each split adds S x M x N f32 of workspace),
+    the one with the fewest waves x groups per slice, the time of the
+    longest block's walk over K; ties to fewer splits."""
+    if tiles >= wave:
+        return 1
+    best = (None, 1)
+    for splits in range(1, min(groups, 2 * wave // tiles) + 1):
+        per = -(-groups // splits)
+        if -(-groups // per) != splits:
+            continue                      # not an equal split
+        cost = -(-tiles * splits // wave) * per
+        if best[0] is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
 
 
 _scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}

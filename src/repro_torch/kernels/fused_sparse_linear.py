@@ -41,7 +41,8 @@ import torch
 from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from ..core.packing import unpack_metadata
 from . import build
-from .common import check_cuda_operands, scratch_for, sm_count
+from .common import (check_cuda_operands, prefill_splits, scratch_for,
+                     sm_count)
 from .ref import fused_sparse_linear_ref
 
 launches = 0
@@ -127,8 +128,8 @@ def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
     of a wave; BN = 128 output features, or 64 where 128-wide tiles
     split as far as they go cannot fill one wave of
     ``prefill_blocks_per_sm`` blocks per SM; and the split of K on
-    multiples of 256 that ``_prefill_splits`` picks.  The slices are equal
-    but for the last."""
+    multiples of 256 that ``common.prefill_splits`` picks.  The slices are
+    equal but for the last."""
     if (o_n and K % OUTLIER_M) or K < 1 or M < 1 or N < 1:
         raise ValueError(f"plan needs M, N, in >= 1 and, with outliers, "
                          f"in % 256 == 0; got M={M}, in={K}, out={N}, "
@@ -144,7 +145,7 @@ def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
         bn = 128 if (bm == 256
                      or -(-N // 128) * m_tiles * groups >= wave) else 64
         tiles = -(-N // bn) * m_tiles
-        splits = _prefill_splits(tiles, groups, wave)
+        splits = prefill_splits(tiles, groups, wave)
         return Plan("prefill", bm, splits,
                     -(-groups // splits) * OUTLIER_M,
                     splits * M * N * 4 if splits > 1 else 0,
@@ -161,25 +162,6 @@ def plan(M: int, K: int, N: int, n: int, m: int, o_n: int, sm_count: int,
                 splits * M * N * 4 if splits > 1 else 0,
                 row_blocks * tiles * splits,
                 row_blocks * tiles if splits > 1 else 0)
-
-
-def _prefill_splits(tiles: int, groups: int, wave: int) -> int:
-    """No split when the output tiles fill a wave of ``wave`` blocks;
-    otherwise, of the equal splits (slices of whole groups) that keep the
-    grid within two waves (each split adds S x M x N f32 of workspace),
-    the one with the fewest waves x groups per slice, the time of the
-    longest block's walk over K; ties to fewer splits."""
-    if tiles >= wave:
-        return 1
-    best = (None, 1)
-    for splits in range(1, min(groups, 2 * wave // tiles) + 1):
-        per = -(-groups // splits)
-        if -(-groups // per) != splits:
-            continue                      # not an equal split
-        cost = -(-tiles * splits // wave) * per
-        if best[0] is None or cost < best[0]:
-            best = (cost, splits)
-    return best[1]
 
 
 def tile_plan(M: int, K: int, N: int) -> Plan:

@@ -909,22 +909,161 @@ def _outliers(N, K, n, g, device):
     return vals.to(torch.bfloat16), pack_outlier_meta(idx)
 
 
+def _osp_plans(M, K, N, n, path, split):
+    """``outlier_spmm``'s plan for ``path`` ("decode" or "prefill"), with K
+    split as far as it goes (one group a slice, ``split`` True) or as
+    little as the body takes (False: one slice; the decode body's x slice
+    bounds it)."""
+    from repro_torch.kernels import outlier_spmm as osp
+    p = osp.plan(M, K, N, n, _sm_count(),
+                 decode_max_m=M if path == "decode" else 0)
+    assert p.path == path
+    groups = K // 256
+    if split:
+        per = 1
+    elif path == "decode":
+        per = min(groups, osp.X_SLICE_BYTES // (2 * p.rows) // 256)
+    else:
+        per = groups
+    S = -(-groups // per)
+    tiles = p.counters if p.splits > 1 else p.blocks
+    return dataclasses.replace(
+        p, splits=S, k_per_split=per * 256,
+        workspace_bytes=S * M * N * 4 if S > 1 else 0, blocks=tiles * S,
+        counters=tiles if S > 1 else 0)
+
+
+def _osp_counts():
+    from repro_torch.kernels import outlier_spmm as osp
+    return osp.launches, osp.launches_decode, osp.launches_prefill
+
+
 @pytest.mark.parametrize("o_n", [4, 8, 16])
 @pytest.mark.parametrize("N,K", [(96, 4096), (1000, 4096), (70, 14336),
                                  (37, 512)])
-@pytest.mark.parametrize("M", [1, 7, 37, 130])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 37, 130, 512])
 def test_outlier_spmm_matches_plain(cuda, M, N, K, o_n):
+    """Through the plan: the decode body at M <= T, the prefill body above,
+    each counted on its path."""
     from repro_torch.kernels import outlier_spmm as osp
     g = torch.Generator(device=cuda).manual_seed(M * N + o_n)
     vals, meta = _outliers(N, K, o_n, g, cuda)
     assert bool((meta < 0).any())
     x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
-    before = osp.launches
+    path = osp.plan(M, K, N, o_n, _sm_count()).path
+    assert path == ("decode" if M <= osp.DECODE_MAX_M else "prefill")
+    before = _osp_counts()
     y = osp.outlier_spmm(x, vals, meta, n=o_n)
-    assert osp.launches == before + 1
+    assert _osp_counts() == (before[0] + 1, before[1] + (path == "decode"),
+                             before[2] + (path == "prefill"))
     torch.cuda.synchronize()
     assert y.shape == (M, N) and y.dtype == torch.bfloat16
     _close(y, osp.plain(x, vals, meta, n=o_n))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one_slice", "split"])
+@pytest.mark.parametrize("o_n", [4, 16])
+@pytest.mark.parametrize("K", [512, 4096, 14336])
+@pytest.mark.parametrize("N", [37, 70, 1000])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 37, 130, 512])
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+def test_outlier_spmm_bodies_forced_match_plain(cuda, path, M, N, K, o_n,
+                                                split):
+    """Each body forced at every M, with K in one slice (or as few as the
+    decode body's x slice allows) and split one group a slice; two calls
+    give the same bits."""
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(M + N + K + o_n)
+    vals, meta = _outliers(N, K, o_n, g, cuda)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    p = _osp_plans(M, K, N, o_n, path, split)
+    before = _osp_counts()
+    ys = [osp.outlier_spmm(x, vals, meta, n=o_n, force_plan=p)
+          for _ in range(2)]
+    assert _osp_counts() == (before[0] + 2,
+                             before[1] + 2 * (path == "decode"),
+                             before[2] + 2 * (path == "prefill"))
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1])
+    _close(ys[0], osp.plain(x, vals, meta, n=o_n))
+
+
+@pytest.mark.parametrize("o_n", [12, 20, 64])
+@pytest.mark.parametrize("M", [1, 37])
+def test_outlier_spmm_other_n_takes_the_decode_body(cuda, M, o_n):
+    """The prefill body is compiled for n = 4, 8, 16; any other multiple of
+    4 takes the decode body at every M."""
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(o_n)
+    vals, meta = _outliers(200, 768, o_n, g, cuda)
+    x = torch.randn((M, 768), generator=g, device=cuda).to(torch.bfloat16)
+    assert osp.plan(M, 768, 200, o_n, _sm_count()).path == "decode"
+    before = _osp_counts()
+    y = osp.outlier_spmm(x, vals, meta, n=o_n)
+    assert _osp_counts()[1] == before[1] + 1
+    torch.cuda.synchronize()
+    _close(y, osp.plain(x, vals, meta, n=o_n))
+
+
+def test_outlier_spmm_never_reaches_plain_or_the_old_kernel(cuda,
+                                                            monkeypatch):
+    """On a CUDA tensor the wrapper launches one of its two bodies; neither
+    the plain version nor the old kernel is called."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vals, meta = _outliers(300, 1024, 16, g, cuda)
+    cases = []
+    for M in (1, 8, 9, 37, 130):
+        x = torch.randn((M, 1024), generator=g, device=cuda).to(
+            torch.bfloat16)
+        cases.append((x, osp.plain(x, vals, meta, n=16)))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version or the old kernel was "
+                             "called on CUDA tensors")
+    monkeypatch.setattr(osp, "plain", refuse)
+    monkeypatch.setattr(osp, "outlier_spmm_ref", refuse)
+    monkeypatch.setattr(build.library(), "outlier_spmm_gather8_bf16", refuse)
+    before = _osp_counts()
+    for x, want in cases:
+        y = osp.outlier_spmm(x, vals, meta, n=16)
+        torch.cuda.synchronize()
+        _close(y, want)
+    T = osp.DECODE_MAX_M
+    n_dec = sum(M <= T for M in (1, 8, 9, 37, 130))
+    assert _osp_counts() == (before[0] + 5, before[1] + n_dec,
+                             before[2] + 5 - n_dec)
+
+
+@pytest.mark.parametrize("M", [1, 37, 512])
+def test_outlier_spmm_old_kernel_still_forced(cuda, M):
+    """The first kernel stays callable through ``force_plan`` (to be timed
+    beside the two bodies), counted on neither path, and agrees with the
+    plain version."""
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(M)
+    vals, meta = _outliers(1000, 4096, 8, g, cuda)
+    x = torch.randn((M, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    before = _osp_counts()
+    y = osp.outlier_spmm(x, vals, meta, n=8,
+                         force_plan=osp.gather8_plan(M, 4096, 1000))
+    assert _osp_counts() == (before[0] + 1, before[1], before[2])
+    torch.cuda.synchronize()
+    _close(y, osp.plain(x, vals, meta, n=8))
+
+
+def test_outlier_spmm_raises_on_misaligned_x(cuda):
+    """Both bodies load x in 16-byte pieces: an x that is not 16-byte
+    aligned raises before any launch."""
+    from repro_torch.kernels import outlier_spmm as osp
+    g = torch.Generator(device=cuda).manual_seed(1)
+    vals, meta = _outliers(64, 512, 8, g, cuda)
+    flat = torch.zeros(4 * 512 + 1, dtype=torch.bfloat16, device=cuda)
+    before = _osp_counts()
+    with pytest.raises(ValueError):
+        osp.outlier_spmm(flat[1:].view(4, 512), vals, meta, n=8)
+    assert _osp_counts() == before
 
 
 def test_outlier_spmm_raises_instead_of_falling_back(cuda):

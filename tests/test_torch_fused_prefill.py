@@ -39,6 +39,7 @@ from repro.kernels.fused_sparse_linear import \
 from repro.models.sparse_serving import _to_sparse_weight  # noqa: E402
 from repro_torch.core import unpack_metadata, unpack_outlier_meta  # noqa: E402
 from repro_torch.interchange import _sparse_weight  # noqa: E402
+from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import fused_sparse_linear as fsl  # noqa: E402
 from repro_torch.kernels.ref import (decompress_nm,  # noqa: E402
                                      dequantize, fused_sparse_linear_ref)
@@ -101,7 +102,7 @@ def test_prefill_plan_decompresses_the_weight_twice_at_512_rows(N, K):
     (16, 16, 264, 16),      # wk at M = 37 (BN 64): one group each
     (2, 2, 264, 2)])
 def test_prefill_splits_count_waves(tiles, groups, wave, want):
-    assert fsl._prefill_splits(tiles, groups, wave) == want
+    assert common.prefill_splits(tiles, groups, wave) == want
 
 
 def test_tile_plan_is_only_forced():

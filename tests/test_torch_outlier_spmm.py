@@ -16,6 +16,8 @@ usual probabilistic bound of recursive summation; a wrong index or value
 gives errors of the order of |x||w| itself, ~1e7 eps.  In bf16 (x and values) every product is exact in f32
 and the sums are rounded once to bf16, so outputs may differ by one bf16
 ulp (``_assert_within_one_ulp``).  Meta words are compared bit for bit."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -199,3 +201,227 @@ def test_unfused_pair_equals_fused_on_cpu():
                                    dense.numpy())
     _assert_within_summation_order(fused.numpy(), (tx @ dense.T).numpy(),
                                    tx.numpy(), dense.numpy())
+
+
+# ------------------------------------------ the CUDA bodies' plan, on the CPU
+# ``plan`` picks the decode body (``csrc/outlier_spmm.cu``,
+# ``outlier_decode_kernel``) at M <= T and the prefill body
+# (``outlier_prefill_kernel``) above, and the split of K each runs; the
+# kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+SMS = 132                                      # an H100 SXM
+T = port_osp.DECODE_MAX_M
+LLAMA = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336)]  # (N, K)
+RAGGED = [(N, K) for N in (37, 70, 300) for K in (256, 768, 4096)]
+SWEEP = [(14336, 4096), (4096, 14336)]        # w_gate, w_down
+SWEEP_MS = [1, 2, 4, 8, 12, 16, 24, 37, 64]
+
+
+def _forced(path, M, K, N, n, sms=SMS):
+    """``plan``'s choice for ``path`` at this M, whatever T is."""
+    p = port_osp.plan(M, K, N, n, sms,
+                      decode_max_m=M if path == "decode" else 0)
+    assert p.path == path
+    return p
+
+
+def _one_group_a_slice(p, M, K, N):
+    """``p`` with K split one 256-wide group a slice."""
+    S = K // 256
+    tiles = p.counters if p.splits > 1 else p.blocks
+    return dataclasses.replace(
+        p, splits=S, k_per_split=256,
+        workspace_bytes=S * M * N * 4 if S > 1 else 0, blocks=tiles * S,
+        counters=tiles if S > 1 else 0)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("M", [1, 2, 4, T, T + 1, 37, 64, 65, 512])
+def test_plan_routes_by_t(M, n):
+    """M <= T takes the decode body, M > T the prefill body."""
+    for N, K in LLAMA:
+        p = port_osp.plan(M, K, N, n, SMS)
+        assert p.path == ("decode" if M <= T else "prefill")
+
+
+@pytest.mark.parametrize("n", [12, 20, 64, 256])
+@pytest.mark.parametrize("M", [1, 37, 512])
+def test_plan_takes_the_decode_body_for_other_n(M, n):
+    """The prefill body is compiled for n = 4, 8, 16 only."""
+    assert port_osp.plan(M, 4096, 4096, n, SMS).path == "decode"
+
+
+@pytest.mark.parametrize("N,K", LLAMA + RAGGED)
+@pytest.mark.parametrize("M", [1, 3, 8, 9, 37, 64, 65, 130, 512])
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+@pytest.mark.parametrize("n", [4, 16])
+def test_plan_splits_cover_k(n, path, M, N, K):
+    """The slices cover K on multiples of 256, the last one ragged but
+    never cut inside a group; the grid, the workspace (S x M x N f32, none
+    for one slice), the counters (one per output tile) and the shared
+    memory match what the bodies take."""
+    p = _forced(path, M, K, N, n)
+    S, kps = p.splits, p.k_per_split
+    assert S >= 1 and kps % 256 == 0
+    edges = [min(s * kps, K) for s in range(S + 1)]
+    assert edges[-1] == K and (S - 1) * kps < K          # no empty slice
+    assert all(e % 256 == 0 for e in edges)
+    assert all(b - a == kps for a, b in zip(edges[:-2], edges[1:-1]))
+    if path == "decode":
+        assert p.rows in (2, 4, 8) and p.rows >= min(M, 8)
+        assert p.cols in (32, 64, 128)
+        assert kps * p.rows * 2 <= port_osp.X_SLICE_BYTES
+    else:
+        assert p.rows == (64 if M <= 64 else 128) and p.cols == 2 * p.rows
+        smem = port_osp.prefill_smem_bytes(p.rows, n)
+        assert smem <= 232448                       # a block's limit
+        assert port_osp.prefill_blocks_per_sm(p.rows, n) * (smem + 1024) \
+            <= port_osp.SM_SHARED_BYTES
+    tiles = -(-N // p.cols) * -(-M // p.rows)
+    assert p.blocks == tiles * S
+    assert p.counters == (tiles if S > 1 else 0)
+    assert p.workspace_bytes == (S * M * N * 4 if S > 1 else 0)
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("N,K", SWEEP)
+@pytest.mark.parametrize("M", SWEEP_MS)
+@pytest.mark.parametrize("path", ["decode", "prefill"])
+def test_plan_fills_the_card_at_the_sweeps_shapes(path, M, N, K, n):
+    """Either body, forced at any M of the T sweep, launches at least one
+    block per SM at w_gate and w_down."""
+    assert _forced(path, M, K, N, n).blocks >= SMS
+
+
+def test_plan_prefill_splits_only_short_grids():
+    """The prefill body splits K where its tiles leave SMs idle (wk at M =
+    37: 4 tiles) and not where they fill the card (w_gate at M = 512)."""
+    assert port_osp.plan(37, 4096, 1024, 16, SMS).splits == 16
+    assert port_osp.plan(512, 4096, 14336, 16, SMS).splits == 1
+
+
+def test_plan_rejects_what_the_kernels_do_not_take():
+    for args in ((8, 384, 96, 16), (0, 256, 96, 16), (8, 256, 96, 6),
+                 (8, 256, 0, 16)):
+        with pytest.raises(ValueError):
+            port_osp.plan(*args, SMS)
+
+
+def test_gather8_plan_is_never_picked():
+    assert all(port_osp.plan(M, K, N, 16, SMS).path != "gather8"
+               for M in (1, 8, 9, 512) for N, K in LLAMA)
+    p = port_osp.gather8_plan(37, 4096, 1000)
+    assert (p.path, p.splits, p.workspace_bytes, p.blocks) == \
+        ("gather8", 1, 0, 63 * 5)
+
+
+# ------------------------------------------------- the bodies' arithmetic
+def decode_model(x, values, meta, n, p):
+    """What the decode body computes for plan ``p``, in f32 before the
+    final rounding to bf16: in each split, lane l of a warp takes index
+    words l, l + 32, ... of the slice and adds value x x for the word's
+    four outliers in byte order; the warp's 32 partial sums are added in
+    pairs l, l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1; the splits are summed in
+    order, 0 + p0 + p1 + ....  [M, N]."""
+    M, K = x.shape
+    N, G = values.shape[:2]
+    xf, vf = x.float(), values.float()
+    idx = unpack_outlier_meta(meta, n).long()
+    wpg = n // 4
+    lanes = torch.arange(32)
+    total = torch.zeros((M, N))
+    for s in range(p.splits):
+        g0 = s * p.k_per_split // 256
+        g1 = min(G, g0 + p.k_per_split // 256)
+        words = (g1 - g0) * wpg
+        v = vf[:, g0:g1].reshape(N, words, 4)
+        col = (idx[:, g0:g1] + 256 * torch.arange(g0, g1)[None, :, None]
+               ).reshape(N, words, 4)
+        acc = torch.zeros((N, M, 32))
+        for t in range(-(-words // 32)):
+            w = t * 32 + lanes
+            live = w < words
+            wc = torch.where(live, w, 0)
+            for q in range(4):
+                vq = torch.where(live, v[:, wc, q], 0.0)           # [N, 32]
+                xq = xf[:, col[:, wc, q]].permute(1, 0, 2)      # [N, M, 32]
+                acc = acc + vq[:, None, :] * xq
+        for _ in range(5):                      # offsets 16, 8, 4, 2, 1
+            half = acc.shape[-1] // 2
+            acc = acc[..., :half] + acc[..., half:]
+        total = total + acc[..., 0].T
+    return total
+
+
+def prefill_model(x, values, meta, n, p):
+    """What the prefill body computes for plan ``p``, in f32 before the
+    final rounding to bf16: each (x row, output row) sum runs in one lane
+    over the slice's groups in order and each group's outliers in order;
+    the splits are summed in order, 0 + p0 + p1 + ....  [M, N]."""
+    M, K = x.shape
+    N, G = values.shape[:2]
+    xf, vf = x.float(), values.float()
+    idx = unpack_outlier_meta(meta, n).long()
+    total = torch.zeros((M, N))
+    for s in range(p.splits):
+        g0 = s * p.k_per_split // 256
+        acc = torch.zeros((M, N))
+        for g in range(g0, min(G, g0 + p.k_per_split // 256)):
+            for j in range(n):
+                acc = acc + xf[:, 256 * g + idx[:, g, j]] * vf[:, g, j]
+        total = total + acc
+    return total
+
+
+def _bf16_outliers(N, K, n, seed):
+    """Random N:256 outliers and x, bf16 in both packages: distinct
+    ascending indices per group, index 255 in the last slot of every
+    seventh row (the top byte of a word, which makes it negative)."""
+    rng = np.random.default_rng(seed)
+    G = K // 256
+    idx = np.sort(np.stack([np.stack([rng.choice(256, n, replace=False)
+                                      for _ in range(G)]) for _ in range(N)]),
+                  axis=-1).astype(np.int32)
+    idx[::7, :, -1] = 255
+    vals = jnp.asarray(rng.standard_normal((N, G, n)).astype(np.float32)
+                       ).astype(jnp.bfloat16)
+    return vals, idx
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("K", [256, 768, 4096])
+@pytest.mark.parametrize("N", [37, 70, 300])
+@pytest.mark.parametrize("M", [1, 8, 9, 37])
+def test_body_models_match_reference_and_pallas(M, N, K, n):
+    """Both bodies' summation orders, each with its plan's split and with
+    one group a slice, against the port's ``outlier_spmm_ref`` and JAX's
+    Pallas ``outlier_spmm`` in interpret mode on the same bf16 inputs
+    (products exact in f32, so the sums differ in order only: the
+    summation-order bound), and rounded to bf16 against the port's plain
+    version to one bf16 ulp."""
+    jvals, idx = _bf16_outliers(N, K, n, seed=M * N + K + n)
+    assert (idx == 255).any()
+    jx, _ = _x(M, K, n, jnp.bfloat16)
+    x = to_torch(np.asarray(jx))
+    vals = to_torch(np.asarray(jvals))
+    meta = pack_outlier_meta(torch.from_numpy(idx))
+    assert bool((meta < 0).any())
+    pallas = jax_outlier_spmm(jx.astype(jnp.float32),
+                              jvals.astype(jnp.float32), jax_pack(idx), n=n,
+                              interpret=True, block_b=M, block_o=N,
+                              block_k=K)
+    oracle = outlier_spmm_ref(x.float(), vals.float(), torch.from_numpy(idx))
+    dense = torch.zeros((N, K))
+    dense.scatter_(1, torch.from_numpy(
+        (idx + 256 * np.arange(K // 256)[None, :, None]).reshape(N, -1)
+    ).long(), vals.float().reshape(N, -1))
+    plain = port_osp.plain(x, vals, meta, n=n)
+    for path, model in (("decode", decode_model),
+                        ("prefill", prefill_model)):
+        p = _forced(path, M, K, N, n)
+        for q in (p, _one_group_a_slice(p, M, K, N)):
+            y = model(x, vals, meta, n, q)
+            for want in (np.asarray(pallas), oracle.numpy()):
+                _assert_within_summation_order(y.numpy(), want,
+                                               x.float().numpy(),
+                                               dense.numpy())
+            _assert_within_one_ulp(plain, y.to(torch.bfloat16).float())
