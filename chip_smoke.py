@@ -10,8 +10,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      library's resource usage (``cuobjdump --dump-resource-usage``), gated
      at no local memory (no spill) for the decode and prefill bodies'
      constant-shape 8:16 instantiations, with 16:256 outliers (the fused
-     kernel) and without (``nm_spmm``), and for ``outlier_spmm``'s two
-     bodies;
+     kernel) and without (``nm_spmm``), for ``outlier_spmm``'s two bodies
+     and for ``paged_attention``'s prefill-chunk body;
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -49,13 +49,19 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      shapes (H 32, KV 8, hd 128, block size 16): decode (S=1, B=8, cursors
      up to 1000), chunks (S=512 at cursor 256; S=64 over 4 lanes, with and
      without a 128-token window), shuffled trash-padded block tables, on
-     bf16 arenas and on int8 arenas quantized from the same K/V; timed
-     beside the plain version, one ``scaled_dot_product_attention`` on the
-     pre-gathered (dequantized) K/V (the library yardstick, never called by
-     the port) and the card's bound;
+     bf16 arenas and on int8 arenas quantized from the same K/V; the plan
+     takes the decode body (``csrc/paged_attention.cu``) at S * n_rep <= T
+     and the prefill-chunk body (``csrc/paged_attention_prefill.cu``)
+     above; two calls must give the same bits; timed beside the plain
+     version, the decode body forced on the same inputs (``old_ms``), one
+     ``scaled_dot_product_attention`` on the pre-gathered (dequantized) K/V
+     (the library yardstick, never called by the port) and the card's
+     bound.  Then the sweep that sets T: both bodies forced at the decode
+     case's lanes for S in ``ATTN_SWEEP_S``, bf16 and int8, each gated;
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
-     kernel launching once per layer per model call:
+     kernel launching once per layer per model call (decode steps on its
+     decode body, prefill chunks on its prefill-chunk body, both > 0):
        (a) phase 4's traffic, with decode profile, prefill profile (one
            512-token chunk: device ms and launches by kernel class, busy
            share) and greedy agreement with phase 4's slot streams
@@ -115,9 +121,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
 one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
-``outlier_spmm``; each weight kernel's entry and ``outlier_spmm``'s name
-their sources and split their cases and launches by path, decode and
-prefill),
+``outlier_spmm``; each entry names its sources and splits its cases and
+launches by path, decode and prefill),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -165,6 +170,9 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
               ("chunk512", [256], 512, None),
               ("chunk64", [0, 64, 300, 700], 64, None),
               ("chunk64_window128", [0, 64, 300, 700], 64, 128)]
+# the sweep that sets paged_attention's threshold T: the decode case's 8
+# lanes at these S (rows S * n_rep = 4..256)
+ATTN_SWEEP_S = [1, 2, 4, 8, 16, 32, 64]
 # phase 6(b): a shared 512-token prefix, 8 distinct suffixes in two waves
 # (the last of wave 2 repeats the start of a wave-1 suffix, so its whole
 # prompt is cached and its recomputed last token forces a copy-on-write)
@@ -416,7 +424,9 @@ def resource_usage(lib_path, log):
     row counts, bf16 and int8) and ten of each prefill body (BM x BN of
     64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
     int8); and ``outlier_spmm``'s two bodies: three decode instances (R =
-    2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16)."""
+    2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16); and
+    ``paged_attention``'s prefill-chunk body: eight instances (hd 64 and
+    128, BM 64 and 128, bf16 and int8 arenas)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -431,7 +441,8 @@ def resource_usage(lib_path, log):
                            ("nm_decode", "nm_decode_816_kernel", 6),
                            ("nm_prefill", "nm_prefill_816_kernel", 10),
                            ("outlier_decode", "outlier_decode_kernel", 3),
-                           ("outlier_prefill", "outlier_prefill_kernel", 6)):
+                           ("outlier_prefill", "outlier_prefill_kernel", 6),
+                           ("paged_prefill", "paged_prefill_kernel", 8)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
                                  f"kernels, want {want}:\n"
@@ -492,18 +503,22 @@ NM_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T, "
               "nm_decode_*) + src/repro_torch/csrc/fused_sparse_linear_"
               "prefill.cu (M > T, nm_prefill_*); src/repro_torch/csrc/"
               "sparse_linear.cu (old tile, timed only)")
+# paged attention: the decode body (rows S * n_rep <= T) and the
+# prefill-chunk body (rows > T)
+ATTN_SOURCES = ("src/repro_torch/csrc/paged_attention.cu (rows <= T) + "
+                "src/repro_torch/csrc/paged_attention_prefill.cu (rows > T)")
 KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
     "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
                             FUSED_SOURCES),
     "nm_spmm": ("src/repro/kernels/nm_spmm.py:86", NM_SOURCES),
     "paged_attention": ("src/repro/serving/paged/paged_attention.py:180",
-                        "src/repro_torch/csrc/paged_attention.cu"),
+                        ATTN_SOURCES),
     "fused_sparse_linear_int8": (
         "src/repro/kernels/fused_sparse_linear.py:50", FUSED_SOURCES),
     "nm_spmm_int8": ("src/repro/kernels/nm_spmm.py:63", NM_SOURCES),
     "paged_attention_int8": (
         "src/repro/serving/paged/paged_attention.py:124",
-        "src/repro_torch/csrc/paged_attention.cu"),
+        ATTN_SOURCES),
     "outlier_spmm": ("src/repro/kernels/outlier_spmm.py:74",
                      "src/repro_torch/csrc/outlier_spmm.cu (decode body at "
                      "M <= T, prefill body above); src/repro_torch/csrc/"
@@ -611,9 +626,9 @@ def case_sums(cases):
 
 
 def paths(launches, kernel):
-    """A serve's launches of a weight kernel (``fused_sparse_linear``,
-    ``nm_spmm``, with ``_int8`` for that variant) by path, for
-    ``kernel_entry``."""
+    """A serve's launches of a kernel with a decode and a prefill body
+    (``fused_sparse_linear``, ``nm_spmm``, ``paged_attention``, with
+    ``_int8`` for that variant) by path, for ``kernel_entry``."""
     name, int8, _ = kernel.partition("_int8")
     return {path: launches[f"{name}_{path}{int8}"]
             for path in ("decode", "prefill")}
@@ -623,11 +638,12 @@ def kernel_entry(name, cases, launches, by_path=None):
     """One entry of the kernels line; times are sums over the cases (16
     (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
     attention, for each variant; 48 (projection, pattern, M) cases of
-    outlier_spmm in phase 8(d)).  A weight kernel's entry, and
-    outlier_spmm's, also splits its cases and its main-path launches by
-    path (``by_path``: decode at M <= T, prefill above), each with the old
-    kernel's time on the same cases (``tile_ms``; ``old_ms`` for
-    outlier_spmm)."""
+    outlier_spmm in phase 8(d)).  A weight kernel's entry, outlier_spmm's
+    and paged_attention's also split their cases and main-path launches by
+    path (``by_path``: decode at M <= T, or rows S * n_rep <= T for paged
+    attention; prefill above), each with the old kernel's time on the same
+    cases (``tile_ms`` for the weight kernels; ``old_ms`` for outlier_spmm,
+    and for paged_attention the decode body forced on each case)."""
     replaces, source = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -801,8 +817,27 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
     tol = KERNEL_TOL_REL * float(ref.float().abs().max())
     check(err <= tol, f"{label} {name}: max|kernel-plain| {err:.3e} > tol "
                       f"{tol:.3e}")
+    again = kern()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          f"{label} {name}: two calls give different bits")
     B, nb = tables.shape
     bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
+    p = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch))
+    # the decode body, which ran every case before the prefill-chunk body,
+    # forced on the same inputs
+    forced = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch),
+                     decode_max_rows=S * q.shape[2] // KV)
+
+    def old():
+        return pa.paged_attention(q, k, v, tables, cur, force_plan=forced,
+                                  **kw)
+    if p.path == "prefill":
+        o = old()
+        torch.cuda.synchronize()
+        e = float((o.float() - ref.float()).abs().max())
+        check(e <= tol, f"{label} {name}: decode body max|kernel-plain| "
+                        f"{e:.3e} > tol {tol:.3e}")
     idx = tables.long()
     kc, vc = k[idx], v[idx]
     if scales is not None:
@@ -825,11 +860,15 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
                                  int8=scales is not None)
     case = {"case": name, "B": B, "S": S, "cursors": cursors,
             "window": window, "max_abs_err": err, "tol": tol,
+            "path": p.path, "rows": p.rows,
             "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
             "library_ms": timer.ms(library, 20),
+            "old_ms": timer.ms(old, 20),
             "bound_ms": b_ms, "bound_by": b_by}
     log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e})  "
-        f"kernel {case['ms']:.4f} ms  plain {case['plain_ms']:.4f}  "
+        f"{p.path}{f' BM {p.rows}' if p.rows else ''} kernel "
+        f"{case['ms']:.4f} ms  old (decode "
+        f"body) {case['old_ms']:.4f}  plain {case['plain_ms']:.4f}  "
         f"sdpa {case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
     return case
 
@@ -857,13 +896,69 @@ def paged_attention_phase(torch, timer, log):
     return cases, cases8
 
 
+def attention_sweep_phase(torch, timer, log):
+    """``paged_attention``'s decode body against its prefill-chunk body,
+    both forced by their plans, bf16 and int8 arenas, at the decode case's
+    8 lanes and cursors for every S of ``ATTN_SWEEP_S`` (rows S * n_rep =
+    4..256), each gated against the plain version.  T is the largest row
+    count at which the decode body was no slower in both variants (0 where
+    it was slower at every row count)."""
+    from repro_torch.serving.cache_pool import quantize_kv
+    from repro_torch.serving.paged import paged_attention as pa
+
+    g = torch.Generator().manual_seed(5)
+    cursors = ATTN_CASES[0][1]
+    H, KV, hd, bs = (ATTN_SHAPE[k] for k in ("H", "KV", "hd", "bs"))
+    cases = []
+    for S in ATTN_SWEEP_S:
+        q, k, v, tables, cur = attention_case(torch, g, cursors, S, None,
+                                              **ATTN_SHAPE)
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        rows = S * H // KV
+        plans = {path: pa.plan(len(cursors), S, H, KV, hd, bs,
+                               sm_count(torch), decode_max_rows=limit)
+                 for path, limit in (("decode", rows), ("prefill", 0))}
+        for variant, args, kw in (
+                ("bf16", (k, v), {}),
+                ("int8", (k8, v8), dict(k_scale=ks, v_scale=vs))):
+            ref = pa.plain(q, *args, tables, cur, **kw)
+            tol = KERNEL_TOL_REL * float(ref.float().abs().max())
+            case = {"S": S, "rows": rows, "variant": variant,
+                    "prefill_rows": plans["prefill"].rows}
+            for path, p in plans.items():
+                def run(p=p):
+                    return pa.paged_attention(q, *args, tables, cur,
+                                              force_plan=p, **kw)
+                out = run()
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                check(bool(torch.isfinite(out).all()) and err <= tol,
+                      f"attention sweep {variant} S={S} {path}: "
+                      f"max|kernel-plain| {err:.3e} > tol {tol:.3e}")
+                case[f"{path}_ms"] = timer.ms(run, 20)
+                case[f"{path}_err"] = err
+            cases.append(case)
+            log(f"  attention sweep {variant} S={S:3d} rows={rows:4d}: "
+                f"decode {case['decode_ms']:.4f} ms  prefill "
+                f"{case['prefill_ms']:.4f} (BM {case['prefill_rows']})")
+        del q, k, v, k8, v8, ks, vs
+    faster = [r for r in sorted({c["rows"] for c in cases})
+              if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
+                     if c["rows"] == r)]
+    T = max(faster) if faster else 0
+    log(f"  attention sweep: decode body no slower at rows {faster}; T "
+        f"measured {T}, module T (DECODE_MAX_ROWS) {pa.DECODE_MAX_ROWS}")
+    return {"T_measured": T, "T_in_module": pa.DECODE_MAX_ROWS,
+            "decode_no_slower_at": faster, "cases": cases}
+
+
 def _kernel_class(name: str) -> str:
     for cls in ("fused_decode", "fused_prefill", "nm_decode", "nm_prefill"):
         if cls in name:
             return cls
     if "sparse_linear_kernel" in name:
         return "sparse_linear"
-    if "paged_attention_kernel" in name:
+    if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
         return "paged_attention"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas")):
         return "dense_gemm"
@@ -1027,7 +1122,8 @@ def _counters():
                               ("paged_attention", pa))
             for suffix in ("", "_int8")] + [
         (f"{name}_{path}{suffix}", mod, f"launches_{path}{suffix}")
-        for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms))
+        for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
+                          ("paged_attention", pa))
         for path in ("decode", "prefill") for suffix in ("", "_int8")] + [
         ("outlier_spmm", osp, "launches"),
         ("outlier_spmm_decode", osp, "launches_decode"),
@@ -1089,12 +1185,13 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     weight_key = ("fused_sparse_linear" if wq.o_values is not None
                   else "nm_spmm") + suffix
     want = {weight_key: 7 * cfg.n_layers * calls}
+    attn_key = None
     if engine.kv_layout == "paged":
         attn_key = "paged_attention" + (
             "_int8" if engine.kv_dtype == "int8" else "")
         want[attn_key] = cfg.n_layers * calls
     split = tuple(f"{name}_{path}" for name in ("fused_sparse_linear",
-                                                "nm_spmm")
+                                                "nm_spmm", "paged_attention")
                   for path in ("decode", "prefill"))
     for key, n in launches.items():
         if key.startswith(split):
@@ -1119,6 +1216,21 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
                 check(pre > 0 and (dec > 0 or fsl.DECODE_MAX_M == 0),
                       f"{name}{suffix}: decode kernel launched {dec}, "
                       f"prefill kernel {pre} of the wrapper's {total}")
+    # the paged kernel's calls split by body: decode steps (S * n_rep <=
+    # T) take the decode body, prefill chunks longer than that the
+    # prefill-chunk body; both run in a paged serve while T >= 1
+    from repro_torch.serving.paged import paged_attention as pa
+    for suffix in ("", "_int8"):
+        dec = launches[f"paged_attention_decode{suffix}"]
+        pre = launches[f"paged_attention_prefill{suffix}"]
+        total = launches["paged_attention" + suffix]
+        check(dec + pre == total,
+              f"paged_attention{suffix}: decode {dec} + prefill {pre} "
+              f"launches != the wrapper's {total}")
+        if attn_key == "paged_attention" + suffix:
+            check(pre > 0 and (dec > 0 or pa.DECODE_MAX_ROWS == 0),
+                  f"paged_attention{suffix}: decode body launched {dec}, "
+                  f"prefill-chunk body {pre} of the wrapper's {total}")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
@@ -1747,6 +1859,9 @@ def main() -> int:
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
+    log("phase 2b sweep: paged_attention's decode body vs prefill-chunk "
+        "body, bf16 and int8 arenas, S 1..64 over the decode case's lanes")
+    sweep["paged_attention"] = attention_sweep_phase(torch, timer, log)
     del timer
     log("phase 3 small-model reference check")
     small = small_model_phase(torch, log)
@@ -1794,7 +1909,8 @@ def main() -> int:
         kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"],
                      paths(plain_launches, "nm_spmm")),
         kernel_entry("paged_attention", attn_cases,
-                     paged_launches["paged_attention"]),
+                     paged_launches["paged_attention"],
+                     paths(paged_launches, "paged_attention")),
         kernel_entry("fused_sparse_linear_int8",
                      cases["fused_sparse_linear_int8"],
                      int8_launches["fused_sparse_linear_int8"],
@@ -1803,7 +1919,8 @@ def main() -> int:
                      plain_launches8["nm_spmm_int8"],
                      paths(plain_launches8, "nm_spmm_int8")),
         kernel_entry("paged_attention_int8", attn_cases8,
-                     int8_launches["paged_attention_int8"]),
+                     int8_launches["paged_attention_int8"],
+                     paths(int8_launches, "paged_attention_int8")),
         kernel_entry("outlier_spmm", ops_cases,
                      ops_launches["outlier_spmm"],
                      {path: ops_launches[f"outlier_spmm_{path}"]

@@ -110,17 +110,21 @@
 //
 // The products are exact in f32 (bf16 x bf16), so only the summation order
 // differs from the plain version (kernels/ref.fused_sparse_linear_ref).
+// The cp.async, proxy-fence and wgmma helpers are csrc/hopper.cuh's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "split_reduce.cuh"
 
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;  // 8 warps: two warpgroups
 constexpr int kBK = 64;        // K columns per stage
@@ -139,95 +143,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // int8 value q of a row with scale s: q * s in f32, rounded once to bf16
 __device__ __forceinline__ float dequant(int q, float s) {
   return __bfloat162float(__float2bfloat16(static_cast<float>(q) * s));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// wgmma descriptor of a K-major tile [rows][64] bf16 at `p` (1024-byte
-// aligned) with the 128-byte swizzle: start address >> 4, leading offset 1
-// (unused by this layout), stride 1024 B between 8-row groups, layout 1
-__device__ __forceinline__ uint64_t tile_desc(const void* p) {
-  const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(p));
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// d += A B^T for one k16 step: A [64 rows][16] and B [n rows][16], both
-// K-major in 128-byte-swizzled shared memory (descriptors da, db); every
-// call accumulates (the accumulators start at 0)
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Element offset of (row, col) in a [rows][64] bf16 tile whose 16-byte
-// chunks are swizzled by row.
-__device__ __forceinline__ int swz(int row, int col) {
-  return row * kBK + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
 }
 
 // Adds o to slot `slot` of the 16 registers (constant indices only).

@@ -51,6 +51,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "paged_attention_prefill_bf16": [_P] * 6 + [_I] * 10 + [_P],
+    "paged_attention_prefill_int8": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -3,10 +3,18 @@
 
 Port of the Pallas TPU kernel ``repro/serving/paged/paged_attention.py:180``
 (``paged_attention_pallas``, ``_paged_attn_kernel`` :122 with its quantized
-branch :124-130, :147-149) as the hand-written Hopper kernel
-``csrc/paged_attention.cu``: bf16 arenas, or int8 arenas with per-position
-f32 scales ``k_scale``/``v_scale`` [n_blocks, bs, KV] read through the same
-tables and applied as the kernel stages each K/V tile.
+branch :124-130, :147-149) as two hand-written Hopper bodies, for bf16
+arenas, or int8 arenas with per-position f32 scales ``k_scale``/``v_scale``
+[n_blocks, bs, KV] read through the same tables.  ``plan`` picks the body by
+the rows of a call, S * n_rep (a row is a (query, q head) pair of one KV
+head):
+
+- rows <= ``DECODE_MAX_ROWS`` (T): the decode body, ``csrc/paged_attention.cu``:
+  both products on the CUDA cores in f32, 4 to 64 rows a block;
+- rows > T: the prefill-chunk body, ``csrc/paged_attention_prefill.cu``:
+  64-key tiles gathered through the table into a ring of 3 slots,
+  S = Q K^T and O += P V on the tensor cores (wgmma), 64 or 128 rows a
+  block, P rounded to bf16 before the second product.
 
 ``q`` is [B, S, H, hd]; ``cursor`` [B] counts the tokens of each lane that
 were visible before this step's S fresh ones.  Query i of lane b sits at
@@ -21,23 +29,81 @@ block occupants and the trash block.  q head h reads KV head ``h // n_rep``.
 ``plain`` gathers the lane's blocks (and scales) into a contiguous view and
 runs ``models/layers.attend_length_masked``: what ``paged_attention_ref``
 (:91) computes.  ``paged_attention`` runs ``plain`` for a CPU tensor; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches one of the two bodies or raises.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from ...kernels import build
+from ...kernels.common import sm_count
 from ...models.layers import attend_length_masked
 
 launches = 0
-"""Launches of the bf16 kernel made through ``paged_attention`` (plain runs
-are not counted)."""
+"""Launches of the bf16 bodies (either path) made through
+``paged_attention`` (plain runs are not counted)."""
 launches_int8 = 0
-"""Launches of the int8 kernel made through ``paged_attention``."""
+"""Launches of the int8 bodies made through ``paged_attention``."""
+launches_decode = 0
+"""Of ``launches``, those of the decode body (rows <= T)."""
+launches_decode_int8 = 0
+"""Of ``launches_int8``, those of the decode body (rows <= T)."""
+launches_prefill = 0
+"""Of ``launches``, those of the prefill-chunk body (rows > T)."""
+launches_prefill_int8 = 0
+"""Of ``launches_int8``, those of the prefill-chunk body (rows > T)."""
 
 HEAD_DIMS = (64, 128)
 GRID_LIMIT = 65535               # CUDA's bound on grid.y (KV) and grid.z (B)
+DECODE_MAX_ROWS = 4
+"""T: the largest row count S * n_rep that takes the decode body: a decode
+step (S = 1) of a model with n_rep <= 4 (llama3-8b) and nothing longer.
+The sweep of ``chip_smoke.py`` (phase 2b) found the prefill-chunk body
+faster than the decode body at every row count it timed, a decode step
+included (PERF.md); decode steps stay on the decode body until its
+split-KV redesign, which the sweep then measures against this body."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    path: str        # "decode" or "prefill"
+    rows: int = 0    # prefill: BM, rows a block (64 or 128); decode: unset
+    blocks: int = 0  # prefill: the grid, row tiles x KV x B; decode: unset
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, S: int, H: int, KV: int, hd: int, bs: int, sm_count: int,
+         *, decode_max_rows: int = DECODE_MAX_ROWS) -> Plan:
+    """How ``paged_attention`` computes S queries of B lanes with H q heads
+    over KV heads of width hd in blocks of bs on a card with ``sm_count``
+    SMs.  Rows S * n_rep <= ``decode_max_rows``: the decode body, which
+    picks its own rows a block (``csrc/paged_attention.cu``).  Above: the
+    prefill-chunk body at BM = 128 rows a block where that grid leaves at
+    most a quarter of the SMs without a block (a 512-token chunk of
+    llama3-8b: 16 x 8 = 128 blocks on 132 SMs), else BM = 64, which halves
+    the rows a K/V tile serves and doubles the blocks (a 64-token chunk of 4
+    lanes: 128 blocks)."""
+    if min(B, S, H, KV, hd, bs, sm_count) < 1 or H % KV:
+        raise ValueError(f"plan needs positive sizes and H a multiple of KV;"
+                         f" got B={B} S={S} H={H} KV={KV} hd={hd} bs={bs}")
+    rows = S * (H // KV)
+    if rows <= decode_max_rows:
+        return Plan("decode")
+    bm = 128 if -(-rows // 128) * KV * B * 4 >= 3 * sm_count else 64
+    return Plan("prefill", bm, -(-rows // bm) * KV * B)
+
+
+def entry_point(p: Plan, int8: bool) -> str:
+    """The C entry point that ``paged_attention`` calls for plan ``p``."""
+    if p.path == "decode":
+        return "paged_attention_int8" if int8 else "paged_attention_bf16"
+    if p.path == "prefill" and p.rows in (64, 128):
+        return ("paged_attention_prefill_int8" if int8
+                else "paged_attention_prefill_bf16")
+    raise ValueError(f"no body takes plan {p}")
 
 
 def plain(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
@@ -119,11 +185,15 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
                     v_arena: torch.Tensor, block_tables: torch.Tensor,
                     cursor: torch.Tensor, *, window: int | None = None,
                     k_scale: torch.Tensor | None = None,
-                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                    v_scale: torch.Tensor | None = None,
+                    force_plan: Plan | None = None) -> torch.Tensor:
     """out [B, S, H, hd] in q's dtype; see the module docstring.
     ``k_scale``/``v_scale`` [n_blocks, bs, KV] f32 dequantize int8 arenas;
-    None for bf16 arenas."""
-    global launches, launches_int8
+    None for bf16 arenas.  ``force_plan`` replaces ``plan``'s choice of
+    body on the card (tests and timing); a CPU tensor runs ``plain``
+    whatever it says."""
+    global launches, launches_int8, launches_decode, launches_decode_int8
+    global launches_prefill, launches_prefill_int8
     if not q.is_cuda:
         return plain(q, k_arena, v_arena, block_tables, cursor,
                      window=window, k_scale=k_scale, v_scale=v_scale)
@@ -131,22 +201,27 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     B, S, H, KV, hd, bs, n_blocks = _check_cuda_operands(
         q, k_arena, v_arena, block_tables, cursor, k_scale, v_scale)
+    int8 = k_scale is not None
+    p = force_plan or plan(B, S, H, KV, hd, bs, sm_count(q.device))
+    fn = getattr(build.library(), entry_point(p, int8))
     out = torch.empty_like(q)
-    dims = (B, S, H, KV, hd, bs, block_tables.shape[1], n_blocks,
-            0 if window is None else int(window),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    lib = build.library()
-    if k_scale is None:
-        status = lib.paged_attention_bf16(
-            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            block_tables.data_ptr(), cursor.data_ptr(), out.data_ptr(),
-            *dims)
-        launches += 1
-    else:
-        status = lib.paged_attention_int8(
-            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-            cursor.data_ptr(), out.data_ptr(), *dims)
+    dims = [B, S, H, KV, hd, bs, block_tables.shape[1], n_blocks,
+            0 if window is None else int(window)]
+    if p.path == "prefill":
+        dims.append(p.rows)
+    scales = [k_scale.data_ptr(), v_scale.data_ptr()] if int8 else []
+    status = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
+                *scales, block_tables.data_ptr(), cursor.data_ptr(),
+                out.data_ptr(), *dims,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, entry_point(p, int8))
+    decode, prefill = int(p.path == "decode"), int(p.path == "prefill")
+    if int8:
         launches_int8 += 1
-    build.check(status, "paged_attention")
+        launches_decode_int8 += decode
+        launches_prefill_int8 += prefill
+    else:
+        launches += 1
+        launches_decode += decode
+        launches_prefill += prefill
     return out

@@ -825,6 +825,189 @@ def test_paged_attention_raises_on_unsupported(cuda):
     assert pa.launches == before
 
 
+def _paged_counts(pa):
+    return (pa.launches, pa.launches_decode, pa.launches_prefill,
+            pa.launches_int8, pa.launches_decode_int8,
+            pa.launches_prefill_int8)
+
+
+def _prefill_plan(pa, q, k, bm):
+    B, S, H, _ = q.shape
+    p = pa.plan(B, S, H, k.shape[2], k.shape[3], k.shape[1], _sm_count(),
+                decode_max_rows=0)
+    return p if bm == "plan" else dataclasses.replace(p, rows=bm)
+
+
+@pytest.mark.parametrize("bm", ["plan", 64, 128])
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (16, 2)])
+@pytest.mark.parametrize("S,bs,cursors", [
+    (5, 8, [5, 0, 40]), (37, 16, [9, 130]), (70, 24, [0, 17]),
+    (129, 32, [200]), (512, 16, [256, 3])])
+def test_paged_attention_prefill_matches_plain(cuda, S, bs, cursors, H, KV,
+                                               hd, window, quantize, bm):
+    """The prefill-chunk body, forced at every S, against the plain
+    version: one bf16 ulp of the largest output (P rounded to bf16 adds at
+    most 2**-8 of the mean |v| the row sees)."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(len(cursors), S, H, KV, hd, bs,
+                                       cursors, S * 7 + H, cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    p = _prefill_plan(pa, q, k, bm)
+    before = _paged_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur, force_plan=p, **kw)
+    want = [0] * 6
+    want[5 if quantize else 2] = want[3 if quantize else 0] = 1
+    assert [a - b for a, b in zip(_paged_counts(pa), before)] == want
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    _close(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S,cursors,window", [(512, [256], None),
+                                              (64, [0, 64, 300, 700], None),
+                                              (64, [0, 64, 300, 700], 128)])
+def test_paged_attention_prefill_is_deterministic(cuda, S, cursors, window,
+                                                  quantize):
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(len(cursors), S, 32, 8, 128, 16,
+                                       cursors, 5, cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    assert pa.plan(len(cursors), S, 32, 8, 128, 16,
+                   _sm_count()).path == "prefill"
+    a = pa.paged_attention(q, k, v, tables, cur, **kw)
+    b = pa.paged_attention(q, k, v, tables, cur, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_attention_prefill_never_reads_past_the_visible_end(
+        cuda, window, quantize):
+    """NaN in every arena position no query can see (the rest of the last
+    visible block, blocks past it, the trash block and unreferenced blocks)
+    and table entries outside the arena past the visible end: the
+    prefill-chunk body reads none of them (zero-filled rows), so its output
+    is finite and equals the plain version's on the clean arena."""
+    from repro_torch.serving.paged import paged_attention as pa
+    cursors, S, bs = [9, 130, 0], 40, 16
+    q, k, v, tables, cur = _paged_case(len(cursors), S, 8, 2, 128, bs,
+                                       cursors, 11, cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    ref = pa.plain(q, k, v, tables, cur, **kw)
+    seen = torch.zeros(k.shape[:2], dtype=torch.bool, device=cuda)
+    for b, c in enumerate(cursors):
+        for j in range(c + S):
+            seen[tables[b, j // bs], j % bs] = True
+    dirty = [t.clone() for t in ((k, v, ks, vs) if quantize else (k, v))]
+    for t in dirty:
+        t[~seen] = 127 if t.dtype == torch.int8 else float("nan")
+    if quantize:
+        kw.update(k_scale=dirty[2], v_scale=dirty[3])
+    wild = tables.clone()
+    for b, c in enumerate(cursors):
+        wild[b, -(-(c + S) // bs):] = torch.tensor(
+            [k.shape[0] + 5, -3], dtype=torch.int32, device=cuda).repeat(
+                wild.shape[1])[:wild.shape[1] - -(-(c + S) // bs)]
+    p = _prefill_plan(pa, q, k, "plan")
+    out = pa.paged_attention(q, dirty[0], dirty[1], wild, cur, force_plan=p,
+                             **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _close(out, ref)
+
+
+def test_paged_attention_never_reaches_plain(cuda, monkeypatch):
+    """On a CUDA tensor both bodies launch; the plain version is never
+    called, whichever body the plan picks."""
+    from repro_torch.serving.paged import paged_attention as pa
+
+    def boom(*a, **k):
+        raise AssertionError("plain reached on CUDA")
+    for S, path in ((1, "decode"), (64, "prefill")):
+        q, k, v, tables, cur = _paged_case(2, S, 32, 8, 128, 16, [20, 300],
+                                           2, cuda)
+        k8, v8, ks, vs = _quantized(k, v)
+        want = pa.plan(2, S, 32, 8, 128, 16, _sm_count())
+        assert want.path == path
+        ref = pa.plain(q, k, v, tables, cur)
+        ref8 = pa.plain(q, k8, v8, tables, cur, k_scale=ks, v_scale=vs)
+        monkeypatch.setattr(pa, "plain", boom)
+        before = _paged_counts(pa)
+        out = pa.paged_attention(q, k, v, tables, cur)
+        out8 = pa.paged_attention(q, k8, v8, tables, cur, k_scale=ks,
+                                  v_scale=vs)
+        monkeypatch.undo()
+        delta = [a - b for a, b in zip(_paged_counts(pa), before)]
+        d, p_ = int(path == "decode"), int(path == "prefill")
+        assert delta == [1, d, p_, 1, d, p_]
+        torch.cuda.synchronize()
+        _close(out, ref)
+        _close(out8, ref8)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_decode_body_still_forced(cuda, quantize):
+    """A chunk the plan sends to the prefill-chunk body still runs on the
+    decode body when that is forced (as the sweep and the timings do)."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(4, 64, 32, 8, 128, 16,
+                                       [0, 64, 300, 700], 6, cuda)
+    kw = {}
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    p = pa.plan(4, 64, 32, 8, 128, 16, _sm_count())
+    assert p.path == "prefill"
+    forced = pa.plan(4, 64, 32, 8, 128, 16, _sm_count(), decode_max_rows=256)
+    before = _paged_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur, force_plan=forced, **kw)
+    delta = [a - b for a, b in zip(_paged_counts(pa), before)]
+    assert delta == ([0, 0, 0, 1, 1, 0] if quantize else [1, 1, 0, 0, 0, 0])
+    torch.cuda.synchronize()
+    _close(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+def test_paged_attention_prefill_raises_on_unsupported(cuda):
+    """Plans no body takes, and operands the bodies refuse, raise before
+    any launch."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(2, 40, 8, 2, 128, 16, [3, 9], 4, cuda)
+    p = pa.plan(2, 40, 8, 2, 128, 16, _sm_count())
+    assert p.path == "prefill"
+    before = _paged_counts(pa)
+    for bad in (dataclasses.replace(p, rows=96),
+                dataclasses.replace(p, rows=0),
+                dataclasses.replace(p, path="tile")):
+        with pytest.raises(ValueError):
+            pa.paged_attention(q, k, v, tables, cur, force_plan=bad)
+    k12 = torch.zeros((k.shape[0], 12, 2, 128), dtype=torch.bfloat16,
+                      device=cuda)
+    with pytest.raises(ValueError):                     # bs 12
+        pa.paged_attention(q, k12, k12, tables, cur, force_plan=p)
+    with pytest.raises(TypeError):                      # f32 q
+        pa.paged_attention(q.float(), k, v, tables, cur, force_plan=p)
+    k8, v8, ks, vs = _quantized(k, v)
+    with pytest.raises(ValueError):                     # int8 without scales
+        pa.paged_attention(q, k8, v8, tables, cur, force_plan=p)
+    assert _paged_counts(pa) == before
+
+
 def test_paged_engine_runs_the_kernel(cuda):
     """The smoke model served on the paged layout on the card: every layer
     of every model call launches the paged kernel once."""
@@ -840,6 +1023,8 @@ def test_paged_engine_runs_the_kernel(cuda):
                            max_len=96, kv_layout="paged", block_size=16,
                            token_budget=32)
     before = pa.launches
+    before_paths = pa.launches_decode + pa.launches_prefill
+    before_prefill = pa.launches_prefill
     shared = torch.randint(0, cfg.vocab, (32,), generator=g,
                            device=cuda).tolist()
     reqs = [engine.submit(shared + [i + 1] * (5 + 3 * i),
@@ -852,6 +1037,9 @@ def test_paged_engine_runs_the_kernel(cuda):
                for r in reqs)
     st = engine.stats()
     assert pa.launches - before == cfg.n_layers * st["n_model_calls"]
+    assert pa.launches_decode + pa.launches_prefill - before_paths == \
+        pa.launches - before
+    assert pa.launches_prefill > before_prefill
     assert st["pool"]["prefix_cache"]["hits"] >= 1
 
 
