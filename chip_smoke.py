@@ -11,7 +11,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      at no local memory (no spill) for the decode and prefill bodies'
      constant-shape 8:16 instantiations, with 16:256 outliers (the fused
      kernel) and without (``nm_spmm``), for ``outlier_spmm``'s two bodies
-     and for ``paged_attention``'s prefill-chunk body;
+     and for ``paged_attention``'s decode and prefill-chunk bodies;
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -50,14 +50,20 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      up to 1000), chunks (S=512 at cursor 256; S=64 over 4 lanes, with and
      without a 128-token window), shuffled trash-padded block tables, on
      bf16 arenas and on int8 arenas quantized from the same K/V; the plan
-     takes the decode body (``csrc/paged_attention.cu``) at S * n_rep <= T
-     and the prefill-chunk body (``csrc/paged_attention_prefill.cu``)
+     takes the split-KV decode body (``csrc/paged_attention_decode.cu``,
+     held row by row at 2^-7 of each row's largest output) at S * n_rep
+     <= T and the prefill-chunk body (``csrc/paged_attention_prefill.cu``)
      above; two calls must give the same bits; timed beside the plain
-     version, the decode body forced on the same inputs (``old_ms``), one
-     ``scaled_dot_product_attention`` on the pre-gathered (dequantized) K/V
-     (the library yardstick, never called by the port) and the card's
-     bound.  Then the sweep that sets T: both bodies forced at the decode
-     case's lanes for S in ``ATTN_SWEEP_S``, bf16 and int8, each gated;
+     version, the old kernel
+     (``csrc/paged_attention.cu``, forced by ``Plan("tile")``, gated too)
+     on the same inputs (``old_ms``), one ``scaled_dot_product_attention``
+     on the pre-gathered (dequantized) K/V (the library yardstick, never
+     called by the port) and the card's bound.  Then the sweep that sets
+     T: the decode body, the prefill-chunk body and the old kernel forced
+     at the decode case's lanes and at 8 short lanes through serve-wide
+     tables (``ATTN_SWEEP_SHORT``) for S in ``ATTN_SWEEP_S``, bf16 and
+     int8, each gated; T from the decode body against the prefill-chunk
+     body at the decode case's lanes, the short lanes' count beside it;
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
      kernel launching once per layer per model call (decode steps on its
@@ -154,6 +160,10 @@ SWEEP_MS = [1, 2, 4, 8, 12, 16, 24, 32, 37, 48, 64]
 # may differ by one bf16 ulp of an output, at most 2**-7 of the largest
 # output magnitude.
 KERNEL_TOL_REL = 2.0 ** -7
+# paged_attention's decode body is held row by row: each output row (a
+# lane's query and q head, hd columns) within 2**-7 of that row's largest
+# output, so that a long lane, whose outputs average ~1,000 keys and are
+# small, is not held at the scale of a short lane's
 # Small-model check: bf16 activations through 4 layers against an f32
 # reference; a wrong kernel gives errors of the order of the logits.
 MODEL_TOL_REL = 5e-2
@@ -171,8 +181,11 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
               ("chunk64", [0, 64, 300, 700], 64, None),
               ("chunk64_window128", [0, 64, 300, 700], 64, 128)]
 # the sweep that sets paged_attention's threshold T: the decode case's 8
-# lanes at these S (rows S * n_rep = 4..256)
+# lanes at these S (rows S * n_rep = 4..256), and 8 short lanes at ~64
+# tokens through tables as wide as the serves' (64 blocks, 8 splits of
+# which one is live), as a serve's early decode steps are
 ATTN_SWEEP_S = [1, 2, 4, 8, 16, 32, 64]
+ATTN_SWEEP_SHORT = ([64, 60, 70, 64, 50, 64, 80, 63], 64)   # cursors, nb
 # phase 6(b): a shared 512-token prefix, 8 distinct suffixes in two waves
 # (the last of wave 2 repeats the start of a wave-1 suffix, so its whole
 # prompt is cached and its recomputed last token forces a copy-on-write)
@@ -425,8 +438,9 @@ def resource_usage(lib_path, log):
     64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
     int8); and ``outlier_spmm``'s two bodies: three decode instances (R =
     2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16); and
-    ``paged_attention``'s prefill-chunk body: eight instances (hd 64 and
-    128, BM 64 and 128, bf16 and int8 arenas)."""
+    ``paged_attention``'s two bodies: eight decode instances (hd 64 and
+    128, R 4 and 8 rows, bf16 and int8 arenas) and eight prefill-chunk
+    instances (hd 64 and 128, BM 64 and 128, bf16 and int8 arenas)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -442,6 +456,7 @@ def resource_usage(lib_path, log):
                            ("nm_prefill", "nm_prefill_816_kernel", 10),
                            ("outlier_decode", "outlier_decode_kernel", 3),
                            ("outlier_prefill", "outlier_prefill_kernel", 6),
+                           ("paged_decode", "paged_decode_kernel", 8),
                            ("paged_prefill", "paged_prefill_kernel", 8)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
@@ -504,9 +519,11 @@ NM_SOURCES = ("src/repro_torch/csrc/fused_sparse_linear.cu (M <= T, "
               "prefill.cu (M > T, nm_prefill_*); src/repro_torch/csrc/"
               "sparse_linear.cu (old tile, timed only)")
 # paged attention: the decode body (rows S * n_rep <= T) and the
-# prefill-chunk body (rows > T)
-ATTN_SOURCES = ("src/repro_torch/csrc/paged_attention.cu (rows <= T) + "
-                "src/repro_torch/csrc/paged_attention_prefill.cu (rows > T)")
+# prefill-chunk body (rows > T); the old kernel is timed beside them only
+ATTN_SOURCES = ("src/repro_torch/csrc/paged_attention_decode.cu (rows <= T)"
+                " + src/repro_torch/csrc/paged_attention_prefill.cu (rows > "
+                "T); src/repro_torch/csrc/paged_attention.cu (old, timed "
+                "only)")
 KERNELS = {        # name: (TPU kernel it replaces, CUDA source)
     "fused_sparse_linear": ("src/repro/kernels/fused_sparse_linear.py:75",
                             FUSED_SOURCES),
@@ -642,8 +659,8 @@ def kernel_entry(name, cases, launches, by_path=None):
     and paged_attention's also split their cases and main-path launches by
     path (``by_path``: decode at M <= T, or rows S * n_rep <= T for paged
     attention; prefill above), each with the old kernel's time on the same
-    cases (``tile_ms`` for the weight kernels; ``old_ms`` for outlier_spmm,
-    and for paged_attention the decode body forced on each case)."""
+    cases (``tile_ms`` for the weight kernels; ``old_ms`` for outlier_spmm
+    and for paged_attention, its old kernel forced on each case)."""
     replaces, source = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches,
@@ -748,12 +765,13 @@ def small_model_phase(torch, log):
     return result
 
 
-def attention_case(torch, g, cursors, S, window, H, KV, hd, bs):
+def attention_case(torch, g, cursors, S, window, H, KV, hd, bs, nb=0):
     """bf16 q and arenas for one phase-2b case, with shuffled,
-    non-contiguous block tables padded with the trash block (id 0)."""
+    non-contiguous block tables padded with the trash block (id 0) to two
+    entries past the longest lane, or to ``nb`` entries if that is more."""
     B = len(cursors)
     need = [-(-(c + S) // bs) for c in cursors]
-    nb = max(need) + 2
+    nb = max(max(need) + 2, nb)
     n_blocks = 1 + sum(need) + 8
     perm = (torch.randperm(n_blocks - 1, generator=g) + 1).tolist()
     tables = torch.zeros((B, nb), dtype=torch.int32)
@@ -788,10 +806,23 @@ def attention_bound(cursors, S, window, H, KV, hd, bs, int8=False):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def row_ratio(out, ref):
+    """The worst of paged_attention's output rows (a lane's query and q
+    head): max|out - ref| over the row's columns over ``KERNEL_TOL_REL``
+    times the row's max|ref| (0 where both are 0, inf where only the
+    error is).  The decode body passes at <= 1."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    tol = KERNEL_TOL_REL * ref.float().abs().amax(-1)
+    ratio = err / tol
+    ratio[err == 0] = 0.0
+    return float(ratio.max())
+
+
 def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
                   scales):
     """One phase-2b case of one variant: kernel against plain version, gated
-    at one bf16 ulp of the largest output, timed beside the plain version,
+    at one bf16 ulp of the largest output (the decode body: of each row's
+    largest output, ``row_ratio``), timed beside the plain version,
     SDPA on the pre-gathered (dequantized) K/V with the same boolean mask
     (the library yardstick, never called by the port) and the bound."""
     import torch.nn.functional as F
@@ -813,31 +844,32 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
           f"{label} {name}: {tuple(out.shape)} {out.dtype}")
     check(bool(torch.isfinite(out).all()),
           f"{label} {name}: non-finite output")
+    B, nb = tables.shape
+    bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
+    p = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch), nb=nb)
     err = float((out.float() - ref.float()).abs().max())
     tol = KERNEL_TOL_REL * float(ref.float().abs().max())
     check(err <= tol, f"{label} {name}: max|kernel-plain| {err:.3e} > tol "
                       f"{tol:.3e}")
+    worst = row_ratio(out, ref)
+    check(p.path != "decode" or worst <= 1,
+          f"{label} {name}: a row's max|kernel-plain| is {worst:.3f} x "
+          f"2^-7 of its largest output")
     again = kern()
     torch.cuda.synchronize()
     check(torch.equal(out, again),
           f"{label} {name}: two calls give different bits")
-    B, nb = tables.shape
-    bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
-    p = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch))
-    # the decode body, which ran every case before the prefill-chunk body,
-    # forced on the same inputs
-    forced = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch),
-                     decode_max_rows=S * q.shape[2] // KV)
 
+    # the old kernel, which ran every case before the two bodies, forced on
+    # the same inputs
     def old():
-        return pa.paged_attention(q, k, v, tables, cur, force_plan=forced,
-                                  **kw)
-    if p.path == "prefill":
-        o = old()
-        torch.cuda.synchronize()
-        e = float((o.float() - ref.float()).abs().max())
-        check(e <= tol, f"{label} {name}: decode body max|kernel-plain| "
-                        f"{e:.3e} > tol {tol:.3e}")
+        return pa.paged_attention(q, k, v, tables, cur,
+                                  force_plan=pa.Plan("tile"), **kw)
+    o = old()
+    torch.cuda.synchronize()
+    e = float((o.float() - ref.float()).abs().max())
+    check(e <= tol, f"{label} {name}: old kernel max|kernel-plain| "
+                    f"{e:.3e} > tol {tol:.3e}")
     idx = tables.long()
     kc, vc = k[idx], v[idx]
     if scales is not None:
@@ -860,15 +892,17 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
                                  int8=scales is not None)
     case = {"case": name, "B": B, "S": S, "cursors": cursors,
             "window": window, "max_abs_err": err, "tol": tol,
-            "path": p.path, "rows": p.rows,
+            "row_ratio": worst,
+            "path": p.path, "rows": p.rows, "splits": p.splits,
             "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
             "library_ms": timer.ms(library, 20),
             "old_ms": timer.ms(old, 20),
             "bound_ms": b_ms, "bound_by": b_by}
-    log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e})  "
-        f"{p.path}{f' BM {p.rows}' if p.rows else ''} kernel "
-        f"{case['ms']:.4f} ms  old (decode "
-        f"body) {case['old_ms']:.4f}  plain {case['plain_ms']:.4f}  "
+    log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e}, worst "
+        f"row {worst:.3f})  "
+        f"{p.path} {'R' if p.path == 'decode' else 'BM'} {p.rows} kernel "
+        f"{case['ms']:.4f} ms  old kernel {case['old_ms']:.4f}  plain "
+        f"{case['plain_ms']:.4f}  "
         f"sdpa {case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
     return case
 
@@ -898,58 +932,84 @@ def paged_attention_phase(torch, timer, log):
 
 def attention_sweep_phase(torch, timer, log):
     """``paged_attention``'s decode body against its prefill-chunk body,
-    both forced by their plans, bf16 and int8 arenas, at the decode case's
-    8 lanes and cursors for every S of ``ATTN_SWEEP_S`` (rows S * n_rep =
-    4..256), each gated against the plain version.  T is the largest row
-    count at which the decode body was no slower in both variants (0 where
-    it was slower at every row count)."""
+    and the old kernel beside them, each forced by its plan, bf16 and int8
+    arenas, for every S of ``ATTN_SWEEP_S`` (rows S * n_rep = 4..256) at
+    two sets of 8 lanes: the decode case's (``long``, cursors 15..1000) and
+    ``ATTN_SWEEP_SHORT``'s (``short``, ~64 tokens through 64-entry
+    tables); each gated against the plain version (the decode body row by
+    row).  T is the largest row count at which the decode body was no
+    slower than the prefill-chunk body in both variants at the decode
+    case's lanes (0 where it was slower at every row count); the same
+    count at the short lanes is reported beside it."""
     from repro_torch.serving.cache_pool import quantize_kv
     from repro_torch.serving.paged import paged_attention as pa
 
     g = torch.Generator().manual_seed(5)
-    cursors = ATTN_CASES[0][1]
     H, KV, hd, bs = (ATTN_SHAPE[k] for k in ("H", "KV", "hd", "bs"))
     cases = []
-    for S in ATTN_SWEEP_S:
-        q, k, v, tables, cur = attention_case(torch, g, cursors, S, None,
-                                              **ATTN_SHAPE)
-        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
-        rows = S * H // KV
-        plans = {path: pa.plan(len(cursors), S, H, KV, hd, bs,
-                               sm_count(torch), decode_max_rows=limit)
-                 for path, limit in (("decode", rows), ("prefill", 0))}
-        for variant, args, kw in (
-                ("bf16", (k, v), {}),
-                ("int8", (k8, v8), dict(k_scale=ks, v_scale=vs))):
-            ref = pa.plain(q, *args, tables, cur, **kw)
-            tol = KERNEL_TOL_REL * float(ref.float().abs().max())
-            case = {"S": S, "rows": rows, "variant": variant,
-                    "prefill_rows": plans["prefill"].rows}
-            for path, p in plans.items():
-                def run(p=p):
-                    return pa.paged_attention(q, *args, tables, cur,
-                                              force_plan=p, **kw)
-                out = run()
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                check(bool(torch.isfinite(out).all()) and err <= tol,
-                      f"attention sweep {variant} S={S} {path}: "
-                      f"max|kernel-plain| {err:.3e} > tol {tol:.3e}")
-                case[f"{path}_ms"] = timer.ms(run, 20)
-                case[f"{path}_err"] = err
-            cases.append(case)
-            log(f"  attention sweep {variant} S={S:3d} rows={rows:4d}: "
-                f"decode {case['decode_ms']:.4f} ms  prefill "
-                f"{case['prefill_ms']:.4f} (BM {case['prefill_rows']})")
-        del q, k, v, k8, v8, ks, vs
-    faster = [r for r in sorted({c["rows"] for c in cases})
-              if all(c["decode_ms"] <= c["prefill_ms"] for c in cases
-                     if c["rows"] == r)]
-    T = max(faster) if faster else 0
-    log(f"  attention sweep: decode body no slower at rows {faster}; T "
-        f"measured {T}, module T (DECODE_MAX_ROWS) {pa.DECODE_MAX_ROWS}")
-    return {"T_measured": T, "T_in_module": pa.DECODE_MAX_ROWS,
-            "decode_no_slower_at": faster, "cases": cases}
+    for lanes, (cursors, nb) in (("long", (ATTN_CASES[0][1], 0)),
+                                 ("short", ATTN_SWEEP_SHORT)):
+        for S in ATTN_SWEEP_S:
+            q, k, v, tables, cur = attention_case(torch, g, cursors, S, None,
+                                                  **ATTN_SHAPE, nb=nb)
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            rows = S * H // KV
+            plans = {path: pa.plan(len(cursors), S, H, KV, hd, bs,
+                                   sm_count(torch), nb=tables.shape[1],
+                                   decode_max_rows=limit)
+                     for path, limit in (("decode", rows), ("prefill", 0))}
+            plans["old"] = pa.Plan("tile")
+            for variant, args, kw in (
+                    ("bf16", (k, v), {}),
+                    ("int8", (k8, v8), dict(k_scale=ks, v_scale=vs))):
+                ref = pa.plain(q, *args, tables, cur, **kw)
+                tol = KERNEL_TOL_REL * float(ref.float().abs().max())
+                case = {"lanes": lanes, "S": S, "rows": rows,
+                        "variant": variant, "nb": tables.shape[1],
+                        "decode_rows": plans["decode"].rows,
+                        "decode_splits": plans["decode"].splits,
+                        "prefill_rows": plans["prefill"].rows}
+                for path, p in plans.items():
+                    def run(p=p):
+                        return pa.paged_attention(q, *args, tables, cur,
+                                                  force_plan=p, **kw)
+                    out = run()
+                    torch.cuda.synchronize()
+                    err = float((out.float() - ref.float()).abs().max())
+                    check(bool(torch.isfinite(out).all()) and err <= tol,
+                          f"attention sweep {lanes} {variant} S={S} {path}: "
+                          f"max|kernel-plain| {err:.3e} > tol {tol:.3e}")
+                    if path == "decode":
+                        worst = row_ratio(out, ref)
+                        check(worst <= 1,
+                              f"attention sweep {lanes} {variant} S={S} "
+                              f"decode: a row's max|kernel-plain| is "
+                              f"{worst:.3f} x 2^-7 of its largest output")
+                        case["decode_row_ratio"] = worst
+                    case[f"{path}_ms"] = timer.ms(run, 20)
+                    case[f"{path}_err"] = err
+                cases.append(case)
+                log(f"  attention sweep {lanes:5s} {variant} S={S:3d} "
+                    f"rows={rows:4d}: decode {case['decode_ms']:.4f} ms (R "
+                    f"{case['decode_rows']}, {case['decode_splits']} splits)"
+                    f"  prefill {case['prefill_ms']:.4f} (BM "
+                    f"{case['prefill_rows']})  old {case['old_ms']:.4f}")
+            del q, k, v, k8, v8, ks, vs
+
+    def no_slower(cs):
+        return [r for r in sorted({c["rows"] for c in cs})
+                if all(c["decode_ms"] <= c["prefill_ms"] for c in cs
+                       if c["rows"] == r)]
+    faster, short = (no_slower([c for c in cases if c["lanes"] == lanes])
+                     for lanes in ("long", "short"))
+    T, T_short = (max(f) if f else 0 for f in (faster, short))
+    log(f"  attention sweep: decode body no slower at rows {faster} at the "
+        f"decode case's lanes, {short} at short lanes; T measured {T} "
+        f"(short lanes {T_short}), module T (DECODE_MAX_ROWS) "
+        f"{pa.DECODE_MAX_ROWS}")
+    return {"T_measured": T, "T_short_lanes": T_short,
+            "T_in_module": pa.DECODE_MAX_ROWS, "decode_no_slower_at": faster,
+            "decode_no_slower_at_short_lanes": short, "cases": cases}
 
 
 def _kernel_class(name: str) -> str:
@@ -958,7 +1018,9 @@ def _kernel_class(name: str) -> str:
             return cls
     if "sparse_linear_kernel" in name:
         return "sparse_linear"
-    if "paged_attention_kernel" in name or "paged_prefill_kernel" in name:
+    if any(k in name for k in ("paged_attention_kernel",
+                               "paged_decode_kernel",
+                               "paged_prefill_kernel")):
         return "paged_attention"
     if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas")):
         return "dense_gemm"
@@ -1121,6 +1183,8 @@ def _counters():
             for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                               ("paged_attention", pa))
             for suffix in ("", "_int8")] + [
+        (f"paged_attention_tile{suffix}", pa, f"launches_tile{suffix}")
+        for suffix in ("", "_int8")] + [
         (f"{name}_{path}{suffix}", mod, f"launches_{path}{suffix}")
         for name, mod in (("fused_sparse_linear", fsl), ("nm_spmm", nms),
                           ("paged_attention", pa))

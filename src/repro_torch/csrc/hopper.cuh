@@ -15,12 +15,38 @@
 //     (row, col) in a [rows][64] bf16 tile with that swizzle;
 //   * wgmma.mma_async bf16 -> f32 wrappers: A and B from shared memory, both
 //     K-major (wgmma_n32, wgmma_n64), and A from registers with B MN-major
-//     (wgmma_rs_tb_n64, wgmma_rs_tb_n128).
+//     (wgmma_rs_tb_n64, wgmma_rs_tb_n128);
+//   * for the paged attention bodies (csrc/paged_attention_prefill.cu,
+//     csrc/paged_attention_decode.cu): fast_div, the host-side constants of
+//     a division by a runtime divisor with one multiply-high, and ex2.
 #pragma once
 
 #include <stdint.h>
 
 namespace hopper {
+
+// The multiplier and shift that divide 0 <= j < 2^31 by d >= 2 with one
+// multiply-high, j / d = umulhi(j, mul) >> shr (Granlund and Montgomery's
+// round-up method, as CUTLASS's FastDivmod): p = 31 + ceil(log2 d), mul =
+// ceil(2^p / d), shr = p - 32.  d = 1 gives 0, 0: the caller tests for it.
+inline void fast_div(int d, uint32_t& mul, uint32_t& shr) {
+  if (d == 1) {
+    mul = 0;
+    shr = 0;
+    return;
+  }
+  int l = 0;
+  while ((1u << l) < uint32_t(d)) ++l;
+  mul = uint32_t(((1ull << (31 + l)) + uint64_t(d) - 1) / uint64_t(d));
+  shr = uint32_t(l - 1);
+}
+
+// 2^x, flushing subnormal results to 0 (p and alpha in [0, 1])
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {

@@ -1,6 +1,12 @@
 // Paged attention for Hopper (sm_90a): causal, length-masked GQA attention
 // of S fresh queries per lane over KV blocks found through a block table.
 //
+// The port's first kernel for paged attention, kept to be timed only: the
+// wrapper (serving/paged/paged_attention.py) launches it when a caller
+// forces Plan("tile"), and its plan never picks it.  Decode steps run the
+// split-KV decode body (csrc/paged_attention_decode.cu) and prefill chunks
+// the prefill-chunk body (csrc/paged_attention_prefill.cu).
+//
 // Replaces the Pallas TPU kernel
 //   paged_attention_pallas  src/repro/serving/paged/paged_attention.py:180
 //                           (_paged_attn_kernel :122, its quantized branch

@@ -133,21 +133,6 @@ struct Args {
   uint32_t bs_mul, bs_shr;   // j / bs as umulhi(j, bs_mul) >> bs_shr
 };
 
-// The multiplier and shift that divide 0 <= j < 2^31 by d >= 2 with one
-// multiply-high (Granlund and Montgomery's round-up method, as CUTLASS's
-// FastDivmod): p = 31 + ceil(log2 d), mul = ceil(2^p / d), shr = p - 32.
-void fast_div(int d, uint32_t& mul, uint32_t& shr) {
-  if (d == 1) {
-    mul = 0;
-    shr = 0;
-    return;
-  }
-  int l = 0;
-  while ((1u << l) < uint32_t(d)) ++l;
-  mul = uint32_t(((1ull << (31 + l)) + uint64_t(d) - 1) / uint64_t(d));
-  shr = uint32_t(l - 1);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -176,13 +161,6 @@ __device__ __forceinline__ void int8x16_to_bf16(const uint4& raw, uint4& lo,
   }
   lo = make_uint4(out[0], out[1], out[2], out[3]);
   hi = make_uint4(out[4], out[5], out[6], out[7]);
-}
-
-// 2^x, flushing subnormal results to 0 (p and alpha in [0, 1])
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // j / bs for 0 <= j < 2^31

@@ -53,6 +53,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "paged_attention_prefill_bf16": [_P] * 6 + [_I] * 10 + [_P],
     "paged_attention_prefill_int8": [_P] * 8 + [_I] * 10 + [_P],
+    "paged_attention_decode_bf16": [_P] * 8 + [_I] * 10 + [_P],
+    "paged_attention_decode_int8": [_P] * 10 + [_I] * 10 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

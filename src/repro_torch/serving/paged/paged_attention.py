@@ -9,12 +9,20 @@ arenas, or int8 arenas with per-position f32 scales ``k_scale``/``v_scale``
 the rows of a call, S * n_rep (a row is a (query, q head) pair of one KV
 head):
 
-- rows <= ``DECODE_MAX_ROWS`` (T): the decode body, ``csrc/paged_attention.cu``:
-  both products on the CUDA cores in f32, 4 to 64 rows a block;
+- rows <= ``DECODE_MAX_ROWS`` (T): the decode body,
+  ``csrc/paged_attention_decode.cu``: each lane's keys split into spans of
+  ``DECODE_SPAN`` keys, one block per (span, tile of 4 or 8 rows, KV head,
+  lane), 64-key tiles gathered through the table into a ring of 2 slots,
+  both products on the CUDA cores in f32, and the partial softmaxes merged
+  in split order by the last span to finish;
 - rows > T: the prefill-chunk body, ``csrc/paged_attention_prefill.cu``:
   64-key tiles gathered through the table into a ring of 3 slots,
   S = Q K^T and O += P V on the tensor cores (wgmma), 64 or 128 rows a
   block, P rounded to bf16 before the second product.
+
+The first port's kernel, ``csrc/paged_attention.cu``, stays reachable
+through ``force_plan=Plan("tile")`` to be timed beside them; ``plan`` never
+picks it.
 
 ``q`` is [B, S, H, hd]; ``cursor`` [B] counts the tokens of each lane that
 were visible before this step's S fresh ones.  Query i of lane b sits at
@@ -29,7 +37,7 @@ block occupants and the trash block.  q head h reads KV head ``h // n_rep``.
 ``plain`` gathers the lane's blocks (and scales) into a contiguous view and
 runs ``models/layers.attend_length_masked``: what ``paged_attention_ref``
 (:91) computes.  ``paged_attention`` runs ``plain`` for a CPU tensor; for a CUDA
-tensor it launches one of the two bodies or raises.
+tensor it launches one of the bodies or raises.
 """
 from __future__ import annotations
 
@@ -39,12 +47,12 @@ import functools
 import torch
 
 from ...kernels import build
-from ...kernels.common import sm_count
+from ...kernels.common import scratch_for, sm_count
 from ...models.layers import attend_length_masked
 
 launches = 0
-"""Launches of the bf16 bodies (either path) made through
-``paged_attention`` (plain runs are not counted)."""
+"""Launches of the bf16 bodies (either path, or the forced old kernel)
+made through ``paged_attention`` (plain runs are not counted)."""
 launches_int8 = 0
 """Launches of the int8 bodies made through ``paged_attention``."""
 launches_decode = 0
@@ -55,54 +63,86 @@ launches_prefill = 0
 """Of ``launches``, those of the prefill-chunk body (rows > T)."""
 launches_prefill_int8 = 0
 """Of ``launches_int8``, those of the prefill-chunk body (rows > T)."""
+launches_tile = 0
+"""Of ``launches``, those of the old kernel, forced by ``Plan("tile")``."""
+launches_tile_int8 = 0
+"""Of ``launches_int8``, those of the old kernel, forced."""
 
 HEAD_DIMS = (64, 128)
 GRID_LIMIT = 65535               # CUDA's bound on grid.y (KV) and grid.z (B)
-DECODE_MAX_ROWS = 4
-"""T: the largest row count S * n_rep that takes the decode body: a decode
-step (S = 1) of a model with n_rep <= 4 (llama3-8b) and nothing longer.
-The sweep of ``chip_smoke.py`` (phase 2b) found the prefill-chunk body
-faster than the decode body at every row count it timed, a decode step
-included (PERF.md); decode steps stay on the decode body until its
-split-KV redesign, which the sweep then measures against this body."""
+DECODE_MAX_ROWS = 8
+"""T: the largest row count S * n_rep that takes the decode body: the
+largest row count at which the decode body was no slower than the
+prefill-chunk body, bf16 and int8 arenas, in the sweep of
+``chip_smoke.py``'s phase 2b on an H100 (PERF.md): a decode step of
+llama3-8b (4 rows), of a model with n_rep 8, or two queries a lane at n_rep
+4.  Above it the prefill-chunk body's tensor cores win: the decode body's
+CUDA-core products grow with the rows, the tensor cores' do not.  The
+sweep's short lanes (~64 tokens through 64-entry tables) put T at 0 for
+bf16 arenas, a cost ``plan`` cannot see: it reads no cursor."""
+DECODE_SPAN = 128
+"""Keys a split of the decode body covers: ``kSpan`` of
+``csrc/paged_attention_decode.cu``, a constant of the kernel, which makes
+ceil(nb * bs / DECODE_SPAN) splits of a lane's nb * bs keys; ``plan`` sizes
+the workspace and counters for that many."""
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    path: str        # "decode" or "prefill"
-    rows: int = 0    # prefill: BM, rows a block (64 or 128); decode: unset
-    blocks: int = 0  # prefill: the grid, row tiles x KV x B; decode: unset
+    path: str        # "decode", "prefill" or (forced only) "tile"
+    rows: int = 0    # rows a block: decode R = 4 or 8; prefill BM = 64 or
+    #                  128; tile unset (the old kernel picks its own)
+    blocks: int = 0  # the grid: decode splits x row tiles x KV x B;
+    #                  prefill row tiles x KV x B
+    splits: int = 0  # decode: ceil(nb * bs / DECODE_SPAN), as the body
+    #                  computes it
+    workspace_bytes: int = 0  # decode: f32 partials [B, KV, row tiles,
+    #                           splits, R, hd + 2]; 0 when splits == 1
+    counters: int = 0         # decode: one per (lane, KV head, row tile)
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, S: int, H: int, KV: int, hd: int, bs: int, sm_count: int,
-         *, decode_max_rows: int = DECODE_MAX_ROWS) -> Plan:
+         *, nb: int, decode_max_rows: int = DECODE_MAX_ROWS) -> Plan:
     """How ``paged_attention`` computes S queries of B lanes with H q heads
-    over KV heads of width hd in blocks of bs on a card with ``sm_count``
-    SMs.  Rows S * n_rep <= ``decode_max_rows``: the decode body, which
-    picks its own rows a block (``csrc/paged_attention.cu``).  Above: the
-    prefill-chunk body at BM = 128 rows a block where that grid leaves at
-    most a quarter of the SMs without a block (a 512-token chunk of
+    over KV heads of width hd in blocks of bs, through tables of nb entries,
+    on a card with ``sm_count`` SMs; from these shapes alone, never from the
+    cursors, so a launch needs no cursor value on the host.  Rows S * n_rep
+    <= ``decode_max_rows``: the decode body, R = 4 rows a block up to 4
+    rows, else 8 (a larger S tiles its rows over the grid), and
+    ceil(nb * bs / ``DECODE_SPAN``) splits of each lane's keys, each with
+    its f32 partials in the workspace when there is more than one.  Above:
+    the prefill-chunk body at BM = 128 rows a block where that grid leaves
+    at most a quarter of the SMs without a block (a 512-token chunk of
     llama3-8b: 16 x 8 = 128 blocks on 132 SMs), else BM = 64, which halves
     the rows a K/V tile serves and doubles the blocks (a 64-token chunk of 4
     lanes: 128 blocks)."""
-    if min(B, S, H, KV, hd, bs, sm_count) < 1 or H % KV:
+    if min(B, S, H, KV, hd, bs, sm_count, nb) < 1 or H % KV:
         raise ValueError(f"plan needs positive sizes and H a multiple of KV;"
-                         f" got B={B} S={S} H={H} KV={KV} hd={hd} bs={bs}")
+                         f" got B={B} S={S} H={H} KV={KV} hd={hd} bs={bs}"
+                         f" nb={nb}")
     rows = S * (H // KV)
     if rows <= decode_max_rows:
-        return Plan("decode")
+        r = 4 if rows <= 4 else 8
+        tiles = -(-rows // r)
+        splits = -(-nb * bs // DECODE_SPAN)
+        split = splits > 1
+        return Plan("decode", r, splits * tiles * KV * B, splits,
+                    split * B * KV * tiles * splits * r * (hd + 2) * 4,
+                    split * B * KV * tiles)
     bm = 128 if -(-rows // 128) * KV * B * 4 >= 3 * sm_count else 64
     return Plan("prefill", bm, -(-rows // bm) * KV * B)
 
 
 def entry_point(p: Plan, int8: bool) -> str:
     """The C entry point that ``paged_attention`` calls for plan ``p``."""
-    if p.path == "decode":
-        return "paged_attention_int8" if int8 else "paged_attention_bf16"
+    suffix = "_int8" if int8 else "_bf16"
+    if p.path == "decode" and p.rows in (4, 8) and p.splits >= 1:
+        return "paged_attention_decode" + suffix
     if p.path == "prefill" and p.rows in (64, 128):
-        return ("paged_attention_prefill_int8" if int8
-                else "paged_attention_prefill_bf16")
+        return "paged_attention_prefill" + suffix
+    if p == Plan("tile"):
+        return "paged_attention" + suffix
     raise ValueError(f"no body takes plan {p}")
 
 
@@ -181,6 +221,20 @@ def _check_cuda_operands(q, k_arena, v_arena, block_tables, cursor,
     return B, S, H, KV, hd, bs, n_blocks
 
 
+def _check_decode_plan(p: Plan, B: int, rows: int, KV: int, hd: int,
+                       keys: int) -> None:
+    """Raise unless decode plan ``p`` has the splits the body makes of a
+    call's ``keys`` = nb * bs and sizes the workspace and counters its grid
+    uses."""
+    tiles = -(-rows // p.rows)
+    counters = B * KV * tiles if p.splits > 1 else 0
+    if (p.splits != -(-keys // DECODE_SPAN) or p.counters < counters
+            or p.workspace_bytes < counters * p.splits * p.rows
+            * (hd + 2) * 4):
+        raise ValueError(f"decode plan {p} does not cover {keys} keys and "
+                         f"{tiles} row tiles of {B} lanes x {KV} KV heads")
+
+
 def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
                     v_arena: torch.Tensor, block_tables: torch.Tensor,
                     cursor: torch.Tensor, *, window: int | None = None,
@@ -190,10 +244,11 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
     """out [B, S, H, hd] in q's dtype; see the module docstring.
     ``k_scale``/``v_scale`` [n_blocks, bs, KV] f32 dequantize int8 arenas;
     None for bf16 arenas.  ``force_plan`` replaces ``plan``'s choice of
-    body on the card (tests and timing); a CPU tensor runs ``plain``
-    whatever it says."""
+    body on the card (tests and timing; ``Plan("tile")`` the old kernel); a
+    CPU tensor runs ``plain`` whatever it says."""
     global launches, launches_int8, launches_decode, launches_decode_int8
-    global launches_prefill, launches_prefill_int8
+    global launches_prefill, launches_prefill_int8, launches_tile
+    global launches_tile_int8
     if not q.is_cuda:
         return plain(q, k_arena, v_arena, block_tables, cursor,
                      window=window, k_scale=k_scale, v_scale=v_scale)
@@ -202,26 +257,37 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
     B, S, H, KV, hd, bs, n_blocks = _check_cuda_operands(
         q, k_arena, v_arena, block_tables, cursor, k_scale, v_scale)
     int8 = k_scale is not None
-    p = force_plan or plan(B, S, H, KV, hd, bs, sm_count(q.device))
-    fn = getattr(build.library(), entry_point(p, int8))
+    nb = block_tables.shape[1]
+    p = force_plan or plan(B, S, H, KV, hd, bs, sm_count(q.device), nb=nb)
+    name = entry_point(p, int8)
+    if p.path == "decode":
+        _check_decode_plan(p, B, S * (H // KV), KV, hd, nb * bs)
+    fn = getattr(build.library(), name)
     out = torch.empty_like(q)
-    dims = [B, S, H, KV, hd, bs, block_tables.shape[1], n_blocks,
+    ptrs = [q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr()]
+    if int8:
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    ptrs += [block_tables.data_ptr(), cursor.data_ptr(), out.data_ptr()]
+    dims = [B, S, H, KV, hd, bs, nb, n_blocks,
             0 if window is None else int(window)]
-    if p.path == "prefill":
+    if p.path == "decode":
+        ws, cnt = scratch_for(q.device, p)
+        ptrs += [ws.data_ptr(), cnt.data_ptr()]
+    if p.path != "tile":
         dims.append(p.rows)
-    scales = [k_scale.data_ptr(), v_scale.data_ptr()] if int8 else []
-    status = fn(q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
-                *scales, block_tables.data_ptr(), cursor.data_ptr(),
-                out.data_ptr(), *dims,
+    status = fn(*ptrs, *dims,
                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, entry_point(p, int8))
+    build.check(status, name)
     decode, prefill = int(p.path == "decode"), int(p.path == "prefill")
+    tile = int(p.path == "tile")
     if int8:
         launches_int8 += 1
         launches_decode_int8 += decode
         launches_prefill_int8 += prefill
+        launches_tile_int8 += tile
     else:
         launches += 1
         launches_decode += decode
         launches_prefill += prefill
+        launches_tile += tile
     return out

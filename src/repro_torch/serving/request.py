@@ -14,9 +14,11 @@ tokens of prompt + already-generated history have their KV written.  The
 engine advances it chunk-by-chunk under the step token budget; when the
 cursor reaches the full sequence length the request samples its first
 (next) token and joins the fused decode batch.  A preempted request's
-cursor resets — on re-admission it is restored to however many leading
-0 and the request re-prefills prompt + generated tokens (the slot layout
-has no prefix cache; the recompute is exact).
+cursor resets to 0.  On re-admission the slot layout re-prefills prompt +
+generated tokens (the recompute is exact); the paged layout first
+published the victim's fully written blocks to the prefix cache
+(``engine.py``'s preemption), so the cursor is restored to however many
+leading blocks the cache still holds (resume from the last written block).
 """
 from __future__ import annotations
 

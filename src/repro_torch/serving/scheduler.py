@@ -30,8 +30,11 @@ deprecated: ``resolve_token_budget`` maps it to the equivalent token budget
 (N requests of up to ``max_len`` tokens each) and warns once.
 
 A preempted request goes back to the queue head (``pick_preemption_victim``
-picks the youngest); the slot layout re-prefills its prompt + generated
-tokens, which recomputes the same KV, so token streams are preserved.
+picks the youngest).  The slot layout re-prefills its prompt + generated
+tokens, which recomputes the same KV.  The paged layout publishes the
+victim's fully written blocks to the prefix cache before releasing them,
+so the resumed request matches them and restarts its cursor at the last
+fully written block.  Token streams are preserved either way.
 """
 from __future__ import annotations
 

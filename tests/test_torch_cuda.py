@@ -51,6 +51,15 @@ def _close(y, y_plain):
     assert err <= TOL_REL * float(y_plain.float().abs().max()), err
 
 
+def _close_rows(y, y_plain):
+    """Row by row, for paged_attention's decode body: each output row (a
+    lane's query and q head) within TOL_REL of that row's largest output,
+    so a long lane's small outputs are held at their own scale."""
+    err = (y.float() - y_plain.float()).abs().amax(-1)
+    tol = TOL_REL * y_plain.float().abs().amax(-1)
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
 @pytest.mark.parametrize("weight_pattern", ["8:16", "4:8", "2:4"])
 @pytest.mark.parametrize("N,K", [(96, 128), (200, 512), (64, 768)])
 @pytest.mark.parametrize("M", [1, 3, 17, 64, 130])
@@ -831,10 +840,10 @@ def _paged_counts(pa):
             pa.launches_prefill_int8)
 
 
-def _prefill_plan(pa, q, k, bm):
+def _prefill_plan(pa, q, k, tables, bm):
     B, S, H, _ = q.shape
     p = pa.plan(B, S, H, k.shape[2], k.shape[3], k.shape[1], _sm_count(),
-                decode_max_rows=0)
+                nb=tables.shape[1], decode_max_rows=0)
     return p if bm == "plan" else dataclasses.replace(p, rows=bm)
 
 
@@ -858,7 +867,7 @@ def test_paged_attention_prefill_matches_plain(cuda, S, bs, cursors, H, KV,
     if quantize:
         k, v, ks, vs = _quantized(k, v)
         kw.update(k_scale=ks, v_scale=vs)
-    p = _prefill_plan(pa, q, k, bm)
+    p = _prefill_plan(pa, q, k, tables, bm)
     before = _paged_counts(pa)
     out = pa.paged_attention(q, k, v, tables, cur, force_plan=p, **kw)
     want = [0] * 6
@@ -883,8 +892,8 @@ def test_paged_attention_prefill_is_deterministic(cuda, S, cursors, window,
     if quantize:
         k, v, ks, vs = _quantized(k, v)
         kw.update(k_scale=ks, v_scale=vs)
-    assert pa.plan(len(cursors), S, 32, 8, 128, 16,
-                   _sm_count()).path == "prefill"
+    assert pa.plan(len(cursors), S, 32, 8, 128, 16, _sm_count(),
+                   nb=tables.shape[1]).path == "prefill"
     a = pa.paged_attention(q, k, v, tables, cur, **kw)
     b = pa.paged_attention(q, k, v, tables, cur, **kw)
     torch.cuda.synchronize()
@@ -924,7 +933,7 @@ def test_paged_attention_prefill_never_reads_past_the_visible_end(
         wild[b, -(-(c + S) // bs):] = torch.tensor(
             [k.shape[0] + 5, -3], dtype=torch.int32, device=cuda).repeat(
                 wild.shape[1])[:wild.shape[1] - -(-(c + S) // bs)]
-    p = _prefill_plan(pa, q, k, "plan")
+    p = _prefill_plan(pa, q, k, tables, "plan")
     out = pa.paged_attention(q, dirty[0], dirty[1], wild, cur, force_plan=p,
                              **kw)
     torch.cuda.synchronize()
@@ -943,7 +952,8 @@ def test_paged_attention_never_reaches_plain(cuda, monkeypatch):
         q, k, v, tables, cur = _paged_case(2, S, 32, 8, 128, 16, [20, 300],
                                            2, cuda)
         k8, v8, ks, vs = _quantized(k, v)
-        want = pa.plan(2, S, 32, 8, 128, 16, _sm_count())
+        want = pa.plan(2, S, 32, 8, 128, 16, _sm_count(),
+                       nb=tables.shape[1])
         assert want.path == path
         ref = pa.plain(q, k, v, tables, cur)
         ref8 = pa.plain(q, k8, v8, tables, cur, k_scale=ks, v_scale=vs)
@@ -972,15 +982,16 @@ def test_paged_attention_decode_body_still_forced(cuda, quantize):
     if quantize:
         k, v, ks, vs = _quantized(k, v)
         kw = dict(k_scale=ks, v_scale=vs)
-    p = pa.plan(4, 64, 32, 8, 128, 16, _sm_count())
+    p = pa.plan(4, 64, 32, 8, 128, 16, _sm_count(), nb=tables.shape[1])
     assert p.path == "prefill"
-    forced = pa.plan(4, 64, 32, 8, 128, 16, _sm_count(), decode_max_rows=256)
+    forced = pa.plan(4, 64, 32, 8, 128, 16, _sm_count(), nb=tables.shape[1],
+                     decode_max_rows=256)
     before = _paged_counts(pa)
     out = pa.paged_attention(q, k, v, tables, cur, force_plan=forced, **kw)
     delta = [a - b for a, b in zip(_paged_counts(pa), before)]
     assert delta == ([0, 0, 0, 1, 1, 0] if quantize else [1, 1, 0, 0, 0, 0])
     torch.cuda.synchronize()
-    _close(out, pa.plain(q, k, v, tables, cur, **kw))
+    _close_rows(out, pa.plain(q, k, v, tables, cur, **kw))
 
 
 def test_paged_attention_prefill_raises_on_unsupported(cuda):
@@ -988,7 +999,7 @@ def test_paged_attention_prefill_raises_on_unsupported(cuda):
     any launch."""
     from repro_torch.serving.paged import paged_attention as pa
     q, k, v, tables, cur = _paged_case(2, 40, 8, 2, 128, 16, [3, 9], 4, cuda)
-    p = pa.plan(2, 40, 8, 2, 128, 16, _sm_count())
+    p = pa.plan(2, 40, 8, 2, 128, 16, _sm_count(), nb=tables.shape[1])
     assert p.path == "prefill"
     before = _paged_counts(pa)
     for bad in (dataclasses.replace(p, rows=96),
@@ -1006,6 +1017,221 @@ def test_paged_attention_prefill_raises_on_unsupported(cuda):
     with pytest.raises(ValueError):                     # int8 without scales
         pa.paged_attention(q, k8, v8, tables, cur, force_plan=p)
     assert _paged_counts(pa) == before
+
+
+# ------------------------------- paged attention's decode body (rows <= T)
+def _decode_plan(pa, q, k, tables):
+    B, S, H, _ = q.shape
+    return pa.plan(B, S, H, k.shape[2], k.shape[3], k.shape[1], _sm_count(),
+                   nb=tables.shape[1], decode_max_rows=S * H // k.shape[2])
+
+
+def _tile_counts(pa):
+    return (pa.launches_tile, pa.launches_tile_int8)
+
+
+# the decode case of chip_smoke.py's phase 2b, and lanes at 0, on and off
+# 16-key block and 128-key span edges
+DECODE_CURSORS = [[63, 200, 500, 700, 767, 1000, 15, 16], [0, 127, 128, 301]]
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 24])
+def test_paged_decode_matches_plain(cuda, bs, hd, n_rep, window, S,
+                                    quantize):
+    """The decode body, forced at S = 1 and 2, against the plain version:
+    one bf16 ulp of each row's largest output (P stays in f32)."""
+    from repro_torch.serving.paged import paged_attention as pa
+    cursors = DECODE_CURSORS[1]
+    q, k, v, tables, cur = _paged_case(len(cursors), S, 2 * n_rep, 2, hd, bs,
+                                       cursors, bs + hd + n_rep + S, cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    p = _decode_plan(pa, q, k, tables)
+    assert p.path == "decode" and p.splits > 1
+    before = _paged_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur, force_plan=p, **kw)
+    want = [0] * 6
+    want[4 if quantize else 1] = want[3 if quantize else 0] = 1
+    assert [a - b for a, b in zip(_paged_counts(pa), before)] == want
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    _close_rows(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 128])
+def test_paged_decode_llama3_case_matches_plain(cuda, window, quantize):
+    """chip_smoke.py's decode case (8 lanes, cursors 15..1000, H 32, KV 8,
+    hd 128, bs 16) as ``plan`` sends it: the decode body."""
+    from repro_torch.serving.paged import paged_attention as pa
+    cursors = DECODE_CURSORS[0]
+    q, k, v, tables, cur = _paged_case(8, 1, 32, 8, 128, 16, cursors, 21,
+                                       cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    assert pa.plan(8, 1, 32, 8, 128, 16, _sm_count(),
+                   nb=tables.shape[1]).path == "decode"
+    before = (pa.launches_decode, pa.launches_decode_int8)
+    out = pa.paged_attention(q, k, v, tables, cur, **kw)
+    assert (pa.launches_decode, pa.launches_decode_int8) == (
+        before[0] + (not quantize), before[1] + quantize)
+    torch.cuda.synchronize()
+    _close_rows(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_is_deterministic(cuda, quantize):
+    """The split-KV partials are merged in split order by the last block:
+    two calls give the same bits, also after calls of other plans (another
+    decode shape, a split-K weight kernel) have used the shared workspace
+    and counters."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(8, 1, 32, 8, 128, 16,
+                                       DECODE_CURSORS[0], 22, cuda)
+    q2, k2, v2, tables2, cur2 = _paged_case(4, 2, 16, 2, 64, 8,
+                                            DECODE_CURSORS[1], 23, cuda)
+    kw, kw2 = {}, {}
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        k2, v2, ks2, vs2 = _quantized(k2, v2)
+        kw, kw2 = dict(k_scale=ks, v_scale=vs), dict(k_scale=ks2, v_scale=vs2)
+    p2 = _decode_plan(pa, q2, k2, tables2)
+    a = pa.paged_attention(q, k, v, tables, cur, **kw)
+    pa.paged_attention(q2, k2, v2, tables2, cur2, force_plan=p2, **kw2)
+    sw, g = _sparse(1024, 4096, "8:16", "16:256", 24, cuda)
+    x = torch.randn((1, 4096), generator=g, device=cuda).to(torch.bfloat16)
+    args, kw_w = _fused_args(sw, x)
+    fsl.fused_sparse_linear(*args, **kw_w)
+    b = pa.paged_attention(q, k, v, tables, cur, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close_rows(a, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_decode_int8_unwritten_blocks_finite(cuda, window):
+    """A padding lane (cursor 0, all-trash table) on an int8 arena whose
+    trash block is as it was allocated (zeros, scale 1), and NaN scales
+    and 127s everywhere no query can see: finite, equal to the plain
+    version on the clean arena."""
+    from repro_torch.serving.paged import paged_attention as pa
+    cursors, bs = [130, 0, 17], 16
+    q, k, v, tables, cur = _paged_case(3, 1, 8, 2, 128, bs, cursors, 25,
+                                       cuda)
+    k8, v8, ks, vs = _quantized(k, v)
+    k8[0], v8[0], ks[0], vs[0] = 0, 0, 1.0, 1.0
+    tables[1] = 0
+    kw = dict(window=window)
+    ref = pa.plain(q, k8, v8, tables, cur, k_scale=ks, v_scale=vs, **kw)
+    seen = torch.zeros(k.shape[:2], dtype=torch.bool, device=cuda)
+    for b, c in enumerate(cursors):
+        for j in range(c + 1):
+            seen[tables[b, j // bs], j % bs] = True
+    dirty = [t.clone() for t in (k8, v8, ks, vs)]
+    for t in dirty:
+        t[~seen] = 127 if t.dtype == torch.int8 else float("nan")
+    p = _decode_plan(pa, q, k8, tables)
+    out = pa.paged_attention(q, dirty[0], dirty[1], tables, cur,
+                             k_scale=dirty[2], v_scale=dirty[3], force_plan=p,
+                             **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _close_rows(out, ref)
+
+
+def test_paged_decode_never_reaches_plain_or_the_old_kernel(cuda,
+                                                            monkeypatch):
+    """A decode call on the card launches the decode body: neither the
+    plain version nor the old kernel's entry points are called."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(8, 1, 32, 8, 128, 16,
+                                       DECODE_CURSORS[0], 26, cuda)
+    k8, v8, ks, vs = _quantized(k, v)
+    ref = pa.plain(q, k, v, tables, cur)
+    ref8 = pa.plain(q, k8, v8, tables, cur, k_scale=ks, v_scale=vs)
+    lib = build.library()
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain or the old kernel reached on CUDA")
+    monkeypatch.setattr(pa, "plain", refuse)
+    monkeypatch.setattr(lib, "paged_attention_bf16", refuse)
+    monkeypatch.setattr(lib, "paged_attention_int8", refuse)
+    before = _paged_counts(pa) + _tile_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur)
+    out8 = pa.paged_attention(q, k8, v8, tables, cur, k_scale=ks, v_scale=vs)
+    monkeypatch.undo()
+    delta = [a - b for a, b in zip(_paged_counts(pa) + _tile_counts(pa),
+                                   before)]
+    assert delta == [1, 1, 0, 1, 1, 0, 0, 0]
+    torch.cuda.synchronize()
+    _close_rows(out, ref)
+    _close_rows(out8, ref8)
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S", [1, 64])
+def test_paged_attention_old_kernel_still_forced(cuda, S, quantize):
+    """``Plan("tile")`` runs the old kernel (csrc/paged_attention.cu), as
+    chip_smoke.py times it: counted in ``launches_tile*`` and the total,
+    in neither path's counter."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(4, S, 32, 8, 128, 16,
+                                       [0, 64, 300, 700], 27, cuda)
+    kw = {}
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    before = _paged_counts(pa) + _tile_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur, force_plan=pa.Plan("tile"),
+                             **kw)
+    delta = [a - b for a, b in zip(_paged_counts(pa) + _tile_counts(pa),
+                                   before)]
+    assert delta == ([0, 0, 0, 1, 0, 0, 0, 1] if quantize
+                     else [1, 0, 0, 0, 0, 0, 1, 0])
+    torch.cuda.synchronize()
+    _close(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+def test_paged_decode_replays_in_a_cuda_graph(cuda, quantize):
+    """One decode call captured in a CUDA graph after a warm-up call: the
+    plan and grid come from the shapes, the cursors are read on the card,
+    so a replay on new cursor values written into the same tensors equals
+    an uncaptured call on them."""
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(8, 1, 32, 8, 128, 16,
+                                       DECODE_CURSORS[0], 28, cuda)
+    kw = {}
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pa.paged_attention(q, k, v, tables, cur, **kw)      # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, tables, cur, **kw)
+    for cursors in ([700, 15, 16, 63, 1000, 500, 767, 200],
+                    [0, 1, 127, 128, 129, 255, 256, 1000]):
+        cur.copy_(torch.tensor(cursors, dtype=torch.int32))
+        graph.replay()
+        want = pa.paged_attention(q, k, v, tables, cur, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        _close_rows(out, pa.plain(q, k, v, tables, cur, **kw))
 
 
 def test_paged_engine_runs_the_kernel(cuda):

@@ -36,6 +36,7 @@ from repro_torch.serving.paged import paged_attention as pa  # noqa: E402
 TK = 64
 ATOL = RTOL = 1e-5
 SMS = 132                       # an H100's SMs, for the plan tests
+NB = 65                         # table entries: a 1,040-token lane at bs 16
 
 
 # ------------------------------------------------------------------ plan
@@ -44,12 +45,15 @@ SMS = 132                       # an H100's SMs, for the plan tests
                                     (2, 64, 8), (3, 64, 8), (1, 16, 1)])
 def test_plan_sends_rows_up_to_t_to_decode(S, H, KV):
     rows = S * (H // KV)
-    p = pa.plan(4, S, H, KV, 128, 16, SMS)
+    p = pa.plan(4, S, H, KV, 128, 16, SMS, nb=NB)
     assert p.path == ("decode" if rows <= pa.DECODE_MAX_ROWS else "prefill")
-    if p.path == "decode":     # the decode body picks its own block shape
-        assert (p.rows, p.blocks) == (0, 0)
+    if p.path == "decode":     # R rows a block, spans of DECODE_SPAN keys
+        r = 4 if rows <= 4 else 8
+        splits = -(-NB * 16 // pa.DECODE_SPAN)
+        assert (p.rows, p.splits) == (r, splits)
+        assert p.blocks == splits * -(-rows // r) * KV * 4
     for t in (0, rows - 1, rows, 4096):
-        assert pa.plan(4, S, H, KV, 128, 16, SMS,
+        assert pa.plan(4, S, H, KV, 128, 16, SMS, nb=NB,
                        decode_max_rows=t).path == (
             "decode" if rows <= t else "prefill")
 
@@ -58,11 +62,11 @@ def test_plan_picks_bm_by_blocks():
     """A 512-token chunk of llama3-8b: 16 x 8 = 128 blocks of 128 rows; a
     64-token chunk of 4 lanes: 128 blocks of 64 rows (64 blocks of 128
     would leave half the SMs idle)."""
-    p = pa.plan(1, 512, 32, 8, 128, 16, SMS)
+    p = pa.plan(1, 512, 32, 8, 128, 16, SMS, nb=NB)
     assert (p.path, p.rows, p.blocks) == ("prefill", 128, 128)
-    p = pa.plan(4, 64, 32, 8, 128, 16, SMS)
+    p = pa.plan(4, 64, 32, 8, 128, 16, SMS, nb=NB)
     assert (p.path, p.rows, p.blocks) == ("prefill", 64, 128)
-    assert pa.plan(8, 64, 32, 8, 128, 16, SMS).rows == 128
+    assert pa.plan(8, 64, 32, 8, 128, 16, SMS, nb=NB).rows == 128
 
 
 @pytest.mark.parametrize("B", [1, 3, 65535])
@@ -70,7 +74,7 @@ def test_plan_picks_bm_by_blocks():
 @pytest.mark.parametrize("H,KV", [(4, 4), (32, 8), (12, 4), (64, 8),
                                   (8, 1)])
 def test_plan_covers_every_row_within_the_grid(B, S, H, KV):
-    p = pa.plan(B, S, H, KV, 64, 16, SMS, decode_max_rows=0)
+    p = pa.plan(B, S, H, KV, 64, 16, SMS, nb=NB, decode_max_rows=0)
     rows = S * (H // KV)
     tiles = -(-rows // p.rows)
     assert p.path == "prefill" and p.rows in (64, 128)
@@ -84,11 +88,11 @@ def test_force_plan_picks_the_entry_point():
     plans call the decode entry points, prefill plans the prefill ones;
     a plan no body takes raises."""
     import dataclasses
-    dec = pa.plan(4, 64, 32, 8, 128, 16, SMS, decode_max_rows=10**6)
-    pre = pa.plan(1, 1, 32, 8, 128, 16, SMS, decode_max_rows=0)
+    dec = pa.plan(4, 64, 32, 8, 128, 16, SMS, nb=NB, decode_max_rows=10**6)
+    pre = pa.plan(1, 1, 32, 8, 128, 16, SMS, nb=NB, decode_max_rows=0)
     assert (dec.path, pre.path) == ("decode", "prefill")
-    assert pa.entry_point(dec, False) == "paged_attention_bf16"
-    assert pa.entry_point(dec, True) == "paged_attention_int8"
+    assert pa.entry_point(dec, False) == "paged_attention_decode_bf16"
+    assert pa.entry_point(dec, True) == "paged_attention_decode_int8"
     assert pa.entry_point(pre, False) == "paged_attention_prefill_bf16"
     assert pa.entry_point(pre, True) == "paged_attention_prefill_int8"
     for bad in (dataclasses.replace(pre, rows=96),
@@ -97,14 +101,15 @@ def test_force_plan_picks_the_entry_point():
         with pytest.raises(ValueError):
             pa.entry_point(bad, False)
     with pytest.raises(ValueError):
-        pa.plan(1, 4, 6, 4, 128, 16, SMS)          # H % KV != 0
+        pa.plan(1, 4, 6, 4, 128, 16, SMS, nb=NB)   # H % KV != 0
 
 
 def test_cpu_tensors_take_the_plain_version_whatever_the_plan():
     q, k, v, tables, cur, _, _ = _inputs(2, 9, 8, 2, 64, 16, [3, 20], 1)
     t = [torch.from_numpy(a) for a in (q, k, v, tables, cur)]
     before = (pa.launches, pa.launches_prefill, pa.launches_decode)
-    forced = pa.plan(2, 9, 8, 2, 64, 16, SMS, decode_max_rows=0)
+    forced = pa.plan(2, 9, 8, 2, 64, 16, SMS, nb=tables.shape[1],
+                     decode_max_rows=0)
     out = pa.paged_attention(*t, force_plan=forced)
     assert torch.equal(out, pa.plain(*t))
     assert (pa.launches, pa.launches_prefill, pa.launches_decode) == before
