@@ -124,6 +124,30 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            the compressed params' forward (fused kernel) against the
            dense-effective params' (``torch.matmul``) on one batch.
 
+  9. trace replay with observability (run after phase 6, on phase 4's
+     params): a fixed-seed Poisson trace (16 requests at 4/s, prompts of
+     64..768 tokens, 32 new tokens each, greedy) written with
+     ``save_trace`` under ``chiprun_out/``, read back with ``load_trace``
+     and replayed through the CLI's ``launch/serve.run_trace`` on phase
+     6(a)'s paged engine (512 blocks of 16, 8 slots, max_len 1024, token
+     budget 512), every run's launches gated per model call as in phase 6:
+       (a) at time scale 0, untraced and then traced (``ServingTracer``):
+           gates identical greedy streams request by request, 16 finished,
+           0 rejected;
+       (b) the traced run's Perfetto file (``chiprun_out/phase9_trace.json``
+           and its ``.counters.txt``): gates the port's
+           ``validate_trace_events``, every ``request_summary`` against its
+           request's ``RequestMetrics``, the span names, 512 decoded
+           tokens and the prefilled-token counter against the engine's
+           count, and the attribution's calls against the model calls;
+       (c) at time scale 1.0, traced (reported, not gated): the
+           ``format_summary`` line, each model-call variant's calls,
+           steady mean wall and issue time (host time until the call
+           returned), FLOPs and bytes from ``launch/step_cost.py``, the
+           engine spans' host ms per step, the p50 of decode-only steps
+           and of steps with a chunk, and (a)'s untraced and traced
+           tok/s.
+
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
 one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
@@ -192,6 +216,11 @@ ATTN_SWEEP_SHORT = ([64, 60, 70, 64, 50, 64, 80, 63], 64)   # cursors, nb
 PREFIX_LEN = 512
 PREFIX_SUFFIX_LENS = [[32, 96, 160, 256], [64, 128, 200]]
 PREFIX_REPEAT = (1, 48)          # wave-1 suffix 1, its first 48 tokens
+# phase 9: the replayed trace (serving/trace.poisson_trace's arguments)
+TRACE = dict(n_requests=16, rate_per_s=4.0, prompt_len=(64, 768),
+             max_new_tokens=32, temperature=0.0, seed=0)
+TRACE_SPANS = {"step", "plan", "chunk", "decode", "emit", "queued", "prefill",
+               "request_summary", "jit:step", "jit:decode"}
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -1482,6 +1511,224 @@ def int8_serve_phase(torch, log, cfg, params, paged_streams, pressure):
     return results, launches_a
 
 
+# ------------------------------------------------- phase 9: trace replay
+def replay_run(torch, cfg, params, trace_path, time_scale, trace_out=None):
+    """One replay of the trace file through the CLI's ``run_trace`` on phase
+    6(a)'s paged engine, every kernel's launch count set to 0 just before
+    and read just after; returns (run_trace's result, launches)."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "llama3-8b", "--sparse", "--slots", "8",
+            "--max-len", "1024", "--token-budget", "512",
+            "--kv-layout", "paged", "--block-size", str(ATTN_SHAPE["bs"]),
+            "--n-blocks", "512", "--trace", str(trace_path),
+            "--time-scale", str(time_scale)]
+    if trace_out is not None:
+        argv += ["--trace-out", str(trace_out)]
+    args = serve.parse_args(argv)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = serve.run_trace(cfg, params, args, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    gen = TRACE["max_new_tokens"]
+    for r in res["finished"]:
+        check(r.status.value == "finished" and len(r.tokens) == gen,
+              f"replay: request {r.request_id}: {r.status}, "
+              f"{len(r.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.tokens),
+              f"replay: request {r.request_id}: token outside the vocab")
+    return res, launches
+
+
+def phase_ms_per_step(tracer, n_steps):
+    """Host ms per step of each engine span (step, plan, chunk, decode,
+    emit, jit:*) of a traced run: the sum of the span's durations over the
+    steps."""
+    out = {}
+    for e in tracer.buffer.events:
+        if e["ph"] == "X" and e["pid"] == tracer._pid_engine:
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {k: v / max(n_steps, 1) for k, v in sorted(out.items())}
+
+
+def step_ms(tracer):
+    """p50 and count of the traced run's step spans, decode-only steps
+    apart from steps that ran a prefill chunk."""
+    import numpy as np
+    out = {}
+    for kind, want in (("decode_only", False), ("with_chunk", True)):
+        durs = [e["dur"] / 1e3 for e in tracer.buffer.events
+                if e["ph"] == "X" and e["name"] == "step"
+                and (e["args"]["prefill_tokens"] > 0) == want]
+        out[kind] = {"p50": float(np.percentile(durs, 50)) if durs else None,
+                     "n": len(durs)}
+    return out
+
+
+def check_lifecycles(tracer, reqs):
+    """Every request's request_summary restates its RequestMetrics
+    (tests/test_observe.py's check)."""
+    summaries = {e["args"]["id"]: e["args"] for e in tracer.buffer.events
+                 if e.get("name") == "request_summary"}
+    check(len(summaries) == len(reqs),
+          f"trace: {len(summaries)} request summaries, {len(reqs)} requests")
+    for r in reqs:
+        m, s = r.metrics, summaries[r.request_id]
+        got = (s["status"], s["admitted"], s["first_token"], s["finished"],
+               s["n_tokens"], s["prefill_chunks"], s["n_preemptions"],
+               s["last_preempt_reason"])
+        want = (r.status.value, m.admitted, m.first_token, m.finished,
+                m.n_tokens, m.prefill_chunks, m.n_preemptions,
+                m.last_preempt_reason)
+        check(got == want and m.n_tokens == len(r.tokens),
+              f"trace: request {r.request_id}'s summary {got} != its "
+              f"metrics {want}")
+
+
+def trace_phase(torch, log, cfg, params):
+    """Phase 9: the trace written, read back and replayed through the CLI's
+    ``run_trace``, (a) untraced and traced at time scale 0, (b) the traced
+    run's trace and counters gated, (c) traced at time scale 1.0."""
+    from repro_torch.runtime.metrics import format_summary
+    from repro_torch.runtime.telemetry import validate_trace_events
+    from repro_torch.serving import load_trace, poisson_trace, save_trace
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path = out_dir / "phase9_requests.json"
+    made = poisson_trace(vocab=cfg.vocab, **TRACE)
+    save_trace(str(trace_path), made)
+    check(load_trace(str(trace_path)) == made,
+          "trace: load_trace did not return the saved requests")
+    n_req, gen = TRACE["n_requests"], TRACE["max_new_tokens"]
+    out = {"trace": dict(TRACE, file=str(trace_path.relative_to(ROOT)),
+                         prompt_tokens=sum(len(t.prompt) for t in made))}
+
+    # (a) untraced, then traced, at time scale 0
+    runs = {}
+    for name, trace_out in (("untraced", None),
+                            ("traced", out_dir / "phase9_trace.json")):
+        res, launches = replay_run(torch, cfg, params, trace_path, 0.0,
+                                   trace_out)
+        engine = res["engine"]
+        check(len(res["finished"]) == n_req and res["rejected"] == 0,
+              f"replay ({name}): {len(res['finished'])} finished, "
+              f"{res['rejected']} rejected")
+        nums = serve_numbers(torch, engine, res["finished"], res["wall_s"],
+                             [], launches)
+        runs[name] = (res, nums)
+    (res_u, nums_u), (res_t, nums_t) = runs["untraced"], runs["traced"]
+    streams_u = {r.request_id: r.tokens for r in res_u["finished"]}
+    streams_t = {r.request_id: r.tokens for r in res_t["finished"]}
+    check(streams_t == streams_u,
+          "replay: the traced run's greedy streams differ from the "
+          "untraced run's")
+
+    # (b) the traced run's trace and counters
+    engine, tracer = res_t["engine"], res_t["tracer"]
+    events = validate_trace_events(json.loads(
+        (out_dir / "phase9_trace.json").read_text()))
+    names = {e["name"] for e in events}
+    check(TRACE_SPANS <= names,
+          f"trace: spans missing: {sorted(TRACE_SPANS - names)}")
+    check_lifecycles(tracer, res_t["finished"])
+    lb = {"engine": tracer.name, "family": cfg.family}
+    reg = tracer.registry
+    decoded = reg.counter("serving_tokens_decoded_total").get(**lb)
+    prefilled = reg.counter("serving_tokens_prefilled_total").get(**lb)
+    st = engine.stats()
+    check(decoded == n_req * gen,
+          f"trace: serving_tokens_decoded_total {decoded} != {n_req * gen}")
+    check(prefilled == st["n_prefill_tokens"],
+          f"trace: serving_tokens_prefilled_total {prefilled} != the "
+          f"engine's {st['n_prefill_tokens']}")
+    attr = tracer.attribution()
+    calls = sum(v["calls"] for v in attr.values())
+    check(calls == st["n_model_calls"],
+          f"trace: attribution counts {calls} calls, the adapter "
+          f"{st['n_model_calls']}")
+    out["identity"] = {
+        "streams_identical": f"{len(streams_u)}/{n_req}",
+        "untraced": nums_u, "traced": nums_t,
+        "untraced_tok_per_s": nums_u["tok_per_s"],
+        "traced_tok_per_s": nums_t["tok_per_s"],
+        "trace_events": len(events),
+        "trace_file": "chiprun_out/phase9_trace.json",
+        "counters_file": "chiprun_out/phase9_trace.json.counters.txt",
+        "prefilled_tokens": prefilled, "decoded_tokens": decoded}
+    log(f"  (a) streams identical {len(streams_u)}/{n_req}; tok/s untraced "
+        f"{nums_u['tok_per_s']:.2f}, traced {nums_t['tok_per_s']:.2f}")
+    log(f"  (b) {len(events)} events, prefilled {prefilled:g}, decoded "
+        f"{decoded:g}, {calls} model calls")
+    del runs, res_u, res_t, engine, tracer
+    torch.cuda.empty_cache()
+
+    # (c) traced at time scale 1.0
+    res, launches = replay_run(torch, cfg, params, trace_path, 1.0,
+                               out_dir / "phase9_trace_t1.json")
+    engine, tracer = res["engine"], res["tracer"]
+    nums = serve_numbers(torch, engine, res["finished"], res["wall_s"], [],
+                         launches)
+    attr = tracer.attribution()
+
+    def ms(x):
+        return None if x is None else x * 1e3
+    variants = {
+        k: {"kind": v["kind"], "shapes": v["shapes"], "calls": v["calls"],
+            "first_call_ms": ms(v["first_call_s"]),
+            "steady_wall_ms": ms(v["steady_mean_s"]),
+            "steady_issue_ms": ms(v["steady_issue_mean_s"]),
+            "flops": v["flops"], "bytes_accessed": v["bytes_accessed"]}
+        for k, v in attr.items()}
+    # each kind's variants pooled, first calls left out
+    by_kind = {}
+    for v in attr.values():
+        k = by_kind.setdefault(v["kind"], {"variants": 0, "calls": 0,
+                                           "steady_calls": 0, "wall_s": 0.0,
+                                           "issue_s": 0.0})
+        k["variants"] += 1
+        k["calls"] += v["calls"]
+        if v["steady_mean_s"] is not None:
+            k["steady_calls"] += v["calls"] - 1
+            k["wall_s"] += v["steady_mean_s"] * (v["calls"] - 1)
+            k["issue_s"] += v["steady_issue_mean_s"] * (v["calls"] - 1)
+    by_kind = {kind: {"variants": k["variants"], "calls": k["calls"],
+                      "steady_calls": k["steady_calls"],
+                      "steady_wall_ms": ms(k["wall_s"] / k["steady_calls"]
+                                           if k["steady_calls"] else None),
+                      "steady_issue_ms": ms(k["issue_s"] / k["steady_calls"]
+                                            if k["steady_calls"] else None)}
+               for kind, k in by_kind.items()}
+    out["timed"] = {
+        "time_scale": 1.0, "summary_line": format_summary("trace",
+                                                          res["summary"]),
+        "rejected": res["rejected"], "serve": nums, "by_kind": by_kind,
+        "variants": variants,
+        "phase_ms_per_step": phase_ms_per_step(tracer, engine.n_steps),
+        "step_ms": step_ms(tracer), "steps": engine.n_steps,
+        "trace_file": "chiprun_out/phase9_trace_t1.json"}
+    log(f"  (c) {out['timed']['summary_line']}")
+
+    def fmt(x):
+        return "-" if x is None else f"{x:.3f}"
+    for k, v in sorted(by_kind.items()):
+        log(f"  (c) {k}: {v['variants']} variants, {v['calls']} calls, "
+            f"steady wall {fmt(v['steady_wall_ms'])} ms, issue "
+            f"{fmt(v['steady_issue_ms'])} ms")
+    for k, v in variants.items():
+        log(f"  (c) {k:10s} {str(v['shapes'][-1]):10s} calls {v['calls']:4d}"
+            f"  steady wall {fmt(v['steady_wall_ms'])} ms  issue "
+            f"{fmt(v['steady_issue_ms'])} ms  flops {v['flops']:.4g}  "
+            f"bytes {v['bytes_accessed']:.4g}")
+    log("  (c) host ms per step: " + json.dumps(
+        out["timed"]["phase_ms_per_step"]))
+    log("  (c) step spans: " + json.dumps(out["timed"]["step_ms"]))
+    del res, engine, tracer
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------- phase 8: pipeline
 def calibrate(torch, log, cfg):
     """8(a): the dense bf16 model from seed 0 and its own calibration
@@ -1949,6 +2196,9 @@ def main() -> int:
     log("phase 6 serve llama3-8b, 32 layers, 8:16+16:256, paged layout")
     paged_serve, paged_launches, paged_streams = paged_serve_phase(
         torch, log, cfg, params, slot_streams)
+    log("phase 9 replay a Poisson trace through launch/serve.run_trace, "
+        "untraced and traced (phase 4's params, phase 6(a)'s engine)")
+    replay = trace_phase(torch, log, cfg, params)
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -1993,7 +2243,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
-              "serve_int8_paged": int8_serve, "pipeline": pipeline}
+              "serve_int8_paged": int8_serve, "pipeline": pipeline,
+              "replay": replay}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

@@ -9,6 +9,9 @@ throughput (generated tok/s over the measured window), p50/p99 of
 time-to-first-token, per-output-token latency, end-to-end latency, the
 pooled inter-token-latency percentiles (the decode-tail stall metric
 chunked prefill exists to shrink), and a prefill-chunk histogram.
+``format_summary`` renders a summary as the one-line report the serving CLI
+prints (a copy of the reference's, its ``speculative`` segment included:
+ROADMAP A8 fills that key).
 """
 from __future__ import annotations
 
@@ -119,3 +122,38 @@ def summarize(metrics: list[RequestMetrics], wall_s: float) -> dict:
         },
     }
     return out
+
+
+def format_summary(name: str, s: dict) -> str:
+    tps = s["tok_per_s"]
+    line = (f"{name:>8}: {s['n_requests']} req, {s['total_tokens']} tok "
+            f"in {s['wall_s']:.2f}s"
+            + (f" = {tps:.1f} tok/s" if not math.isnan(tps) else ""))
+    # ttft/tpot are NaN when no (multi-token) request finished in the
+    # window — skip the segment rather than printing "nanms", same guard
+    # itl has always had
+    ttft = s.get("ttft", {})
+    if ttft and not math.isnan(ttft.get("p99", math.nan)):
+        line += (f" | ttft p50 {ttft['p50']*1e3:.0f}ms "
+                 f"p99 {ttft['p99']*1e3:.0f}ms")
+    tpot = s.get("tpot", {})
+    if tpot and not math.isnan(tpot.get("p99", math.nan)):
+        line += (f" | tpot p50 {tpot['p50']*1e3:.1f}ms "
+                 f"p99 {tpot['p99']*1e3:.1f}ms")
+    e2e = s.get("e2e", {})
+    if e2e and not math.isnan(e2e.get("p99", math.nan)):
+        line += (f" | e2e p50 {e2e['p50']*1e3:.0f}ms "
+                 f"p99 {e2e['p99']*1e3:.0f}ms")
+    itl = s.get("itl", {})
+    if itl and not math.isnan(itl.get("p99", math.nan)):
+        line += f" | itl p99 {itl['p99']*1e3:.1f}ms"
+    ch = s.get("prefill_chunks", {})
+    if ch.get("max", 0) > 1:
+        line += f" | chunks max {ch['max']}"
+    pre = s.get("preemptions", {})
+    if pre.get("total", 0) > 0:
+        line += f" | preempt {pre['total']}"
+    sp = s.get("speculative")
+    if sp:
+        line += f" | spec accept {sp['acceptance_rate']:.2f}"
+    return line

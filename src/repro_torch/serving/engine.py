@@ -31,9 +31,16 @@ inside attention).
 
 On the card every ``SparseWeight`` product goes through the hand-written
 kernels (``kernels/``; int8 N:M values through their int8 variants), and
-paged attention through ``csrc/paged_attention.cu``.  Left out of this
-slice, each raising ``NotImplementedError``: ``draft=`` (ROADMAP A8),
-``tracer=`` (A9), ``mesh=`` (A12).
+paged attention through its decode and prefill-chunk bodies
+(``csrc/paged_attention_decode.cu``, ``csrc/paged_attention_prefill.cu``).
+
+``tracer=`` takes a ``ServingTracer`` (``serving/observe.py``): Perfetto
+spans of every step, phase and request lifecycle, the serving counters and
+per-variant attribution of the model calls.  The default ``NULL_TRACER``
+does nothing, and every hook's call site is guarded by ``tracer.enabled``,
+so an untraced step does no observability work: no synchronize, no
+event, no span.  Left out of this slice, each raising
+``NotImplementedError``: ``draft=`` (ROADMAP A8), ``mesh=`` (A12).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ import torch
 from ..device import resolve
 from .cache_pool import CachePoolError
 from .families import TransformerAdapter
+from .observe import NULL_TRACER
 from .paged import OutOfBlocks
 from .request import Request, SamplingParams, Status
 from .sampling import sample_tokens_logprobs
@@ -87,8 +95,6 @@ class ServingEngine:
                              f"not {kv_layout!r}")
         if draft is not None:
             raise _not_ported("speculative decoding (draft=)", "A8")
-        if tracer is not None:
-            raise _not_ported("the serving tracer (tracer=)", "A9")
         if mesh is not None:
             raise _not_ported("mesh placement (mesh=)", "A12")
         self.device = resolve(device)
@@ -112,10 +118,17 @@ class ServingEngine:
         self.running: dict[int, Request] = {}        # slot -> request
         self.finished: list[Request] = []
         self._clock = clock
+        # observability: NULL_TRACER is a no-op singleton and every call
+        # site is guarded by ``tracer.enabled`` (serving/observe.py)
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        if self.tracer.enabled:
+            self.tracer.attach(self)
+            self.adapter.tracer = self.tracer
         self._next_id = 0
         self.n_steps = 0
         self.n_preemptions = 0
         self.max_running = 0
+        self.n_prefill_tokens = 0
 
         # per-slot sampling state (host side, fixed shapes)
         self._temps = np.zeros((n_slots,), np.float32)
@@ -158,6 +171,8 @@ class ServingEngine:
         req.metrics.arrival = self._clock()
         if not self.queue.try_push(req):
             raise QueueFull(f"queue at capacity ({self.queue.max_size})")
+        if self.tracer.enabled:
+            self.tracer.on_submit(req)
         return req
 
     def prefix_match_length(self, prompt) -> int:
@@ -178,12 +193,17 @@ class ServingEngine:
         budget (in-flight cursors first, then admissions) -> fused decode
         of every prefill-complete request."""
         now = self._clock()
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin_step(self.n_steps, now)
         stats = {"evicted": 0, "admitted": 0, "finished": 0, "decoded": 0,
                  "preempted": 0, "prefill_tokens": 0, "prefill_chunks": 0}
         for req in self.queue.evict_expired(now):
             req._finish(Status.EVICTED, now)
             self.finished.append(req)
             stats["evicted"] += 1
+            if tr.enabled:
+                tr.on_evict(req)
 
         self._prefill_phase(stats, now)
 
@@ -191,6 +211,9 @@ class ServingEngine:
         if any(r.status is Status.RUNNING for r in self.running.values()):
             stats["finished"] += self._decode_once(stats)
         self.n_steps += 1
+        self.n_prefill_tokens += stats["prefill_tokens"]
+        if tr.enabled:
+            tr.end_step(self, stats)
         return stats
 
     def run(self, max_steps: int | None = None) -> list[Request]:
@@ -208,17 +231,19 @@ class ServingEngine:
                 "queue_depth": len(self.queue),
                 "n_finished": len(self.finished),
                 "n_model_calls": self.adapter.n_model_calls,
+                "n_prefill_tokens": self.n_prefill_tokens,
                 "family": self.cfg.family, "kv_layout": self.kv_layout,
                 "kv_dtype": self.kv_dtype, "token_budget": self.token_budget,
                 "device": str(self.device), "pool": self.pool.stats()}
 
     def reset_stats(self) -> None:
-        """Zero the step, preemption, concurrency and prefix-cache counters
-        (cached KV is kept): benchmarks call this between a warm-up pass and
-        the measured window."""
+        """Zero the step, preemption, concurrency, prefill-token and
+        prefix-cache counters (cached KV is kept): benchmarks call this
+        between a warm-up pass and the measured window."""
         self.n_steps = 0
         self.n_preemptions = 0
         self.max_running = 0
+        self.n_prefill_tokens = 0
         if self.kv_layout == "paged":
             self.pool.reset_stats()
 
@@ -242,6 +267,9 @@ class ServingEngine:
     def _prefill_phase(self, stats: dict, now: float) -> None:
         """Spend up to the token budget: advance in-flight prefill cursors
         first (admission order), then admit from the queue head, FIFO."""
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin_phase("plan")
         in_flight = sorted(
             (r for r in self.running.values()
              if r.status is Status.PREFILLING),
@@ -252,9 +280,11 @@ class ServingEngine:
 
         def try_admit(req, chunk):
             seq = self._seq(req)
+            cache_lookup = False
             if self.kv_layout == "paged":
                 if not self.pool.can_admit(chunk, self.lookahead_blocks):
                     return None
+                cache_lookup = self.pool.prefix_cache is not None
                 try:
                     row, n_cached = self.pool.admit(seq, alloc_tokens=0)
                 except OutOfBlocks:
@@ -274,6 +304,8 @@ class ServingEngine:
             if popped is not req:
                 raise CachePoolError("queue head changed during planning")
             self._install_running(req, row, now)
+            if tr.enabled:
+                tr.on_admit(req, n_cached, cache_lookup)
             req.prefill_cursor = n_cached
             stats["admitted"] += 1
             return len(seq) - n_cached
@@ -294,6 +326,8 @@ class ServingEngine:
         for req, take in runnable:
             by_shape.setdefault((req.prefill_cursor, _bucket(take)),
                                 []).append((req, take))
+        if tr.enabled:
+            tr.end_phase(planned=len(runnable))
         for (cursor, bucket), group in sorted(by_shape.items()):
             # a later plan entry's capacity loop may have preempted a request
             # after it was validated into runnable: re-check each one
@@ -301,8 +335,14 @@ class ServingEngine:
                      if self.running.get(r.slot) is r
                      and r.prefill_cursor == cursor]
             if group:
+                if tr.enabled:
+                    tr.begin_phase("chunk", cursor=cursor, bucket=bucket,
+                                   n_rows=len(group),
+                                   tokens=sum(t for _, t in group))
                 stats["finished"] += self._run_chunk_group(group, cursor,
                                                            bucket, stats)
+                if tr.enabled:
+                    tr.end_phase()
 
     def _ensure_chunk_capacity(self, req: Request, take: int,
                                stats: dict) -> bool:
@@ -366,14 +406,19 @@ class ServingEngine:
         stats["prefill_tokens"] += sum(takes)
         stats["prefill_chunks"] += n
 
+        tr = self.tracer
         done_idx, done_rows, done_last = [], [], []
         for i, ((req, take), seq) in enumerate(zip(group, seqs)):
             req.prefill_cursor = cursor + take
             req.metrics.prefill_chunks += 1
+            if tr.enabled:
+                tr.on_chunk(req, cursor, take)
             if req.prefill_cursor == len(seq):
                 req.status = Status.RUNNING
                 if self.kv_layout == "paged":
                     self.pool.register_prefix(req.slot, seq)
+                if tr.enabled:
+                    tr.on_prefill_complete(req)
                 done_idx.append(i)
                 done_rows.append(req.slot)
                 done_last.append(take - 1)
@@ -413,6 +458,8 @@ class ServingEngine:
         self.queue.push_front(req)
         self.n_preemptions += 1
         stats["preempted"] += 1
+        if self.tracer.enabled:
+            self.tracer.on_preempt(req, reason)
 
     def _decode_rows(self) -> list[int]:
         return sorted(s for s, r in self.running.items()
@@ -443,17 +490,25 @@ class ServingEngine:
             if not active:
                 return 0
         stats["decoded"] = len(active)
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin_phase("decode", n_active=len(active))
         logits = self.adapter.step_decode(self._last_token[:, None], active)
         self._slot_logits = logits[:, 0].to(torch.float32)
         n_finished = self._emit_tokens(active)
         advanced = np.zeros((self.pool.n_slots,), bool)
         advanced[[s for s in active if s in self.running]] = True
         self.pool.advance_decode(advanced)
+        if tr.enabled:
+            tr.end_phase(finished=n_finished)
         return n_finished
 
     def _emit_tokens(self, slots: list[int]) -> int:
         """Sample one token for ``slots`` from _slot_logits, stream it, and
         retire requests that hit max_new_tokens / EOS."""
+        tr = self.tracer
+        if tr.enabled:
+            tr.begin_phase("emit", n_rows=len(slots))
         toks, lps = sample_tokens_logprobs(
             self._slot_logits, self._temps, self._topks, self._seeds,
             self._gen_count)
@@ -473,4 +528,8 @@ class ServingEngine:
                 del self.running[slot]
                 self.pool.release(slot)
                 n_finished += 1
+                if tr.enabled:
+                    tr.on_finish(req)
+        if tr.enabled:
+            tr.end_phase(finished=n_finished)
         return n_finished

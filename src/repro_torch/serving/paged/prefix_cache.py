@@ -43,6 +43,9 @@ class PrefixCache:
         self.evicted_blocks = 0
         self.probes = 0                 # side-effect-free match_length calls
 
+    def __len__(self) -> int:
+        return len(self._entries)
+
     # ------------------------------------------------------------- keys
     def _chain_keys(self, tokens) -> list:
         bs = self._pool.block_size

@@ -133,8 +133,7 @@ def test_default_device_raises_without_cuda(param_pairs):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(draft=object()), "A8"), (dict(tracer=object()), "A9"),
-    (dict(mesh=object()), "A12")])
+    (dict(draft=object()), "A8"), (dict(mesh=object()), "A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item, param_pairs):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(CFG, param_pairs["dense"][1], device="cpu", **kwargs)
