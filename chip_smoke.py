@@ -148,11 +148,43 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            and of steps with a chunk, and (a)'s untraced and traced
            tok/s.
 
+ 10. training and EBFT (run last, after every earlier phase's model is
+     dropped): llama3-8b at full width cut to 4 layers, bf16 params, f32
+     AdamW moments, ``remat``, ``SyntheticLM(vocab=128256, seq_len=512,
+     batch=4, seed=0)``:
+       (a) ``eval/harness.train_small_lm``, 20 steps at lr 3e-4: gates
+           finite losses and the mean of the last 5 below the first;
+           reports the losses, wall per step and peak memory;
+       (b) ``launch/steps.make_train_step`` from (a)'s params with a fresh
+           AdamW state, one batch against 2 microbatches with and without
+           int8 gradient compression: loss and grad_norm gated against the
+           one-batch step's (``MICRO_TOL_REL``, ``COMPRESS_TOL_REL``); then
+           5 chained one-batch steps timed with CUDA events after a
+           warm-up, one more under ``torch.profiler`` (device time by
+           kernel class), and ``adamw_step`` alone on one set of
+           gradients: median ms per step, the optimizer's share, tokens/s,
+           model FLOPs (``model_flops``) and the share of the bf16 peak;
+       (c) calibration statistics of (a)'s model over 2 batches,
+           ``sparsify_tree`` to 8:16 without outliers (RIA + SmoothQuant +
+           VC), ``core/ebft.ebft_block`` on each of the 4 blocks (40 steps,
+           lr 2e-4, batches of 4 of 8 calibration sequences of 512 tokens,
+           the sparse model's embeddings propagated through the tuned
+           blocks): gates each block's last loss below its first and every
+           weight off its ``nonsalient_kept_mask`` exactly 0; each tuned
+           projection repacked by magnitude (``to_sparse_weight``, no SQ,
+           no VC) must decompress to the tuned weight; the packed model's
+           ``forward`` against the tuned dense-effective params' on one
+           [2, 512] batch (``nm_spmm``'s prefill body) and one [8, 1] batch
+           (its decode body), within phase 8(e)'s gate, with ``nm_spmm``
+           launched 7 x 4 times a forward on the body the rows select;
+           perplexity of the dense, sparsified and tuned models reported.
+
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
 one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
 ``outlier_spmm``; each entry names its sources and splits its cases and
-launches by path, decode and prefill),
+launches by path, decode and prefill; ``nm_spmm``'s launches are phase
+5's and phase 10(c)'s),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -161,6 +193,7 @@ without CUDA it fails.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -245,6 +278,25 @@ PIPELINE_AGREE = 0.999
 # their bf16 sum (half an ulp each), besides the fused product's own
 # rounding: one bf16 ulp of each of the three magnitudes bounds it.
 UNFUSED_TOL_REL = 2.0 ** -7
+# phase 10: training and EBFT at full width, cut to 4 layers (AdamW's f32
+# moments of all 32 would not fit one card beside the weights)
+TRAIN = dict(n_layers=4, seq_len=512, batch=4, steps=20,
+             lr=3e-4)                    # launch/train.py's default lr
+TRAIN_TIMED_STEPS = 5
+EBFT_CFG = dict(steps=40, lr=2e-4, batch_size=4)
+EBFT_CALIB_BATCHES = 2                   # 2 x 4 sequences of 512 tokens
+# Microbatched train steps against the one-batch step.  The forward runs in
+# bf16: a half batch's products may round a bf16 output one ulp (2^-8
+# relative) apart from the full batch's; the loss averages 2,048 token
+# losses and the norm sums the f32 squares of 1.9e9 gradients, so either
+# stays well inside one bf16 ulp of its own value, while a microbatch lost
+# or not divided by mb moves them by 1.4x-2x.
+MICRO_TOL_REL = 2.0 ** -7
+# With int8 compression each gradient moves by at most half a step of its
+# stacked leaf's absmax / 127, and the norm by the rms of those moves over
+# the gradients' rms: under a percent unless a leaf's largest element is
+# ~100x its rms (5e-5 on a 2-layer bf16 model on the CPU).
+COMPRESS_TOL_REL = 2.0 ** -5
 
 
 class SmokeFailure(RuntimeError):
@@ -1051,7 +1103,8 @@ def _kernel_class(name: str) -> str:
                                "paged_decode_kernel",
                                "paged_prefill_kernel")):
         return "paged_attention"
-    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas")):
+    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "cublas",
+                                       "nvjet")):
         return "dense_gemm"
     if "softmax" in name.lower():
         return "softmax"
@@ -2129,6 +2182,325 @@ def pipeline_phase(torch, log, paged_a):
     return out, cases, launches
 
 
+# ------------------------------------------ phase 10: training and EBFT
+def train_phase(torch, log):
+    """10(a): ``harness.train_small_lm`` on llama3-8b at full width, 4
+    layers, bf16 params, f32 moments, remat.  Returns (cfg, data, params,
+    numbers)."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.eval import harness
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get("llama3-8b"), n_layers=TRAIN["n_layers"])
+    check(cfg.remat and cfg.dtype == torch.bfloat16,
+          "phase 10 trains bf16 params with remat")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                       batch=TRAIN["batch"], seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, losses = harness.train_small_lm(cfg, data, steps=TRAIN["steps"],
+                                            lr=TRAIN["lr"], seed=0,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in flatten(params))
+    out = {"layers": cfg.n_layers, "params": n_params,
+           "tokens_per_step": TRAIN["batch"] * TRAIN["seq_len"],
+           "steps": TRAIN["steps"], "lr": TRAIN["lr"], "losses": losses,
+           "wall_s": wall, "wall_ms_per_step": wall / TRAIN["steps"] * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  (a) {json.dumps(out)}")
+    check(all(math.isfinite(x) for x in losses), "train: non-finite loss")
+    last = sum(losses[-5:]) / 5
+    check(last < losses[0],
+          f"train: mean of the last 5 losses {last:.4f} not below the "
+          f"first {losses[0]:.4f}")
+    return cfg, data, params, out
+
+
+def model_flops(cfg, n_matmul_params, batch, seq):
+    """Model FLOPs of one train step: 6 x the parameters that multiply (the
+    projections and lm_head; the embedding is a lookup) x tokens, plus the
+    attention products, QK^T and PV over the full S x S square as
+    ``layers._sdpa_full`` computes them, forward and backward (3x)."""
+    tokens = batch * seq
+    attn = 3 * 4 * batch * cfg.n_heads * seq * seq * cfg.hd * cfg.n_layers
+    return 6 * n_matmul_params * tokens + attn
+
+
+def profile_call(torch, fn):
+    """Device time by kernel class over one call of ``fn``
+    (torch.profiler), with the device's busy share of the profiled call's
+    wall time.  None when the profiler records no device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del res
+    got = _device_time(prof, 1)
+    if got is None:
+        return None
+    busy, by_class, count_by_class, top, count = got
+    return {"profiled_call_ms": wall_ms, "device_busy_ms": busy,
+            "busy_share_profiled": busy / wall_ms,
+            "device_ms_by_class": by_class,
+            "launches_by_class": count_by_class, "kernels": count,
+            "top_kernels_ms": top}
+
+
+def step_phase(torch, log, cfg, data, params):
+    """10(b): ``make_train_step`` from (a)'s params with a fresh AdamW
+    state, one batch against two microbatches (with and without int8
+    compression), gated; then 5 one-batch steps timed with CUDA events and
+    ``adamw_step`` alone on the same gradients."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_step
+    from repro_torch.tree import flatten, value_and_grad
+
+    ocfg = AdamWConfig(lr=TRAIN["lr"])
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in data.batch_at(TRAIN["steps"]).items()}
+    variants = {"one_batch": steps.TrainOptions(),
+                "microbatches_2": steps.TrainOptions(microbatches=2),
+                "microbatches_2_int8": steps.TrainOptions(
+                    microbatches=2, grad_compression=True)}
+    out = {"variants": {}}
+    for name, opts in variants.items():
+        step = steps.make_train_step(cfg, ocfg, opts)
+        new_p, new_o, metrics = step(params, adamw_init(params, ocfg), batch)
+        out["variants"][name] = {"loss": float(metrics["loss"]),
+                                 "grad_norm": float(metrics["grad_norm"])}
+        check(all(bool(torch.isfinite(t).all())
+                  for t in flatten(new_p)),
+              f"train step {name}: non-finite params")
+        del new_p, new_o, metrics
+        torch.cuda.empty_cache()
+    one = out["variants"]["one_batch"]
+    for name, tol in (("microbatches_2", MICRO_TOL_REL),
+                      ("microbatches_2_int8", COMPRESS_TOL_REL)):
+        v = out["variants"][name]
+        for key in ("loss", "grad_norm"):
+            check(math.isfinite(v[key]), f"train step {name}: {key} not "
+                  f"finite")
+            rel = abs(v[key] - one[key]) / abs(one[key])
+            v[f"{key}_rel_diff"] = rel
+            key_tol = MICRO_TOL_REL if key == "loss" else tol
+            check(rel <= key_tol, f"train step {name}: {key} {v[key]} vs "
+                  f"one batch {one[key]} ({rel:.2e} > {key_tol:.2e})")
+
+    # timing: a warm-up, then TRAIN_TIMED_STEPS chained one-batch steps
+    step = steps.make_train_step(cfg, ocfg, steps.TrainOptions())
+    p, o = params, adamw_init(params, ocfg)
+    p, o, _ = step(p, o, batch)
+    times = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, o, _ = step(p, o, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    profiled = profile_call(torch, lambda: step(p, o, batch))
+    # the optimizer alone, on one set of gradients (the step is functional,
+    # so every call does the same work)
+    _, grads = value_and_grad(lambda q, b: tfm.loss_fn(q, b, cfg)[0], p,
+                              batch)
+    adam = []
+    for _ in range(TRAIN_TIMED_STEPS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = adamw_step(p, grads, o, ocfg)
+        end.record()
+        end.synchronize()
+        adam.append(start.elapsed_time(end))
+        del res
+    del p, o, grads
+    torch.cuda.empty_cache()
+    step_ms = sorted(times)[len(times) // 2]
+    adam_ms = sorted(adam[1:])[len(adam[1:]) // 2]
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    n_matmul = sum(t.numel() for lp in params["layers"] for t in lp.values()
+                   if t.ndim == 2) + params["lm_head"].numel()
+    flops = model_flops(cfg, n_matmul, TRAIN["batch"], TRAIN["seq_len"])
+    out.update(profile=profiled, step_ms=times, step_ms_median=step_ms,
+               adamw_ms=adam[1:], adamw_ms_median=adam_ms,
+               optimizer_share=adam_ms / step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, matmul_params=n_matmul,
+               model_flops=flops,
+               bound_ms=flops / BF16_OPS_PER_S * 1e3,
+               peak_share=flops / (step_ms / 1e3) / BF16_OPS_PER_S)
+    log(f"  (b) {json.dumps(out)}")
+    return out
+
+
+def ebft_phase(torch, log, cfg, data, params):
+    """10(c): calibrate (a)'s model, sparsify to 8:16 without outliers with
+    RIA + SmoothQuant + VC, EBFT each block against its dense teacher on 8
+    calibration sequences, repack the tuned projections and run the packed
+    model through ``nm_spmm``'s two bodies, gated against the tuned
+    dense-effective weights; perplexities reported."""
+    import numpy as np
+    from repro_torch.core import EBFTConfig, SparsifyConfig, ebft_block, \
+        sparsify_tree
+    from repro_torch.core.ebft import make_block_masks
+    from repro_torch.core.packing import unpack_metadata
+    from repro_torch.eval import harness
+    from repro_torch.kernels.ref import decompress_nm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sparse_serving import to_sparse_weight
+
+    calib = data.calibration(EBFT_CALIB_BATCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = harness.collect_activation_stats(cfg, params, calib)
+    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern=None)
+    sparse, records = sparsify_tree(params, stats, scfg)
+    torch.cuda.synchronize()
+    out = {"sparsify": dataclasses.asdict(scfg), "ebft": dict(EBFT_CFG),
+           "calibrate_and_sparsify_s": time.perf_counter() - t0}
+    want = {f"layers/{i}/{p}" for i in range(cfg.n_layers)
+            for p in PROJ_NAMES}
+    check(set(records) == want, f"sparsify_tree: {len(records)} records")
+
+    tokens = torch.as_tensor(np.concatenate([b["tokens"] for b in calib]),
+                             device="cuda").long()         # [8, 512]
+    positions = torch.arange(tokens.shape[1], device="cuda")[None]
+    x = sparse["embed"][tokens]
+
+    def block_fn(lp, h, pos):
+        return tfm.block_forward(lp, h, pos, cfg)[0]
+
+    ecfg = EBFTConfig(**EBFT_CFG)
+    tuned_layers, blocks = [], []
+    for i, (lp_dense, lp_sparse) in enumerate(zip(params["layers"],
+                                                  sparse["layers"])):
+        kept = {p: records[f"layers/{i}/{p}"].nonsalient_kept_mask
+                for p in PROJ_NAMES}
+        masks = make_block_masks(lp_sparse, kept)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tuned, losses = ebft_block(block_fn, lp_sparse, lp_dense, masks, x,
+                                   ecfg, extra_inputs=(positions,))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        blocks.append({"seconds": sec, "ms_per_step": sec / ecfg.steps * 1e3,
+                       "first_loss": losses[0], "last_loss": losses[-1],
+                       "losses": losses})
+        check(all(math.isfinite(v) for v in losses),
+              f"ebft block {i}: non-finite loss")
+        check(losses[-1] < losses[0], f"ebft block {i}: last loss "
+              f"{losses[-1]:.4e} not below the first {losses[0]:.4e}")
+        for p in PROJ_NAMES:
+            check(not bool(tuned[p][~kept[p]].ne(0).any()),
+                  f"ebft block {i} {p}: a weight off the mask is not 0")
+        with torch.no_grad():
+            x = block_fn(tuned, x, positions)
+        tuned_layers.append(tuned)
+    out["blocks"] = blocks
+    log(f"  (c) EBFT {json.dumps([{k: b[k] for k in ('seconds', 'ms_per_step', 'first_loss', 'last_loss')} for b in blocks])}")
+
+    # repack: plain 8:16 by magnitude, no SQ/VC, must decompress exactly
+    pack = SparsifyConfig(weight_pattern="8:16", outlier_pattern=None,
+                          scorer="magnitude", use_smoothquant=False,
+                          use_variance_correction=False)
+    packed_layers = []
+    for i, lp in enumerate(tuned_layers):
+        new = dict(lp)
+        for p in PROJ_NAMES:
+            sw = to_sparse_weight(lp[p], pack)
+            dense = decompress_nm(sw.nm_values, unpack_metadata(sw.nm_meta,
+                                                                sw.n), sw.m)
+            # +0 and -0 compare equal: the mask multiply leaves -0 off-mask
+            check(dense.dtype == lp[p].dtype and torch.equal(dense, lp[p]),
+                  f"repack layer {i} {p}: not the tuned weight")
+            new[p] = sw
+        packed_layers.append(new)
+    tuned_params = dict(sparse, layers=tuned_layers)
+    packed = dict(sparse, layers=packed_layers)
+
+    forwards, launches = {}, {"nm_spmm": 0, "nm_spmm_decode": 0,
+                              "nm_spmm_prefill": 0}
+    eval_batch = data.batch_at(50_000)
+    cases = {"prefill_2x512": eval_batch["tokens"][:2],
+             "decode_8x1": np.concatenate(
+                 [data.batch_at(50_000 + i)["tokens"][:, :1]
+                  for i in range(2)])}
+    for name, toks in cases.items():
+        batch = {"tokens": torch.as_tensor(toks, device="cuda").long()}
+        path = "prefill" if name.startswith("prefill") else "decode"
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_launches()
+            logits, _ = tfm.forward(packed, batch, cfg)
+            torch.cuda.synchronize()
+            got = read_launches()
+            reset_launches()
+            ref, _ = tfm.forward(tuned_params, batch, cfg)
+            torch.cuda.synchronize()
+            dense_launches = read_launches()
+        for key, count in got.items():
+            n = 7 * cfg.n_layers if key in ("nm_spmm", f"nm_spmm_{path}") \
+                else 0
+            check(count == n, f"forward {name}: {key} launched {count}, "
+                  f"want {n}")
+        check(not any(dense_launches.values()),
+              f"dense-effective forward launched sparse kernels: "
+              f"{dense_launches}")
+        for key in launches:
+            launches[key] += got[key]
+        check(bool(torch.isfinite(logits).all()),
+              f"forward {name}: non-finite logits")
+        scale = float(ref.float().abs().max())
+        err = float((logits.float() - ref.float()).abs().max())
+        forwards[name] = {"rows": int(batch["tokens"].numel()),
+                          "logit_scale": scale, "max_abs_err": err,
+                          "tol": MODEL_TOL_REL * scale,
+                          "launches": got["nm_spmm"]}
+        check(err <= MODEL_TOL_REL * scale,
+              f"forward {name}: packed vs dense-effective {err:.3e} > "
+              f"{MODEL_TOL_REL} x {scale:.3e}")
+    out["forward"] = forwards
+    n = 2
+    out["perplexity"] = {
+        "tokens": n * TRAIN["batch"] * TRAIN["seq_len"],
+        "dense": harness.eval_ppl(cfg, params, data, n_batches=n),
+        "sparsified": harness.eval_ppl(cfg, sparse, data, n_batches=n),
+        "tuned": harness.eval_ppl(cfg, tuned_params, data, n_batches=n)}
+    log(f"  (c) forward {json.dumps(forwards)} perplexity "
+        f"{json.dumps(out['perplexity'])}")
+    del sparse, tuned_params, packed, tuned_layers, packed_layers
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def training_phase(torch, log):
+    """Phase 10: (a) train, (b) train steps, (c) EBFT and deployment."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, data, params, trained = train_phase(torch, log)
+    stepped = step_phase(torch, log, cfg, data, params)
+    tuned, launches = ebft_phase(torch, log, cfg, data, params)
+    del params
+    torch.cuda.empty_cache()
+    out = {"train": trained, "step": stepped, "ebft": tuned,
+           "seconds": time.perf_counter() - t0,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  phase 10: {out['seconds']:.1f}s, peak {out['peak_mem_gb']:.1f} "
+        f"GB")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -2215,13 +2587,21 @@ def main() -> int:
         "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
     pipeline, ops_cases, ops_launches = pipeline_phase(
         torch, log, paged_serve["a_phase4_traffic"])
+    gc.collect()
+    log("phase 10 train llama3-8b, 4 layers, full width: train_small_lm, "
+        "make_train_step, EBFT to 8:16 and the packed forward")
+    training, train_launches = training_phase(torch, log)
+    # nm_spmm's main-path launches: phase 5's serve and phase 10(c)'s
+    # packed forwards
+    nm_launches = {k: n + train_launches.get(k, 0)
+                   for k, n in plain_launches.items()}
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
                      main_launches["fused_sparse_linear"],
                      paths(main_launches, "fused_sparse_linear")),
-        kernel_entry("nm_spmm", cases["nm_spmm"], plain_launches["nm_spmm"],
-                     paths(plain_launches, "nm_spmm")),
+        kernel_entry("nm_spmm", cases["nm_spmm"], nm_launches["nm_spmm"],
+                     paths(nm_launches, "nm_spmm")),
         kernel_entry("paged_attention", attn_cases,
                      paged_launches["paged_attention"],
                      paths(paged_launches, "paged_attention")),
@@ -2244,7 +2624,7 @@ def main() -> int:
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
-              "replay": replay}
+              "replay": replay, "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

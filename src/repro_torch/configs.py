@@ -27,6 +27,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     window: int | None = None            # sliding-window attention (mistral)
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                   # recompute each block in backward
     norm_eps: float = 1e-6
     source: str = ""                     # citation tag
 
@@ -82,7 +83,7 @@ def _llama_paper_smoke() -> ModelConfig:
     return register(ModelConfig(
         name="llama-paper-smoke", family="dense",
         n_layers=4, d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
-        d_ff=512, vocab=512,
+        d_ff=512, vocab=512, remat=False,
     ))
 
 

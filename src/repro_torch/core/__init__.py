@@ -1,5 +1,7 @@
 """Core: N:M sparsity with structured outliers and variance correction."""
 
+from .ebft import (EBFTConfig, ebft_block, masked_adam_init,
+                   masked_adam_step)
 from .equalize import (check_equivalence, equalize_weights,
                        equalized_view_for_scoring, smoothquant_scales)
 from .outliers import (OUTLIER_M, StructuredOutliers,

@@ -11,9 +11,9 @@ Per linear layer W [out, in] with calibration activation statistics:
   3. Variance correction: the kept non-salient weights rescaled to restore
      Var(W_dense), per matrix or per output row.
 
-Stage 4 (EBFT, blockwise fine-tuning) takes gradients and comes with the
-training slice.  ``sparsify_linear`` is the single-layer entry point;
-``sparsify_tree`` walks a model's parameters.
+Stage 4 (EBFT, blockwise fine-tuning) is ``core/ebft.py``.  The
+single-layer entry point is ``sparsify_linear``; ``sparsify_tree`` walks a
+model's parameters.
 """
 from __future__ import annotations
 

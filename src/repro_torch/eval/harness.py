@@ -1,5 +1,8 @@
-"""Calibration statistics, model-level sparsification and perplexity (port
-of ``repro/eval/harness.py``; ``train_small_lm`` comes with training).
+"""Small-LM training, calibration statistics, model-level sparsification
+and perplexity (port of ``repro/eval/harness.py``).
+
+``train_small_lm`` trains the dense family with ``optim.adamw`` through
+``torch.autograd`` (the reference's ``jax.value_and_grad``).
 
 ``collect_activation_stats`` runs an instrumented full-sequence forward of
 the dense family that accumulates each projection's input statistics (sum
@@ -17,13 +20,48 @@ import numpy as np
 import torch
 
 from ..core import ActStats, SparsifyConfig, sparsify_tree
+from ..device import resolve
 from ..models import transformer as tfm
 from ..models.layers import activation, linear, rms_norm, sdpa
+from ..optim import AdamWConfig, adamw_init, adamw_step
+from ..tree import value_and_grad
 
 
 def _batch(batch: dict, device) -> dict:
     return {k: torch.as_tensor(np.asarray(v), device=device).long()
             for k, v in batch.items()}
+
+
+def _loss(params, batch, cfg):
+    return tfm.loss_fn(params, batch, cfg)[0]
+
+
+def train_small_lm(cfg, data, steps: int = 200, lr: float = 3e-3,
+                   seed: int = 0, log_every: int = 0, device="cuda",
+                   params=None):
+    """Train from scratch with AdamW (``weight_decay=0.01``), one
+    ``data.batch_at(s)`` a step.  Returns (params, losses).
+
+    ``params=None`` draws ``tfm.init_params`` from a ``torch.Generator``
+    seeded with ``seed`` on ``device``.  The reference draws its init from
+    JAX's threefry key, which the port cannot reproduce: ``params`` exists
+    so that parity tests can start both packages from JAX's init (carried
+    across by ``interchange.from_jax_params``)."""
+    device = resolve(device)
+    if params is None:
+        g = torch.Generator(device=device).manual_seed(seed)
+        params = tfm.init_params(cfg, g, device)
+    ocfg = AdamWConfig(lr=lr, weight_decay=0.01)
+    opt = adamw_init(params, ocfg)
+    losses = []
+    for s in range(steps):
+        loss, grads = value_and_grad(_loss, params,
+                                     _batch(data.batch_at(s), device), cfg)
+        params, opt, _ = adamw_step(params, grads, opt, ocfg)
+        losses.append(float(loss))
+        if log_every and s % log_every == 0:
+            print(f"  step {s:4d} loss {losses[-1]:.4f}")
+    return params, losses
 
 
 def _stats_forward(params, tokens, stats, cfg) -> None:

@@ -1,0 +1,84 @@
+"""The train step (port of ``repro/launch/steps.py``'s
+``make_train_step``).
+
+``make_train_step(cfg, opt_cfg, opts)`` returns ``train_step(params,
+opt_state, batch) -> (params, opt_state, {"loss", "grad_norm"})``: the
+gradient of ``transformer.loss_fn`` through ``torch.autograd``, then one
+``optim.adamw_step``.  With ``microbatches > 1`` the batch is split along
+axis 0 into contiguous chunks (microbatch i holds rows i*B/mb ..
+(i+1)*B/mb, as the reference's reshape groups them); the gradients are
+summed in f32 and divided by ``mb``, and the loss is the mean over the
+microbatches.  With ``grad_compression`` each microbatch's gradients go
+through ``grad_compress.compress_with_feedback`` and ``decompress`` from a
+zero error, as in the reference, which drops the error every microbatch;
+each projection's layers share one scale, as the reference's stacked
+[L, ...] leaves do.
+
+Not ported: the reference's M-RoPE batch case (positions [3, B, S]; the
+port has no M-RoPE), and ``make_prefill_step``/``make_decode_step``,
+which need ``prefill`` and ``decode_lockstep`` (ROADMAP A11).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..models import transformer as tfm
+from ..optim import AdamWConfig, adamw_step
+from ..optim import grad_compress as gc
+from ..tree import flatten, unflatten, value_and_grad
+
+
+def _int8_round_trip(grads):
+    """One microbatch's gradients through ``compress_with_feedback`` from a
+    zero error and back.  The reference stacks each layer weight [L, ...],
+    so a projection's L layers share one absmax scale; the port's layer
+    list is stacked the same way for the round trip."""
+    layers = grads["layers"]
+    stacked = dict(grads, layers={k: torch.stack([lp[k] for lp in layers])
+                                  for k in layers[0]})
+    q, _ = gc.compress_with_feedback(stacked, gc.init_error(stacked))
+    out = gc.decompress(q, stacked)
+    return dict(out, layers=[{k: v[i] for k, v in out["layers"].items()}
+                             for i in range(len(layers))])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    microbatches: int = 1          # gradient accumulation steps
+    grad_compression: bool = False # int8 per microbatch (error dropped)
+    unroll: bool = False           # kept for the reference's name: the
+                                   # port's layer loop is always Python
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig,
+                    opts: TrainOptions = TrainOptions()):
+    def loss_of(params, batch):
+        return tfm.loss_fn(params, batch, cfg)[0]
+
+    def train_step(params, opt_state, batch):
+        mb = opts.microbatches
+        if mb > 1:
+            gsum, lsum = None, 0.0
+            for i in range(mb):
+                part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                        for k, v in batch.items()}
+                loss, grads = value_and_grad(loss_of, params, part)
+                if opts.grad_compression:
+                    grads = _int8_round_trip(grads)
+                g32 = [g.to(torch.float32) for g in flatten(grads)]
+                gsum = g32 if gsum is None else [a + b for a, b in
+                                                 zip(gsum, g32)]
+                del grads
+                lsum = lsum + loss
+            grads = unflatten(params, [g / mb for g in gsum])
+            del gsum
+            loss = lsum / mb
+        else:
+            loss, grads = value_and_grad(loss_of, params, batch)
+        new_params, new_opt, metrics = adamw_step(params, grads, opt_state,
+                                                  opt_cfg)
+        return new_params, new_opt, {"loss": loss, **metrics}
+
+    return train_step

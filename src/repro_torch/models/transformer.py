@@ -13,10 +13,11 @@ paged blocks through the block tables) and attend in place, with the cursor
 as a length mask.  A view with scale arenas (int8 KV) quantizes the fresh
 KV as it scatters it and dequantizes inside attention.
 
-``forward`` and ``loss_fn`` are the full-sequence entries of calibration
-and evaluation (``eval/harness.py``): each block attends over its own
-sequence with ``layers.sdpa``, and every projection goes through
-``layers.linear``, so ``SparseWeight`` params take the sparse kernels.
+``forward`` and ``loss_fn`` are the full-sequence entries of calibration,
+evaluation and training (``eval/harness.py``, ``launch/steps.py``): each
+block attends over its own sequence with ``layers.sdpa``, and every
+projection goes through ``layers.linear``, so ``SparseWeight`` params take
+the sparse kernels.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from .layers import (activation, apply_rope, attend_length_masked, linear,
@@ -189,12 +191,22 @@ def _auto_q_chunks(S: int) -> int:
 def forward(params, batch, cfg, collect_kv: bool = False):
     """Full-sequence forward.  Returns (logits [B, S, V], caches): caches
     are the stacked (k, v) [L, B, S, KV, hd] with ``collect_kv``, else
-    None."""
+    None.
+
+    With ``cfg.remat``, grad enabled and no ``collect_kv``, each block runs
+    under ``torch.utils.checkpoint`` (as the reference wraps it in
+    ``jax.checkpoint``): backward keeps only the blocks' inputs and
+    recomputes the rest, which changes no number."""
     x, positions = _embed_inputs(params, batch)
     q_chunks = _auto_q_chunks(x.shape[1])
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
     kvs = []
     for lp in params["layers"]:
-        x, kv = block_forward(lp, x, positions, cfg, q_chunks)
+        if remat:
+            x, kv = checkpoint(block_forward, lp, x, positions, cfg,
+                               q_chunks, use_reentrant=False)
+        else:
+            x, kv = block_forward(lp, x, positions, cfg, q_chunks)
         if collect_kv:
             kvs.append(kv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
