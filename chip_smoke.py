@@ -148,6 +148,37 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            and of steps with a chunk, and (a)'s untraced and traced
            tok/s.
 
+ 11. speculative decoding (run right after phase 9, on phase 4's params):
+     phase 6(a)'s paged engine (512 blocks of 16, 8 slots, max_len 1024,
+     token budget 512), phase 4's 8 greedy prompts of 64..768 tokens (or
+     (b)'s), 32 new tokens each, k = 4 adapting up to 8; each speculative
+     serve traced (``ServingTracer``) beside the same target served plain
+     and traced in the same run, launches gated per model call of the
+     target and of the draft model (``spec_launch_check``), and the
+     launches of each kernel body in the verify calls counted by their
+     [B x S] shape:
+       (a) the paper's pair: phase 4's 8:16+16:256 params draft (fused
+           kernel) for ``densify_params`` of them (dense bf16,
+           ``F.linear``): gates 8/8 finished, acceptance >= 0.9 (the
+           reference's bar), more than 1 accepted token a step, the
+           fused kernel launched 7 x 32 times a draft call and never by
+           the target, and verify calls on paged attention's
+           prefill-chunk body;
+       (b) n-gram self-drafting on phase 4's compressed target, prompts of
+           a random 48-token segment repeated 4 times: gates drafted > 0
+           and the verify calls at [8 x 8] (M = 64) launching the fused
+           kernel's prefill body 7 x 32 times each;
+       (c) the CLI: ``launch/serve.run_engine`` with ``--draft sparse
+           --kv-layout paged`` on llama3-8b cut to 4 layers (a dense target
+           drafted by its own magnitude compression): gates every request
+           finished; acceptance reported;
+       and the stream gate on (a) and (b): each speculative stream equals
+       the plain one up to its first divergence, where one ``forward`` of
+       the common prefix puts both tokens within ``near_tie_bound`` of the
+       top logit (bf16 rounding; at f32 the CPU tests hold identity).
+       Reported: tok/s against the plain run, steps, model calls and
+       steady wall per variant (step, decode, draft_step, draft_decode).
+
  10. training and EBFT (run last, after every earlier phase's model is
      dropped): llama3-8b at full width cut to 4 layers, bf16 params, f32
      AdamW moments, ``remat``, ``SyntheticLM(vocab=128256, seq_len=512,
@@ -184,7 +215,8 @@ one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 (seven entries: the three serving kernels' bf16 and int8 variants, and
 ``outlier_spmm``; each entry names its sources and splits its cases and
 launches by path, decode and prefill; ``nm_spmm``'s launches are phase
-5's and phase 10(c)'s),
+5's and phase 10(c)'s, the bf16 fused kernel's phase 4's and paged
+attention's phase 6(a)'s, each with phase 11's),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -254,6 +286,16 @@ TRACE = dict(n_requests=16, rate_per_s=4.0, prompt_len=(64, 768),
              max_new_tokens=32, temperature=0.0, seed=0)
 TRACE_SPANS = {"step", "plan", "chunk", "decode", "emit", "queued", "prefill",
                "request_summary", "jit:step", "jit:decode"}
+# phase 11: speculative decoding: k and its adaptive ceiling, the bar on
+# acceptance (the reference's own, tests/test_speculative.py:129-131), the
+# n-gram prompts' repeated segment, the CLI run's depth and shape, and the
+# near-tie gate's margin (``near_tie_bound``; bf16's unit roundoff)
+SPEC_K, SPEC_MAX_K = 4, 8
+SPEC_ACCEPT_MIN = 0.9
+NGRAM_SEGMENT, NGRAM_REPEATS = 48, 4
+SPEC_CLI = dict(n_layers=4, batch=8, prompt_len=256, gen=32)
+NEAR_TIE_SIGMAS = 4
+BF16_U = 2.0 ** -8
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -1336,47 +1378,27 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
         attn_key = "paged_attention" + (
             "_int8" if engine.kv_dtype == "int8" else "")
         want[attn_key] = cfg.n_layers * calls
-    split = tuple(f"{name}_{path}" for name in ("fused_sparse_linear",
-                                                "nm_spmm", "paged_attention")
-                  for path in ("decode", "prefill"))
-    for key, n in launches.items():
-        if key.startswith(split):
-            continue
-        check(n == want.get(key, 0),
-              f"{key} launched {n} times, want {want.get(key, 0)} "
-              f"({cfg.n_layers} layers, {calls} model calls, "
-              f"{engine.kv_layout} layout, {engine.kv_dtype} KV)")
+    check_launch_counts(launches, want,
+                        f"{cfg.n_layers} layers, {calls} model calls, "
+                        f"{engine.kv_layout} layout, {engine.kv_dtype} KV")
     # each weight wrapper's calls split by path: every call is a decode
     # kernel launch (M <= T, decode steps) or a prefill kernel launch
-    # (chunks longer than T); both run in a serve while T >= 1
+    # (chunks longer than T); both run in a serve while T >= 1.  The paged
+    # kernel's calls split by body the same way: decode steps (S * n_rep
+    # <= T) take the decode body, longer prefill chunks the prefill-chunk
+    # body
     from repro_torch.kernels import fused_sparse_linear as fsl
-    for name in ("fused_sparse_linear", "nm_spmm"):
-        for suffix in ("", "_int8"):
-            dec = launches[f"{name}_decode{suffix}"]
-            pre = launches[f"{name}_prefill{suffix}"]
-            total = launches[name + suffix]
-            check(dec + pre == total,
-                  f"{name}{suffix}: decode {dec} + prefill {pre} launches "
-                  f"!= the wrapper's {total}")
-            if weight_key == name + suffix:
-                check(pre > 0 and (dec > 0 or fsl.DECODE_MAX_M == 0),
-                      f"{name}{suffix}: decode kernel launched {dec}, "
-                      f"prefill kernel {pre} of the wrapper's {total}")
-    # the paged kernel's calls split by body: decode steps (S * n_rep <=
-    # T) take the decode body, prefill chunks longer than that the
-    # prefill-chunk body; both run in a paged serve while T >= 1
     from repro_torch.serving.paged import paged_attention as pa
-    for suffix in ("", "_int8"):
-        dec = launches[f"paged_attention_decode{suffix}"]
-        pre = launches[f"paged_attention_prefill{suffix}"]
-        total = launches["paged_attention" + suffix]
-        check(dec + pre == total,
-              f"paged_attention{suffix}: decode {dec} + prefill {pre} "
-              f"launches != the wrapper's {total}")
-        if attn_key == "paged_attention" + suffix:
-            check(pre > 0 and (dec > 0 or pa.DECODE_MAX_ROWS == 0),
-                  f"paged_attention{suffix}: decode body launched {dec}, "
-                  f"prefill-chunk body {pre} of the wrapper's {total}")
+    for key, t in ((weight_key, fsl.DECODE_MAX_M),
+                   (attn_key, pa.DECODE_MAX_ROWS)):
+        if key is None:
+            continue
+        name, int8, _ = key.partition("_int8")
+        dec = launches[f"{name}_decode{int8}"]
+        pre = launches[f"{name}_prefill{int8}"]
+        check(pre > 0 and (dec > 0 or t == 0),
+              f"{key}: decode body launched {dec}, prefill body {pre} of "
+              f"the wrapper's {launches[key]}")
     s = summarize([r.metrics for r in reqs], wall)
     return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
@@ -1393,6 +1415,27 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
             "n_preemptions": st["n_preemptions"], "launches": launches,
             "pool": st["pool"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def check_launch_counts(launches, want, label):
+    """Every counter but the body splits equals ``want`` (0 where absent),
+    and each wrapper's decode and prefill launches sum to its total."""
+    names = ("fused_sparse_linear", "nm_spmm", "paged_attention")
+    split = tuple(f"{name}_{path}" for name in names
+                  for path in ("decode", "prefill"))
+    for key, n in launches.items():
+        if key.startswith(split):
+            continue
+        check(n == want.get(key, 0),
+              f"{key} launched {n} times, want {want.get(key, 0)} ({label})")
+    for name in names:
+        for suffix in ("", "_int8"):
+            dec = launches[f"{name}_decode{suffix}"]
+            pre = launches[f"{name}_prefill{suffix}"]
+            total = launches[name + suffix]
+            check(dec + pre == total,
+                  f"{name}{suffix}: decode {dec} + prefill {pre} launches "
+                  f"!= the wrapper's {total} ({label})")
 
 
 def add_profile(torch, engine, out, seed):
@@ -1639,6 +1682,31 @@ def check_lifecycles(tracer, reqs):
               f"metrics {want}")
 
 
+def kind_walls(attr):
+    """A tracer's attribution pooled by kind (step, decode, draft_step,
+    draft_decode): variants, calls, and the steady mean wall and issue ms
+    of a call, first calls left out."""
+    by_kind = {}
+    for v in attr.values():
+        k = by_kind.setdefault(v["kind"], {"variants": 0, "calls": 0,
+                                           "steady_calls": 0, "wall_s": 0.0,
+                                           "issue_s": 0.0})
+        k["variants"] += 1
+        k["calls"] += v["calls"]
+        if v["steady_mean_s"] is not None:
+            k["steady_calls"] += v["calls"] - 1
+            k["wall_s"] += v["steady_mean_s"] * (v["calls"] - 1)
+            k["issue_s"] += v["steady_issue_mean_s"] * (v["calls"] - 1)
+
+    def ms(total, n):
+        return total / n * 1e3 if n else None
+    return {kind: {"variants": k["variants"], "calls": k["calls"],
+                   "steady_calls": k["steady_calls"],
+                   "steady_wall_ms": ms(k["wall_s"], k["steady_calls"]),
+                   "steady_issue_ms": ms(k["issue_s"], k["steady_calls"])}
+            for kind, k in by_kind.items()}
+
+
 def trace_phase(torch, log, cfg, params):
     """Phase 9: the trace written, read back and replayed through the CLI's
     ``run_trace``, (a) untraced and traced at time scale 0, (b) the traced
@@ -1734,25 +1802,7 @@ def trace_phase(torch, log, cfg, params):
             "steady_issue_ms": ms(v["steady_issue_mean_s"]),
             "flops": v["flops"], "bytes_accessed": v["bytes_accessed"]}
         for k, v in attr.items()}
-    # each kind's variants pooled, first calls left out
-    by_kind = {}
-    for v in attr.values():
-        k = by_kind.setdefault(v["kind"], {"variants": 0, "calls": 0,
-                                           "steady_calls": 0, "wall_s": 0.0,
-                                           "issue_s": 0.0})
-        k["variants"] += 1
-        k["calls"] += v["calls"]
-        if v["steady_mean_s"] is not None:
-            k["steady_calls"] += v["calls"] - 1
-            k["wall_s"] += v["steady_mean_s"] * (v["calls"] - 1)
-            k["issue_s"] += v["steady_issue_mean_s"] * (v["calls"] - 1)
-    by_kind = {kind: {"variants": k["variants"], "calls": k["calls"],
-                      "steady_calls": k["steady_calls"],
-                      "steady_wall_ms": ms(k["wall_s"] / k["steady_calls"]
-                                           if k["steady_calls"] else None),
-                      "steady_issue_ms": ms(k["issue_s"] / k["steady_calls"]
-                                            if k["steady_calls"] else None)}
-               for kind, k in by_kind.items()}
+    by_kind = kind_walls(attr)
     out["timed"] = {
         "time_scale": 1.0, "summary_line": format_summary("trace",
                                                           res["summary"]),
@@ -1780,6 +1830,301 @@ def trace_phase(torch, log, cfg, params):
     del res, engine, tracer
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------- phase 11: speculative decoding
+def near_tie_bound(z, n_layers: int) -> float:
+    """How far below the largest logit ``z`` [V] (one position of one
+    forward) a token of either stream may lie when a speculative and a
+    plain stream diverge there: the NEAR_TIE bound.
+
+    The two engines compute the same bf16 function in different orders (a
+    verify row goes through paged attention's prefill-chunk body and
+    B x S-row products, a decode row through the decode body and B-row
+    products; the prompts are chunked differently under the verify
+    reserve).  Every difference is a rounding: each of the 2L + 1 bf16
+    roundings on the residual path into the lm_head (one per attention
+    and per MLP add, one for the final norm) moves an element by at most
+    u = 2^-8 of itself, and independent roundings add in quadrature, so
+    the final hidden states of two computations differ by a relative RMS
+    of at most u sqrt(2 (2L + 1)), which the lm_head carries onto each
+    logit in units of the logits' RMS.  The forward that judges the flip
+    is a third computation.  At ``NEAR_TIE_SIGMAS`` standard deviations,
+    plus one bf16 ulp of the largest logit for the logits' own rounding,
+    both tokens must lie that close to the top: a flip of a near-tie
+    passes, a wrong token (a draft accepted against the target) does not.
+    At L = 32 that is 0.18 RMS + 1 ulp; a random token of llama3-8b's
+    vocabulary lies ~4.5 RMS below the top."""
+    zf = z.float()
+    rms = float(zf.pow(2).mean().sqrt())
+    top = float(zf.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return (NEAR_TIE_SIGMAS * BF16_U * math.sqrt(2 * (2 * n_layers + 1))
+            * rms + ulp)
+
+
+def first_divergence(a, b):
+    """The first position where two token streams differ, else None."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def stream_gate(torch, label, cfg, params, prompts, base, spec):
+    """The stream gate: each speculative stream equals its plain stream up
+    to its first divergence, and there one ``forward`` of the common prefix
+    puts both tokens within ``near_tie_bound`` of the largest logit.
+    Returns each request's divergence (None where the streams agree)."""
+    from repro_torch.models import transformer as tfm
+
+    out = []
+    for i, (p, x, y) in enumerate(zip(prompts, base, spec)):
+        check(len(x) == len(y), f"{label}: request {i} streams of "
+              f"{len(x)} and {len(y)} tokens")
+        j = first_divergence(x, y)
+        if j is None:
+            out.append(None)
+            continue
+        tokens = torch.tensor([list(p) + list(x[:j])],
+                              device=params["embed"].device)
+        with torch.no_grad():
+            z, _ = tfm.forward(params, {"tokens": tokens}, cfg)
+        z = z[0, -1].float()
+        bound = near_tie_bound(z, cfg.n_layers)
+        top = float(z.max())
+        gaps = (top - float(z[x[j]]), top - float(z[y[j]]))
+        check(max(gaps) <= bound,
+              f"{label}: request {i} diverges at token {j} ({x[j]} plain, "
+              f"{y[j]} speculative) with logits {gaps[0]:.4f} and "
+              f"{gaps[1]:.4f} below the top, over the near-tie bound "
+              f"{bound:.4f}")
+        out.append({"at": j, "plain_gap": gaps[0], "spec_gap": gaps[1],
+                    "bound": bound})
+    return out
+
+
+def spec_launch_check(engine, launches, label):
+    """Gate a paged serve's launches per model call, a draft model's
+    included: each weight variant 7 x layers x the calls of every model
+    whose projections it serves (a dense model's 0), paged attention
+    layers x the target's calls (the drafter's arena is the slot layout),
+    every other counter 0 (``check_launch_counts``)."""
+    from repro_torch.models.sparse_serving import SparseWeight
+
+    models = [(engine.params, engine.cfg, engine.adapter.n_model_calls)]
+    if engine.spec is not None and engine.spec.drafter is not None:
+        d = engine.spec.drafter
+        models.append((d.adapter.params, d.cfg, d.adapter.n_model_calls))
+    want = {}
+    for params, cfg, calls in models:
+        wq = params["layers"][0]["wq"]
+        if isinstance(wq, SparseWeight):
+            key = ("fused_sparse_linear" if wq.o_values is not None
+                   else "nm_spmm") + ("" if wq.v_scale is None else "_int8")
+            want[key] = want.get(key, 0) + 7 * cfg.n_layers * calls
+    attn = "paged_attention" + ("_int8" if engine.kv_dtype == "int8" else "")
+    want[attn] = engine.cfg.n_layers * engine.adapter.n_model_calls
+    check_launch_counts(launches, want, label)
+
+
+class VerifyLaunches:
+    """Launches of each kernel body in an engine's verify calls: the
+    target adapter's chunk calls made inside ``_speculative_decode``
+    (the drafter's calls go to its own adapter), with each call's
+    [B, S] token shape.  Host counters only: no synchronize."""
+
+    def __init__(self, engine):
+        self.calls = []
+        self._inside = False
+        spec_decode = engine._speculative_decode
+        step_chunk = engine.adapter.step_chunk
+
+        def speculative_decode(stats):
+            self._inside = True
+            try:
+                return spec_decode(stats)
+            finally:
+                self._inside = False
+
+        def chunk(lanes, cur, n_new, tokens):
+            if not self._inside:
+                return step_chunk(lanes, cur, n_new, tokens)
+            before = read_launches()
+            out = step_chunk(lanes, cur, n_new, tokens)
+            after = read_launches()
+            self.calls.append((tuple(tokens.shape),
+                               {k: after[k] - before[k] for k in after
+                                if after[k] != before[k]}))
+            return out
+        engine._speculative_decode = speculative_decode
+        engine.adapter.step_chunk = chunk
+
+    def by_shape(self) -> dict:
+        """"BxS" -> {"calls": n, launches summed by counter}."""
+        out = {}
+        for (B, S), delta in self.calls:
+            rec = out.setdefault(f"{B}x{S}", {"calls": 0})
+            rec["calls"] += 1
+            for k, n in delta.items():
+                rec[k] = rec.get(k, 0) + n
+        return out
+
+
+def spec_serve(torch, cfg, params, prompts, label, draft=None):
+    """Serve ``prompts`` greedily on a traced paged engine (phase 6(a)'s
+    geometry), speculating when ``draft`` is given; gates the launches per
+    model call.  Returns (streams, numbers, launches)."""
+    from repro_torch.serving import ServingEngine, ServingTracer
+
+    tracer = ServingTracer()
+    engine = ServingEngine(cfg, params, device="cuda", n_slots=8,
+                           max_len=1024, token_budget=512, kv_layout="paged",
+                           block_size=ATTN_SHAPE["bs"], n_blocks=512,
+                           tracer=tracer, draft=draft)
+    verify = VerifyLaunches(engine) if draft is not None else None
+    reqs, wall, decode_only, launches = drive(torch, engine, [prompts],
+                                              SERVE_GEN)
+    spec_launch_check(engine, launches, label)
+    st = engine.stats()
+    n_tok = sum(len(r.tokens) for r in reqs)
+    out = {"requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+           "tok_per_s": n_tok / wall, "steps": st["n_steps"],
+           "model_calls": st["n_model_calls"],
+           "by_kind": kind_walls(tracer.attribution()),
+           "launches": {k: n for k, n in launches.items() if n},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if draft is not None:
+        out["speculative"] = st["speculative"]
+        out["draft_k"] = [r.draft_k for r in reqs]
+        out["verify_launches"] = verify.by_shape()
+        if engine.spec.drafter is not None:
+            out["draft_model_calls"] = \
+                engine.spec.drafter.adapter.n_model_calls
+    del engine, tracer
+    torch.cuda.empty_cache()
+    return [r.tokens for r in reqs], out, launches
+
+
+def add_launches(*runs) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def spec_phase(torch, log, cfg, params):
+    """Phase 11: (a) phase 4's 8:16+16:256 params draft for their own
+    densification, (b) n-gram self-drafting on phase 4's compressed
+    target, (c) the CLI's --draft sparse on a 4-layer dense target; each
+    speculative serve against the same target served plain in this run.
+    Returns (numbers, the launches of every phase-11 serve summed)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.sparse_serving import densify_params
+    from repro_torch.serving import SpeculativeConfig, Status
+
+    out, runs = {}, []
+    spec = dict(k=SPEC_K, max_k=SPEC_MAX_K)
+
+    def pair(label, target, prompts, draft):
+        base, nums_b, l_b = spec_serve(torch, cfg, target, prompts,
+                                       f"{label} plain")
+        specd, nums_s, l_s = spec_serve(torch, cfg, target, prompts,
+                                        f"{label} speculative", draft)
+        runs.extend((l_b, l_s))
+        gate = stream_gate(torch, label, cfg, target, prompts, base, specd)
+        res = {"plain": nums_b, "speculative": nums_s, "divergences": gate,
+               "streams_identical": sum(g is None for g in gate),
+               "tok_per_s_ratio": nums_s["tok_per_s"] / nums_b["tok_per_s"],
+               "steps_ratio": nums_s["steps"] / nums_b["steps"]}
+        sp = nums_s["speculative"]
+        log(f"  ({label}) acceptance {sp['acceptance_rate']:.4f}, "
+            f"{sp['accepted_per_step']:.3f} accepted a step over "
+            f"{sp['n_spec_steps']} steps; tok/s {nums_s['tok_per_s']:.2f} "
+            f"against {nums_b['tok_per_s']:.2f} plain; steps "
+            f"{nums_s['steps']} against {nums_b['steps']}; streams "
+            f"identical {res['streams_identical']}/{len(prompts)}")
+        for k, v in sorted(nums_s["by_kind"].items()):
+            log(f"  ({label}) {k}: {v['calls']} calls, steady wall "
+                f"{v['steady_wall_ms']} ms")
+        log(f"  ({label}) verify launches by [B x S]: "
+            + json.dumps(nums_s["verify_launches"]))
+        return res
+
+    # (a) the paper's pair: the compressed model drafts for its dense twin
+    prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+    target = densify_params(params)
+    torch.cuda.reset_peak_memory_stats()
+    res = pair("a", target, prompts, SpeculativeConfig(
+        method="model", params=params, cfg=cfg, **spec))
+    sp, nums = res["speculative"]["speculative"], res["speculative"]
+    check(sp["acceptance_rate"] >= SPEC_ACCEPT_MIN,
+          f"(a) acceptance {sp['acceptance_rate']:.4f} < {SPEC_ACCEPT_MIN}")
+    check(sp["accepted_per_step"] > 1.0,
+          f"(a) {sp['accepted_per_step']:.3f} accepted tokens a step")
+    check(nums["launches"].get("fused_sparse_linear", 0)
+          == 7 * cfg.n_layers * nums["draft_model_calls"],
+          "(a) the fused kernel's launches are not the draft calls'")
+    verify_pre = sum(v.get("paged_attention_prefill", 0)
+                     for v in nums["verify_launches"].values())
+    check(verify_pre > 0, "(a) no verify call reached paged attention's "
+          "prefill-chunk body")
+    out["a_paper_pair"] = res
+    del target
+    torch.cuda.empty_cache()
+
+    # (b) n-gram self-drafting on the compressed target: prompts repeat a
+    # random segment, so the proposer finds matches
+    g = torch.Generator(device="cuda").manual_seed(15)
+    prompts = [torch.randint(0, cfg.vocab, (NGRAM_SEGMENT,), generator=g,
+                             device="cuda").tolist() * NGRAM_REPEATS
+               for _ in SERVE_PROMPT_LENS]
+    res = pair("b", params, prompts,
+               SpeculativeConfig(method="ngram", **spec))
+    sp, nums = res["speculative"]["speculative"], res["speculative"]
+    check(sp["drafted"] > 0, "(b) the n-gram proposer drafted nothing")
+    m64 = [v for shape, v in nums["verify_launches"].items()
+           if shape == "8x8"]
+    check(m64 and m64[0].get("fused_sparse_linear_prefill", 0)
+          == 7 * cfg.n_layers * m64[0]["calls"],
+          "(b) verify calls at M = 64 did not launch the fused kernel's "
+          "prefill body 7 x layers times each")
+    out["b_ngram"] = res
+
+    # (c) the CLI: a dense 4-layer target and its own magnitude-compressed
+    # draft (--draft sparse), through run_engine on the paged layout
+    cfg_c = dataclasses.replace(cfg, n_layers=SPEC_CLI["n_layers"])
+    args = serve.parse_args([
+        "--arch", "llama3-8b", "--batch", str(SPEC_CLI["batch"]),
+        "--prompt-len", str(SPEC_CLI["prompt_len"]),
+        "--gen", str(SPEC_CLI["gen"]), "--slots", "8",
+        "--token-budget", "512", "--kv-layout", "paged",
+        "--block-size", str(ATTN_SHAPE["bs"]), "--draft", "sparse",
+        "--spec-k", str(SPEC_K)])
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    dense, _ = serve.build_params(cfg_c, args, "cuda", g)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs, engine = serve.run_engine(cfg_c, dense, args, "cuda", g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    runs.append(launches)
+    for r in reqs:
+        check(r.status is Status.FINISHED and len(r.tokens) == args.gen,
+              f"(c) request {r.request_id}: {r.status}, {len(r.tokens)} "
+              f"tokens")
+    spec_launch_check(engine, launches, "(c)")
+    st = engine.stats()
+    out["c_cli"] = {"argv": "--draft sparse --kv-layout paged, 4 layers",
+                    "requests": len(reqs), "wall_s": wall,
+                    "speculative": st["speculative"], "steps": st["n_steps"],
+                    "model_calls": st["n_model_calls"],
+                    "draft_model_calls":
+                        engine.spec.drafter.adapter.n_model_calls,
+                    "launches": {k: n for k, n in launches.items() if n}}
+    log(f"  (c) {json.dumps(out['c_cli'])}")
+    del engine, dense
+    torch.cuda.empty_cache()
+    return out, add_launches(*runs)
 
 
 # ------------------------------------------------------- phase 8: pipeline
@@ -2571,6 +2916,10 @@ def main() -> int:
     log("phase 9 replay a Poisson trace through launch/serve.run_trace, "
         "untraced and traced (phase 4's params, phase 6(a)'s engine)")
     replay = trace_phase(torch, log, cfg, params)
+    log("phase 11 speculative decoding on llama3-8b: (a) phase 4's params "
+        "draft for their densification, (b) n-gram on phase 4's target, "
+        "(c) the CLI's --draft sparse at 4 layers")
+    speculative, spec_launches = spec_phase(torch, log, cfg, params)
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -2595,6 +2944,11 @@ def main() -> int:
     # packed forwards
     nm_launches = {k: n + train_launches.get(k, 0)
                    for k, n in plain_launches.items()}
+
+    # the fused kernel's and paged attention's main-path launches: phase 4's
+    # and phase 6(a)'s serves, each with phase 11's
+    main_launches = add_launches(main_launches, spec_launches)
+    paged_launches = add_launches(paged_launches, spec_launches)
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
@@ -2624,7 +2978,8 @@ def main() -> int:
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
-              "replay": replay, "training": training}
+              "replay": replay, "speculative": speculative,
+              "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

@@ -16,6 +16,17 @@ the KV arenas as int8 with per-position scales, on either layout.
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --block-size 8 --kv-dtype int8
 
+``--draft {ngram,sparse,self}`` turns on draft-verify speculative decoding
+(``serving/speculative.py``), ``--spec-k`` drafts a request (each
+request's k then adapts to its acceptance).  ``sparse`` drafts with the
+8:16 + outlier compression of the target's own dense weights (drawn by
+``build_params`` from a generator with the run's seed, as the target is);
+``ngram`` by prompt lookup; ``self`` with the target's own params.  Greedy
+speculative streams equal the plain ones:
+
+  python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
+      --device cpu --kv-layout paged --block-size 8 --draft ngram
+
 ``--trace t.json`` replays a JSON request trace (``serving/trace.py``,
 written by either package's ``save_trace``) open-loop through the engine,
 arrival gaps scaled by ``--time-scale``, and prints ``format_summary``'s
@@ -46,7 +57,7 @@ from ..models import transformer as tfm
 from ..models.sparse_serving import sparsify_for_serving
 from ..runtime.metrics import format_summary, summarize
 from ..serving import (SamplingParams, ServingEngine, ServingTracer,
-                       load_trace, replay)
+                       SpeculativeConfig, load_trace, replay)
 
 
 def build_params(cfg, args, device, generator: torch.Generator, *,
@@ -76,6 +87,37 @@ def build_params(cfg, args, device, generator: torch.Generator, *,
     return params, report
 
 
+def _make_draft(cfg, params, args, device):
+    """A SpeculativeConfig from --draft/--spec-k, or None.  ``sparse``
+    compresses the dense weights a fresh generator with the run's seed
+    draws (the target's own, unless --sparse made the target that
+    compression already)."""
+    if args.draft == "none":
+        return None
+    max_k = max(8, args.spec_k)
+    if args.draft == "ngram":
+        return SpeculativeConfig(k=args.spec_k, max_k=max_k, method="ngram")
+    if args.draft == "self":
+        dparams = params
+    else:
+        g = torch.Generator(device=device).manual_seed(args.seed)
+        dparams, _ = build_params(
+            cfg, argparse.Namespace(**dict(vars(args), sparse=True)), device,
+            g)
+    return SpeculativeConfig(k=args.spec_k, max_k=max_k, method="model",
+                             params=dparams, cfg=cfg)
+
+
+def _print_spec_stats(engine) -> None:
+    sp = engine.stats().get("speculative")
+    if sp:
+        print(f"  speculative[{sp['method']} k={sp['k']}]: "
+              f"acceptance {sp['acceptance_rate']:.2f}, "
+              f"{sp['accepted_per_step']:.2f} accepted tok/step "
+              f"({sp['accepted']}/{sp['drafted']} over "
+              f"{sp['n_spec_steps']} steps)")
+
+
 def _make_tracer(args):
     """A ServingTracer when --trace-out was given, else None (the engine
     then runs with NULL_TRACER: no observability work per step)."""
@@ -92,7 +134,8 @@ def _build_engine(cfg, params, args, device, *, max_len: int):
                            block_size=args.block_size,
                            n_blocks=args.n_blocks,
                            prefix_caching=not args.no_prefix_cache,
-                           kv_dtype=args.kv_dtype, tracer=tracer)
+                           kv_dtype=args.kv_dtype, tracer=tracer,
+                           draft=_make_draft(cfg, params, args, device))
     return engine, tracer
 
 
@@ -136,6 +179,7 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
         print(f"prefix cache: {pc['hits']}/{pc['lookups']} lookups hit, "
               f"{pc['hit_tokens']} hit tokens, {pc['entries']} entries, "
               f"{pc['evicted_blocks']} evicted blocks")
+    _print_spec_stats(engine)
     _write_observability(tracer, args)
     return reqs, engine
 
@@ -149,6 +193,7 @@ def run_trace(cfg, params, args, device):
     res = replay(engine, trace, time_scale=args.time_scale)
     summary = summarize([r.metrics for r in res["finished"]], res["wall_s"])
     print(format_summary("trace", summary))
+    _print_spec_stats(engine)
     if res["rejected"]:
         print(f"rejected by admission control: {res['rejected']}")
     _write_observability(tracer, args)
@@ -181,6 +226,15 @@ def parse_args(argv=None):
     ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"),
                     help="KV arena storage: bf16, or int8 with per-position "
                          "f32 scales (either layout)")
+    ap.add_argument("--draft", default="none",
+                    choices=("none", "ngram", "sparse", "self"),
+                    help="speculative-decoding proposer: 'sparse' drafts "
+                         "with the 8:16+outlier compression of the dense "
+                         "weights, 'ngram' by prompt lookup, 'self' with "
+                         "the target's own params")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="initial draft tokens per request per step (each "
+                         "request's k then adapts to its own acceptance)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)

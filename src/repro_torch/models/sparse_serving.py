@@ -10,6 +10,11 @@ the N:M kernel (no outliers) runs, in its int8 variant when ``v_scale`` is
 set; on a CPU tensor their plain versions.  The JAX engine's own ``sparse_apply`` decompresses with a one-hot
 einsum in ``x.dtype`` instead; the kernels accumulate in f32, so the two
 agree at f32 up to summation order.
+
+``densify``/``densify_params`` rebuild the dense weights a container
+stands for (speculative decoding's dense target of an 8:16 draft).  The
+served pytree then runs ``F.linear`` as the reference's dense path runs a
+plain matmul.
 """
 from __future__ import annotations
 
@@ -18,12 +23,13 @@ import re
 
 import torch
 
-from ..core.outliers import pack_outlier_meta
+from ..core.outliers import pack_outlier_meta, unpack_outlier_meta
+from ..core.packing import unpack_metadata
 from ..core.pipeline import (SparsifyConfig, fit_config, map_leaves,
                              sparsify_linear)
 from ..kernels.fused_sparse_linear import fused_sparse_linear
 from ..kernels.nm_spmm import nm_spmm
-from ..kernels.ref import quantize_int8
+from ..kernels.ref import decompress_nm, dequantize, quantize_int8
 
 
 @dataclasses.dataclass
@@ -74,6 +80,34 @@ def sparse_apply(sw: SparseWeight, x: torch.Tensor) -> torch.Tensor:
                                 sw.o_meta, n=sw.n, m=sw.m, o_n=sw.o_n,
                                 scale=sw.v_scale)
     return y.reshape(*lead, -1)
+
+
+def densify(sw: SparseWeight) -> torch.Tensor:
+    """Dense [out, in] reconstruction of the deployed buffers, bit for bit
+    the reference's ``densify`` (``repro/models/sparse_serving.py:117``).
+
+    Int8 values are multiplied by ``v_scale`` in f32 and rounded once to
+    bf16, as there.  The reference sums one-hot products; each N:M slot
+    and each outlier slot receives one value, so a scatter gives the same
+    bits.  The outliers are summed in f32 (where a group repeats an index,
+    as the one-hot sum would), rounded to their dtype and added to the N:M
+    part in the weight's dtype."""
+    values = dequantize(sw.nm_values, sw.v_scale, torch.bfloat16)
+    w = decompress_nm(values, unpack_metadata(sw.nm_meta, sw.n), sw.m)
+    if sw.o_values is not None:
+        idx = unpack_outlier_meta(sw.o_meta, sw.o_n).long()
+        o = torch.zeros((*idx.shape[:-1], 256), dtype=torch.float32,
+                        device=idx.device)
+        o.scatter_add_(-1, idx, sw.o_values.to(torch.float32))
+        w = w + o.to(sw.o_values.dtype).reshape(w.shape)
+    return w
+
+
+def densify_params(params):
+    """The served pytree with every ``SparseWeight`` replaced by
+    ``densify`` of it; dense leaves pass through (the same tensors)."""
+    return map_leaves(params, lambda _, leaf: densify(leaf)
+                      if isinstance(leaf, SparseWeight) else leaf)
 
 
 # --------------------------------------------------------------------------

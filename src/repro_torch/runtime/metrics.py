@@ -10,8 +10,9 @@ time-to-first-token, per-output-token latency, end-to-end latency, the
 pooled inter-token-latency percentiles (the decode-tail stall metric
 chunked prefill exists to shrink), and a prefill-chunk histogram.
 ``format_summary`` renders a summary as the one-line report the serving CLI
-prints (a copy of the reference's, its ``speculative`` segment included:
-ROADMAP A8 fills that key).
+prints (a copy of the reference's).  Speculative decoding's per-request
+trail (``spec_drafted``, ``spec_accepted``) folds into the summary's
+``speculative`` block, which ``format_summary`` prints as the acceptance.
 """
 from __future__ import annotations
 
@@ -40,6 +41,11 @@ class RequestMetrics:
     # distinguish one thrashing request from many lightly-touched ones
     n_preemptions: int = 0
     last_preempt_reason: str = ""
+    # speculative decoding trail: draft tokens proposed for this request
+    # and how many the target accepted (spec_accepted / spec_drafted is
+    # how closely the draft tracks the target)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     # every observed gap between consecutive generated tokens — includes
     # engine stalls (a long prefill sharing the step, preemption waits),
     # which is exactly what the decode-tail p99 must capture
@@ -121,6 +127,14 @@ def summarize(metrics: list[RequestMetrics], wall_s: float) -> dict:
                 if m.last_preempt_reason),
         },
     }
+    drafted = sum(m.spec_drafted for m in done)
+    if drafted:
+        accepted = sum(m.spec_accepted for m in done)
+        out["speculative"] = {
+            "drafted": drafted,
+            "accepted": accepted,
+            "acceptance_rate": accepted / drafted,
+        }
     return out
 
 

@@ -6,6 +6,10 @@
   engine.run()            # or engine.step() under an external loop
   req.tokens              # generated ids; req.metrics has ttft/e2e/...
 
+Speculative decoding (serving/speculative.py): ``draft=SpeculativeConfig(
+k=4, method="model", params=draft_params)`` drafts with a second model,
+``method="ngram"`` by prompt lookup; greedy streams are unchanged.
+
 Request traces (serving/trace.py: Poisson, long-prompt and fleet-shaped
 workloads, JSON round-trip, open-loop ``replay``) and observability
 (serving/observe.py: Perfetto spans of every step and request lifecycle, a
@@ -20,6 +24,8 @@ from .observe import NULL_TRACER, NullTracer, ServingTracer
 from .paged import OutOfBlocks, PagedKVPool, PagedPoolView
 from .request import Request, SamplingParams, Status
 from .scheduler import (CHUNK_QUANTUM, QueueFull, RequestQueue, plan_chunks,
-                        resolve_token_budget, validate_token_budget)
+                        resolve_token_budget, spec_verify_reserve,
+                        validate_token_budget)
+from .speculative import SpeculativeConfig
 from .trace import (TraceRequest, fleet_trace, load_trace, long_prompt_trace,
                     poisson_trace, replay, save_trace)

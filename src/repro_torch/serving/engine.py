@@ -34,13 +34,24 @@ kernels (``kernels/``; int8 N:M values through their int8 variants), and
 paged attention through its decode and prefill-chunk bodies
 (``csrc/paged_attention_decode.cu``, ``csrc/paged_attention_prefill.cu``).
 
+``draft=`` takes a ``SpeculativeConfig`` (``serving/speculative.py``):
+each decode step then drafts k tokens per decoding request (a second
+model over its own slot arena, or n-gram prompt lookup), verifies all
+k + 1 candidate positions in one chunk-shaped model call at per-lane
+cursors, emits the accepted prefix plus a correction or bonus token
+(``sampling.verify_draft``) and rolls the cursor back over the rejected
+tail.  Greedy speculative streams are the plain engine's tokens.  The
+verify tokens are charged against the step's token budget before prefill
+planning (``scheduler.spec_verify_reserve``).
+
 ``tracer=`` takes a ``ServingTracer`` (``serving/observe.py``): Perfetto
 spans of every step, phase and request lifecycle, the serving counters and
-per-variant attribution of the model calls.  The default ``NULL_TRACER``
-does nothing, and every hook's call site is guarded by ``tracer.enabled``,
-so an untraced step does no observability work: no synchronize, no
-event, no span.  Left out of this slice, each raising
-``NotImplementedError``: ``draft=`` (ROADMAP A8), ``mesh=`` (A12).
+per-variant attribution of the model calls (a drafter's as ``draft_step``
+and ``draft_decode``).  The default ``NULL_TRACER`` does nothing, and
+every hook's call site is guarded by ``tracer.enabled``, so an untraced
+step does no observability work: no synchronize, no event, no span.  Left
+out of this slice, raising ``NotImplementedError``: ``mesh=`` (ROADMAP
+A12).
 """
 from __future__ import annotations
 
@@ -55,11 +66,12 @@ from .families import TransformerAdapter
 from .observe import NULL_TRACER
 from .paged import OutOfBlocks
 from .request import Request, SamplingParams, Status
-from .sampling import sample_tokens_logprobs
+from .sampling import sample_tokens_logprobs, verify_draft
 from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE,
                         PREEMPT_PREFILL_PRESSURE, QueueFull, RequestQueue,
                         pick_preemption_victim, plan_chunks,
-                        resolve_token_budget)
+                        resolve_token_budget, spec_verify_reserve)
+from .speculative import SpeculativeConfig, Speculator, verify_bucket
 
 SUPPORTED_FAMILIES = ("dense",)
 KV_LAYOUTS = ("slot", "paged")
@@ -85,7 +97,8 @@ class ServingEngine:
                  kv_layout: str = "slot", kv_dtype: str = "bf16",
                  block_size: int = 16, n_blocks: int | None = None,
                  prefix_caching: bool = True, lookahead_blocks: int = 1,
-                 mesh=None, clock=time.monotonic, tracer=None, draft=None):
+                 mesh=None, clock=time.monotonic, tracer=None,
+                 draft: SpeculativeConfig | None = None):
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"ServingEngine supports {SUPPORTED_FAMILIES} families, not "
@@ -93,8 +106,6 @@ class ServingEngine:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"not {kv_layout!r}")
-        if draft is not None:
-            raise _not_ported("speculative decoding (draft=)", "A8")
         if mesh is not None:
             raise _not_ported("mesh placement (mesh=)", "A12")
         self.device = resolve(device)
@@ -115,6 +126,23 @@ class ServingEngine:
             token_budget, max_prefill_per_step, max_len)
         self.chunk_quantum = CHUNK_QUANTUM
         self.lookahead_blocks = lookahead_blocks
+        # speculative decoding (serving/speculative.py): the proposer
+        # shares slot identity with the target; each decode step verifies
+        # every row's k+1 candidates in one chunk-shaped model call
+        self.spec = None
+        if draft is not None:
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    "speculative decoding needs a KV-transformer target "
+                    f"(dense/moe), not family {cfg.family!r}: rollback "
+                    "relies on the cursor hiding rejected positions, which "
+                    "recurrent state cannot do")
+            self.spec = Speculator(draft, cfg, n_slots=n_slots,
+                                   max_len=max_len, device=self.device,
+                                   kv_dtype=kv_dtype)
+        self.n_spec_steps = 0
+        self.n_drafted = 0
+        self.n_accepted = 0
         self.running: dict[int, Request] = {}        # slot -> request
         self.finished: list[Request] = []
         self._clock = clock
@@ -124,6 +152,8 @@ class ServingEngine:
         if self.tracer.enabled:
             self.tracer.attach(self)
             self.adapter.tracer = self.tracer
+            if self.spec is not None:
+                self.spec.set_tracer(self.tracer)
         self._next_id = 0
         self.n_steps = 0
         self.n_preemptions = 0
@@ -205,7 +235,17 @@ class ServingEngine:
             if tr.enabled:
                 tr.on_evict(req)
 
-        self._prefill_phase(stats, now)
+        # speculation charges each decoding request's k+1 verify tokens
+        # against the step's token budget before prefill planning: the
+        # verify runs through the chunk pipeline prefill uses, so the
+        # budget stays a bound on the step's token work
+        budget = self.token_budget
+        if self.spec is not None:
+            reserve = spec_verify_reserve(self.running, self.spec.cfg.k)
+            budget = max(budget - reserve, 0)
+            stats["spec_reserved"] = min(reserve, self.token_budget)
+
+        self._prefill_phase(stats, now, budget)
 
         self.max_running = max(self.max_running, len(self.running))
         if any(r.status is Status.RUNNING for r in self.running.values()):
@@ -225,25 +265,43 @@ class ServingEngine:
         return self.finished
 
     def stats(self) -> dict:
-        return {"n_steps": self.n_steps, "max_running": self.max_running,
-                "n_preemptions": self.n_preemptions,
-                "n_running": len(self.running),
-                "queue_depth": len(self.queue),
-                "n_finished": len(self.finished),
-                "n_model_calls": self.adapter.n_model_calls,
-                "n_prefill_tokens": self.n_prefill_tokens,
-                "family": self.cfg.family, "kv_layout": self.kv_layout,
-                "kv_dtype": self.kv_dtype, "token_budget": self.token_budget,
-                "device": str(self.device), "pool": self.pool.stats()}
+        out = {"n_steps": self.n_steps, "max_running": self.max_running,
+               "n_preemptions": self.n_preemptions,
+               "n_running": len(self.running),
+               "queue_depth": len(self.queue),
+               "n_finished": len(self.finished),
+               "n_model_calls": self.adapter.n_model_calls,
+               "n_prefill_tokens": self.n_prefill_tokens,
+               "family": self.cfg.family, "kv_layout": self.kv_layout,
+               "kv_dtype": self.kv_dtype, "token_budget": self.token_budget,
+               "device": str(self.device), "pool": self.pool.stats()}
+        if self.spec is not None:
+            out["speculative"] = {
+                "method": self.spec.cfg.method,
+                "k": self.spec.cfg.k,
+                "n_spec_steps": self.n_spec_steps,
+                "drafted": self.n_drafted,
+                "accepted": self.n_accepted,
+                "acceptance_rate": (self.n_accepted / self.n_drafted
+                                    if self.n_drafted else 0.0),
+                # > 1: each verify step emits accepted / steps drafts
+                # plus its correction or bonus token
+                "accepted_per_step": (self.n_accepted / self.n_spec_steps
+                                      if self.n_spec_steps else 0.0)}
+        return out
 
     def reset_stats(self) -> None:
-        """Zero the step, preemption, concurrency, prefill-token and
-        prefix-cache counters (cached KV is kept): benchmarks call this
-        between a warm-up pass and the measured window."""
+        """Zero the step, preemption, concurrency, prefill-token,
+        speculation and prefix-cache counters (cached KV is kept):
+        benchmarks call this between a warm-up pass and the measured
+        window."""
         self.n_steps = 0
         self.n_preemptions = 0
         self.max_running = 0
         self.n_prefill_tokens = 0
+        self.n_spec_steps = 0
+        self.n_drafted = 0
+        self.n_accepted = 0
         if self.kv_layout == "paged":
             self.pool.reset_stats()
 
@@ -264,9 +322,10 @@ class ServingEngine:
             return seq[:req.prefill_cursor]
         return seq[:-1] if req.tokens else seq
 
-    def _prefill_phase(self, stats: dict, now: float) -> None:
-        """Spend up to the token budget: advance in-flight prefill cursors
-        first (admission order), then admit from the queue head, FIFO."""
+    def _prefill_phase(self, stats: dict, now: float, budget: int) -> None:
+        """Spend up to ``budget`` prompt tokens: advance in-flight prefill
+        cursors first (admission order), then admit from the queue head,
+        FIFO."""
         tr = self.tracer
         if tr.enabled:
             tr.begin_phase("plan")
@@ -310,7 +369,7 @@ class ServingEngine:
             stats["admitted"] += 1
             return len(seq) - n_cached
 
-        chunk_plan = plan_chunks(flight, queued, self.token_budget,
+        chunk_plan = plan_chunks(flight, queued, budget,
                                  self.chunk_quantum, try_admit)
 
         runnable = []
@@ -377,6 +436,12 @@ class ServingEngine:
         self._seeds[slot] = req.sampling.seed
         # a resumed request continues its sampling stream at len(tokens)
         self._gen_count[slot] = len(req.tokens)
+        if self.spec is not None:
+            if req.draft_k == 0:
+                req.draft_k = self.spec.cfg.k
+            # whatever the draft arena holds at this slot belongs to a
+            # previous occupant; the drafter catches up lazily from 0
+            self.spec.on_admit(slot)
 
     def _run_chunk_group(self, group: list[tuple], cursor: int, bucket: int,
                          stats: dict) -> int:
@@ -472,21 +537,13 @@ class ServingEngine:
         position updates and sampling.  On the slot layout their lanes write
         a garbage token at their position, which is overwritten before anyone
         reads it; on the paged layout only the active rows write, into blocks
-        ``prepare_decode`` made private (it preempts under OutOfBlocks)."""
+        ``prepare_decode`` made private (it preempts under OutOfBlocks).
+        A speculating engine drafts and verifies instead."""
+        if self.spec is not None:
+            return self._speculative_decode(stats)
         active = self._decode_rows()
         if self.kv_layout == "paged":
-            while True:
-                try:
-                    self.pool.prepare_decode(active)
-                    break
-                except OutOfBlocks:
-                    if len(self.running) <= 1:
-                        # submit bounds prompt + generation by the pool's
-                        # capacity, so this is an accounting bug
-                        raise CachePoolError(
-                            "sole running request cannot grow its KV")
-                    self._preempt_one(stats, reason=PREEMPT_DECODE_PRESSURE)
-                    active = self._decode_rows()
+            active = self._prepare_decode(active, stats)
             if not active:
                 return 0
         stats["decoded"] = len(active)
@@ -499,6 +556,152 @@ class ServingEngine:
         advanced = np.zeros((self.pool.n_slots,), bool)
         advanced[[s for s in active if s in self.running]] = True
         self.pool.advance_decode(advanced)
+        if tr.enabled:
+            tr.end_phase(finished=n_finished)
+        return n_finished
+
+    def _prepare_decode(self, active: list[int], stats: dict,
+                        n_tokens: dict | None = None) -> list[int]:
+        """Paged layout: make every decoding row able to write its next
+        ``n_tokens[row]`` positions (1 each when None), preempting the
+        youngest running request while the arena is dry.  Returns the rows
+        still decoding."""
+        while True:
+            try:
+                self.pool.prepare_decode(
+                    active, None if n_tokens is None
+                    else [n_tokens[s] for s in active])
+                return active
+            except OutOfBlocks:
+                if len(self.running) <= 1:
+                    # submit bounds prompt + generation by the pool's
+                    # capacity, so this is an accounting bug
+                    raise CachePoolError(
+                        "sole running request cannot grow its KV")
+                self._preempt_one(stats, reason=PREEMPT_DECODE_PRESSURE)
+                active = self._decode_rows()
+
+    def _speculative_decode(self, stats: dict) -> int:
+        """Draft k tokens per decoding request, verify all k+1 candidate
+        positions in one chunk-shaped model call, emit the accepted prefix
+        plus a correction or bonus token, and roll the cursor back over
+        the rejected tail.
+
+        The verify call is ``step_chunk`` at per-lane cursors
+        ``len(seq) - 1`` (the last emitted token's KV is written here,
+        keeping the written-positions invariant) with ``n_new = n_draft +
+        1``, over every lane of the pool (a constant batch width) and S on
+        ``verify_bucket``'s ladder.  Rollback is ``advance_prefill`` to
+        ``cursor + accepted + 1``: the KV beyond it is hidden by the
+        cursor's length mask (slot) or sits in blocks the row still owns
+        (paged) until the next step overwrites it."""
+        tr = self.tracer
+        spec = self.spec
+        active = self._decode_rows()
+        seqs = {s: self._seq(self.running[s]) for s in active}
+        cap = self.pool.max_request_tokens
+        ks = []
+        for s in active:
+            req = self.running[s]
+            # never draft past the request's finish line or the row's KV
+            # capacity (the verify writes len(seq) - 1 + k + 1 positions)
+            k = min(req.draft_k,
+                    req.sampling.max_new_tokens - len(req.tokens) - 1,
+                    cap - len(seqs[s]))
+            ks.append(max(k, 0))
+
+        if tr.enabled:
+            tr.begin_phase("draft", n_rows=len(active))
+        proposals = spec.propose(active, [seqs[s] for s in active], ks)
+        drafts = dict(zip(active, proposals))
+        if tr.enabled:
+            tr.end_phase(drafted=sum(len(d) for d in proposals))
+
+        if self.kv_layout == "paged":
+            active = self._prepare_decode(
+                active, stats, {s: len(drafts[s]) + 1 for s in active})
+            if not active:
+                return 0
+
+        n = len(active)
+        nds = [len(drafts[s]) for s in active]
+        B = _bucket(self.pool.n_slots, 1)
+        S = verify_bucket(max(nds) + 1, spec.cfg.k)
+        tokens = np.zeros((B, S), np.int64)
+        cur = np.zeros((B,), np.int64)
+        n_new = np.zeros((B,), np.int64)
+        draft_arr = np.zeros((n, S), np.int64)
+        for i, s in enumerate(active):
+            nd = nds[i]
+            cur[i] = len(seqs[s]) - 1
+            tokens[i, 0] = self._last_token[s]
+            tokens[i, 1:1 + nd] = drafts[s]
+            draft_arr[i, :nd] = drafts[s]
+            n_new[i] = nd + 1
+        if self.kv_layout == "paged":
+            lanes = self.pool.lane_tables(active, B)
+        else:
+            lanes = self.pool.lane_rows(active, B)
+        if tr.enabled:
+            tr.begin_phase("verify", n_rows=n, s_bucket=S,
+                           drafted=sum(nds))
+        logits = self.adapter.step_chunk(lanes, cur, n_new, tokens)
+        # the real lanes only: padding lanes are never read
+        n_acc, v_toks, v_lps = verify_draft(
+            logits[:n], draft_arr, nds, self._temps[active],
+            self._topks[active], self._seeds[active],
+            self._gen_count[active])
+        if tr.enabled:
+            tr.end_phase(accepted=int(n_acc.sum()))
+
+        # cursor rollback/advance before emission releases any slot: each
+        # row's written positions become len(seq) - 1 again once its
+        # accepted + 1 tokens are appended (the engine invariant)
+        self.pool.advance_prefill(
+            active, [int(cur[i]) + 1 + int(n_acc[i]) for i in range(n)])
+
+        if tr.enabled:
+            tr.begin_phase("emit", n_rows=n)
+        now = self._clock()
+        n_finished = 0
+        drafted = accepted = emitted = 0
+        for i, s in enumerate(active):
+            req = self.running[s]
+            nd, a = nds[i], int(n_acc[i])
+            drafted += nd
+            accepted += a
+            req.metrics.spec_drafted += nd
+            req.metrics.spec_accepted += a
+            if spec.cfg.adaptive and nd > 0:
+                if a == nd:
+                    req.draft_k = min(req.draft_k + 1, spec.cfg.max_k)
+                elif 2 * a < nd:
+                    req.draft_k = max(req.draft_k - 1, spec.cfg.min_k)
+            spec.rollback(s, nd, a)
+            sp = req.sampling
+            for j in range(a + 1):
+                tok = int(v_toks[i, j])
+                req._emit(tok, now, logprob=float(v_lps[i, j]))
+                self._last_token[s] = tok
+                self._gen_count[s] += 1
+                emitted += 1
+                if (len(req.tokens) >= sp.max_new_tokens
+                        or (sp.eos_id is not None and tok == sp.eos_id)):
+                    req._finish(Status.FINISHED, now)
+                    self.finished.append(req)
+                    del self.running[s]
+                    self.pool.release(s)
+                    n_finished += 1
+                    if tr.enabled:
+                        tr.on_finish(req)
+                    break
+        self.n_spec_steps += 1
+        self.n_drafted += drafted
+        self.n_accepted += accepted
+        stats["decoded"] = n
+        stats["spec_drafted"] = drafted
+        stats["spec_accepted"] = accepted
+        stats["spec_emitted"] = emitted
         if tr.enabled:
             tr.end_phase(finished=n_finished)
         return n_finished

@@ -40,7 +40,7 @@ class TransformerAdapter:
     # tracing is on; NULL_TRACER keeps ``_traced`` a direct call
     tracer = NULL_TRACER
     # distinguishes co-resident adapters sharing one tracer (the
-    # reference's speculative draft model attributes as "draft_step")
+    # speculative draft model attributes as "draft_step"/"draft_decode")
     trace_kind_prefix = ""
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
@@ -67,7 +67,8 @@ class TransformerAdapter:
         (``ServingTracer.jit_call``)."""
         if not self.tracer.enabled:
             return fn(*args)
-        return self.tracer.jit_call(self.trace_kind_prefix + kind, fn, args)
+        return self.tracer.jit_call(self.trace_kind_prefix + kind, fn, args,
+                                    cost=self.step_cost)
 
     def step_cost(self, lanes, cur, n_new, tokens) -> dict:
         """The call's FLOPs and bytes (``launch/step_cost.py``), from the

@@ -139,7 +139,7 @@ class NullTracer:
     def on_withdraw(self, req):
         pass
 
-    def jit_call(self, kind, fn, args):
+    def jit_call(self, kind, fn, args, cost=None):
         return fn(*args)
 
 
@@ -183,9 +183,8 @@ class ServingTracer:
         # model-call variants: shape key -> attribution record
         self._variants: dict[tuple, dict] = {}
         self._kind_counts: dict[str, int] = {}
-        # the card to block on (None on the CPU) and the work of a call
+        # the card to block on (None on the CPU)
         self._device: torch.device | None = None
-        self._cost = None
 
     # --------------------------------------------------------------- setup
     def attach(self, engine, name: str = "") -> "ServingTracer":
@@ -211,8 +210,6 @@ class ServingTracer:
         device = getattr(engine, "device", None)
         self._device = (device if device is not None
                         and device.type == "cuda" else None)
-        self._cost = getattr(getattr(engine, "adapter", None), "step_cost",
-                             None)
         self._make_counters()
         return self
 
@@ -453,23 +450,25 @@ class ServingTracer:
                             cat="request")
 
     # ---------------------------------------------- model-call attribution
-    def jit_call(self, kind: str, fn, args):
+    def jit_call(self, kind: str, fn, args, cost=None):
         """Run ``fn(*args)`` timed and attributed.
 
         The variant key is the tuple of top-level array argument shapes
         and dtypes, as the reference keys its jitted calls.  The port has
         no jit: a new variant's first call is what the reference's compile
         was, and is counted as a compile (the kind's first variant) or a
-        retrace (a later one).  The call's work comes from the adapter's
-        ``step_cost`` (``launch/step_cost.py``), taken before the clock
-        starts.  ``issue_s`` is the host time until ``fn`` returned; the
-        wall time blocks on the card (``torch.cuda.synchronize``) before
-        the second clock read, as the reference blocks on its outputs.
+        retrace (a later one).  The call's work comes from ``cost``, the
+        calling adapter's ``step_cost`` (``launch/step_cost.py``, so a
+        draft model's calls count its own weights), taken before the clock
+        starts; without one the work is not counted.  ``issue_s`` is the
+        host time until ``fn`` returned; the wall time blocks on the card
+        (``torch.cuda.synchronize``) before the second clock read, as the
+        reference blocks on its outputs.
         """
         shapes = tuple((tuple(a.shape), str(a.dtype)) for a in args
                        if hasattr(a, "shape"))
         key = (kind, shapes)
-        cost = self._cost(*args) if self._cost is not None else {}
+        cost = cost(*args) if cost is not None else {}
         rec = self._variants.get(key)
         if rec is None:
             n = self._kind_counts.get(kind, 0)
@@ -479,7 +478,7 @@ class ServingTracer:
                 "shapes": [list(s) for s, _ in shapes],
                 "calls": 0, "total_s": 0.0, "first_call_s": None,
                 "issue_s": 0.0, "first_issue_s": None,
-                "flops": 0, "bytes_accessed": 0}
+                "flops": 0, "bytes_accessed": 0, "costed": bool(cost)}
             is_retrace = n > 0
             (self.c_retraces if is_retrace else self.c_compiles).inc(
                 fn=kind, engine=self.name)
@@ -532,10 +531,9 @@ class ServingTracer:
                 "steady_issue_mean_s": (steady_issue / steady_calls
                                         if steady_calls else None),
                 "flops": (rec["flops"] / calls
-                          if calls and self._cost is not None else None),
+                          if calls and rec["costed"] else None),
                 "bytes_accessed": (rec["bytes_accessed"] / calls
-                                   if calls and self._cost is not None
-                                   else None),
+                                   if calls and rec["costed"] else None),
             }
         return out
 

@@ -73,6 +73,11 @@ class Request:
     # times the engine preempted this request back to the queue
     # (generated tokens are kept; the resume re-prefills them)
     n_preempted: int = 0
+    # speculative decoding: this request's current draft length (the
+    # engine sets it from SpeculativeConfig.k at admission and, when
+    # adaptive, walks it within [min_k, max_k] by the request's own
+    # acceptance history; it survives preemption with the request)
+    draft_k: int = 0
     # per-token chosen-token log-probabilities (log-softmax of the raw
     # logits at each emitted token), parallel to ``tokens``
     logprobs: list[float] = dataclasses.field(default_factory=list)
@@ -91,7 +96,8 @@ class Request:
             self.metrics.first_token = now
         else:
             # inter-token gap as the user experiences it: includes any
-            # engine stall (long prefill in the step, preemption wait)
+            # engine stall (long prefill in the step, preemption wait);
+            # a speculative verify step's burst arrives with 0 gaps
             self.metrics.itl.append(now - self.metrics.last_token_at)
         self.metrics.last_token_at = now
         self.tokens.append(token)

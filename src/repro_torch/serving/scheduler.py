@@ -114,6 +114,19 @@ def validate_token_budget(token_budget: int, *, max_len: int,
     return token_budget
 
 
+def spec_verify_reserve(running: dict[int, Request], default_k: int) -> int:
+    """Prefill-budget tokens to reserve for this step's speculative verify
+    work: every decoding request's fused verify writes and scores its
+    ``draft_k + 1`` candidate positions through the same step pipeline the
+    prefill chunks use, so those tokens are charged against the step's
+    token budget up front: prefill planning sees ``token_budget -
+    reserve`` and a step never exceeds the budget it advertises.  (No
+    livelock: decoding requests are bounded by max_new_tokens, so a fully
+    reserved budget frees itself as they retire.)"""
+    return sum((r.draft_k or default_k) + 1 for r in running.values()
+               if r.status is Status.RUNNING)
+
+
 def _chunk_take(budget: int, remaining: int, quantum: int) -> int:
     """Tokens to schedule for one request: the whole remainder when it
     fits, else the largest quantum multiple within budget (0 = no room)."""

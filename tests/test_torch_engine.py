@@ -23,7 +23,7 @@ from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.interchange import from_jax_params  # noqa: E402
 from repro_torch.serving import (SamplingParams, ServingEngine,  # noqa: E402
-                                 Status)
+                                 SpeculativeConfig, Status)
 from repro_torch.serving.sampling import sample_tokens_logprobs  # noqa: E402
 
 SHAPE = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
@@ -132,11 +132,22 @@ def test_default_device_raises_without_cuda(param_pairs):
         ServingEngine(CFG, param_pairs["dense"][1])
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(draft=object()), "A8"), (dict(mesh=object()), "A12")])
+@pytest.mark.parametrize("kwargs,item", [(dict(mesh=object()), "A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item, param_pairs):
     with pytest.raises(NotImplementedError, match=item):
         ServingEngine(CFG, param_pairs["dense"][1], device="cpu", **kwargs)
+
+
+def test_draft_of_another_vocab_raises(param_pairs):
+    """``draft=`` is ported (ROADMAP A8): a draft model whose vocab is not
+    the target's is refused, since its tokens would not be target
+    tokens."""
+    dense = param_pairs["dense"][1]
+    other = dataclasses.replace(CFG, vocab=2 * CFG.vocab)
+    with pytest.raises(ValueError, match="draft vocab"):
+        ServingEngine(CFG, dense, device="cpu",
+                      draft=SpeculativeConfig(method="model", params=dense,
+                                              cfg=other))
 
 
 def test_paged_layout_constructs_and_serves(param_pairs):

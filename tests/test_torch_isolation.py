@@ -27,7 +27,8 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
             "repro_torch.kernels.ops, repro_torch.kernels.outlier_spmm, "
             "repro_torch.data.pipeline, repro_torch.eval.harness, "
             "repro_torch.optim, repro_torch.launch.steps, "
-            "repro_torch.core.ebft, repro_torch.tree\n"
+            "repro_torch.core.ebft, repro_torch.tree, "
+            "repro_torch.serving.speculative\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n")
