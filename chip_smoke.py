@@ -179,6 +179,35 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
        Reported: tok/s against the plain run, steps, model calls and
        steady wall per variant (step, decode, draft_step, draft_decode).
 
+ 12. the fleet (run right after phase 11, on phase 4's params):
+     ``fleet_trace(n_requests=32, n_tenants=4, sys_len=256, ...)``
+     (``FLEET_TRACE``: four tenants, each with its own 256-token system
+     prompt, lognormal tails and generations, bursts) written under
+     ``chiprun_out/`` and replayed at time scale 0 (routing decided on the
+     host alone) through ``serving/fleet.ReplicaSet`` on phase 6(a)'s paged
+     settings (blocks of 16, 8 slots a replica, token budget 512, max_len
+     544), each run gated on 32 finished and 0 rejected and on the fused
+     and paged launches per model call, in (a)-(d) replica by replica
+     (``ReplicaLaunches``), in (e) over the fleet:
+       (a) a 1-replica set with 2 x 256 blocks (the equal-KV baseline);
+       (b) round-robin and (c) prefix routing over 2 replicas of 256
+           blocks: gates both replicas finishing work;
+       (d) prefix routing stealing at threshold 1: gates steals > 0;
+       (a)-(c) run cold, then warm (reported numbers from the warm run);
+       every replica holds phase 4's very tensors (same ``data_ptr``) and
+       building a set adds no more than its pools' arena bytes + 5%; each
+       cold stream of (b)-(d) equals (a)'s up to its first divergence,
+       a near-tie there (``near_tie_bound``, as phase 11);
+       (e) the CLI's ``run_trace --replicas 2 --routing prefix
+           --trace-out chiprun_out/phase12_trace.json``: gates the
+           validator, a "route" instant per request, the router's and
+           both replicas' processes, and 32 routing decisions counted.
+       Reported: tok/s over the wall and over ``critical_path_s`` (an
+       estimate of what a card per replica would see: the replicas step
+       one after another here), busy seconds per replica, prefix-cache hit
+       tokens over prompt tokens, steals, drains, TTFT p50/p99, model calls
+       and (e)'s steady wall per variant and replica.
+
  10. training and EBFT (run last, after every earlier phase's model is
      dropped): llama3-8b at full width cut to 4 layers, bf16 params, f32
      AdamW moments, ``remat``, ``SyntheticLM(vocab=128256, seq_len=512,
@@ -216,7 +245,7 @@ one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 ``outlier_spmm``; each entry names its sources and splits its cases and
 launches by path, decode and prefill; ``nm_spmm``'s launches are phase
 5's and phase 10(c)'s, the bf16 fused kernel's phase 4's and paged
-attention's phase 6(a)'s, each with phase 11's),
+attention's phase 6(a)'s, each with phase 11's and phase 12's),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -296,6 +325,17 @@ NGRAM_SEGMENT, NGRAM_REPEATS = 48, 4
 SPEC_CLI = dict(n_layers=4, batch=8, prompt_len=256, gen=32)
 NEAR_TIE_SIGMAS = 4
 BF16_U = 2.0 ** -8
+# phase 12: the fleet: ``fleet_trace``'s arguments (the reference fleet
+# scenario's tenant mix with shared system prompts, at llama3-8b's
+# vocabulary and prompt lengths), R replicas of NB blocks of 16 tokens
+# (~0.5 GB of bf16 KV each) with 8 slots, max_len = sys_len + prompt_max +
+# gen_max
+FLEET_TRACE = dict(n_requests=32, n_tenants=4, sys_len=256, rate_per_s=20.0,
+                   burst_mean=4.0, prompt_median=64, prompt_sigma=0.6,
+                   prompt_max=256, gen_median=16, gen_sigma=0.8, gen_max=32,
+                   seed=11)
+FLEET_REPLICAS, FLEET_BLOCKS, FLEET_SLOTS = 2, 256, 8
+FLEET_MAX_LEN = 256 + 256 + 32
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -2127,6 +2167,296 @@ def spec_phase(torch, log, cfg, params):
     return out, add_launches(*runs)
 
 
+# ------------------------------------------------------ phase 12: the fleet
+class ReplicaLaunches:
+    """Launches of every kernel counter inside each replica's model calls
+    (its adapter's chunk and decode calls), so a fleet's launches are gated
+    per replica.  Host counters only: no synchronize."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.by_replica = [dict.fromkeys(read_launches(), 0)
+                           for _ in fleet.replicas]
+        self.calls0 = [0] * len(fleet.replicas)
+        for i, e in enumerate(fleet.replicas):
+            for name in ("step_chunk", "step_decode"):
+                setattr(e.adapter, name,
+                        self._counted(getattr(e.adapter, name), i))
+
+    def _counted(self, fn, i):
+        def call(*args):
+            before = read_launches()
+            out = fn(*args)
+            after = read_launches()
+            for k, n in after.items():
+                self.by_replica[i][k] += n - before[k]
+            return out
+        return call
+
+    def reset(self):
+        """Zero the per-replica counts and mark each replica's model calls
+        so far; with ``reset_launches`` just before a run."""
+        for d in self.by_replica:
+            for k in d:
+                d[k] = 0
+        self.calls0 = [e.adapter.n_model_calls for e in self.fleet.replicas]
+
+    def check(self, cfg, label) -> list:
+        """Each replica's launches per its model calls since ``reset``, as
+        ``serve_numbers`` gates one engine; returns the calls."""
+        calls = []
+        for i, e in enumerate(self.fleet.replicas):
+            n = e.adapter.n_model_calls - self.calls0[i]
+            check_launch_counts(self.by_replica[i], {
+                "fused_sparse_linear": 7 * cfg.n_layers * n,
+                "paged_attention": cfg.n_layers * n}, f"{label} r{i}")
+            calls.append(n)
+        return calls
+
+
+def param_ptrs(params) -> list:
+    """The data pointers of every tensor of a params tree, SparseWeight
+    buffers included, in the tree's order."""
+    from repro_torch.tree import flatten
+    return [t.data_ptr() for leaf in flatten(params)
+            for t in (leaf.buffers() if hasattr(leaf, "buffers") else [leaf])]
+
+
+def fleet_kwargs(blocks):
+    return dict(device="cuda", n_slots=FLEET_SLOTS, max_len=FLEET_MAX_LEN,
+                token_budget=512, kv_layout="paged",
+                block_size=ATTN_SHAPE["bs"], n_blocks=blocks)
+
+
+def fleet_replay(torch, cfg, fleet, counted, trace, label):
+    """One replay of ``trace`` at time scale 0 through ``fleet``, every
+    launch count set to 0 just before and read just after; gates every
+    request finished, none rejected, and the launches per model call of
+    each replica.  Returns (replay's result, launches, model calls by
+    replica)."""
+    from repro_torch.serving import Status, replay
+
+    torch.cuda.synchronize()
+    reset_launches()
+    counted.reset()
+    res = replay(fleet, trace, time_scale=0.0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    done = res["finished"]
+    check(len(done) == len(trace) and res["rejected"] == 0,
+          f"{label}: {len(done)} of {len(trace)} finished, "
+          f"{res['rejected']} rejected")
+    for r in done:
+        check(r.status is Status.FINISHED
+              and len(r.tokens) == r.sampling.max_new_tokens,
+              f"{label}: request {r.request_id}: {r.status}, "
+              f"{len(r.tokens)} tokens")
+        check(all(0 <= t < cfg.vocab for t in r.tokens),
+              f"{label}: request {r.request_id}: token outside the vocab")
+        check(all(math.isfinite(lp) for lp in r.logprobs),
+              f"{label}: request {r.request_id}: non-finite logprob")
+    calls = counted.check(cfg, label)
+    check_launch_counts(launches, {
+        "fused_sparse_linear": 7 * cfg.n_layers * sum(calls),
+        "paged_attention": cfg.n_layers * sum(calls)}, label)
+    return res, launches, calls
+
+
+def fleet_numbers(fleet, res, prompt_tokens, calls) -> dict:
+    """The numbers of a fleet run: tok/s over the wall and over
+    ``critical_path_s``, busy time per replica, prefix hits over prompt
+    tokens, moves, TTFT, model calls by replica."""
+    from repro_torch.runtime.metrics import summarize
+    st = fleet.stats()
+    s = summarize([r.metrics for r in res["finished"]], res["wall_s"])
+    crit = st["critical_path_s"]
+    return {"requests": s["n_requests"], "tokens": s["total_tokens"],
+            "wall_s": res["wall_s"], "tok_per_s": s["tok_per_s"],
+            "critical_path_s": crit,
+            "tok_per_s_critical_path": s["total_tokens"] / crit,
+            "busy_s": st["busy_s"], "router_busy_s": st["router_busy_s"],
+            "hit_tokens": st["prefix_cache"]["hit_tokens"],
+            "prefix_hit_rate": st["prefix_cache"]["hit_tokens"]
+            / prompt_tokens,
+            "n_steals": st["n_steals"], "n_drains": st["n_drains"],
+            "ttft_ms": {k: s["ttft"][k] * 1e3 for k in ("p50", "p99")},
+            "steps": st["n_steps"], "model_calls": calls,
+            "finished_by_replica": [p["n_finished"] for p in st["replicas"]],
+            "preemptions": [p["n_preemptions"] for p in st["replicas"]],
+            "router": st["router"]}
+
+
+def fleet_phase(torch, log, cfg, params):
+    """Phase 12: the fleet trace replayed at time scale 0 through (a) a
+    1-replica set with the fleet's KV, (b) round-robin and (c) prefix
+    routing over 2 replicas, (d) prefix routing stealing at threshold 1,
+    (e) the CLI's ``run_trace --replicas 2 --routing prefix`` traced.
+    Returns (numbers, the launches of every phase-12 run summed)."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime.metrics import format_summary
+    from repro_torch.runtime.telemetry import validate_trace_events
+    from repro_torch.serving import (ReplicaSet, fleet_trace, load_trace,
+                                     save_trace)
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path = out_dir / "phase12_requests.json"
+    made = fleet_trace(vocab=cfg.vocab, **FLEET_TRACE)
+    save_trace(str(trace_path), made)
+    trace = load_trace(str(trace_path))
+    check(trace == made, "fleet: load_trace did not return the saved "
+          "requests")
+    n_req = len(trace)
+    ordered = sorted(trace, key=lambda t: t.arrival_s)   # = request ids
+    prompt_tokens = sum(len(t.prompt) for t in trace)
+    R, NB = FLEET_REPLICAS, FLEET_BLOCKS
+    ptrs = param_ptrs(params)
+    out = {"trace": dict(FLEET_TRACE, file=str(trace_path.relative_to(ROOT)),
+                         prompt_tokens=prompt_tokens,
+                         gen_tokens=sum(t.max_new_tokens for t in trace)),
+           "replicas": R, "blocks_per_replica": NB,
+           "slots_per_replica": FLEET_SLOTS, "max_len": FLEET_MAX_LEN}
+    runs, cold = [], {}
+
+    def build(n_replicas, routing, blocks, steal_threshold=4):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fleet = ReplicaSet(cfg, params, n_replicas=n_replicas,
+                           routing=routing, steal_threshold=steal_threshold,
+                           **fleet_kwargs(blocks))
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - before
+        arena = sum(e.pool.stats()["arena_bytes"]
+                    + e.pool.stats()["scale_bytes"] for e in fleet.replicas)
+        check(added <= 1.05 * arena,
+              f"fleet of {n_replicas}: building it added {added} bytes, "
+              f"over its pools' {arena} + 5%")
+        for i, e in enumerate(fleet.replicas):
+            check(e.params is params and param_ptrs(e.adapter.params) == ptrs,
+                  f"fleet: replica {i} does not hold phase 4's parameter "
+                  f"tensors")
+        return fleet, {"added_bytes": added, "arena_bytes": arena}
+
+    def measured(name, n_replicas, routing, blocks, steal_threshold=4,
+                 warm=True):
+        fleet, mem = build(n_replicas, routing, blocks, steal_threshold)
+        counted = ReplicaLaunches(fleet)
+        res, launches, calls = fleet_replay(torch, cfg, fleet, counted,
+                                            trace, f"({name}) cold")
+        runs.append(launches)
+        cold[name] = [res["finished"][i].tokens for i in range(n_req)]
+        nums = {"cold": fleet_numbers(fleet, res, prompt_tokens, calls),
+                "memory": mem}
+        if warm:
+            fleet.clear_finished()
+            fleet.reset_stats()
+            res, launches, calls = fleet_replay(torch, cfg, fleet, counted,
+                                                trace, f"({name}) warm")
+            runs.append(launches)
+            nums["warm"] = fleet_numbers(fleet, res, prompt_tokens, calls)
+        nums["launches"] = {k: n for k, n in add_launches(
+            *runs[-2 if warm else -1:]).items() if n}
+        rep = nums.get("warm", nums["cold"])
+        log(f"  ({name}) {rep['tok_per_s']:.2f} tok/s over the wall, "
+            f"{rep['tok_per_s_critical_path']:.2f} over the critical path; "
+            f"busy {[round(b, 3) for b in rep['busy_s']]} s; prefix hits "
+            f"{rep['prefix_hit_rate']:.4f} of prompt tokens; steals "
+            f"{rep['n_steals']}, drains {rep['n_drains']}; TTFT p50/p99 "
+            f"{rep['ttft_ms']['p50']:.0f}/{rep['ttft_ms']['p99']:.0f} ms; "
+            f"finished by replica {rep['finished_by_replica']}")
+        del fleet, counted
+        torch.cuda.empty_cache()
+        return nums
+
+    # (a) the equal-KV baseline, (b) round-robin, (c) prefix routing
+    out["a_single"] = measured("a", 1, "round_robin", R * NB)
+    for key, name, routing in (("b_round_robin", "b", "round_robin"),
+                               ("c_prefix", "c", "prefix")):
+        nums = measured(name, R, routing, NB)
+        check(all(n > 0 for n in nums["cold"]["finished_by_replica"]),
+              f"({name}) a replica finished nothing: "
+              f"{nums['cold']['finished_by_replica']}")
+        out[key] = nums
+    # (d) prefix routing with work-stealing at threshold 1
+    nums = measured("d", R, "prefix", NB, steal_threshold=1, warm=False)
+    check(nums["cold"]["n_steals"] > 0, "(d) no work was stolen")
+    out["d_prefix_steal"] = nums
+
+    # each cold stream of (b)-(d) against (a)'s: equal up to the first
+    # divergence, a near-tie there
+    prompts = [t.prompt for t in ordered]
+    for key, name in (("b_round_robin", "b"), ("c_prefix", "c"),
+                      ("d_prefix_steal", "d")):
+        gate = stream_gate(torch, f"({name}) vs (a)", cfg, params, prompts,
+                           cold["a"], cold[name])
+        out[key]["divergences"] = [dict(g, request=i) for i, g in
+                                   enumerate(gate) if g is not None]
+        out[key]["streams_identical"] = sum(g is None for g in gate)
+        log(f"  ({name}) cold streams equal to (a)'s: "
+            f"{out[key]['streams_identical']}/{n_req}; divergences "
+            + json.dumps([(d["request"], d["at"], round(max(
+                d["plain_gap"], d["spec_gap"]), 4), round(d["bound"], 4))
+                for d in out[key]["divergences"]]))
+
+    # (e) the CLI, traced
+    trace_out = out_dir / "phase12_trace.json"
+    args = serve.parse_args([
+        "--arch", "llama3-8b", "--sparse", "--replicas", str(R),
+        "--routing", "prefix", "--slots", str(FLEET_SLOTS),
+        "--max-len", str(FLEET_MAX_LEN), "--token-budget", "512",
+        "--kv-layout", "paged", "--block-size", str(ATTN_SHAPE["bs"]),
+        "--n-blocks", str(NB), "--trace", str(trace_path),
+        "--time-scale", "0", "--trace-out", str(trace_out)])
+    torch.cuda.synchronize()
+    reset_launches()
+    res = serve.run_trace(cfg, params, args, "cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    runs.append(launches)
+    fleet = res["engine"]
+    check(isinstance(fleet, ReplicaSet) and len(fleet.replicas) == R,
+          "(e) run_trace did not build a fleet")
+    check(len(res["finished"]) == n_req and res["rejected"] == 0,
+          f"(e) {len(res['finished'])} finished, {res['rejected']} rejected")
+    calls = [e.adapter.n_model_calls for e in fleet.replicas]
+    check_launch_counts(launches, {
+        "fused_sparse_linear": 7 * cfg.n_layers * sum(calls),
+        "paged_attention": cfg.n_layers * sum(calls)}, "(e)")
+    events = validate_trace_events(json.loads(trace_out.read_text()))
+    routes = [e for e in events if e["name"] == "route"]
+    check(len(routes) == n_req and {e["args"]["request"] for e in routes}
+          == set(range(n_req)), f"(e) {len(routes)} route instants")
+    procs = {e["args"]["name"] for e in events
+             if e["name"] == "process_name"}
+    want = {"fleet router"} | {f"{kind} r{i}" for i in range(R)
+                               for kind in ("engine", "requests")}
+    check(want <= procs, f"(e) processes missing: {sorted(want - procs)}")
+    reg = res["tracer"].registry
+    decided = sum(reg.counter("fleet_routing_decisions_total")
+                  .series().values())
+    check(decided == n_req,
+          f"(e) fleet_routing_decisions_total {decided} != {n_req}")
+    st = fleet.stats()
+    out["e_cli"] = {
+        "argv": "--replicas 2 --routing prefix --kv-layout paged "
+                "--time-scale 0 --trace-out",
+        "trace_file": str(trace_out.relative_to(ROOT)),
+        "trace_events": len(events), "route_instants": len(routes),
+        "routing_decisions": decided, "wall_s": res["wall_s"],
+        "summary_line": format_summary("trace", res["summary"]),
+        "n_steals": st["n_steals"], "n_drains": st["n_drains"],
+        "model_calls": calls,
+        "by_kind": [kind_walls(e.tracer.attribution())
+                    for e in fleet.replicas],
+        "launches": {k: n for k, n in launches.items() if n}}
+    log(f"  (e) {out['e_cli']['summary_line']}")
+    for i, k in enumerate(out["e_cli"]["by_kind"]):
+        log(f"  (e) r{i}: " + json.dumps(k))
+    del res, fleet
+    torch.cuda.empty_cache()
+    return out, add_launches(*runs)
+
+
 # ------------------------------------------------------- phase 8: pipeline
 def calibrate(torch, log, cfg):
     """8(a): the dense bf16 model from seed 0 and its own calibration
@@ -2920,6 +3250,10 @@ def main() -> int:
         "draft for their densification, (b) n-gram on phase 4's target, "
         "(c) the CLI's --draft sparse at 4 layers")
     speculative, spec_launches = spec_phase(torch, log, cfg, params)
+    log("phase 12 the fleet on llama3-8b (phase 4's params): a 32-request "
+        "tenant trace through 1 replica, 2 round-robin, 2 prefix-routed, "
+        "2 stealing at threshold 1, and serve --replicas 2 --trace-out")
+    fleet, fleet_launches = fleet_phase(torch, log, cfg, params)
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -2946,9 +3280,10 @@ def main() -> int:
                    for k, n in plain_launches.items()}
 
     # the fused kernel's and paged attention's main-path launches: phase 4's
-    # and phase 6(a)'s serves, each with phase 11's
-    main_launches = add_launches(main_launches, spec_launches)
-    paged_launches = add_launches(paged_launches, spec_launches)
+    # and phase 6(a)'s serves, each with phase 11's and phase 12's
+    main_launches = add_launches(main_launches, spec_launches, fleet_launches)
+    paged_launches = add_launches(paged_launches, spec_launches,
+                                  fleet_launches)
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
@@ -2978,7 +3313,7 @@ def main() -> int:
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
-              "replay": replay, "speculative": speculative,
+              "replay": replay, "speculative": speculative, "fleet": fleet,
               "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,

@@ -1,6 +1,6 @@
 """Serving driver: a thin CLI over the port's continuous-batching engine
 (port of ``repro/launch/serve.py``'s ``build_params``, ``run_engine``,
-``run_trace`` and the observability outputs).
+``run_trace``, the fleet and the observability outputs).
 
 With ``--sparse`` every projection is deployed as an 8:16 (+16:256
 outlier) ``SparseWeight`` as soon as its layer is drawn, so a full-size
@@ -42,6 +42,17 @@ snapshot in ``out.json.counters.txt``:
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --trace t.json --max-len 32 \\
       --trace-out out.json
+
+``--replicas N`` serves with N engines behind the fleet router
+(``serving/fleet/``), each with its own ``--slots``/``--n-blocks`` pool,
+all on one card with one copy of the weights; ``--routing`` picks the
+policy.  With ``--trace`` each request's session reaches the router, and
+with ``--trace-out`` the replicas' tracks (``r0``..) and the router's
+share one file:
+
+  python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
+      --device cpu --sparse --kv-layout paged --trace t.json --max-len 32 \\
+      --replicas 2 --routing prefix --trace-out out.json
 """
 from __future__ import annotations
 
@@ -56,8 +67,9 @@ from ..device import resolve
 from ..models import transformer as tfm
 from ..models.sparse_serving import sparsify_for_serving
 from ..runtime.metrics import format_summary, summarize
-from ..serving import (SamplingParams, ServingEngine, ServingTracer,
-                       SpeculativeConfig, load_trace, replay)
+from ..serving import (ReplicaSet, RouterTracer, SamplingParams,
+                       ServingEngine, ServingTracer, SpeculativeConfig,
+                       load_trace, replay)
 
 
 def build_params(cfg, args, device, generator: torch.Generator, *,
@@ -124,19 +136,54 @@ def _make_tracer(args):
     return ServingTracer() if args.trace_out else None
 
 
-def _build_engine(cfg, params, args, device, *, max_len: int):
-    """The engine of ``args`` and its tracer (None without --trace-out)."""
-    tracer = _make_tracer(args)
-    engine = ServingEngine(cfg, params, device=device, n_slots=args.slots,
-                           max_len=max_len, max_queue=args.max_queue,
-                           token_budget=args.token_budget,
-                           kv_layout=args.kv_layout,
-                           block_size=args.block_size,
-                           n_blocks=args.n_blocks,
-                           prefix_caching=not args.no_prefix_cache,
-                           kv_dtype=args.kv_dtype, tracer=tracer,
-                           draft=_make_draft(cfg, params, args, device))
-    return engine, tracer
+def _make_fleet_tracers(args, n: int):
+    """Per-replica ServingTracers sharing ONE buffer and registry (each
+    replica gets its own pid pair in the merged Perfetto file) plus the
+    RouterTracer of the routing decisions, when --trace-out was given;
+    (None, None) otherwise."""
+    if not args.trace_out:
+        return None, None
+    first = ServingTracer(name="r0")
+    tracers = [first] + [
+        ServingTracer(buffer=first.buffer, registry=first.registry,
+                      name=f"r{i}") for i in range(1, n)]
+    router = RouterTracer(buffer=first.buffer, registry=first.registry,
+                          name="router")
+    return tracers, router
+
+
+def _build_target(cfg, params, args, device, *, max_len: int):
+    """The serving target of ``args``: one engine, or ``--replicas N`` of
+    them behind the router (``ReplicaSet`` takes the engine's surface, so
+    ``run_engine`` and ``replay`` drive either).  Returns (target, the
+    tracer whose buffer to write, None without --trace-out)."""
+    kw = dict(device=device, n_slots=args.slots, max_len=max_len,
+              max_queue=args.max_queue, token_budget=args.token_budget,
+              kv_layout=args.kv_layout, block_size=args.block_size,
+              n_blocks=args.n_blocks,
+              prefix_caching=not args.no_prefix_cache,
+              kv_dtype=args.kv_dtype,
+              draft=_make_draft(cfg, params, args, device))
+    if args.replicas == 1:
+        tracer = _make_tracer(args)
+        return ServingEngine(cfg, params, tracer=tracer, **kw), tracer
+    tracers, router_tracer = _make_fleet_tracers(args, args.replicas)
+    fleet = ReplicaSet(cfg, params, n_replicas=args.replicas,
+                       routing=args.routing, tracers=tracers,
+                       router_tracer=router_tracer, **kw)
+    return fleet, (tracers[0] if tracers else None)
+
+
+def _print_fleet_stats(target) -> None:
+    st = target.stats()
+    if "n_replicas" not in st:
+        return
+    pc = st["prefix_cache"]
+    per = [f"r{i}: {p['n_finished']} done, {p['n_steps']} steps"
+           for i, p in enumerate(st["replicas"])]
+    print(f"  fleet[{st['routing']}]: {st['n_replicas']} replicas, "
+          f"{st['n_steals']} steals, {st['n_drains']} drains, "
+          f"prefix-hit {pc['hit_rate']:.2f} | " + "; ".join(per))
 
 
 def _write_observability(tracer, args) -> None:
@@ -154,8 +201,8 @@ def _write_observability(tracer, args) -> None:
 
 def run_engine(cfg, params, args, device, generator: torch.Generator):
     """Serve ``--batch`` random prompts drawn from ``generator``; returns
-    the finished requests and the engine."""
-    engine, tracer = _build_engine(cfg, params, args, device,
+    the finished requests and the engine (or the ``--replicas`` fleet)."""
+    engine, tracer = _build_target(cfg, params, args, device,
                                    max_len=args.prompt_len + args.gen)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=generator, device=generator.device)
@@ -167,32 +214,37 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
     wall = time.perf_counter() - t0
     n_tok = sum(len(r.tokens) for r in reqs)
     st = engine.stats()
+    per = st.get("replicas", [st])
     print(f"engine[{args.kv_layout}]: {args.batch} requests, {n_tok} tokens "
           f"in {wall:.2f}s ({n_tok / max(wall, 1e-9):.1f} tok/s, "
           f"{st['n_steps']} steps, {args.slots} slots, "
-          f"{st['n_preemptions']} preemptions, {device})")
-    pool = st["pool"]
-    print(f"kv arena: {pool['kv_dtype']}, {pool['arena_bytes']} bytes "
-          f"({pool['scale_bytes']} of scales)")
-    pc = pool.get("prefix_cache")
-    if pc is not None:
-        print(f"prefix cache: {pc['hits']}/{pc['lookups']} lookups hit, "
-              f"{pc['hit_tokens']} hit tokens, {pc['entries']} entries, "
-              f"{pc['evicted_blocks']} evicted blocks")
+          f"{sum(p['n_preemptions'] for p in per)} preemptions, {device})")
+    for p in per:
+        pool = p["pool"]
+        print(f"kv arena: {pool['kv_dtype']}, {pool['arena_bytes']} bytes "
+              f"({pool['scale_bytes']} of scales)")
+        pc = pool.get("prefix_cache")
+        if pc is not None:
+            print(f"prefix cache: {pc['hits']}/{pc['lookups']} lookups hit, "
+                  f"{pc['hit_tokens']} hit tokens, {pc['entries']} entries, "
+                  f"{pc['evicted_blocks']} evicted blocks")
+    _print_fleet_stats(engine)
     _print_spec_stats(engine)
     _write_observability(tracer, args)
     return reqs, engine
 
 
 def run_trace(cfg, params, args, device):
-    """Replay the --trace file through the engine; returns replay's result
-    dict with the engine and its tracer (None without --trace-out)."""
-    engine, tracer = _build_engine(cfg, params, args, device,
+    """Replay the --trace file through the engine (or the --replicas
+    fleet); returns replay's result dict with the target and its tracer
+    (None without --trace-out)."""
+    engine, tracer = _build_target(cfg, params, args, device,
                                    max_len=args.max_len)
     trace = load_trace(args.trace)
     res = replay(engine, trace, time_scale=args.time_scale)
     summary = summarize([r.metrics for r in res["finished"]], res["wall_s"])
     print(format_summary("trace", summary))
+    _print_fleet_stats(engine)
     _print_spec_stats(engine)
     if res["rejected"]:
         print(f"rejected by admission control: {res['rejected']}")
@@ -212,7 +264,20 @@ def parse_args(argv=None):
     ap.add_argument("--weight-pattern", default="8:16")
     ap.add_argument("--outlier-pattern", default="16:256",
                     help="N:256 outlier pattern, or 'none' for plain N:M")
-    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=8,
+                    help="KV-pool slots (concurrent requests); per replica "
+                         "with --replicas")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve with N engine replicas behind the fleet "
+                         "router (serving/fleet/), on one card with one "
+                         "copy of the weights; each gets its own "
+                         "--slots/--n-blocks pool")
+    ap.add_argument("--routing", default="prefix",
+                    choices=("prefix", "round_robin", "least_loaded"),
+                    help="fleet routing policy: 'prefix' scores the cached "
+                         "prompt fraction minus load plus session "
+                         "affinity; the baselines cycle or pick the "
+                         "emptiest")
     ap.add_argument("--token-budget", type=int, default=None)
     ap.add_argument("--kv-layout", default="slot", choices=("slot", "paged"),
                     help="contiguous per-slot KV vs paged block pool")
@@ -250,7 +315,10 @@ def parse_args(argv=None):
                     help="write a Chrome/Perfetto trace_event JSON of the "
                          "run here (load in ui.perfetto.dev); a Prometheus "
                          "counter snapshot lands next to it")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    return args
 
 
 def main(argv=None):

@@ -10,6 +10,11 @@ Speculative decoding (serving/speculative.py): ``draft=SpeculativeConfig(
 k=4, method="model", params=draft_params)`` drafts with a second model,
 ``method="ngram"`` by prompt lookup; greedy streams are unchanged.
 
+A fleet (serving/fleet/): ``ReplicaSet(cfg, params, n_replicas=2,
+routing="prefix", device="cuda", ...)`` puts N engines behind a
+prefix-aware ``Router`` and takes the engine's submit/step/run surface
+(plus ``session=``); its replicas share the card and the params.
+
 Request traces (serving/trace.py: Poisson, long-prompt and fleet-shaped
 workloads, JSON round-trip, open-loop ``replay``) and observability
 (serving/observe.py: Perfetto spans of every step and request lifecycle, a
@@ -20,7 +25,9 @@ calls; the default NULL_TRACER costs nothing per step).
 from .cache_pool import (CachePoolError, CapacityError, DoubleFree,
                          KVCachePool, SlotKVPool, SlotPoolView)
 from .engine import KV_LAYOUTS, SUPPORTED_FAMILIES, ServingEngine
-from .observe import NULL_TRACER, NullTracer, ServingTracer
+from .fleet import ROUTING_POLICIES, ReplicaSet, RouteDecision, Router
+from .observe import (NULL_ROUTER_TRACER, NULL_TRACER, NullRouterTracer,
+                      NullTracer, RouterTracer, ServingTracer)
 from .paged import OutOfBlocks, PagedKVPool, PagedPoolView
 from .request import Request, SamplingParams, Status
 from .scheduler import (CHUNK_QUANTUM, QueueFull, RequestQueue, plan_chunks,

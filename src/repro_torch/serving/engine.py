@@ -49,7 +49,10 @@ spans of every step, phase and request lifecycle, the serving counters and
 per-variant attribution of the model calls (a drafter's as ``draft_step``
 and ``draft_decode``).  The default ``NULL_TRACER`` does nothing, and
 every hook's call site is guarded by ``tracer.enabled``, so an untraced
-step does no observability work: no synchronize, no event, no span.  Left
+step does no observability work: no synchronize, no event, no span.
+
+``ingest``, ``withdraw`` and ``steal_youngest`` move queued, slotless
+requests between engines: the fleet's replicas (``serving/fleet/``).  Left
 out of this slice, raising ``NotImplementedError``: ``mesh=`` (ROADMAP
 A12).
 """
@@ -203,6 +206,50 @@ class ServingEngine:
             raise QueueFull(f"queue at capacity ({self.queue.max_size})")
         if self.tracer.enabled:
             self.tracer.on_submit(req)
+        return req
+
+    def ingest(self, req: Request) -> None:
+        """Adopt a request from another engine (fleet work-stealing or
+        preemption drain).  It must be queued and hold no slot, so it holds
+        no KV and no per-engine state and migrating it is re-enqueueing:
+        its sampling stream is keyed by (seed, tokens generated), so the
+        tokens do not depend on the engine.  Its metrics (arrival time,
+        preemption count) ride along untouched."""
+        if req.status is not Status.QUEUED or req.slot is not None:
+            raise ValueError(
+                f"ingest needs a queued, unscheduled request, got "
+                f"{req.status} (slot={req.slot})")
+        capacity = self.pool.max_request_tokens
+        need = len(self._seq(req)) + req.sampling.max_new_tokens \
+            - len(req.tokens)
+        if need > capacity:
+            raise ValueError(
+                f"request {req.request_id} needs {need} tokens, over this "
+                f"engine's KV capacity {capacity}")
+        if not self.queue.try_push(req):
+            raise QueueFull(f"queue at capacity ({self.queue.max_size})")
+        self._next_id = max(self._next_id, req.request_id + 1)
+        if self.tracer.enabled:
+            self.tracer.on_submit(req)
+
+    def withdraw(self, req: Request) -> bool:
+        """Remove a queued request so a fleet router can ``ingest`` it
+        elsewhere.  False when it is no longer in this engine's queue
+        (admitted or evicted since the router looked)."""
+        if not self.queue.remove(req):
+            return False
+        if self.tracer.enabled:
+            self.tracer.on_withdraw(req)
+        return True
+
+    def steal_youngest(self) -> Request | None:
+        """Withdraw the youngest queued request (fleet work-stealing): the
+        tail of the FIFO queue, so the head of the line and the service
+        order the scheduler has promised stay put.  None when the queue is
+        empty."""
+        req = self.queue.pop_back()
+        if req is not None and self.tracer.enabled:
+            self.tracer.on_withdraw(req)
         return req
 
     def prefix_match_length(self, prompt) -> int:

@@ -1,7 +1,7 @@
 """Serving observability: request/step tracing, the serving counter set,
 and step-time attribution — zero-cost when disabled (port of
-``repro/serving/observe.py``'s engine tracer; the fleet's router tracers
-wait for ROADMAP A10).
+``repro/serving/observe.py``: the engine tracer and the fleet's router
+tracers).
 
 The engine takes a ``tracer=`` at construction.  The default is
 ``NULL_TRACER``, a singleton whose every hook is a no-op and whose
@@ -62,6 +62,11 @@ traces them into a single file): give each engine its own
 ``ServingTracer`` with the shared ``buffer=``/``registry=`` — each tracer
 allocates its own process-id pair and labels its metrics by engine name
 and family.
+
+A fleet (``serving/fleet/``) adds a ``RouterTracer`` on the replica
+tracers' buffer and registry: its own "fleet" process with a "route"
+instant per routing decision and a "steal"/"drain" instant per move, and
+the ``fleet_*`` counters; ``NULL_ROUTER_TRACER`` is its no-op default.
 
 Timestamps come from the engine's injected clock (``attach`` adopts it
 unless the tracer was built with an explicit ``clock=``), so virtual-time
@@ -543,3 +548,115 @@ class ServingTracer:
 
     def write_trace(self, path: str) -> None:
         self.buffer.write(path)
+
+
+class NullRouterTracer:
+    """Disabled fleet-router tracer, mirroring ``NullTracer``: ``enabled``
+    is False, every hook no-ops, and the router guards call sites on the
+    flag so an untraced fleet does zero observability work per route."""
+    enabled = False
+
+    def attach(self, fleet, name=""):
+        return self
+
+    def on_route(self, req_id, decision):
+        pass
+
+    def on_reroute(self, req_id, kind, src, dst):
+        pass
+
+    def on_imbalance(self, spread):
+        pass
+
+
+NULL_ROUTER_TRACER = NullRouterTracer()
+
+_ROUTER_TID = 0
+
+
+class RouterTracer:
+    """Fleet-router observability, sharing the replica tracers' buffer and
+    registry so one trace file shows the router's decisions interleaved
+    with every replica's step/request tracks.
+
+    The router gets its own Perfetto process (pid allocation composes
+    with ``ServingTracer.attach``'s pair scheme: pids are derived from
+    the buffer's named-process count, which only grows, so tracks never
+    collide).  Per routing decision it emits a "route" instant carrying
+    the chosen replica, the policy, which score component won, the
+    matched-prefix fraction, and the loser loads — enough to replay any
+    routing decision from the trace alone.  Rebalance actions ("steal",
+    "drain") get their own instants, and counters land in the shared
+    registry: ``fleet_routing_decisions_total{policy,picked_by}``,
+    ``fleet_reroutes_total{kind}``, ``fleet_route_prefix_tokens_total``,
+    and a ``fleet_queue_imbalance`` gauge (max - min replica queue
+    depth, sampled every rebalance check).
+    """
+
+    enabled = True
+
+    def __init__(self, *, buffer: TraceBuffer | None = None,
+                 registry: MetricsRegistry | None = None,
+                 clock=None, name: str = "router"):
+        self.buffer = buffer if buffer is not None else TraceBuffer()
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.clock = clock
+        self.name = name
+        self.t0: float | None = None
+        self._pid: int | None = None
+
+    def attach(self, fleet, name: str = "") -> "RouterTracer":
+        if self.clock is None:
+            self.clock = getattr(fleet, "_clock", time.monotonic)
+        if self.t0 is None:
+            self.t0 = self.clock()
+        self.name = self.name or name or "router"
+        base = len(self.buffer._named_processes)
+        self._pid = 2 * base + 1
+        self.buffer.set_process_name(self._pid, f"fleet {self.name}")
+        self.buffer.set_thread_name(self._pid, _ROUTER_TID, "routing")
+        r = self.registry
+        self.c_decisions = r.counter(
+            "fleet_routing_decisions_total",
+            "routing decisions, by policy and winning score component")
+        self.c_reroutes = r.counter(
+            "fleet_reroutes_total",
+            "queued requests moved between replicas, by mechanism "
+            "(steal = imbalance rebalance, drain = preemption re-admit)")
+        self.c_prefix_tokens = r.counter(
+            "fleet_route_prefix_tokens_total",
+            "prompt tokens already cached on the replica each request "
+            "was routed to (routing-time estimate, not admission truth)")
+        self.g_imbalance = r.gauge(
+            "fleet_queue_imbalance",
+            "max - min replica queue depth at the last rebalance check")
+        return self
+
+    def _ts(self, t: float | None = None) -> float:
+        if self.t0 is None:
+            self.t0 = self.clock() if self.clock else 0.0
+        t = self.clock() if t is None else t
+        return (t - self.t0) * 1e6
+
+    def on_route(self, req_id: int, decision) -> None:
+        self.c_decisions.inc(policy=decision.policy,
+                             picked_by=decision.picked_by, fleet=self.name)
+        if decision.prefix_tokens > 0:
+            self.c_prefix_tokens.inc(decision.prefix_tokens, fleet=self.name)
+        self.buffer.instant(
+            "route", self._ts(), pid=self._pid, tid=_ROUTER_TID,
+            cat="routing",
+            args={"request": req_id, "replica": decision.replica,
+                  "policy": decision.policy,
+                  "picked_by": decision.picked_by,
+                  "prefix_frac": round(decision.prefix_frac, 4),
+                  "loads": [round(l, 4) for l in decision.loads]})
+
+    def on_reroute(self, req_id: int, kind: str, src: int, dst: int) -> None:
+        self.c_reroutes.inc(kind=kind, fleet=self.name)
+        self.buffer.instant(
+            kind, self._ts(), pid=self._pid, tid=_ROUTER_TID, cat="routing",
+            args={"request": req_id, "src": src, "dst": dst})
+
+    def on_imbalance(self, spread: int) -> None:
+        self.g_imbalance.set(spread, fleet=self.name)

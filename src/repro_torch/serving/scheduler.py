@@ -206,6 +206,22 @@ class RequestQueue:
         silently dropped."""
         self._q.appendleft(req)
 
+    def pop_back(self) -> Request | None:
+        """Take the YOUNGEST queued request (fleet work-stealing: the tail
+        has waited least, so moving it disturbs FIFO service order the
+        least and never touches the head-of-line request mid-admission)."""
+        return self._q.pop() if self._q else None
+
+    def remove(self, req: Request) -> bool:
+        """Remove a specific request wherever it sits in the queue (fleet
+        drain of a preempted head).  Returns False when it is not queued
+        here: the caller raced an admission or eviction."""
+        try:
+            self._q.remove(req)
+        except ValueError:
+            return False
+        return True
+
     def evict_expired(self, now: float) -> list[Request]:
         """Drop queued requests older than queue_timeout_s (FIFO order).
 

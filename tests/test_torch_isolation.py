@@ -28,7 +28,7 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
             "repro_torch.data.pipeline, repro_torch.eval.harness, "
             "repro_torch.optim, repro_torch.launch.steps, "
             "repro_torch.core.ebft, repro_torch.tree, "
-            "repro_torch.serving.speculative\n"
+            "repro_torch.serving.speculative, repro_torch.serving.fleet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n")
