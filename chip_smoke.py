@@ -11,7 +11,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      at no local memory (no spill) for the decode and prefill bodies'
      constant-shape 8:16 instantiations, with 16:256 outliers (the fused
      kernel) and without (``nm_spmm``), for ``outlier_spmm``'s two bodies
-     and for ``paged_attention``'s decode and prefill-chunk bodies;
+     and for ``paged_attention``'s decode and prefill-chunk bodies (hd 64,
+     128, 192 and 256);
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -63,7 +64,12 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      at the decode case's lanes and at 8 short lanes through serve-wide
      tables (``ATTN_SWEEP_SHORT``) for S in ``ATTN_SWEEP_S``, bf16 and
      int8, each gated; T from the decode body against the prefill-chunk
-     body at the decode case's lanes, the short lanes' count beside it;
+     body at the decode case's lanes, the short lanes' count beside it.
+     And the same gate and times at hd 256 (gemma-7b: H 16, KV 16) and hd
+     192 (nemotron-4-340b: H 96, KV 8) for the decode case and the
+     512-token chunk, bf16 and int8 arenas; nemotron's decode rows (12)
+     take the prefill-chunk body, so its decode case also runs the decode
+     body forced; no old kernel there (it takes hd 64 and 128 only);
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
      kernel launching once per layer per model call (decode steps on its
@@ -88,6 +94,27 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            (109 x 2 x 128 / 132 = 211 blocks); gates its arena bytes, scales
            included, at most 6(c)'s; reports peak concurrency and
            preemptions beside 6(c)'s.
+
+ 13. the dense family's other members at full width (run after phase 7,
+     when the card holds no model), each 8:16+16:256 by magnitude, built
+     from seed 0 one layer at a time; each projection shape phase 2 does
+     not run goes through phase 2's gate at M 8 and 512 first, then one
+     512-token chunk call (the longest prompt's first tokens, at cursor 0)
+     is held against the same call through the plain versions on the card
+     (``MODEL_TOL_REL`` of the logits' scale, as phase 3); every serve is
+     gated on its launches (fused kernel: projections x layers a model
+     call, by body; paged attention: layers a model call, by body):
+       (a) qwen3-8b (qk_norm), 36 layers: phase 4's traffic paged (blocks
+           of 16), then slot; gates the slot and paged streams equal up to
+           a divergence at a near-tie (``near_tie_bound``, as phase 11);
+       (b) gemma-7b (hd 256, GeGLU, tied head), 28 layers: phase 4's
+           traffic in 512 blocks, bf16 then int8 KV (both attention bodies
+           at hd 256); the int8 streams' agreement with the bf16 ones
+           reported, as phase 7 reports its own;
+       (c) nemotron-4-340b (hd 192, squared ReLU), full width cut to 2 of
+           its 96 layers: 4 requests of 64..256 tokens, 16 new tokens each,
+           paged; the log line gives embed and head, compressed layers and
+           one dense layer in transit, in GB.
 
   8. the paper's pipeline on llama3-8b, full width and depth, from seed 0
      (the same dense weights phase 4 compressed by magnitude):
@@ -245,7 +272,8 @@ one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 ``outlier_spmm``; each entry names its sources and splits its cases and
 launches by path, decode and prefill; ``nm_spmm``'s launches are phase
 5's and phase 10(c)'s, the bf16 fused kernel's phase 4's and paged
-attention's phase 6(a)'s, each with phase 11's and phase 12's),
+attention's phase 6(a)'s, each with phase 11's, phase 12's and 13's;
+the int8 paged attention's phase 7(a)'s with phase 13(b)'s),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -298,6 +326,14 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
               ("chunk512", [256], 512, None),
               ("chunk64", [0, 64, 300, 700], 64, None),
               ("chunk64_window128", [0, 64, 300, 700], 64, 128)]
+# phase 2b at head dims 256 and 192: gemma-7b's attention (H 16, KV 16) and
+# nemotron-4-340b's (H 96, KV 8) at the decode case's lanes and a 512-token
+# chunk; nemotron's decode rows (12 = S x n_rep) exceed T, so its decode
+# case also runs the decode body forced (``decode_max_rows`` = 12: 2 tiles
+# of R = 8 rows)
+ATTN_HD_SHAPES = {"gemma-7b": dict(H=16, KV=16, hd=256, bs=16),
+                  "nemotron-4-340b": dict(H=96, KV=8, hd=192, bs=16)}
+ATTN_HD_CASES = ATTN_CASES[:2]
 # the sweep that sets paged_attention's threshold T: the decode case's 8
 # lanes at these S (rows S * n_rep = 4..256), and 8 short lanes at ~64
 # tokens through tables as wide as the serves' (64 blocks, 8 splits of
@@ -336,6 +372,19 @@ FLEET_TRACE = dict(n_requests=32, n_tenants=4, sys_len=256, rate_per_s=20.0,
                    seed=11)
 FLEET_REPLICAS, FLEET_BLOCKS, FLEET_SLOTS = 2, 256, 8
 FLEET_MAX_LEN = 256 + 256 + 32
+# phase 13: the dense family's other members at full width, 8:16+16:256,
+# on the paged layout with blocks of 16: (a) qwen3-8b (qk_norm), 36 layers,
+# phase 4's traffic, then the same on the slot layout; (b) gemma-7b (hd
+# 256, GeGLU, tied head), 28 layers, phase 4's traffic in 512 blocks, bf16
+# then int8 KV; (c) nemotron-4-340b (hd 192, squared ReLU), full width cut
+# to 2 of its 96 layers (all 96 would need ~0.5 TB), 4 requests
+FAMILY_ARCHS = ("qwen3-8b", "gemma-7b", "nemotron-4-340b")
+NEMOTRON_LAYERS = 2
+NEMOTRON_PROMPT_LENS = [64, 128, 192, 256]
+NEMOTRON_GEN = 16
+# each new projection shape through phase 2's gate at a decode and a
+# prefill row count before it serves
+FAMILY_MS = (8, 512)
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -601,9 +650,10 @@ def resource_usage(lib_path, log):
     64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
     int8); and ``outlier_spmm``'s two bodies: three decode instances (R =
     2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16); and
-    ``paged_attention``'s two bodies: eight decode instances (hd 64 and
-    128, R 4 and 8 rows, bf16 and int8 arenas) and eight prefill-chunk
-    instances (hd 64 and 128, BM 64 and 128, bf16 and int8 arenas)."""
+    ``paged_attention``'s two bodies: sixteen decode instances (hd 64,
+    128, 192 and 256, R 4 and 8 rows, bf16 and int8 arenas) and fourteen
+    prefill-chunk instances (hd 64, 128 and 192 at BM 64 and 128, hd 256
+    at BM 64, bf16 and int8 arenas)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -619,8 +669,8 @@ def resource_usage(lib_path, log):
                            ("nm_prefill", "nm_prefill_816_kernel", 10),
                            ("outlier_decode", "outlier_decode_kernel", 3),
                            ("outlier_prefill", "outlier_prefill_kernel", 6),
-                           ("paged_decode", "paged_decode_kernel", 8),
-                           ("paged_prefill", "paged_prefill_kernel", 8)):
+                           ("paged_decode", "paged_decode_kernel", 16),
+                           ("paged_prefill", "paged_prefill_kernel", 14)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
                                  f"kernels, want {want}:\n"
@@ -799,9 +849,13 @@ def case_sums(cases):
            "bound_ms": b_bytes + b_ops,
            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
            "library_ms": sum(c["library_ms"] for c in cases)}
-    for key in ("tile_ms", "old_ms"):
-        if cases and all(key in c for c in cases):
-            out[key] = sum(c[key] for c in cases)
+    if cases and all("tile_ms" in c for c in cases):
+        out["tile_ms"] = sum(c["tile_ms"] for c in cases)
+    # the old paged kernel runs hd 64 and 128 only: its sum covers those
+    old = [c for c in cases if "old_ms" in c]
+    if old:
+        out["old_ms"] = sum(c["old_ms"] for c in old)
+        out["old_cases"] = len(old)
     return out
 
 
@@ -982,22 +1036,33 @@ def row_ratio(out, ref):
 
 
 def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
-                  scales):
+                  scales, shape=None, decode_max_rows=None):
     """One phase-2b case of one variant: kernel against plain version, gated
     at one bf16 ulp of the largest output (the decode body: of each row's
     largest output, ``row_ratio``), timed beside the plain version,
     SDPA on the pre-gathered (dequantized) K/V with the same boolean mask
-    (the library yardstick, never called by the port) and the bound."""
+    (the library yardstick, never called by the port) and the bound.
+    ``shape`` is the case's H, KV, hd and bs (``ATTN_SHAPE`` by default);
+    ``decode_max_rows`` forces ``plan``'s threshold (the decode body where
+    the rows exceed T); the old kernel, built for hd 64 and 128, is timed
+    beside those only."""
     import torch.nn.functional as F
     from repro_torch.serving.paged import paged_attention as pa
 
+    shape = shape or ATTN_SHAPE
     name, cursors, S, window = case_args
     kw = dict(window=window)
     if scales is not None:
         kw.update(k_scale=scales[0], v_scale=scales[1])
+    B, nb = tables.shape
+    bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
+    p = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch), nb=nb,
+                decode_max_rows=decode_max_rows or pa.DECODE_MAX_ROWS)
+    forced = p if decode_max_rows else None
 
     def kern():
-        return pa.paged_attention(q, k, v, tables, cur, **kw)
+        return pa.paged_attention(q, k, v, tables, cur, force_plan=forced,
+                                  **kw)
 
     def plain():
         return pa.plain(q, k, v, tables, cur, **kw)
@@ -1007,9 +1072,6 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
           f"{label} {name}: {tuple(out.shape)} {out.dtype}")
     check(bool(torch.isfinite(out).all()),
           f"{label} {name}: non-finite output")
-    B, nb = tables.shape
-    bs, KV, hd = k.shape[1], k.shape[2], k.shape[3]
-    p = pa.plan(B, S, q.shape[2], KV, hd, bs, sm_count(torch), nb=nb)
     err = float((out.float() - ref.float()).abs().max())
     tol = KERNEL_TOL_REL * float(ref.float().abs().max())
     check(err <= tol, f"{label} {name}: max|kernel-plain| {err:.3e} > tol "
@@ -1024,15 +1086,16 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
           f"{label} {name}: two calls give different bits")
 
     # the old kernel, which ran every case before the two bodies, forced on
-    # the same inputs
+    # the same inputs (hd 64 and 128 only)
     def old():
         return pa.paged_attention(q, k, v, tables, cur,
                                   force_plan=pa.Plan("tile"), **kw)
-    o = old()
-    torch.cuda.synchronize()
-    e = float((o.float() - ref.float()).abs().max())
-    check(e <= tol, f"{label} {name}: old kernel max|kernel-plain| "
-                    f"{e:.3e} > tol {tol:.3e}")
+    if hd <= 128:
+        o = old()
+        torch.cuda.synchronize()
+        e = float((o.float() - ref.float()).abs().max())
+        check(e <= tol, f"{label} {name}: old kernel max|kernel-plain| "
+                        f"{e:.3e} > tol {tol:.3e}")
     idx = tables.long()
     kc, vc = k[idx], v[idx]
     if scales is not None:
@@ -1051,20 +1114,23 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
     def library():
         return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
                                               enable_gqa=True)
-    b_ms, b_by = attention_bound(cursors, S, window, **ATTN_SHAPE,
+    b_ms, b_by = attention_bound(cursors, S, window, **shape,
                                  int8=scales is not None)
     case = {"case": name, "B": B, "S": S, "cursors": cursors,
             "window": window, "max_abs_err": err, "tol": tol,
-            "row_ratio": worst,
+            "row_ratio": worst, "H": q.shape[2], "KV": KV, "hd": hd,
             "path": p.path, "rows": p.rows, "splits": p.splits,
             "ms": timer.ms(kern, 20), "plain_ms": timer.ms(plain, 5),
             "library_ms": timer.ms(library, 20),
-            "old_ms": timer.ms(old, 20),
             "bound_ms": b_ms, "bound_by": b_by}
+    old_txt = ""
+    if hd <= 128:
+        case["old_ms"] = timer.ms(old, 20)
+        old_txt = f"  old kernel {case['old_ms']:.4f}"
     log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e}, worst "
         f"row {worst:.3f})  "
         f"{p.path} {'R' if p.path == 'decode' else 'BM'} {p.rows} kernel "
-        f"{case['ms']:.4f} ms  old kernel {case['old_ms']:.4f}  plain "
+        f"{case['ms']:.4f} ms{old_txt}  plain "
         f"{case['plain_ms']:.4f}  "
         f"sdpa {case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
     return case
@@ -1090,6 +1156,39 @@ def paged_attention_phase(torch, timer, log):
                                     case_args, q, k8, v8, tables, cur,
                                     (ks, vs)))
         del q, k8, v8, ks, vs
+    return cases, cases8
+
+
+def paged_attention_hd_phase(torch, timer, log):
+    """``paged_attention`` at head dims 256 (gemma-7b) and 192
+    (nemotron-4-340b) against its plain version, on bf16 arenas and on int8
+    arenas quantized from the same K/V, as ``paged_attention_phase``; the
+    decode body forced where the model's decode rows exceed T."""
+    from repro_torch.serving.cache_pool import quantize_kv
+    from repro_torch.serving.paged import paged_attention as pa
+
+    g = torch.Generator().manual_seed(4)
+    cases, cases8 = [], []
+    for arch, shape in ATTN_HD_SHAPES.items():
+        n_rep = shape["H"] // shape["KV"]
+        for case_args in ATTN_HD_CASES:
+            name, cursors, S, window = case_args
+            q, k, v, tables, cur = attention_case(torch, g, cursors, S,
+                                                  window, **shape)
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            limits = [None]
+            if S * n_rep > pa.DECODE_MAX_ROWS and S == 1:
+                limits.append(S * n_rep)
+            for limit in limits:
+                args = (f"{name}_{arch}" + ("_decode_body" if limit else ""),
+                        cursors, S, window)
+                for out, label, kv, sc in (
+                        (cases, "paged_attention", (k, v), None),
+                        (cases8, "paged_attention_int8", (k8, v8), (ks, vs))):
+                    out.append(attention_run(
+                        torch, timer, log, label, args, q, *kv, tables, cur,
+                        sc, shape=shape, decode_max_rows=limit))
+            del q, k, v, k8, v8, ks, vs
     return cases, cases8
 
 
@@ -1292,19 +1391,19 @@ def profile_prefill(torch, engine, g, tokens=PREFILL_PROFILE_TOKENS):
             "top_kernels_ms": top}
 
 
-def build_model(torch, log, *, n_layers=None, outlier="16:256",
-                quantize=False):
-    """llama3-8b at full width (``n_layers`` deep), every projection a
-    SparseWeight (int8 N:M values when ``quantize``), drawn from seed 0;
-    returns (cfg, params, build numbers)."""
+def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
+                outlier="16:256", quantize=False):
+    """``arch`` (llama3-8b by default) at full width (``n_layers`` deep),
+    every projection a SparseWeight (int8 N:M values when ``quantize``),
+    drawn from seed 0; returns (cfg, params, build numbers)."""
     from repro_torch.configs import get
     from repro_torch.launch import serve
     from repro_torch.models.sparse_serving import SparseWeight
 
-    cfg = get("llama3-8b")
+    cfg = get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    args = serve.parse_args(["--arch", "llama3-8b", "--sparse",
+    args = serve.parse_args(["--arch", arch, "--sparse",
                              "--outlier-pattern", outlier or "none"])
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -1312,10 +1411,11 @@ def build_model(torch, log, *, n_layers=None, outlier="16:256",
                                         quantize=quantize)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    sws = [lp[n] for lp in params["layers"] for n in
-           ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
-    check(len(sws) == 7 * cfg.n_layers
-          and all(isinstance(s, SparseWeight) for s in sws),
+    names = [n for n in PROJ_NAMES if n != "w_gate" or cfg.glu]
+    sws = [lp[n] for lp in params["layers"] for n in names]
+    check(len(sws) == len(names) * cfg.n_layers
+          and all(isinstance(s, SparseWeight) for s in sws)
+          and isinstance(params["embed"], torch.Tensor),
           "not every projection is a SparseWeight")
     check(all((s.o_values is not None) == (outlier is not None) for s in sws),
           "outlier buffers do not match the pattern")
@@ -1328,7 +1428,8 @@ def build_model(torch, log, *, n_layers=None, outlier="16:256",
         f"({report['ratio']:.4f} of dense)")
     return cfg, params, {"build_s": build_s, "outliers": outlier,
                          "values": "int8" if quantize else "bf16",
-                         "compressed_gb": report["compressed_bytes"] / 1e9}
+                         "compressed_gb": report["compressed_bytes"] / 1e9,
+                         "dense_gb": report["dense_bytes"] / 1e9}
 
 
 def prompts_for(torch, cfg, lens, seed):
@@ -1406,13 +1507,18 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     summarise it."""
     import numpy as np
     from repro_torch.runtime.metrics import summarize
+    from repro_torch.models.sparse_serving import SparseWeight
     cfg, st = engine.cfg, engine.stats()
     calls = st["n_model_calls"]
-    wq = engine.params["layers"][0]["wq"]
+    layer0 = engine.params["layers"][0]
+    wq = layer0["wq"]
     suffix = "" if wq.v_scale is None else "_int8"
     weight_key = ("fused_sparse_linear" if wq.o_values is not None
                   else "nm_spmm") + suffix
-    want = {weight_key: 7 * cfg.n_layers * calls}
+    # every projection of every layer, once a model call (7 with a gated
+    # MLP, 6 without)
+    n_proj = sum(isinstance(v, SparseWeight) for v in layer0.values())
+    want = {weight_key: n_proj * cfg.n_layers * calls}
     attn_key = None
     if engine.kv_layout == "paged":
         attn_key = "paged_attention" + (
@@ -1426,11 +1532,13 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     # (chunks longer than T); both run in a serve while T >= 1.  The paged
     # kernel's calls split by body the same way: decode steps (S * n_rep
     # <= T) take the decode body, longer prefill chunks the prefill-chunk
-    # body
+    # body; where a decode step's rows n_rep exceed T (nemotron-4-340b's
+    # 12) the decode steps take the prefill-chunk body too
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.serving.paged import paged_attention as pa
-    for key, t in ((weight_key, fsl.DECODE_MAX_M),
-                   (attn_key, pa.DECODE_MAX_ROWS)):
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    attn_t = pa.DECODE_MAX_ROWS if n_rep <= pa.DECODE_MAX_ROWS else 0
+    for key, t in ((weight_key, fsl.DECODE_MAX_M), (attn_key, attn_t)):
         if key is None:
             continue
         name, int8, _ = key.partition("_int8")
@@ -1440,7 +1548,8 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
               f"{key}: decode body launched {dec}, prefill body {pre} of "
               f"the wrapper's {launches[key]}")
     s = summarize([r.metrics for r in reqs], wall)
-    return {"layers": cfg.n_layers, "kv_layout": engine.kv_layout,
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "kv_layout": engine.kv_layout,
             "kv_dtype": engine.kv_dtype,
             "requests": len(reqs), "tokens": s["total_tokens"],
             "wall_s": wall, "tok_per_s": s["tok_per_s"],
@@ -1645,6 +1754,206 @@ def int8_serve_phase(torch, log, cfg, params, paged_streams, pressure):
     del engine
     torch.cuda.empty_cache()
     return results, launches_a
+
+
+# ------------------------------------------- phase 13: the dense family
+class plain_versions:
+    """Within the block, the serving path's kernel wrappers are their plain
+    versions, on the card: ``sparse_serving``'s fused and N:M products and
+    ``paged_attention``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import fused_sparse_linear as fsl
+        from repro_torch.kernels import nm_spmm as nms
+        from repro_torch.models import sparse_serving as ss
+        from repro_torch.serving.paged import paged_attention as pa
+        self.saved = (ss.fused_sparse_linear, ss.nm_spmm, pa.paged_attention)
+        ss.fused_sparse_linear, ss.nm_spmm = fsl.plain, nms.plain
+        pa.paged_attention = pa.plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import sparse_serving as ss
+        from repro_torch.serving.paged import paged_attention as pa
+        ss.fused_sparse_linear, ss.nm_spmm, pa.paged_attention = self.saved
+        return False
+
+
+def family_weight_gate(torch, log, cfg, params):
+    """Layer 0's projections whose (out, in) shape phase 2 does not run,
+    each through ``weight_case`` at ``FAMILY_MS``: the fused kernel's
+    decode and prefill bodies at the model's in-dims, gated at one bf16 ulp
+    against the plain version."""
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.models.sparse_serving import SparseWeight
+
+    seen = {(n, k) for _, n, k in PROJECTIONS}
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for name, sw in params["layers"][0].items():
+        if not isinstance(sw, SparseWeight):
+            continue
+        shape = (sw.nm_values.shape[0], sw.in_dim)
+        if shape in seen:
+            continue
+        seen.add(shape)
+        for M in FAMILY_MS:
+            x = torch.randn((M, sw.in_dim), generator=g, device="cuda").to(
+                torch.bfloat16)
+            cases.append(weight_case(timer, log, "fused_sparse_linear",
+                                     f"{cfg.name}/{name}", x, sw,
+                                     fsl.fused_sparse_linear, fsl.plain))
+    del timer
+    torch.cuda.empty_cache()
+    return cases
+
+
+def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
+    """One 512-token chunk call (the longest prompt's first tokens, or all
+    of a shorter one, at cursor 0 of a fresh paged arena) through the
+    kernels and through their plain versions on the card: logits within
+    ``MODEL_TOL_REL`` of their scale, as phase 3 holds them, and no kernel
+    launched by the plain call."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.cache_pool import kv_arenas
+    from repro_torch.serving.paged import PagedPoolView
+
+    S, bs = min(len(prompt), PREFILL_PROFILE_TOKENS), ATTN_SHAPE["bs"]
+    nblk = -(-S // bs)
+    tokens = torch.tensor([prompt[:S]], device="cuda")
+    tables = np.arange(1, nblk + 1)[None]                # block 0: trash
+
+    def call():
+        k, v, ks, vs = kv_arenas(
+            (cfg.n_layers, nblk + 1, bs, cfg.n_kv_heads, cfg.hd), kv_dtype,
+            cfg.dtype, "cuda")
+        view = PagedPoolView.build(k, v, tables, [0], [S], S, trash=0,
+                                   k_scale=ks, v_scale=vs)
+        with torch.no_grad():
+            logits, _ = tfm.unified_step(params, view, {"tokens": tokens},
+                                         cfg)
+        torch.cuda.synchronize()
+        return logits.float()
+    reset_launches()
+    out = call()
+    kernels = read_launches()
+    with plain_versions():
+        ref = call()
+    after = read_launches()
+    check(after == kernels, f"{cfg.name}: the plain call launched kernels")
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(out).all()), f"{cfg.name}: non-finite logits")
+    check(err <= MODEL_TOL_REL * scale,
+          f"{cfg.name} ({kv_dtype} KV): chunk call max|kernels-plain| "
+          f"{err:.3e} > {MODEL_TOL_REL} x {scale:.3e}")
+    log(f"  {cfg.name} {kv_dtype} KV: a {S}-token chunk call, max|kernels-"
+        f"plain| {err:.3e} of scale {scale:.3e}, greedy agreement "
+        f"{agree:.4f}")
+    return {"S": S, "max_abs_err": err, "scale": scale,
+            "greedy_agreement": agree, "tol_rel": MODEL_TOL_REL}
+
+
+def family_serve(torch, log, cfg, params, build, label, prompts, gen, **kw):
+    """Serve ``prompts`` greedily through ``ServingEngine(**kw)`` (8 slots,
+    token budget 512 unless ``kw`` says otherwise), launches gated per
+    model call by ``serve_numbers``; returns (numbers, streams,
+    launches)."""
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, params, **{
+        "device": "cuda", "n_slots": 8, "max_len": 1024,
+        "token_budget": 512, **kw})
+    torch.cuda.reset_peak_memory_stats()
+    reqs, wall, decode_only, launches = drive(torch, engine, [prompts], gen)
+    out = dict(build, **serve_numbers(torch, engine, reqs, wall, decode_only,
+                                      launches))
+    out["label"] = label
+    log(f"  ({label}) " + json.dumps({k: v for k, v in out.items()
+                                      if k != "launches"}))
+    del engine
+    torch.cuda.empty_cache()
+    return out, [r.tokens for r in reqs], launches
+
+
+def family_phase(torch, log):
+    """Phase 13: qwen3-8b, gemma-7b and nemotron-4-340b (2 layers) at full
+    width, 8:16+16:256, each built from seed 0 one layer at a time, its new
+    projection shapes gated (``family_weight_gate``), one chunk call held
+    against the plain versions (``plain_call_gate``), then served; returns
+    (results, launches summed over the serves)."""
+    bs = ATTN_SHAPE["bs"]
+    paged = dict(kv_layout="paged", block_size=bs)
+    results, runs = {}, []
+    for arch in FAMILY_ARCHS:
+        n_layers = NEMOTRON_LAYERS if arch == "nemotron-4-340b" else None
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, build = build_model(torch, log, arch=arch,
+                                         n_layers=n_layers)
+        res = {"weight_cases": family_weight_gate(torch, log, cfg, params)}
+        head = params["embed"].numel() * params["embed"].element_size()
+        if "lm_head" in params:
+            head += params["lm_head"].numel() * 2
+        res["memory"] = {
+            "embed_and_head_gb": head / 1e9,
+            "compressed_gb": build["compressed_gb"],
+            "dense_layer_gb": build["dense_gb"] / cfg.n_layers,
+            "peak_build_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, hd "
+            f"{cfg.hd}, H {cfg.n_heads}/{cfg.n_kv_heads}; embed and head "
+            f"{head / 1e9:.2f} GB, compressed layers "
+            f"{build['compressed_gb']:.2f} GB, one dense layer in transit "
+            f"{build['dense_gb'] / cfg.n_layers:.2f} GB, peak "
+            f"{res['memory']['peak_build_gb']:.2f} GB while building")
+        if arch == "nemotron-4-340b":
+            prompts = prompts_for(torch, cfg, NEMOTRON_PROMPT_LENS, seed=10)
+            gen = NEMOTRON_GEN
+            serves = [("c_paged_bf16", dict(paged, n_slots=4, max_len=512))]
+        else:
+            prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+            gen = SERVE_GEN
+            if arch == "qwen3-8b":
+                serves = [("a_paged_bf16", dict(paged)),
+                          ("a_slot_bf16", {})]
+            else:
+                serves = [("b_paged_bf16", dict(paged, n_blocks=512)),
+                          ("b_paged_int8", dict(paged, n_blocks=512,
+                                                kv_dtype="int8"))]
+        longest = max(prompts, key=len)
+        res["plain_call"] = {
+            kv: plain_call_gate(torch, log, cfg, params, longest, kv)
+            for kv in sorted({kw.get("kv_dtype", "bf16")
+                              for _, kw in serves})}
+        streams = {}
+        for label, kw in serves:
+            out, streams[label], launches = family_serve(
+                torch, log, cfg, params, build, label, prompts, gen, **kw)
+            res[label] = out
+            runs.append(launches)
+        if arch == "qwen3-8b":
+            # the slot and paged streams: equal, or parting at a near-tie
+            res["slot_vs_paged"] = stream_gate(
+                torch, "qwen3-8b slot vs paged", cfg, params, prompts,
+                streams["a_slot_bf16"], streams["a_paged_bf16"])
+        if arch == "gemma-7b":
+            # int8 KV against bf16 KV, reported as phase 7 reports its own
+            same = [a == b for a, b in zip(streams["b_paged_int8"],
+                                           streams["b_paged_bf16"])]
+            agree = [x == y for a, b in zip(streams["b_paged_int8"],
+                                            streams["b_paged_bf16"])
+                     for x, y in zip(a, b)]
+            res["b_paged_int8"]["bf16_paged_streams_identical"] = \
+                f"{sum(same)}/{len(same)}"
+            res["b_paged_int8"]["bf16_paged_token_agreement"] = \
+                sum(agree) / len(agree)
+        results[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, add_launches(*runs)
 
 
 # ------------------------------------------------- phase 9: trace replay
@@ -3217,6 +3526,11 @@ def main() -> int:
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
+    log("phase 2b paged_attention at hd 256 (gemma-7b) and 192 "
+        "(nemotron-4-340b) vs plain version (bf16 and int8 arenas)")
+    hd_cases, hd_cases8 = paged_attention_hd_phase(torch, timer, log)
+    attn_cases += hd_cases
+    attn_cases8 += hd_cases8
     log("phase 2b sweep: paged_attention's decode body vs prefill-chunk "
         "body, bf16 and int8 arenas, S 1..64 over the decode case's lanes")
     sweep["paged_attention"] = attention_sweep_phase(torch, timer, log)
@@ -3266,6 +3580,10 @@ def main() -> int:
         run.update(build_info8)
     del params
     torch.cuda.empty_cache()
+    log("phase 13 the dense family at full width, 8:16+16:256: qwen3-8b "
+        "(36 layers, paged then slot), gemma-7b (28 layers, hd 256, bf16 "
+        "then int8 paged KV), nemotron-4-340b (2 of 96 layers, hd 192)")
+    dense_family, family_launches = family_phase(torch, log)
     log("phase 8 the paper's pipeline on llama3-8b, 32 layers: calibrate, "
         "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
     pipeline, ops_cases, ops_launches = pipeline_phase(
@@ -3280,10 +3598,13 @@ def main() -> int:
                    for k, n in plain_launches.items()}
 
     # the fused kernel's and paged attention's main-path launches: phase 4's
-    # and phase 6(a)'s serves, each with phase 11's and phase 12's
-    main_launches = add_launches(main_launches, spec_launches, fleet_launches)
+    # and phase 6(a)'s serves, each with phase 11's, phase 12's and 13's
+    main_launches = add_launches(main_launches, spec_launches, fleet_launches,
+                                 family_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
-                                  fleet_launches)
+                                  fleet_launches, family_launches)
+    # phase 13's int8 KV serve (gemma-7b) joins paged_attention_int8's
+    int8_launches = add_launches(int8_launches, family_launches)
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
@@ -3314,7 +3635,7 @@ def main() -> int:
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
               "replay": replay, "speculative": speculative, "fleet": fleet,
-              "training": training}
+              "dense_family": dense_family, "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

@@ -66,8 +66,9 @@
 //     k_scale) scales the f32 sum.  Softmax: a warp per row, a running max
 //     and sum per row in f32, exp2; with int8 v_scale is folded into P
 //     (l sums the unscaled p).  P V: a thread takes 4 columns and every
-//     G-th key (G = 128 / (hd / 4) key groups), the groups' sums added in
-//     group order after the split's last tile;
+//     G-th key (G = 128 / (hd / 4) key groups: 8, 4, 2 and 2 at hd 64,
+//     128, 192 and 256; at hd 192 the last warp has no group and idles),
+//     the groups' sums added in group order after the split's last tile;
 //   * combine: a split that is its tile's only live one writes O / max(l,
 //     1e-30) itself; otherwise each live split writes (acc, m, l) in f32
 //     to the workspace and the last to arrive merges them in split order
@@ -109,7 +110,9 @@ struct Layout {
   static constexpr int kVRow = HD * int(sizeof(T));
   static constexpr int kScales = kTK * (kKRow + kVRow);   // int8: k, v scales
   static constexpr int kSlot = kScales + (kInt8 ? 2 * kTK * 4 : 0);
-  static constexpr int kGroups = kThreads / (HD / 4);  // P V key groups
+  // P V key groups of HD / 4 threads; at hd 192 the last 32 threads have
+  // no group and skip the product
+  static constexpr int kGroups = kThreads / (HD / 4);
   static constexpr int kRing = kStages * kSlot;
   static constexpr int kRed = kGroups * R * HD * 4;
   static constexpr int kFront = kRing > kRed ? kRing : kRed;
@@ -118,6 +121,7 @@ struct Layout {
                 "whole chunks a lane and copies a thread");
   static_assert(R % 4 == 0 && kSlot % 16 == 0, "aligned rows");
   static_assert(kThreads == 2 * kTK, "a thread a scale");
+  static_assert(kGroups >= 1 && kTK % kGroups == 0, "whole keys a group");
 };
 
 struct Args {
@@ -169,8 +173,11 @@ __device__ __forceinline__ void chunk_to_f32(const uint4& raw, float* f) {
   }
 }
 
+// At least 2 blocks an SM (the ring's shared memory allows 2 at hd 128 and
+// above): without a minimum ptxas capped hd 192 at R = 4 to 96 registers and
+// kept a value on the stack; with it no instance spills (107-168 registers)
 template <int HD, int R, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 paged_decode_kernel(const Args a) {
   using L = Layout<HD, R, T>;
   constexpr bool INT8 = L::kInt8;
@@ -276,8 +283,9 @@ paged_decode_kernel(const Args a) {
 
   // scores: lane pair (key, h), h takes chunks h, h + 2, ... of hd
   const int qk_key = warp * 16 + (lane >> 1), qk_h = lane & 1;
-  // P V: 4 columns, keys kg, kg + G, ...
+  // P V: 4 columns, keys kg, kg + G, ...; threads with kg >= G idle there
   const int cq = tid % (HD / 4), kg = tid / (HD / 4);
+  const bool pv = kg < G;
   const float scale = kLog2e / sqrtf(float(HD));  // scores in log2 units
 
   float m[R / 4], l[R / 4];          // this warp's rows warp + 4 i
@@ -385,7 +393,7 @@ paged_decode_kernel(const Args a) {
     }
     const unsigned char* vt = base + kTK * L::kKRow;
 #pragma unroll 4
-    for (int i = 0; i < kTK / G; ++i) {
+    for (int i = 0; i < (pv ? kTK / G : 0); ++i) {
       const int key = kg + G * i;
       float vf[4];
       if constexpr (INT8) {
@@ -412,10 +420,12 @@ paged_decode_kernel(const Args a) {
   cp_async_wait<0>();
   __syncthreads();                   // the ring is free for the group sums
 
+  if (pv) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    reinterpret_cast<float4*>(red + (kg * R + r) * HD)[cq] =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    for (int r = 0; r < R; ++r)
+      reinterpret_cast<float4*>(red + (kg * R + r) * HD)[cq] =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
   if (lane == 0) {
 #pragma unroll
     for (int i = 0; i < R / 4; ++i) {
@@ -491,7 +501,8 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
               void* out, void* ws, void* counters, int B, int S, int H,
               int KV, int hd, int bs, int nb, int n_arena, int window,
               int rows, void* stream) {
-  if ((hd != 64 && hd != 128) || (rows != 4 && rows != 8) || B < 1 ||
+  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) ||
+      (rows != 4 && rows != 8) || B < 1 ||
       S < 1 || KV < 1 || H % KV || bs < 1 || nb < 1 ||
       int64_t(nb) * bs > 0x7FFFFFFF - kSpan)
     return int(cudaErrorInvalidValue);
@@ -506,16 +517,27 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
          S, H, KV, bs, nb, n_arena, window, splits, tiles, 0u, 0u};
   fast_div(bs, a.bs_mul, a.bs_shr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return rows == 4 ? launch<64, 4, T>(a, B, st) : launch<64, 8, T>(a, B, st);
-  return rows == 4 ? launch<128, 4, T>(a, B, st) : launch<128, 8, T>(a, B, st);
+  switch (hd) {
+    case 64:
+      return rows == 4 ? launch<64, 4, T>(a, B, st)
+                       : launch<64, 8, T>(a, B, st);
+    case 128:
+      return rows == 4 ? launch<128, 4, T>(a, B, st)
+                       : launch<128, 8, T>(a, B, st);
+    case 192:
+      return rows == 4 ? launch<192, 4, T>(a, B, st)
+                       : launch<192, 8, T>(a, B, st);
+    default:
+      return rows == 4 ? launch<256, 4, T>(a, B, st)
+                       : launch<256, 8, T>(a, B, st);
+  }
 }
 
 }  // namespace
 
 // The wrapper (serving/paged/paged_attention.py) checks device, dtype,
 // shapes, contiguity and alignment (q and the arenas 16-byte aligned), that
-// hd is 64 or 128, bs a multiple of 8 and H a multiple of KV, and passes its
+// hd is 64, 128, 192 or 256, bs a multiple of 8 and H a multiple of KV, and passes its
 // plan: `rows` a block (4 or 8), and the workspace and counters it sized for
 // ceil(nb * bs / kSpan) splits of each lane's keys.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for

@@ -61,18 +61,26 @@
 //     (fast_div) outside the table lookup's condition: the first build
 //     divided by bs inside it, for every key row of every tile, and took
 //     1.3-1.8x the time (PERF.md);
-//   * O += P V by wgmma m64n{hd}k16 with A = P from registers: the S
-//     accumulator fragment packed into bf16 pairs is the A fragment of the
-//     product (as in FlashAttention-3), and B = the V tile MN-major (hd
-//     contiguous) through the transpose-B form and an MN-major descriptor
-//     over the same swizzled bytes as a K tile.  With int8, v_scale is
+//   * O += P V with A = P from registers: the S accumulator fragment
+//     packed into bf16 pairs is the A fragment of the product (as in
+//     FlashAttention-3), and B = the V tile MN-major (hd contiguous)
+//     through the transpose-B form and an MN-major descriptor over the same
+//     swizzled bytes as a K tile; as wgmma m64n128k16 products over each
+//     128 columns of hd and m64n64k16 over a last 64 (hd 64 and 192), into
+//     their columns' part of the one m64n{hd} accumulator.  With int8, v_scale is
 //     folded into P (p'_j = p_j * vs_j) before the rounding to bf16; l sums
 //     the unscaled p in f32;
 //   * int8 tiles: the int8 K/V rows (and their scales, 4-byte copies) land
-//     in the ring (one slot more than bf16's); the threads convert tile t +
-//     1 to bf16 (exact, |v| <= 127) into the other of two swizzled operand
-//     buffers while tile t's PV product runs, and the proxy fence before the
-//     next barrier orders those stores before the wgmma reads;
+//     in the ring; where the layout fits 227 KB (hd 64 and 128, and 192 at
+//     BM 64) the threads convert tile t + 1 to bf16 (exact, |v| <= 127)
+//     into the other of two swizzled operand buffers while tile t's PV
+//     product runs, with one ring slot more than bf16's; at hd 192 with BM
+//     128 and at hd 256 they convert tile t into one pair of buffers at the
+//     top of its own iteration, behind a barrier.  Either way the proxy
+//     fence before the next barrier orders those stores before the wgmma
+//     reads;
+//   * shared memory at hd 256: bf16 fits BM 64 only (Q 32 KB + 3 slots of
+//     64 KB + 1 KB = 230,400 of 232,448 B), so plan takes BM 64 there;
 //   * epilogue: O / max(l, 1e-30) in bf16; rows past S * n_rep are not
 //     written.  No atomics and no workspace: two calls give the same bits.
 //
@@ -100,8 +108,16 @@ constexpr int kStages = 3;              // ring slots (int8: one more)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Bytes of the block's shared memory: the q tile, the two bf16 operand
-// buffers (K and V tiles) of an int8 arena, then the ring of K/V slots.
+constexpr int kSmemLimit = 232448;     // dynamic shared memory a block
+
+// Bytes of the block's shared memory: the q tile, the bf16 operand buffers
+// (K and V tiles) of an int8 arena, then the ring of K/V slots.  An int8
+// arena converts each tile an iteration ahead, into the other of two
+// operand pairs and with one ring slot more, where that fits (kAhead: hd 64
+// and 128, and 192 at BM 64); else (hd 192 at BM 128, hd 256) into one pair,
+// at the top of the tile's own iteration.  bf16 at hd 256 fits BM 64 only
+// (kFits; plan in serving/paged/paged_attention.py never picks BM 128
+// there, and prefill_smem_bytes mirrors these sizes).
 template <int HD, int BM, typename T>
 struct Layout {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
@@ -109,14 +125,16 @@ struct Layout {
   static constexpr int kQ = BM * HD * 2;          // [HD / 64][BM][64] bf16
   static constexpr int kTile = kTK * HD * 2;      // [HD / 64][TK][64] bf16
   static constexpr int kRaw = kTK * HD;           // [TK][HD] int8
-  static constexpr int kOps = kInt8 ? 4 * kTile : 0;
   // bf16: K tile, V tile; int8: K rows, V rows, 64 k and 64 v scales
   static constexpr int kSlot = kInt8 ? 2 * kRaw + 2 * kTK * 4 : 2 * kTile;
-  // int8 converts each tile an iteration before its products, so its ring
-  // holds one slot more for the same copies in flight
-  static constexpr int kSlots = kStages + (kInt8 ? 1 : 0);
+  static constexpr bool kAhead =
+      kInt8 && kQ + 4 * kTile + (kStages + 1) * kSlot + 1024 <= kSmemLimit;
+  static constexpr int kOpsPairs = kAhead ? 2 : 1;
+  static constexpr int kOps = kInt8 ? 2 * kOpsPairs * kTile : 0;
+  static constexpr int kSlots = kStages + (kAhead ? 1 : 0);
   // + 1 KB to align the base to the swizzle's 1024-byte period
   static constexpr int kTotal = kQ + kOps + kSlots * kSlot + 1024;
+  static constexpr bool kFits = kTotal <= kSmemLimit;
   static_assert(kQ % 1024 == 0 && kTile % 1024 == 0, "aligned tiles");
 };
 
@@ -168,14 +186,21 @@ __device__ __forceinline__ int div_bs(const Args& a, int j) {
   return a.bs == 1 ? j : int(__umulhi(uint32_t(j), a.bs_mul) >> a.bs_shr);
 }
 
-// O += P V for one 16-key step: m64 n{HD} k16
+// O += P V for one 16-key step, m64 n{HD} k16, as products of 128 columns
+// (and a last of 64 at hd 192 or 64) over V's 64-wide panels, which lie kTK
+// * 64 elements apart; each product accumulates into its columns' part of
+// o, which is laid out as one m64n{HD} accumulator
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
-                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HD == 64)
-    wgmma_rs_tb_n64(o, a, db);
-  else
-    wgmma_rs_tb_n128(o, a, db);
+                                        const uint32_t (&a)[4],
+                                        const bf16* v) {
+#pragma unroll
+  for (int p = 0; p < HD / 128; ++p)
+    wgmma_rs_tb_n128(*reinterpret_cast<float(*)[64]>(o + 64 * p), a,
+                     mn_desc(v + 2 * p * (kTK * 64), kTK * 128));
+  if constexpr (HD % 128 != 0)
+    wgmma_rs_tb_n64(*reinterpret_cast<float(*)[32]>(o + HD / 2 - 32), a,
+                    mn_desc(v + (HD / 64 - 1) * (kTK * 64), kTK * 128));
 }
 
 template <int HD, int BM, typename T>
@@ -183,6 +208,7 @@ __global__ void __launch_bounds__(2 * BM, 1)
 paged_prefill_kernel(const Args a) {
   using L = Layout<HD, BM, T>;
   constexpr bool INT8 = L::kInt8;
+  constexpr bool AHEAD = L::kAhead;
   constexpr int NT = L::kThreads;
   constexpr int CPR = HD * int(sizeof(T)) / 16;   // 16-byte chunks a row
   constexpr int KCH = kTK * CPR;                  // chunks of a K tile
@@ -193,8 +219,10 @@ paged_prefill_kernel(const Args a) {
   unsigned char* smem = smem_raw + ((1024 - (static_cast<unsigned>(
       __cvta_generic_to_shared(smem_raw)) & 1023)) & 1023);
   bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* k_ops = reinterpret_cast<bf16*>(smem + L::kQ);   // [2][TK * HD]
-  bf16* v_ops = reinterpret_cast<bf16*>(smem + L::kQ + 2 * L::kTile);
+  // [kOpsPairs][TK * HD] each
+  bf16* k_ops = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* v_ops =
+      reinterpret_cast<bf16*>(smem + L::kQ + L::kOpsPairs * L::kTile);
   auto slot = [&](int s) { return smem + L::kQ + L::kOps + s * L::kSlot; };
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -279,23 +307,33 @@ paged_prefill_kernel(const Args a) {
     }
   };
 
-  // int8: the slot's K/V rows converted to bf16 into operand buffer `buf`
+  // int8: the slot's K/V rows converted to bf16 into operand buffer `buf`,
+  // chunk `it` of the tile's K then V chunks
+  constexpr int CH = kTK * (HD / 16);             // 16-value chunks a tile
+  auto convert_chunk = [&](const unsigned char* base, int buf, int it) {
+    const bool is_v = it >= CH;
+    const int rem = is_v ? it - CH : it;
+    const int key = rem / (HD / 16), c = (rem % (HD / 16)) * 2;
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        base + (is_v ? L::kRaw : 0) + key * HD + c * 8);
+    uint4 lo, hi;
+    int8x16_to_bf16(raw, lo, hi);
+    bf16* dst = (is_v ? v_ops : k_ops) + buf * (kTK * HD) +
+                (c >> 3) * (kTK * 64) + key * 64;
+    *reinterpret_cast<uint4*>(dst + ((((c & 7)) ^ (key & 7)) << 3)) = lo;
+    *reinterpret_cast<uint4*>(dst + ((((c & 7) + 1) ^ (key & 7)) << 3)) = hi;
+  };
+  // converting in place, o is live across the conversion: two chunks in
+  // flight (a full unroll hoisted every chunk's load and spilled at hd 256)
   auto convert = [&](const unsigned char* base, int buf) {
-    constexpr int CH = kTK * (HD / 16);           // 16-value chunks a tile
+    if constexpr (AHEAD) {
 #pragma unroll
-    for (int i = 0; i < 2 * CH / NT; ++i) {
-      const int it = tid + i * NT;
-      const bool is_v = it >= CH;
-      const int rem = is_v ? it - CH : it;
-      const int key = rem / (HD / 16), c = (rem % (HD / 16)) * 2;
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          base + (is_v ? L::kRaw : 0) + key * HD + c * 8);
-      uint4 lo, hi;
-      int8x16_to_bf16(raw, lo, hi);
-      bf16* dst = (is_v ? v_ops : k_ops) + buf * (kTK * HD) +
-                  (c >> 3) * (kTK * 64) + key * 64;
-      *reinterpret_cast<uint4*>(dst + ((((c & 7)) ^ (key & 7)) << 3)) = lo;
-      *reinterpret_cast<uint4*>(dst + ((((c & 7) + 1) ^ (key & 7)) << 3)) = hi;
+      for (int i = 0; i < 2 * CH / NT; ++i)
+        convert_chunk(base, buf, tid + i * NT);
+    } else {
+#pragma unroll 2
+      for (int i = 0; i < 2 * CH / NT; ++i)
+        convert_chunk(base, buf, tid + i * NT);
     }
   };
 
@@ -320,8 +358,8 @@ paged_prefill_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
 
-  // prologue: q and tile 0, then tiles 1 .. NSLOT - 2; int8 converts tile
-  // 0 into operand buffer 0
+  // prologue: q and tile 0, then tiles 1 .. NSLOT - 2; int8 ahead converts
+  // tile 0 into operand buffer 0
   issue(0);
   cp_async_commit();
 #pragma unroll
@@ -329,7 +367,7 @@ paged_prefill_kernel(const Args a) {
     issue(u);
     cp_async_commit();
   }
-  if constexpr (INT8) {
+  if constexpr (AHEAD) {
     if (tiles > 0) {
       cp_async_wait<NSLOT - 2>();  // tile 0 (and q) has landed
       __syncthreads();
@@ -338,15 +376,20 @@ paged_prefill_kernel(const Args a) {
   }
 
   for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<kStages - 2>();  // bf16: tile t (and q); int8: tile t + 1
+    cp_async_wait<kStages - 2>();  // tile t (and q); int8 ahead: tile t + 1
+    if constexpr (INT8 && !AHEAD) {
+      __syncthreads();             // tile t landed; tile t - 1's products done
+      convert(slot(t % NSLOT), 0);
+    }
     fence_proxy_async();           // copies, conversions -> the wgmma's reads
     __syncthreads();               // ... for every thread; tile t - 1 done
     issue(t + NSLOT - 1);
     cp_async_commit();
     const unsigned char* base = slot(t % NSLOT);
-    const bf16* kt = INT8 ? k_ops + (t & 1) * (kTK * HD)
+    const int buf = AHEAD ? (t & 1) : 0;
+    const bf16* kt = INT8 ? k_ops + buf * (kTK * HD)
                           : reinterpret_cast<const bf16*>(base);
-    const bf16* vt = INT8 ? v_ops + (t & 1) * (kTK * HD)
+    const bf16* vt = INT8 ? v_ops + buf * (kTK * HD)
                           : reinterpret_cast<const bf16*>(base + L::kTile);
     const int j0 = kv_begin + t * kTK;
 
@@ -364,17 +407,11 @@ paged_prefill_kernel(const Args a) {
     wgmma_wait0();
     fence_regs(s);
 
-    // column c of this thread's part of the tile: 8 jn + 2 (l % 4) + e
-    float cs[16];
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * jn + 2 * (lane & 3) + e;
-        cs[2 * jn + e] = INT8 ? scale * reinterpret_cast<const float*>(
-                                            base + 2 * L::kRaw)[c]
-                              : scale;
-      }
+    // column c of this thread's part of the tile: 8 jn + 2 (l % 4) + e;
+    // with int8 its k and v scales, read where they are used (kept in
+    // registers for the tile, 32 of them pushed hd 256 into spills)
+    const float* kscale = reinterpret_cast<const float*>(base + 2 * L::kRaw);
+    const float* vscale = kscale + kTK;
     const bool masked = !(j0 >= full_lo && j0 + kTK - 1 <= full_hi);
     float alpha[2];
 #pragma unroll
@@ -385,9 +422,10 @@ paged_prefill_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * jn + 2 * h + e;
-          float x = s[i] * cs[2 * jn + e];
+          const int c = 8 * jn + 2 * (lane & 3) + e;
+          float x = s[i] * (INT8 ? scale * kscale[c] : scale);
           if (masked) {
-            const int j = j0 + 8 * jn + 2 * (lane & 3) + e;
+            const int j = j0 + c;
             x = j <= lim[h] && j >= lo[h] ? x : kNegInf;
           }
           s[i] = x;
@@ -422,16 +460,6 @@ paged_prefill_kernel(const Args a) {
 
     // P (times v_scale with int8) in bf16 as the A fragments of the four
     // k16 steps: step kk covers S columns jn = 2 kk, 2 kk + 1
-    float vsc[16];
-#pragma unroll
-    for (int jn = 0; jn < 8; ++jn)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * jn + 2 * (lane & 3) + e;
-        vsc[2 * jn + e] = INT8 ? reinterpret_cast<const float*>(
-                                     base + 2 * L::kRaw + kTK * 4)[c]
-                               : 1.f;
-      }
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -442,8 +470,8 @@ paged_prefill_kernel(const Args a) {
           const int jn = 2 * kk + half;
           float p0 = s[4 * jn + 2 * h], p1 = s[4 * jn + 2 * h + 1];
           if constexpr (INT8) {
-            p0 *= vsc[2 * jn];
-            p1 *= vsc[2 * jn + 1];
+            p0 *= vscale[8 * jn + 2 * (lane & 3)];
+            p1 *= vscale[8 * jn + 2 * (lane & 3) + 1];
           }
           pa[kk][2 * half + h] = pack_bf16x2(p0, p1);
         }
@@ -453,10 +481,11 @@ paged_prefill_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      pv_step<HD>(o, pa[kk], mn_desc(vt + kk * 16 * 64, kTK * 128));
+      pv_step<HD>(o, pa[kk], vt + kk * 16 * 64);
     wgmma_commit();
-    // int8: the next tile converted into the other buffer while PV runs
-    if constexpr (INT8) {
+    // int8 ahead: the next tile converted into the other buffer while PV
+    // runs
+    if constexpr (AHEAD) {
       if (t + 1 < tiles) convert(slot((t + 1) % NSLOT), (t + 1) & 1);
     }
     wgmma_wait0();
@@ -486,6 +515,7 @@ paged_prefill_kernel(const Args a) {
 template <int HD, int BM, typename T>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using L = Layout<HD, BM, T>;
+  static_assert(L::kFits, "the layout exceeds the block's shared memory");
   auto kernel = paged_prefill_kernel<HD, BM, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kTotal);
@@ -496,10 +526,15 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+// BM 128 only where its layout fits on bf16 and int8 arenas alike (not at
+// hd 256), as plan chooses it
 template <int HD, typename T>
 int launch_tile(const Args& a, int B, int bm, cudaStream_t stream) {
-  return bm == 64 ? launch<HD, 64, T>(a, B, stream)
-                  : launch<HD, 128, T>(a, B, stream);
+  if (bm == 64) return launch<HD, 64, T>(a, B, stream);
+  if constexpr (Layout<HD, 128, bf16>::kFits &&
+                Layout<HD, 128, int8_t>::kFits)
+    return launch<HD, 128, T>(a, B, stream);
+  return int(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -507,7 +542,8 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
               const void* vs, const void* tables, const void* cursor,
               void* out, int B, int S, int H, int KV, int hd, int bs, int nb,
               int n_arena, int window, int bm, void* stream) {
-  if ((hd != 64 && hd != 128) || (bm != 64 && bm != 128) || B < 1 ||
+  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) ||
+      (bm != 64 && bm != 128) || B < 1 ||
       S < 1 || KV < 1 || H % KV || bs < 1 || nb < 1)
     return int(cudaErrorInvalidValue);
   Args a{static_cast<const bf16*>(q), k, v,
@@ -517,16 +553,21 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
          S, H, KV, bs, nb, n_arena, window, 0u, 0u};
   fast_div(bs, a.bs_mul, a.bs_shr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd == 64 ? launch_tile<64, T>(a, B, bm, st)
-                  : launch_tile<128, T>(a, B, bm, st);
+  switch (hd) {
+    case 64: return launch_tile<64, T>(a, B, bm, st);
+    case 128: return launch_tile<128, T>(a, B, bm, st);
+    case 192: return launch_tile<192, T>(a, B, bm, st);
+    default: return launch_tile<256, T>(a, B, bm, st);
+  }
 }
 
 }  // namespace
 
 // The wrapper (serving/paged/paged_attention.py) checks device, dtype,
 // shapes, contiguity and alignment (q and the arenas 16-byte aligned), that
-// hd is 64 or 128, bs a multiple of 8 and H a multiple of KV, and passes its
-// plan: `bm` rows a block (64 or 128).
+// hd is 64, 128, 192 or 256, bs a multiple of 8 and H a multiple of KV, and
+// passes its plan: `bm` rows a block (64 or 128; 64 only at hd 256 on a
+// bf16 arena).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a plan it does not take.
 extern "C" int paged_attention_prefill_bf16(

@@ -72,7 +72,7 @@ def _stats_forward(params, tokens, stats, cfg) -> None:
             stats[name] = ActStats.init(x.shape[-1], device=x.device)
         stats[name] = stats[name].update(x)
 
-    x, positions = tfm._embed_inputs(params, {"tokens": tokens})
+    x, positions = tfm._embed_inputs(params, {"tokens": tokens}, cfg)
     for i, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         for key in ("wq", "wk", "wv"):

@@ -5,7 +5,10 @@ package's ``SparseWeight``) becomes the port's ``SparseWeight`` with its
 five buffers in the same layouts and the static ``n``/``m``/``o_n``/
 ``in_dim`` copied; every other leaf goes through ``np.asarray``.  The JAX
 package stacks layer weights [L, ...] under ``"layers"``; the port keeps a
-list of per-layer dicts, so that entry is split along its first axis.
+list of per-layer dicts, so that entry is split along its first axis (the
+[L, hd] ``q_norm``/``k_norm`` of a ``qk_norm`` model as every other leaf).
+The tree is carried as it is: a tied-embedding model's has no
+``lm_head``.
 
 bf16 arrays come out of ``np.asarray`` as ``ml_dtypes`` bfloat16, which
 ``torch.from_numpy`` rejects; they cross as their 16-bit patterns and are

@@ -9,12 +9,23 @@ product runs through the hand-written kernels.  ``--kv-dtype int8`` stores
 the KV arenas as int8 with per-position scales, on either layout.
 
   python -m repro_torch.launch.serve --arch llama3-8b --sparse
+  python -m repro_torch.launch.serve --arch gemma-7b --sparse \
+      --kv-layout paged --kv-dtype int8
+  python -m repro_torch.launch.serve --arch qwen3-8b --smoke-arch \
+      --device cpu --batch 2 --prompt-len 16 --gen 4 --sparse
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --batch 2 --prompt-len 16 --gen 4 --sparse
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --block-size 8
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --block-size 8 --kv-dtype int8
+
+``--arch`` takes every registered id (``configs.all_archs()``) and, with
+``--smoke-arch``, every id ``configs.get_smoke`` resolves.  Dense ids serve
+(qwen3-8b, gemma-7b, internlm2-1.8b, nemotron-4-340b and the paper's
+models); the moe, ssm, hybrid and encdec families raise NotImplementedError
+naming their ROADMAP item, and the engine refuses vlm, as the reference's
+does.
 
 ``--draft {ngram,sparse,self}`` turns on draft-verify speculative decoding
 (``serving/speculative.py``), ``--spec-k`` drafts a request (each
@@ -61,7 +72,7 @@ import time
 
 import torch
 
-from ..configs import get, get_smoke
+from ..configs import family_not_ported, get, get_smoke
 from ..core import SparsifyConfig
 from ..device import resolve
 from ..models import transformer as tfm
@@ -325,6 +336,9 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve(args.device)
     cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
+    not_ported = family_not_ported(cfg)
+    if not_ported is not None:
+        raise not_ported
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params, report = build_params(cfg, args, device, generator)
     if args.sparse:

@@ -14,9 +14,9 @@ zero error, as in the reference, which drops the error every microbatch;
 each projection's layers share one scale, as the reference's stacked
 [L, ...] leaves do.
 
-Not ported: the reference's M-RoPE batch case (positions [3, B, S]; the
-port has no M-RoPE), and ``make_prefill_step``/``make_decode_step``,
-which need ``prefill`` and ``decode_lockstep`` (ROADMAP A11).
+As in the reference, M-RoPE positions [3, B, S] split along axis 1.  Not
+ported yet: ``make_prefill_step``/``make_decode_step`` (ROADMAP A13b, over
+``models/model_zoo``'s ``prefill`` and ``decode_lockstep``).
 """
 from __future__ import annotations
 
@@ -60,10 +60,16 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
     def train_step(params, opt_state, batch):
         mb = opts.microbatches
         if mb > 1:
+            # the batch axis is axis 0 except for M-RoPE positions [3, B, S]
+            bdim = max(v.shape[0] for v in batch.values() if v.shape[0] != 3)
+
+            def part_of(v, i):
+                ax = 0 if v.shape[0] == bdim else 1
+                return v.reshape(*v.shape[:ax], mb, v.shape[ax] // mb,
+                                 *v.shape[ax + 1:]).select(ax, i)
             gsum, lsum = None, 0.0
             for i in range(mb):
-                part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                        for k, v in batch.items()}
+                part = {k: part_of(v, i) for k, v in batch.items()}
                 loss, grads = value_and_grad(loss_of, params, part)
                 if opts.grad_compression:
                     grads = _int8_round_trip(grads)

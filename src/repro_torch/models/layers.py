@@ -48,12 +48,29 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
+               theta: float = 10000.0,
+               mrope_sections: tuple[int, ...] | None = None) -> torch.Tensor:
     """Rotate ``x [..., S, H, hd]`` by ``positions [..., S]``: the halves
-    [:hd/2] and [hd/2:] form the rotated pairs, not interleaved ones."""
+    [:hd/2] and [hd/2:] form the rotated pairs, not interleaved ones.
+
+    With ``mrope_sections`` (Qwen2-VL's M-RoPE), ``positions`` is [3, ..., S]
+    (t/h/w) and the sections, which sum to hd/2, count the frequency pairs
+    each of the three position ids drives, in order."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                      # [hd/2]
-    angles = positions[..., None].to(torch.float32) * freqs      # [...,S,hd/2]
+    if mrope_sections is None:
+        angles = positions[..., None].to(torch.float32) * freqs  # [...,S,hd/2]
+    else:
+        if positions.shape[0] != 3 or sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE needs positions [3, ..., S] and "
+                             f"sections summing to hd/2 = {hd // 2}; got "
+                             f"{tuple(positions.shape)} and {mrope_sections}")
+        parts, start = [], 0
+        for sec_i, sec in enumerate(mrope_sections):
+            parts.append(positions[sec_i][..., None].to(torch.float32)
+                         * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)                        # [...,S,hd/2]
     cos = torch.cos(angles)[..., None, :]                        # [...,S,1,hd/2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -114,9 +114,13 @@ def densify_params(params):
 # conversion
 # --------------------------------------------------------------------------
 
-# The dense family's projections; embed, lm_head and the norms stay dense.
-# Other families' leaves join as their families are ported.
-PRUNABLE = re.compile(r"wq|wk|wv|wo|w_gate|w_up|w_down")
+# The reference's projection names (every family's) and the leaves that
+# stay dense whatever their name: the norms (qwen3's q_norm/k_norm
+# included), embed (a tied head too), lm_head, routers and recurrent gates.
+PRUNABLE = re.compile(
+    r"wq|wk|wv|wo|w_gate|w_up|w_down|ws_gate|ws_up|ws_down|in_proj|out_proj|"
+    r"w_q|w_k|w_v|w_slstm|c_wq|c_wk|c_wv|c_wo")
+SKIP = re.compile(r"norm|embed|lm_head|router|gates|A_log|dt_bias|\bD\b")
 
 
 def to_sparse_weight(w2d: torch.Tensor, scfg: SparsifyConfig,
@@ -138,11 +142,14 @@ def to_sparse_weight(w2d: torch.Tensor, scfg: SparsifyConfig,
 
 
 def leaf_cfg(name: str, leaf, scfg: SparsifyConfig) -> SparsifyConfig | None:
-    """Per-leaf config, or None to keep the leaf dense.  Layers too narrow
-    for a 256-block lose outlier recovery but are still N:M-pruned."""
+    """Per-leaf config, or None to keep the leaf dense: the reference's rule
+    (``SKIP`` searched in the path, ``PRUNABLE`` in the leaf's own name) on
+    the port's per-layer leaves, which are 2-D where the reference's
+    stacked ones are 3-D.  Layers too narrow for a 256-block lose outlier
+    recovery but are still N:M-pruned."""
     if not isinstance(leaf, torch.Tensor) or leaf.ndim != 2:
         return None
-    if not PRUNABLE.fullmatch(name.split("/")[-1]):
+    if SKIP.search(name) or not PRUNABLE.search(name.split("/")[-1]):
         return None
     return fit_config(leaf.shape[-1], scfg)
 

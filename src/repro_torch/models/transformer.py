@@ -1,10 +1,16 @@
-"""Decoder-only transformer of the dense family, serving path (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer of the dense family and the vlm backbone (port
+of ``repro/models/transformer.py``): llama2/3, mistral (window), qwen3
+(``qk_norm``), gemma (GeGLU, head dim 256, tied embeddings), internlm2,
+nemotron-4 (squared ReLU, non-gated) and qwen2-vl's backbone (M-RoPE,
+``embeds`` inputs).  A config with ``moe`` raises NotImplementedError
+naming ROADMAP A11b.
 
-Parameters are a dict ``{"embed", "layers", "final_norm", "lm_head"}``
+Parameters are a dict ``{"embed", "layers", "final_norm"}`` plus
+``"lm_head"`` unless ``cfg.tie_embeddings`` (then the head is ``embed``),
 where ``layers`` is a list of per-layer dicts (the JAX package stacks them
 [L, ...] for ``lax.scan``; the port loops over layers in Python).  A
-projection is a dense [out, in] tensor or a ``SparseWeight``.
+projection is a dense [out, in] tensor or a ``SparseWeight``; with
+``qk_norm`` a layer also holds the [hd] ``q_norm``/``k_norm`` scales.
 
 ``unified_step`` is the only serving entry: chunked prefill (S = chunk),
 one-shot prefill (S = prompt, cursor 0) and fused decode (S = 1 over every
@@ -18,15 +24,23 @@ evaluation and training (``eval/harness.py``, ``launch/steps.py``): each
 block attends over its own sequence with ``layers.sdpa``, and every
 projection goes through ``layers.linear``, so ``SparseWeight`` params take
 the sparse kernels.
+
+``init_cache``, ``prefill``, ``block_decode`` and ``decode_lockstep`` are
+the model zoo's lock-step contract (``models/model_zoo.py``): the
+[L, B, Smax, KV, hd] cache is a slot arena with one slot per row, so
+``decode_lockstep`` is ``unified_step`` with an identity lane map and
+S = 1, and updates the cache in place.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..configs import family_not_ported
 from ..device import resolve
 from .layers import (activation, apply_rope, attend_length_masked, linear,
                      rms_norm, sdpa)
@@ -35,11 +49,20 @@ from .layers import (activation, apply_rope, attend_length_masked, linear,
 def _dense_init(out_dim: int, in_dim: int, dtype, generator, device):
     w = torch.randn((out_dim, in_dim), generator=generator, device=device,
                     dtype=torch.float32)
-    return (w / math.sqrt(in_dim)).to(dtype)
+    return w.div_(math.sqrt(in_dim)).to(dtype)       # in place: one f32 copy
+
+
+def _check_family(cfg) -> None:
+    """Raise for a family whose blocks the port lacks (moe: A11b; the
+    ssm, hybrid and encdec families have no transformer blocks)."""
+    err = family_not_ported(cfg)
+    if err is not None:
+        raise err
 
 
 def init_layer(cfg, generator: torch.Generator, device) -> dict:
     """One block's dense parameters, drawn from ``generator``."""
+    _check_family(cfg)
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
 
     def dense(out_dim, in_dim):
@@ -49,6 +72,9 @@ def init_layer(cfg, generator: torch.Generator, device) -> dict:
           "wq": dense(H * hd, d), "wk": dense(KV * hd, d),
           "wv": dense(KV * hd, d), "wo": dense(d, H * hd),
           "mlp_norm": torch.zeros((d,), dtype=cfg.dtype, device=device)}
+    if cfg.qk_norm:
+        lp["q_norm"] = torch.zeros((hd,), dtype=cfg.dtype, device=device)
+        lp["k_norm"] = torch.zeros((hd,), dtype=cfg.dtype, device=device)
     if cfg.glu:
         lp["w_gate"] = dense(cfg.d_ff, d)
     lp["w_up"] = dense(cfg.d_ff, d)
@@ -62,19 +88,31 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
 
     ``layer_fn(lp)`` transforms each layer as soon as it is drawn (the
     serving CLI sparsifies there), so the dense weights of all layers never
-    coexist: a full-size model is built one layer at a time."""
+    coexist: a full-size model is built one layer at a time.  With
+    ``cfg.tie_embeddings`` there is no ``lm_head``: the head is ``embed``."""
+    _check_family(cfg)
     device = resolve(device)
     layers = []
     for _ in range(cfg.n_layers):
         lp = init_layer(cfg, generator, device)
         layers.append(layer_fn(lp) if layer_fn is not None else lp)
+    # the f32 draw lives only until it is rounded (nemotron-4-340b's
+    # 256,000 x 18,432 embedding is 18.9 GB in f32)
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                        device=device, dtype=torch.float32) * 0.02
-    return {"embed": embed.to(cfg.dtype), "layers": layers,
-            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
-                                      device=device),
-            "lm_head": _dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
-                                   generator, device)}
+                        device=device, dtype=torch.float32).mul_(0.02)
+    embed = embed.to(cfg.dtype)
+    params = {"embed": embed, "layers": layers,
+              "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                        device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
+                                        generator, device)
+    return params
+
+
+def _head(params, cfg):
+    """The output projection: ``embed`` under tied embeddings."""
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
 def _project_qkv(lp, x, cfg, positions):
@@ -83,8 +121,11 @@ def _project_qkv(lp, x, cfg, positions):
     q = linear(lp["wq"], x).reshape(B, S, H, hd)
     k = linear(lp["wk"], x).reshape(B, S, KV, hd)
     v = linear(lp["wv"], x).reshape(B, S, KV, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -138,6 +179,16 @@ def _block_step(lp, x, k_l, v_l, view, positions, cfg, ks_l=None,
     return x + _mlp(lp, h, cfg)
 
 
+def _pool_positions(cursor: torch.Tensor, S: int, cfg) -> torch.Tensor:
+    """RoPE positions of S fresh tokens a lane from ``cursor`` [B]: [B, S],
+    or [3, B, S] under M-RoPE (t/h/w share the text position on the
+    serving path)."""
+    base = cursor[:, None] + torch.arange(S, device=cursor.device)
+    if cfg.mrope_sections is not None:
+        return base.expand(3, *base.shape)
+    return base
+
+
 def unified_step(params, view, batch, cfg):
     """One attend-in-place step over the pool (slot or paged view).
 
@@ -148,7 +199,7 @@ def unified_step(params, view, batch, cfg):
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = params["embed"][tokens]
-    positions = view.cursor[:, None] + torch.arange(S, device=tokens.device)
+    positions = _pool_positions(view.cursor, S, cfg)
     quantized = view.k_scale is not None
     for i, lp in enumerate(params["layers"]):
         scales = ((view.k_scale[i], view.v_scale[i]) if quantized
@@ -159,19 +210,76 @@ def unified_step(params, view, batch, cfg):
     arenas = (view.k, view.v)
     if quantized:
         arenas += (view.k_scale, view.v_scale)
-    return linear(params["lm_head"], x), arenas
+    return linear(_head(params, cfg), x), arenas
+
+
+def init_cache(cfg, batch_size: int, max_len: int, device="cuda") -> dict:
+    """Zeroed lock-step caches: ``k``/``v`` [L, B, max_len, KV, hd] in the
+    model's dtype and the filled length ``pos``, a scalar."""
+    device = resolve(device)
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _cursor_vec(pos: torch.Tensor, B: int) -> np.ndarray:
+    """[B] host cursor from a scalar (lock-step batch) or per-row ``pos``."""
+    p = np.asarray(pos.cpu() if isinstance(pos, torch.Tensor) else pos,
+                   np.int64)
+    return np.broadcast_to(p, (B,)).copy()
+
+
+def block_decode(lp, x, k_cache, v_cache, pos, cfg):
+    """One-token block over contiguous caches: x [B, 1, d], caches
+    [B, Smax, KV, hd] (written in place at ``pos``, a scalar or [B] vector
+    of filled lengths).  Returns (y, k_cache, v_cache); the same in-place
+    block as ``unified_step``'s."""
+    from ..serving.cache_pool import SlotPoolView
+    B = x.shape[0]
+    cursor = _cursor_vec(pos, B)
+    view = SlotPoolView.build(k_cache[None], v_cache[None], None, cursor,
+                              np.ones(B, np.int64), 1)
+    y = _block_step(lp, x, k_cache, v_cache, view,
+                    _pool_positions(view.cursor, 1, cfg), cfg)
+    return y, k_cache, v_cache
+
+
+def decode_lockstep(params, caches, batch, cfg):
+    """One new token for every row through ``unified_step``: batch
+    ``{"tokens": [B, 1]}``, caches from ``init_cache`` or ``prefill`` (grown
+    by ``model_zoo.grow_caches`` to hold the new position).  ``pos`` is a
+    scalar or a [B] vector.  Writes the fresh KV into ``caches`` in place and
+    returns (logits [B, V], {"k", "v", "pos": pos + 1})."""
+    from ..serving.cache_pool import SlotPoolView
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    pos = caches["pos"]
+    view = SlotPoolView.build(caches["k"], caches["v"], None,
+                              _cursor_vec(pos, B), np.ones(B, np.int64), 1)
+    logits, (k, v) = unified_step(params, view, {"tokens": tokens}, cfg)
+    return logits[:, -1], {"k": k, "v": v, "pos": pos + 1}
 
 
 # --------------------------------------------------------------------------
 # full-sequence forward (calibration, evaluation)
 # --------------------------------------------------------------------------
 
-def _embed_inputs(params, batch):
-    """(x [B, S, d], positions [B, S]) of a token batch."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    return params["embed"][tokens], positions
+def _embed_inputs(params, batch, cfg):
+    """(x [B, S, d], positions) of a batch: ``embeds`` [B, S, d] (the vlm
+    stub frontend) or ``tokens`` [B, S]; ``positions`` from the batch, else
+    0..S-1 a row ([B, S], or [3, B, S] under M-RoPE)."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        x = params["embed"][batch["tokens"]]
+    B, S = x.shape[:2]
+    if "positions" in batch:
+        return x, batch["positions"]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.mrope_sections is not None:
+        positions = positions.expand(3, B, S)
+    return x, positions
 
 
 def block_forward(lp, x, positions, cfg, q_chunks: int = 1):
@@ -197,7 +305,7 @@ def forward(params, batch, cfg, collect_kv: bool = False):
     under ``torch.utils.checkpoint`` (as the reference wraps it in
     ``jax.checkpoint``): backward keeps only the blocks' inputs and
     recomputes the rest, which changes no number."""
-    x, positions = _embed_inputs(params, batch)
+    x, positions = _embed_inputs(params, batch, cfg)
     q_chunks = _auto_q_chunks(x.shape[1])
     remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
     kvs = []
@@ -214,7 +322,7 @@ def forward(params, batch, cfg, collect_kv: bool = False):
     if collect_kv:
         caches = (torch.stack([k for k, _ in kvs]),
                   torch.stack([v for _, v in kvs]))
-    return linear(params["lm_head"], x), caches
+    return linear(_head(params, cfg), x), caches
 
 
 def loss_fn(params, batch, cfg):
@@ -228,3 +336,13 @@ def loss_fn(params, batch, cfg):
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0)
     return loss, {}
+
+
+def prefill(params, batch, cfg):
+    """Run the full prompt; returns (last position's logits [B, V], caches
+    {"k", "v": [L, B, S, KV, hd], "pos": S})."""
+    logits, (k, v) = forward(params, batch, cfg, collect_kv=True)
+    caches = {"k": k, "v": v,
+              "pos": torch.tensor(k.shape[2], dtype=torch.int32,
+                                  device=k.device)}
+    return logits[:, -1], caches

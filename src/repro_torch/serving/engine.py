@@ -54,7 +54,10 @@ step does no observability work: no synchronize, no event, no span.
 ``ingest``, ``withdraw`` and ``steal_youngest`` move queued, slotless
 requests between engines: the fleet's replicas (``serving/fleet/``).  Left
 out of this slice, raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A12).
+A12), and the moe, ssm, hybrid and encdec families (A11b-e).  Every dense
+config is served, whatever its ``qk_norm``, tied embeddings, activation,
+gating and head dim; the vlm family is refused, as the reference's engine
+refuses it.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ import time
 import numpy as np
 import torch
 
+from ..configs import family_not_ported
 from ..device import resolve
 from .cache_pool import CachePoolError
 from .families import TransformerAdapter
@@ -102,6 +106,9 @@ class ServingEngine:
                  prefix_caching: bool = True, lookahead_blocks: int = 1,
                  mesh=None, clock=time.monotonic, tracer=None,
                  draft: SpeculativeConfig | None = None):
+        not_ported = family_not_ported(cfg)
+        if not_ported is not None:
+            raise not_ported
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"ServingEngine supports {SUPPORTED_FAMILIES} families, not "

@@ -1,6 +1,9 @@
 """Family adapter of the dense decoder (port of ``repro/serving/families.py``,
 ``TransformerAdapter`` on the slot and paged layouts, with bf16 or int8 KV
-arenas).
+arenas).  It serves every dense config (``qk_norm``, tied embeddings, any
+activation, gating and head dim); the moe family raises NotImplementedError
+naming ROADMAP A11b (the ssm, hybrid and encdec families A11c-e), and vlm
+has no serving adapter, as in the reference.
 
 The engine schedules requests; the adapter owns the KV pool and the two
 step functions over ``transformer.unified_step``:
@@ -28,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..configs import family_not_ported
 from ..launch import step_cost as cost
 from ..models import transformer as tfm
 from .cache_pool import SlotKVPool, SlotPoolView
@@ -47,6 +51,11 @@ class TransformerAdapter:
                  kv_layout: str = "slot", block_size: int = 16,
                  n_blocks: int | None = None, prefix_caching: bool = True,
                  kv_dtype: str = "bf16"):
+        not_ported = family_not_ported(cfg)
+        if not_ported is not None:
+            raise not_ported
+        if cfg.family != "dense":
+            raise ValueError(f"no serving adapter for family {cfg.family!r}")
         self.cfg, self.params, self.device = cfg, params, device
         self.kv_layout = kv_layout
         if kv_layout == "paged":

@@ -20,7 +20,10 @@ head):
   S = Q K^T and O += P V on the tensor cores (wgmma), 64 or 128 rows a
   block, P rounded to bf16 before the second product.
 
-The first port's kernel, ``csrc/paged_attention.cu``, stays reachable
+Both bodies take head dims 64, 128, 192 and 256 (``HEAD_DIMS``); at hd 256
+the prefill-chunk body fits its shared memory at 64 rows a block only
+(``prefill_smem_bytes``).  The first port's kernel,
+``csrc/paged_attention.cu`` (hd 64 and 128), stays reachable
 through ``force_plan=Plan("tile")`` to be timed beside them; ``plan`` never
 picks it.
 
@@ -68,7 +71,13 @@ launches_tile = 0
 launches_tile_int8 = 0
 """Of ``launches_int8``, those of the old kernel, forced."""
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 192, 256)
+"""Head dims the two bodies are built for; another hd (zamba2's 80, ROADMAP
+B11) raises on a CUDA tensor."""
+SMEM_LIMIT = 232448
+"""Dynamic shared memory a block may use on an H100 (227 KB)."""
+PREFILL_TK = 64                  # key positions a tile (kTK of the source)
+PREFILL_STAGES = 3               # ring slots (kStages of the source)
 GRID_LIMIT = 65535               # CUDA's bound on grid.y (KV) and grid.z (B)
 DECODE_MAX_ROWS = 8
 """T: the largest row count S * n_rep that takes the decode body: the
@@ -101,6 +110,29 @@ class Plan:
     counters: int = 0         # decode: one per (lane, KV head, row tile)
 
 
+def prefill_smem_bytes(hd: int, bm: int, int8: bool) -> int:
+    """Bytes of shared memory a prefill-chunk block takes at head dim ``hd``
+    and ``bm`` rows: ``Layout<HD, BM, T>::kTotal`` of
+    ``csrc/paged_attention_prefill.cu``.  The q tile, for int8 arenas bf16
+    operand tiles of K and V (two pairs when converting a tile ahead fits,
+    else one), the ring of K/V slots (one more when ahead) and 1 KB of
+    alignment."""
+    q = bm * hd * 2
+    tile = PREFILL_TK * hd * 2
+    if not int8:
+        return q + PREFILL_STAGES * 2 * tile + 1024
+    slot = 2 * PREFILL_TK * hd + 2 * PREFILL_TK * 4
+    ahead = q + 4 * tile + (PREFILL_STAGES + 1) * slot + 1024
+    if ahead <= SMEM_LIMIT:
+        return ahead
+    return q + 2 * tile + PREFILL_STAGES * slot + 1024
+
+
+def _prefill_fits(hd: int, bm: int) -> bool:
+    return all(prefill_smem_bytes(hd, bm, int8) <= SMEM_LIMIT
+               for int8 in (False, True))
+
+
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, S: int, H: int, KV: int, hd: int, bs: int, sm_count: int,
          *, nb: int, decode_max_rows: int = DECODE_MAX_ROWS) -> Plan:
@@ -114,8 +146,10 @@ def plan(B: int, S: int, H: int, KV: int, hd: int, bs: int, sm_count: int,
     its f32 partials in the workspace when there is more than one.  Above:
     the prefill-chunk body at BM = 128 rows a block where that grid leaves
     at most a quarter of the SMs without a block (a 512-token chunk of
-    llama3-8b: 16 x 8 = 128 blocks on 132 SMs), else BM = 64, which halves
-    the rows a K/V tile serves and doubles the blocks (a 64-token chunk of 4
+    llama3-8b: 16 x 8 = 128 blocks on 132 SMs) and its layout fits the
+    block's shared memory on bf16 and int8 arenas alike
+    (``prefill_smem_bytes``: not at hd 256), else BM = 64, which halves the
+    rows a K/V tile serves and doubles the blocks (a 64-token chunk of 4
     lanes: 128 blocks)."""
     if min(B, S, H, KV, hd, bs, sm_count, nb) < 1 or H % KV:
         raise ValueError(f"plan needs positive sizes and H a multiple of KV;"
@@ -131,6 +165,11 @@ def plan(B: int, S: int, H: int, KV: int, hd: int, bs: int, sm_count: int,
                     split * B * KV * tiles * splits * r * (hd + 2) * 4,
                     split * B * KV * tiles)
     bm = 128 if -(-rows // 128) * KV * B * 4 >= 3 * sm_count else 64
+    if not _prefill_fits(hd, bm):
+        bm = 64
+    if not _prefill_fits(hd, bm):
+        raise ValueError(f"no prefill-chunk layout fits {SMEM_LIMIT} bytes "
+                         f"of shared memory at hd {hd}")
     return Plan("prefill", bm, -(-rows // bm) * KV * B)
 
 
@@ -262,6 +301,13 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
     name = entry_point(p, int8)
     if p.path == "decode":
         _check_decode_plan(p, B, S * (H // KV), KV, hd, nb * bs)
+    if p.path == "prefill" and prefill_smem_bytes(hd, p.rows,
+                                                  int8) > SMEM_LIMIT:
+        raise ValueError(f"prefill plan {p} needs "
+                         f"{prefill_smem_bytes(hd, p.rows, int8)} bytes of "
+                         f"shared memory at hd {hd}, over {SMEM_LIMIT}")
+    if p.path == "tile" and hd > 128:
+        raise ValueError(f"the old kernel takes hd 64 and 128, not {hd}")
     fn = getattr(build.library(), name)
     out = torch.empty_like(q)
     ptrs = [q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr()]

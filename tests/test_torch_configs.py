@@ -1,0 +1,190 @@
+"""The port's ``configs`` package against the JAX package's: every
+registered config and every smoke twin field by field (``dtype`` mapped to
+its ``torch.dtype``), the parameter counts, the shapes and their
+applicability, the model zoo's input and cache specs and ``grow_caches``;
+and the families the port lacks raising NotImplementedError naming their
+ROADMAP item (moe A11b, ssm A11c, hybrid A11d, encdec A11e), while vlm
+runs ``forward`` and is refused by the engine, as the reference refuses
+it."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.models import model_zoo as jax_zoo  # noqa: E402
+from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
+
+SMOKE_IDS = sorted(configs.SMOKE_MODULES)
+NOT_PORTED = {"mixtral-8x7b": "A11b", "llama4-maverick-400b-a17b": "A11b",
+              "xlstm-350m": "A11c", "zamba2-2.7b": "A11d",
+              "whisper-medium": "A11e"}
+
+
+def _both_registries():
+    """Every id of both registries, the smoke twins registered first."""
+    for name in SMOKE_IDS:
+        jax_configs.get_smoke(name)
+        configs.get_smoke(name)
+    return jax_configs.all_archs(), configs.all_archs()
+
+
+def _fields(cfg) -> dict:
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "dtype":
+            v = v if isinstance(v, torch.dtype) else \
+                getattr(torch, jnp.dtype(v).name)
+        elif dataclasses.is_dataclass(v):
+            v = dataclasses.asdict(v)
+        out[f.name] = v
+    return out
+
+
+def test_smoke_ids_match_the_reference():
+    import inspect
+    src = inspect.getsource(jax_configs.get_smoke)
+    for name in SMOKE_IDS:
+        assert f'"{name}"' in src
+    assert src.count('": "') == len(SMOKE_IDS)
+
+
+def test_registries_hold_the_same_ids():
+    jax_ids, ids = _both_registries()
+    assert ids == jax_ids
+    assert len(ids) == 14 + len(SMOKE_IDS)    # archs and smoke twins
+    assert configs.ASSIGNED == jax_configs.ASSIGNED
+    assert configs.PAPER_ARCHS == jax_configs.PAPER_ARCHS
+
+
+@pytest.mark.parametrize("name", _both_registries()[1])
+def test_config_matches_field_by_field(name):
+    j, t = jax_configs.get(name), configs.get(name)
+    assert [f.name for f in dataclasses.fields(t)] == \
+        [f.name for f in dataclasses.fields(j)]
+    assert _fields(t) == _fields(j)
+    assert isinstance(t.dtype, torch.dtype)
+    assert t.hd == j.hd
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+
+
+@pytest.mark.parametrize("name", SMOKE_IDS)
+def test_get_smoke_matches(name):
+    assert _fields(configs.get_smoke(name)) == \
+        _fields(jax_configs.get_smoke(name))
+
+
+def test_moe_config_and_defaults_match():
+    assert [f.name for f in dataclasses.fields(configs.MoEConfig)] == \
+        [f.name for f in dataclasses.fields(jax_configs.MoEConfig)]
+    for f, g in zip(dataclasses.fields(configs.ModelConfig),
+                    dataclasses.fields(jax_configs.ModelConfig)):
+        if f.name != "dtype":
+            assert f.default == g.default, f.name
+    assert configs.ModelConfig.__dataclass_fields__["dtype"].default \
+        is torch.bfloat16
+
+
+def test_shapes_and_applicability_match():
+    assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jax_configs.SHAPES.items()}
+    assert configs.SUBQUADRATIC_FAMILIES == \
+        jax_configs.base.SUBQUADRATIC_FAMILIES
+    for name in _both_registries()[1]:
+        for sname in configs.SHAPES:
+            assert configs.shape_applicable(
+                configs.get(name), configs.SHAPES[sname]) == \
+                jax_configs.shape_applicable(jax_configs.get(name),
+                                             jax_configs.SHAPES[sname])
+        assert configs.SHAPES[sname].tokens == \
+            jax_configs.SHAPES[sname].tokens
+
+
+# ------------------------------------------------------------- model zoo
+ZOO_ARCHS = ["qwen3-8b", "gemma-7b", "internlm2-1.8b", "nemotron-4-340b",
+             "qwen2-vl-72b", "llama3-8b", "qwen3-8b-smoke", "gemma-7b-smoke",
+             "qwen2-vl-72b-smoke"]
+
+
+def _spec(s):
+    return tuple(s.shape), getattr(torch, jnp.dtype(s.dtype).name)
+
+
+@pytest.mark.parametrize("name", ZOO_ARCHS)
+def test_input_and_cache_specs_match(name):
+    _both_registries()
+    j, t = jax_configs.get(name), configs.get(name)
+    for sname, shape in configs.SHAPES.items():
+        jshape = jax_configs.SHAPES[sname]
+        want = {k: _spec(v) for k, v in
+                jax_zoo.input_specs(j, jshape).items()}
+        assert model_zoo.input_specs(t, shape) == want
+        want = {k: _spec(v) for k, v in
+                jax_zoo.cache_specs(j, jshape).items()}
+        assert model_zoo.cache_specs(t, shape) == want
+
+
+def test_grow_caches_matches():
+    rng = np.random.default_rng(0)
+    k = rng.standard_normal((2, 3, 5, 2, 4)).astype(np.float32)
+    v = rng.standard_normal((2, 3, 5, 2, 4)).astype(np.float32)
+    jout = jax_zoo.grow_caches({"k": jnp.asarray(k), "v": jnp.asarray(v),
+                                "pos": jnp.asarray(5)}, 9)
+    out = model_zoo.grow_caches({"k": torch.from_numpy(k),
+                                 "v": torch.from_numpy(v),
+                                 "pos": torch.tensor(5)}, 9)
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(jout[key]))
+    assert int(out["pos"]) == 5
+    same = model_zoo.grow_caches(out, 4)
+    assert same["k"] is out["k"]
+
+
+# ------------------------------------------- families the port lacks yet
+@pytest.mark.parametrize("name", sorted(NOT_PORTED))
+def test_unported_families_raise_naming_roadmap(name):
+    cfg = configs.get_smoke(name)
+    item = NOT_PORTED[name]
+    assert configs.FAMILY_ITEMS[cfg.family] == item
+    g = torch.Generator().manual_seed(0)
+    calls = [lambda: tfm.init_params(cfg, g, "cpu"),
+             lambda: model_zoo.get_model(cfg, "cpu"),
+             lambda: model_zoo.input_specs(cfg, configs.SHAPES["train_4k"]),
+             lambda: ServingEngine(cfg, {"embed": torch.zeros(1)},
+                                   device="cpu"),
+             lambda: serve.main(["--arch", name.removesuffix("-smoke"),
+                                 "--smoke-arch", "--device", "cpu"])]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call()
+    full = configs.get(name.removesuffix("-smoke"))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        model_zoo.get_model(full)
+
+
+def test_vlm_is_refused_by_both_engines():
+    jcfg = jax_configs.get_smoke("qwen2-vl-72b")
+    cfg = configs.get_smoke("qwen2-vl-72b")
+    jparams = jax_zoo.get_model(jcfg).init(jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="'vlm'"):
+        JaxServingEngine(jcfg, jparams)
+    params = model_zoo.get_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="'vlm'"):
+        ServingEngine(cfg, params, device="cpu")
+    with pytest.raises(ValueError, match="'vlm'"):
+        serve.main(["--arch", "qwen2-vl-72b", "--smoke-arch", "--device",
+                    "cpu", "--batch", "1", "--prompt-len", "4", "--gen",
+                    "1"])

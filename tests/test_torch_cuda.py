@@ -1570,3 +1570,103 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
         assert (a.nm.indices.cpu() == b.nm.indices).float().mean() >= 0.999
         assert (a.salient_mask.cpu() == b.salient_mask).float().mean() \
             >= 0.999
+
+
+# ------------------ paged attention at head dims 192 and 256 (ROADMAP B11)
+WIDE_SHAPES = [(192, 24, 2), (256, 4, 4), (256, 16, 4)]      # hd, H, KV
+WIDE_CASES = [(1, 16, [0, 15, 16, 77]), (2, 8, [5, 130]),
+              (37, 16, [9, 130]), (512, 16, [256, 3])]      # S, bs, cursors
+# the prefill-chunk body at every case, the decode body where a lane has
+# at most 2 x 8 rows
+WIDE = [(S, bs, cur, hd, H, KV, body)
+        for S, bs, cur in WIDE_CASES for hd, H, KV in WIDE_SHAPES
+        for body in ("decode", "prefill")
+        if body == "prefill" or S * H // KV <= 16]
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("S,bs,cursors,hd,H,KV,body", WIDE)
+def test_paged_attention_wide_heads_match_plain(cuda, S, bs, cursors, hd, H,
+                                                KV, body, window, quantize):
+    """Both bodies, each forced, at hd 192 and 256 against the plain
+    version (the decode body row by row), with the body's launch counted
+    and the same bits on a second call."""
+    from repro_torch.serving.paged import paged_attention as pa
+    rows = S * H // KV
+    q, k, v, tables, cur = _paged_case(len(cursors), S, H, KV, hd, bs,
+                                       cursors, S * 7 + H + hd, cuda)
+    kw = dict(window=window)
+    if quantize:
+        k, v, ks, vs = _quantized(k, v)
+        kw.update(k_scale=ks, v_scale=vs)
+    p = pa.plan(len(cursors), S, H, KV, hd, bs, _sm_count(),
+                nb=tables.shape[1],
+                decode_max_rows=rows if body == "decode" else 0)
+    assert p.path == body
+    before = _paged_counts(pa)
+    out = pa.paged_attention(q, k, v, tables, cur, force_plan=p, **kw)
+    want = [0] * 6
+    want[3 if quantize else 0] = 1
+    want[(4 if quantize else 1) if body == "decode" else
+         (5 if quantize else 2)] = 1
+    assert [a - b for a, b in zip(_paged_counts(pa), before)] == want
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    ref = pa.plain(q, k, v, tables, cur, **kw)
+    (_close_rows if body == "decode" else _close)(out, ref)
+    again = pa.paged_attention(q, k, v, tables, cur, force_plan=p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+def test_paged_attention_hd256_refuses_bm128(cuda):
+    """At hd 256 a bf16 block of 128 rows needs 263,168 bytes of shared
+    memory: the wrapper raises before any launch; BM 64 runs."""
+    import dataclasses
+    from repro_torch.serving.paged import paged_attention as pa
+    q, k, v, tables, cur = _paged_case(1, 512, 16, 16, 256, 16, [256], 9,
+                                       cuda)
+    p = pa.plan(1, 512, 16, 16, 256, 16, _sm_count(), nb=tables.shape[1])
+    assert (p.path, p.rows) == ("prefill", 64)
+    before = _paged_counts(pa)
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_attention(q, k, v, tables, cur,
+                           force_plan=dataclasses.replace(p, rows=128))
+    assert _paged_counts(pa) == before
+    _close(pa.paged_attention(q, k, v, tables, cur),
+           pa.plain(q, k, v, tables, cur))
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "nemotron-4-340b"])
+def test_paged_engine_serves_wide_heads(cuda, arch):
+    """A 2-layer model of the arch's attention shape (hd 256 / 192) served
+    on the paged layout: one paged kernel launch a layer a model call, bf16
+    and int8 KV."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import SamplingParams, ServingEngine, Status
+    from repro_torch.serving.paged import paged_attention as pa
+    base = get(arch)
+    cfg = dataclasses.replace(base, n_layers=2, d_model=256, d_ff=512,
+                              vocab=1024)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = tfm.init_params(cfg, g, cuda)
+    for kv_dtype in ("bf16", "int8"):
+        engine = ServingEngine(cfg, params, device="cuda", n_slots=4,
+                               max_len=96, kv_layout="paged", block_size=16,
+                               token_budget=64, kv_dtype=kv_dtype)
+        attr = "launches" + ("_int8" if kv_dtype == "int8" else "")
+        before = getattr(pa, attr)
+        reqs = [engine.submit(torch.randint(0, cfg.vocab, (20 + 9 * i,),
+                                            generator=g,
+                                            device=cuda).tolist(),
+                              SamplingParams(max_new_tokens=6))
+                for i in range(3)]
+        engine.run()
+        assert all(r.status is Status.FINISHED and len(r.tokens) == 6
+                   for r in reqs)
+        assert getattr(pa, attr) - before == \
+            cfg.n_layers * engine.stats()["n_model_calls"]

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` pulls in neither ``jax``
-nor the JAX package, and no file of the port or ``chip_smoke.py`` imports
-either."""
+"""The port stands alone: importing ``repro_torch`` (every config module
+of ``repro_torch.configs`` and ``models/model_zoo.py`` included) pulls in
+neither ``jax`` nor the JAX package, and no file of the port or
+``chip_smoke.py`` imports either."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -28,7 +29,11 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
             "repro_torch.data.pipeline, repro_torch.eval.harness, "
             "repro_torch.optim, repro_torch.launch.steps, "
             "repro_torch.core.ebft, repro_torch.tree, "
-            "repro_torch.serving.speculative, repro_torch.serving.fleet\n"
+            "repro_torch.serving.speculative, repro_torch.serving.fleet, "
+            "repro_torch.configs, repro_torch.models.model_zoo\n"
+            "repro_torch.configs.all_archs()\n"
+            "[repro_torch.configs.get_smoke(n) for n in "
+            "repro_torch.configs.SMOKE_MODULES]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n")

@@ -40,6 +40,17 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import outlier_spmm as port_osp  # noqa: E402
 from repro_torch.kernels.ref import outlier_spmm_ref  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module's many small CPU ops run, so
+    that several test workers on one machine do not oversubscribe its
+    cores (it changes no case and no tolerance); restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 EPS_F32 = float(np.finfo(np.float32).eps)
 TILES = dict(block_b=8, block_o=64, block_k=256)

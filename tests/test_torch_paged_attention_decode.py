@@ -35,6 +35,17 @@ from repro.serving.paged.paged_attention import \
     paged_attention_ref  # noqa: E402
 from repro_torch.serving.paged import paged_attention as pa  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module's many small CPU ops run, so
+    that several test workers on one machine do not oversubscribe its
+    cores (it changes no case and no tolerance); restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TK = 64
 ATOL = RTOL = 1e-5
 SMS = 132                       # an H100's SMs, for the plan tests

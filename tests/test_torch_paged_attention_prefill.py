@@ -33,6 +33,17 @@ from repro.serving.paged.paged_attention import \
     paged_attention_ref  # noqa: E402
 from repro_torch.serving.paged import paged_attention as pa  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module's many small CPU ops run, so
+    that several test workers on one machine do not oversubscribe its
+    cores (it changes no case and no tolerance); restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TK = 64
 ATOL = RTOL = 1e-5
 SMS = 132                       # an H100's SMs, for the plan tests
@@ -237,7 +248,10 @@ def _v_max(v, vs):
 CASES = {8: (37, [0, 61, 130]), 16: (70, [5, 64, 17]), 24: (21, [100, 3, 47])}
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+# the int8 half of this grid is in test_torch_paged_attention_prefill_int8.py
+# (the same test, cases and tolerances), so that the two halves, 350 s each
+# on the CPU, can run on two test workers
+@pytest.mark.parametrize("int8", [False], ids=["bf16"])
 @pytest.mark.parametrize("window", [None, 24])
 @pytest.mark.parametrize("n_rep", [1, 4, 8])
 @pytest.mark.parametrize("hd", [64, 128])
