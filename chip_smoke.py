@@ -12,7 +12,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      constant-shape 8:16 instantiations, with 16:256 outliers (the fused
      kernel) and without (``nm_spmm``), for ``outlier_spmm``'s two bodies
      and for ``paged_attention``'s decode and prefill-chunk bodies (hd 64,
-     128, 192 and 256);
+     80, 128, 192 and 256);
   2. kernels against their plain PyTorch versions at the llama3-8b
      projection shapes ([4096->4096], [4096->1024], [4096->14336],
      [14336->4096]) and M in {1, 8, 37, 512}, both kernels (the fused one on
@@ -65,11 +65,12 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      tables (``ATTN_SWEEP_SHORT``) for S in ``ATTN_SWEEP_S``, bf16 and
      int8, each gated; T from the decode body against the prefill-chunk
      body at the decode case's lanes, the short lanes' count beside it.
-     And the same gate and times at hd 256 (gemma-7b: H 16, KV 16) and hd
-     192 (nemotron-4-340b: H 96, KV 8) for the decode case and the
-     512-token chunk, bf16 and int8 arenas; nemotron's decode rows (12)
-     take the prefill-chunk body, so its decode case also runs the decode
-     body forced; no old kernel there (it takes hd 64 and 128 only);
+     And the same gate and times at hd 256 (gemma-7b: H 16, KV 16), hd
+     192 (nemotron-4-340b: H 96, KV 8) and hd 80 (zamba2-2.7b's shared
+     attention: H 32, KV 32) for the decode case and the 512-token chunk,
+     bf16 and int8 arenas; nemotron's decode rows (12) take the
+     prefill-chunk body, so its decode case also runs the decode body
+     forced; no old kernel there (it takes hd 64 and 128 only);
   6. the paged layout: the phase-4 model served by
      ``ServingEngine(kv_layout="paged", block_size=16)``, with the paged
      kernel launching once per layer per model call (decode steps on its
@@ -115,6 +116,42 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            its 96 layers: 4 requests of 64..256 tokens, 16 new tokens each,
            paged; the log line gives embed and head, compressed layers and
            one dense layer in transit, in GB.
+ 14. the recurrent families at full size (run right after phase 13), each
+     8:16+16:256 by magnitude from seed 0, built one layer at a time; each
+     new projection shape through phase 2's gate at M 8 and 512 (xLSTM's
+     8,192-row ``w_slstm``, Zamba2's 10,448-row ``in_proj``), phase 4's
+     traffic, every serve gated on its launches a model call (the fused
+     kernel: an mLSTM layer's 5 projections, an sLSTM layer's 3, a mamba
+     layer's 2 and the shared block's 7 an application; paged attention:
+     one an application, by body):
+       (a) xlstm-350m (ssm), 24 layers (sLSTM every 8th): the slot layout
+           with a decode and a prefill profile and one decode step whose
+           every kernel launch is held against its plain version on the
+           same inputs (``decode_in_context``), then 4 slots with the
+           youngest running request preempted every 4 steps while another
+           waits (``force_preemption``): gates preemptions > 0, a swap
+           resume (prefill tokens at most the prompts' plus one a
+           preemption: no recompute) and every stream equal to the
+           unpressured run's up to a divergence at a near-tie
+           (``near_tie_bound`` over ``residual_roundings``);
+       (b) zamba2-2.7b (hybrid), 54 mamba layers and 9 applications of
+           the shared attention (hd 80, H 32, KV 32): one 512-token chunk
+           call with every kernel launch (171 weight, 9 attention) held
+           against its plain version on the same inputs; at the
+           reference's random init the model is ill-conditioned (one bf16
+           ulp on one embedding element moves its logits by much of their
+           scale), so its end-to-end difference from the plain call is
+           reported beside that one-ulp control, not gated; then paged
+           (block 16, prefix caching asked for and off: no prefix cache in
+           the pool) with profiles and a decode step checked in context,
+           then slot; the slot and paged streams compared (identical
+           streams, each first divergence with its gaps and the one-ulp
+           sensitivity there; reported, not gated, as the model's
+           conditioning makes token choices rounding-dependent), and
+           ``kv_dtype="int8"`` refused with ValueError.
+     Reported: decode step p50, tok/s, TTFT, peak memory, launches and
+     device ms a decode step by kernel class, with the card's name and
+     power limit (``recurrent.device``).
 
   8. the paper's pipeline on llama3-8b, full width and depth, from seed 0
      (the same dense weights phase 4 compressed by magnitude):
@@ -272,8 +309,10 @@ one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
 ``outlier_spmm``; each entry names its sources and splits its cases and
 launches by path, decode and prefill; ``nm_spmm``'s launches are phase
 5's and phase 10(c)'s, the bf16 fused kernel's phase 4's and paged
-attention's phase 6(a)'s, each with phase 11's, phase 12's and 13's;
-the int8 paged attention's phase 7(a)'s with phase 13(b)'s),
+attention's phase 6(a)'s, each with phase 11's, 12's, 13's and 14's;
+the int8 paged attention's phase 7(a)'s with phase 13(b)'s; both paged
+attention entries carry ``hd80``: the hd 80 cases' sums and phase 14's
+launches by body),
 the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
@@ -326,13 +365,15 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
               ("chunk512", [256], 512, None),
               ("chunk64", [0, 64, 300, 700], 64, None),
               ("chunk64_window128", [0, 64, 300, 700], 64, 128)]
-# phase 2b at head dims 256 and 192: gemma-7b's attention (H 16, KV 16) and
-# nemotron-4-340b's (H 96, KV 8) at the decode case's lanes and a 512-token
-# chunk; nemotron's decode rows (12 = S x n_rep) exceed T, so its decode
-# case also runs the decode body forced (``decode_max_rows`` = 12: 2 tiles
-# of R = 8 rows)
+# phase 2b at head dims 256, 192 and 80: gemma-7b's attention (H 16, KV
+# 16), nemotron-4-340b's (H 96, KV 8) and zamba2-2.7b's shared attention
+# (H 32, KV 32) at the decode case's lanes and a 512-token chunk;
+# nemotron's decode rows (12 = S x n_rep) exceed T, so its decode case also
+# runs the decode body forced (``decode_max_rows`` = 12: 2 tiles of R = 8
+# rows)
 ATTN_HD_SHAPES = {"gemma-7b": dict(H=16, KV=16, hd=256, bs=16),
-                  "nemotron-4-340b": dict(H=96, KV=8, hd=192, bs=16)}
+                  "nemotron-4-340b": dict(H=96, KV=8, hd=192, bs=16),
+                  "zamba2-2.7b": dict(H=32, KV=32, hd=80, bs=16)}
 ATTN_HD_CASES = ATTN_CASES[:2]
 # the sweep that sets paged_attention's threshold T: the decode case's 8
 # lanes at these S (rows S * n_rep = 4..256), and 8 short lanes at ~64
@@ -382,6 +423,12 @@ FAMILY_ARCHS = ("qwen3-8b", "gemma-7b", "nemotron-4-340b")
 NEMOTRON_LAYERS = 2
 NEMOTRON_PROMPT_LENS = [64, 128, 192, 256]
 NEMOTRON_GEN = 16
+# phase 14: the recurrent families at full size, 8:16+16:256, phase 4's
+# traffic; xlstm-350m served again on half the slots with a forced
+# preemption every PREEMPT_EVERY steps while a request waits
+RECURRENT_ARCHS = ("xlstm-350m", "zamba2-2.7b")
+XLSTM_PRESSURE_SLOTS = 4
+PREEMPT_EVERY = 4
 # each new projection shape through phase 2's gate at a decode and a
 # prefill row count before it serves
 FAMILY_MS = (8, 512)
@@ -650,10 +697,10 @@ def resource_usage(lib_path, log):
     64 x 64, 64 x 128, 128 x 64, 128 x 128 and 256 x 128, bf16 and
     int8); and ``outlier_spmm``'s two bodies: three decode instances (R =
     2, 4, 8) and six prefill instances (BM 64 and 128, n 4, 8, 16); and
-    ``paged_attention``'s two bodies: sixteen decode instances (hd 64,
-    128, 192 and 256, R 4 and 8 rows, bf16 and int8 arenas) and fourteen
-    prefill-chunk instances (hd 64, 128 and 192 at BM 64 and 128, hd 256
-    at BM 64, bf16 and int8 arenas)."""
+    ``paged_attention``'s two bodies: twenty decode instances (hd 64, 80,
+    128, 192 and 256, R 4 and 8 rows, bf16 and int8 arenas) and eighteen
+    prefill-chunk instances (hd 64, 80, 128 and 192 at BM 64 and 128, hd
+    256 at BM 64, bf16 and int8 arenas)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
@@ -669,8 +716,8 @@ def resource_usage(lib_path, log):
                            ("nm_prefill", "nm_prefill_816_kernel", 10),
                            ("outlier_decode", "outlier_decode_kernel", 3),
                            ("outlier_prefill", "outlier_prefill_kernel", 6),
-                           ("paged_decode", "paged_decode_kernel", 16),
-                           ("paged_prefill", "paged_prefill_kernel", 14)):
+                           ("paged_decode", "paged_decode_kernel", 20),
+                           ("paged_prefill", "paged_prefill_kernel", 18)):
         main = {k: v for k, v in kernels.items() if tag in k}
         check(len(main) == want, f"cuobjdump shows {len(main)} {tag} "
                                  f"kernels, want {want}:\n"
@@ -868,7 +915,7 @@ def paths(launches, kernel):
             for path in ("decode", "prefill")}
 
 
-def kernel_entry(name, cases, launches, by_path=None):
+def kernel_entry(name, cases, launches, by_path=None, by_hd=None):
     """One entry of the kernels line; times are sums over the cases (16
     (projection, M) cases of a weight kernel, the 4 phase-2b cases of paged
     attention, for each variant; 48 (projection, pattern, M) cases of
@@ -886,6 +933,14 @@ def kernel_entry(name, cases, launches, by_path=None):
     for path, n in (by_path or {}).items():
         part = [c for c in cases if c.get("path") == path]
         entry[path] = dict(case_sums(part), launches=n, cases=len(part))
+    # paged attention at a head dim of its own (``by_hd``: hd -> the
+    # launches of the serves at that width): its cases' sums, and its
+    # launches split by body
+    for hd, runs in (by_hd or {}).items():
+        part = [c for c in cases if c.get("hd") == hd]
+        entry[f"hd{hd}"] = dict(
+            case_sums(part), cases=len(part), launches=runs[name],
+            **{f"launches_{path}": n for path, n in paths(runs, name).items()})
     return entry
 
 
@@ -1046,6 +1101,7 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
     ``decode_max_rows`` forces ``plan``'s threshold (the decode body where
     the rows exceed T); the old kernel, built for hd 64 and 128, is timed
     beside those only."""
+    old_hd = (64, 128)
     import torch.nn.functional as F
     from repro_torch.serving.paged import paged_attention as pa
 
@@ -1090,7 +1146,7 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
     def old():
         return pa.paged_attention(q, k, v, tables, cur,
                                   force_plan=pa.Plan("tile"), **kw)
-    if hd <= 128:
+    if hd in old_hd:
         o = old()
         torch.cuda.synchronize()
         e = float((o.float() - ref.float()).abs().max())
@@ -1124,7 +1180,7 @@ def attention_run(torch, timer, log, label, case_args, q, k, v, tables, cur,
             "library_ms": timer.ms(library, 20),
             "bound_ms": b_ms, "bound_by": b_by}
     old_txt = ""
-    if hd <= 128:
+    if hd in old_hd:
         case["old_ms"] = timer.ms(old, 20)
         old_txt = f"  old kernel {case['old_ms']:.4f}"
     log(f"  {label:20s} {name:18s}: err {err:.2e} (tol {tol:.2e}, worst "
@@ -1160,10 +1216,11 @@ def paged_attention_phase(torch, timer, log):
 
 
 def paged_attention_hd_phase(torch, timer, log):
-    """``paged_attention`` at head dims 256 (gemma-7b) and 192
-    (nemotron-4-340b) against its plain version, on bf16 arenas and on int8
-    arenas quantized from the same K/V, as ``paged_attention_phase``; the
-    decode body forced where the model's decode rows exceed T."""
+    """``paged_attention`` at head dims 256 (gemma-7b), 192
+    (nemotron-4-340b) and 80 (zamba2-2.7b) against its plain version, on
+    bf16 arenas and on int8 arenas quantized from the same K/V, as
+    ``paged_attention_phase``; the decode body forced where the model's
+    decode rows exceed T."""
     from repro_torch.serving.cache_pool import quantize_kv
     from repro_torch.serving.paged import paged_attention as pa
 
@@ -1321,11 +1378,12 @@ def profile_decode(torch, engine, g, n_steps=2):
     got = _device_time(prof, n_steps)
     if got is None:
         return None
-    busy, by_class, _, top, count = got
+    busy, by_class, count_by_class, top, count = got
     return {"steps": n_steps, "profiled_step_ms": wall_us / n_steps / 1e3,
             "device_busy_ms_per_step": busy,
             "idle_share_profiled": 1.0 - busy * 1e3 * n_steps / wall_us,
             "device_ms_per_step_by_class": by_class,
+            "launches_per_step_by_class": count_by_class,
             "kernels_per_step": count, "top_kernels_ms_per_step": top}
 
 
@@ -1391,6 +1449,55 @@ def profile_prefill(torch, engine, g, tokens=PREFILL_PROFILE_TOKENS):
             "top_kernels_ms": top}
 
 
+# the leaves ``sparsify_for_serving`` compresses beside the dense family's
+# PROJ_NAMES, as JAX's ``_leaf_cfg`` picks them: xLSTM's projections
+# (``w_gates`` and ``r_gates`` stay dense) and Zamba2's mamba projections
+# (``A_log``, ``D``, ``dt_bias`` stay dense; its shared block takes
+# PROJ_NAMES)
+XLSTM_SPARSE = ("w_up", "w_q", "w_k", "w_v", "w_down", "w_slstm")
+MAMBA_SPARSE = ("in_proj", "out_proj")
+
+
+def sparse_names(cfg) -> set:
+    """The paths of every projection a compressed ``cfg`` model deploys as
+    a SparseWeight."""
+    dense = [n for n in PROJ_NAMES if n != "w_gate" or cfg.glu]
+    L = range(cfg.n_layers)
+    if cfg.family == "ssm":
+        return {f"layers/{i}/{n}" for i in L for n in XLSTM_SPARSE}
+    if cfg.family == "hybrid":
+        return ({f"mamba/{i}/{n}" for i in L for n in MAMBA_SPARSE}
+                | {f"shared_attn/{n}" for n in dense})
+    return {f"layers/{i}/{n}" for i in L for n in dense}
+
+
+def sparse_leaves(params) -> dict:
+    """path: SparseWeight of every compressed leaf of a params tree."""
+    from repro_torch.core.pipeline import map_leaves
+    from repro_torch.models.sparse_serving import SparseWeight
+    out = {}
+    map_leaves(params, lambda name, leaf: out.__setitem__(name, leaf)
+               if isinstance(leaf, SparseWeight) else None)
+    return out
+
+
+def launches_per_call(cfg) -> tuple[int, int]:
+    """(weight kernel launches, paged attention launches on the paged
+    layout) of one model call: every projection the call reads (an mLSTM
+    layer's 5, an sLSTM layer's 3; a mamba layer's 2 and the shared block's
+    projections once per application), and one attention launch per
+    attention layer or application."""
+    proj = sum(1 for n in PROJ_NAMES if n != "w_gate" or cfg.glu)
+    if cfg.family == "ssm":
+        k = cfg.slstm_every
+        n_s = sum(1 for i in range(cfg.n_layers) if k and i % k == k - 1)
+        return 3 * n_s + 5 * (cfg.n_layers - n_s), 0
+    if cfg.family == "hybrid":
+        apps = cfg.n_layers // cfg.attn_every
+        return 2 * cfg.n_layers + proj * apps, apps
+    return proj * cfg.n_layers, cfg.n_layers
+
+
 def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
                 outlier="16:256", quantize=False):
     """``arch`` (llama3-8b by default) at full width (``n_layers`` deep),
@@ -1398,7 +1505,6 @@ def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
     drawn from seed 0; returns (cfg, params, build numbers)."""
     from repro_torch.configs import get
     from repro_torch.launch import serve
-    from repro_torch.models.sparse_serving import SparseWeight
 
     cfg = get(arch)
     if n_layers is not None:
@@ -1411,12 +1517,12 @@ def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
                                         quantize=quantize)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    names = [n for n in PROJ_NAMES if n != "w_gate" or cfg.glu]
-    sws = [lp[n] for lp in params["layers"] for n in names]
-    check(len(sws) == len(names) * cfg.n_layers
-          and all(isinstance(s, SparseWeight) for s in sws)
+    found = sparse_leaves(params)
+    check(set(found) == sparse_names(cfg)
           and isinstance(params["embed"], torch.Tensor),
-          "not every projection is a SparseWeight")
+          "not every projection is a SparseWeight (or a leaf that stays "
+          f"dense is one): {sorted(set(found) ^ sparse_names(cfg))[:8]}")
+    sws = list(found.values())
     check(all((s.o_values is not None) == (outlier is not None) for s in sws),
           "outlier buffers do not match the pattern")
     want = torch.int8 if quantize else torch.bfloat16
@@ -1507,26 +1613,24 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     summarise it."""
     import numpy as np
     from repro_torch.runtime.metrics import summarize
-    from repro_torch.models.sparse_serving import SparseWeight
     cfg, st = engine.cfg, engine.stats()
     calls = st["n_model_calls"]
-    layer0 = engine.params["layers"][0]
-    wq = layer0["wq"]
-    suffix = "" if wq.v_scale is None else "_int8"
-    weight_key = ("fused_sparse_linear" if wq.o_values is not None
+    sw = next(iter(sparse_leaves(engine.params).values()))
+    suffix = "" if sw.v_scale is None else "_int8"
+    weight_key = ("fused_sparse_linear" if sw.o_values is not None
                   else "nm_spmm") + suffix
-    # every projection of every layer, once a model call (7 with a gated
-    # MLP, 6 without)
-    n_proj = sum(isinstance(v, SparseWeight) for v in layer0.values())
-    want = {weight_key: n_proj * cfg.n_layers * calls}
+    # every projection a model call reads, once (``launches_per_call``)
+    per_call, attn_per_call = launches_per_call(cfg)
+    want = {weight_key: per_call * calls}
     attn_key = None
     if engine.kv_layout == "paged":
         attn_key = "paged_attention" + (
             "_int8" if engine.kv_dtype == "int8" else "")
-        want[attn_key] = cfg.n_layers * calls
+        want[attn_key] = attn_per_call * calls
     check_launch_counts(launches, want,
-                        f"{cfg.n_layers} layers, {calls} model calls, "
-                        f"{engine.kv_layout} layout, {engine.kv_dtype} KV")
+                        f"{cfg.name}, {cfg.n_layers} layers, {calls} model "
+                        f"calls, {engine.kv_layout} layout, "
+                        f"{engine.kv_dtype} KV")
     # each weight wrapper's calls split by path: every call is a decode
     # kernel launch (M <= T, decode steps) or a prefill kernel launch
     # (chunks longer than T); both run in a serve while T >= 1.  The paged
@@ -1779,8 +1883,73 @@ class plain_versions:
         return False
 
 
+class nudged_embedding:
+    """Within the block, ``params["embed"]`` is a copy with the first
+    element of ``token``'s row moved to the next bf16 value (one ulp): the
+    conditioning control of an ill-conditioned model."""
+
+    def __init__(self, torch, params, token: int):
+        self.torch, self.params, self.token = torch, params, token
+
+    def __enter__(self):
+        self.saved = self.params["embed"]
+        moved = self.saved.clone()
+        moved.view(self.torch.int16)[self.token, 0] += 1
+        self.params["embed"] = moved
+        return self
+
+    def __exit__(self, *exc):
+        self.params["embed"] = self.saved
+        return False
+
+
+class in_context_checks:
+    """Within the block, every launch of the serving path's kernels (the
+    fused and N:M products, ``paged_attention``) is also computed by its
+    plain version on the same inputs and held at one bf16 ulp of the
+    largest plain output (``KERNEL_TOL_REL``, as phases 2 and 2b hold
+    them); the kernel's output goes on.  ``cases`` lists each launch's
+    (kernel, input shape, max error, tolerance)."""
+
+    def __init__(self, torch):
+        self.torch, self.cases = torch, []
+
+    def _checked(self, name, kernel, plain):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            err = float((out.float() - ref.float()).abs().max())
+            tol = KERNEL_TOL_REL * float(ref.float().abs().max())
+            self.cases.append((name, tuple(args[0].shape), err, tol))
+            check(bool(self.torch.isfinite(out).all()) and err <= tol,
+                  f"{name} on a {tuple(args[0].shape)} input of the chunk "
+                  f"call: max|kernel-plain| {err:.3e} > tol {tol:.3e}")
+            return out
+        return call
+
+    def __enter__(self):
+        from repro_torch.kernels import fused_sparse_linear as fsl
+        from repro_torch.kernels import nm_spmm as nms
+        from repro_torch.models import sparse_serving as ss
+        from repro_torch.serving.paged import paged_attention as pa
+        self.saved = (ss.fused_sparse_linear, ss.nm_spmm, pa.paged_attention)
+        ss.fused_sparse_linear = self._checked(
+            "fused_sparse_linear", fsl.fused_sparse_linear, fsl.plain)
+        ss.nm_spmm = self._checked("nm_spmm", nms.nm_spmm, nms.plain)
+        pa.paged_attention = self._checked("paged_attention",
+                                           pa.paged_attention, pa.plain)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import sparse_serving as ss
+        from repro_torch.serving.paged import paged_attention as pa
+        ss.fused_sparse_linear, ss.nm_spmm, pa.paged_attention = self.saved
+        return False
+
+
 def family_weight_gate(torch, log, cfg, params):
-    """Layer 0's projections whose (out, in) shape phase 2 does not run,
+    """Layer 0's projections (and a hybrid's shared block's) whose (out,
+    in) shape phase 2 does not run,
     each through ``weight_case`` at ``FAMILY_MS``: the fused kernel's
     decode and prefill bodies at the model's in-dims, gated at one bf16 ulp
     against the plain version."""
@@ -1791,7 +1960,11 @@ def family_weight_gate(torch, log, cfg, params):
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = []
-    for name, sw in params["layers"][0].items():
+    # the first layer's projections (Zamba2: a mamba layer's and the shared
+    # block's)
+    first = ([params["layers"][0]] if "layers" in params
+             else [params["mamba"][0], params["shared_attn"]])
+    for name, sw in [kv for lp in first for kv in lp.items()]:
         if not isinstance(sw, SparseWeight):
             continue
         shape = (sw.nm_values.shape[0], sw.in_dim)
@@ -1811,14 +1984,28 @@ def family_weight_gate(torch, log, cfg, params):
 
 def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
     """One 512-token chunk call (the longest prompt's first tokens, or all
-    of a shorter one, at cursor 0 of a fresh paged arena) through the
-    kernels and through their plain versions on the card: logits within
-    ``MODEL_TOL_REL`` of their scale, as phase 3 holds them, and no kernel
-    launched by the plain call."""
+    of a shorter one, at cursor 0 of a fresh paged arena; a hybrid model's
+    mamba layers on fresh state) through the kernels and through their
+    plain versions on the card, and no kernel launched by the plain call.
+
+    A dense model's logits must lie within ``MODEL_TOL_REL`` of their
+    scale, as phase 3 holds them.  Zamba2 at the reference's random init is
+    ill-conditioned: one bf16 ulp on one embedding element moves its logits
+    by a sizeable part of their scale (54 Mamba2 blocks whose output is
+    cubic in their input), so two computations that round differently
+    cannot agree end to end.  Its gate holds every kernel launch of the
+    call against its plain version on the same inputs instead
+    (``in_context_checks``), and reports the logits' difference beside
+    that of the plain call with one embedding element moved by one ulp
+    (``conditioning_err``)."""
     import numpy as np
+    from repro_torch.launch.step_cost import attention_layers
     from repro_torch.models import transformer as tfm
+    from repro_torch.models import zamba as zam
     from repro_torch.serving.cache_pool import kv_arenas
     from repro_torch.serving.paged import PagedPoolView
+    from repro_torch.serving.state_pool import (HybridPoolView,
+                                                RecurrentStateView)
 
     S, bs = min(len(prompt), PREFILL_PROFILE_TOKENS), ATTN_SHAPE["bs"]
     nblk = -(-S // bs)
@@ -1827,17 +2014,30 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
 
     def call():
         k, v, ks, vs = kv_arenas(
-            (cfg.n_layers, nblk + 1, bs, cfg.n_kv_heads, cfg.hd), kv_dtype,
-            cfg.dtype, "cuda")
+            (attention_layers(cfg), nblk + 1, bs, cfg.n_kv_heads, cfg.hd),
+            kv_dtype, cfg.dtype, "cuda")
         view = PagedPoolView.build(k, v, tables, [0], [S], S, trash=0,
                                    k_scale=ks, v_scale=vs)
         with torch.no_grad():
-            logits, _ = tfm.unified_step(params, view, {"tokens": tokens},
-                                         cfg)
+            if cfg.family == "hybrid":
+                states = [zam.lane_init(cfg, i, 1, "cuda")
+                          for i in range(cfg.n_layers)]
+                sview = RecurrentStateView.build(states, None, [0], [S])
+                logits, _, _ = zam.unified_step(
+                    params, HybridPoolView(view, sview), {"tokens": tokens},
+                    cfg)
+            else:
+                logits, _ = tfm.unified_step(params, view,
+                                             {"tokens": tokens}, cfg)
         torch.cuda.synchronize()
         return logits.float()
     reset_launches()
-    out = call()
+    checks = None
+    if cfg.family == "hybrid":
+        with in_context_checks(torch) as checks:
+            out = call()
+    else:
+        out = call()
     kernels = read_launches()
     with plain_versions():
         ref = call()
@@ -1847,31 +2047,105 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
     err = float((out - ref).abs().max())
     agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
     check(bool(torch.isfinite(out).all()), f"{cfg.name}: non-finite logits")
-    check(err <= MODEL_TOL_REL * scale,
-          f"{cfg.name} ({kv_dtype} KV): chunk call max|kernels-plain| "
-          f"{err:.3e} > {MODEL_TOL_REL} x {scale:.3e}")
-    log(f"  {cfg.name} {kv_dtype} KV: a {S}-token chunk call, max|kernels-"
-        f"plain| {err:.3e} of scale {scale:.3e}, greedy agreement "
-        f"{agree:.4f}")
-    return {"S": S, "max_abs_err": err, "scale": scale,
-            "greedy_agreement": agree, "tol_rel": MODEL_TOL_REL}
+    res = {"S": S, "max_abs_err": err, "scale": scale,
+           "greedy_agreement": agree}
+    if checks is None:
+        check(err <= MODEL_TOL_REL * scale,
+              f"{cfg.name} ({kv_dtype} KV): chunk call max|kernels-plain| "
+              f"{err:.3e} > {MODEL_TOL_REL} x {scale:.3e}")
+        res["tol_rel"] = MODEL_TOL_REL
+        log(f"  {cfg.name} {kv_dtype} KV: a {S}-token chunk call, max|"
+            f"kernels-plain| {err:.3e} of scale {scale:.3e}, greedy "
+            f"agreement {agree:.4f}")
+        return res
+    # the conditioning control: the plain call again with one embedding
+    # element of the first token moved by one bf16 ulp
+    with nudged_embedding(torch, params, int(tokens[0, 0])), \
+            plain_versions():
+        nudged = call()
+    by_kernel = {}
+    for name, _, e, tol in checks.cases:
+        k = by_kernel.setdefault(name, {"launches": 0, "worst_err_over_tol":
+                                        0.0})
+        k["launches"] += 1
+        k["worst_err_over_tol"] = max(k["worst_err_over_tol"],
+                                      e / tol if tol else 0.0)
+    per_call, attn_per_call = launches_per_call(cfg)
+    check(by_kernel.get("fused_sparse_linear", {}).get("launches") == per_call
+          and by_kernel.get("paged_attention", {}).get("launches")
+          == attn_per_call,
+          f"{cfg.name}: in-context checks {by_kernel}, want {per_call} "
+          f"weight and {attn_per_call} attention launches")
+    res.update(in_context=by_kernel,
+               conditioning_err=float((nudged - ref).abs().max()))
+    log(f"  {cfg.name} {kv_dtype} KV: a {S}-token chunk call, every kernel "
+        f"launch within one bf16 ulp of its plain version on the same "
+        f"inputs ({json.dumps(by_kernel)}); end to end max|kernels-plain| "
+        f"{err:.3e} of scale {scale:.3e} (greedy agreement {agree:.4f}), "
+        f"the plain call against itself with one embedding element moved "
+        f"one ulp {res['conditioning_err']:.3e}")
+    return res
 
 
-def family_serve(torch, log, cfg, params, build, label, prompts, gen, **kw):
+def decode_in_context(torch, engine, g) -> dict:
+    """One fused decode step of all lanes (each lane fed a 64-token prompt
+    first) with every kernel launch held against its plain version on the
+    same inputs (``in_context_checks``); returns launches and the worst
+    error over tolerance by kernel."""
+    from repro_torch.serving import SamplingParams, Status
+    reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
+                                        generator=g, device="cuda").tolist(),
+                          SamplingParams(max_new_tokens=3))
+            for _ in range(engine.pool.n_slots)]
+    while not all(r.status is Status.RUNNING for r in reqs):
+        engine.step()
+    with in_context_checks(torch) as checks:
+        st = engine.step()
+    check(st["prefill_tokens"] == 0 and st["decoded"] == len(reqs),
+          f"the checked step was not a pure decode step: {st}")
+    engine.run()
+    out = {}
+    for name, _, e, tol in checks.cases:
+        k = out.setdefault(name, {"launches": 0, "worst_err_over_tol": 0.0})
+        k["launches"] += 1
+        k["worst_err_over_tol"] = max(k["worst_err_over_tol"],
+                                      e / tol if tol else 0.0)
+    return out
+
+
+def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
+                 profile=False, preempt_every=None, decode_checks=False,
+                 **kw):
     """Serve ``prompts`` greedily through ``ServingEngine(**kw)`` (8 slots,
     token budget 512 unless ``kw`` says otherwise), launches gated per
-    model call by ``serve_numbers``; returns (numbers, streams,
-    launches)."""
+    model call by ``serve_numbers``; with ``profile`` a decode and a
+    prefill profile (``add_profile``); with ``preempt_every`` the youngest
+    running request preempted every that many steps while another waits
+    (``force_preemption``); with ``decode_checks`` one decode step held
+    kernel by kernel in context (``decode_in_context``).  Returns
+    (numbers, streams, launches)."""
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(cfg, params, **{
         "device": "cuda", "n_slots": 8, "max_len": 1024,
         "token_budget": 512, **kw})
+    if preempt_every:
+        force_preemption(engine, preempt_every)
     torch.cuda.reset_peak_memory_stats()
     reqs, wall, decode_only, launches = drive(torch, engine, [prompts], gen)
     out = dict(build, **serve_numbers(torch, engine, reqs, wall, decode_only,
                                       launches))
     out["label"] = label
+    if preempt_every:
+        out["preempted_requests"] = sum(r.n_preempted > 0 for r in reqs)
+        out["prompt_tokens"] = sum(len(p) for p in prompts)
+        out["prefill_tokens"] = engine.n_prefill_tokens
+    engine.__dict__.pop("step", None)          # the class's step again
+    if profile:
+        add_profile(torch, engine, out, seed=11)
+    if decode_checks:
+        out["decode_in_context"] = decode_in_context(
+            torch, engine, torch.Generator(device="cuda").manual_seed(12))
     log(f"  ({label}) " + json.dumps({k: v for k, v in out.items()
                                       if k != "launches"}))
     del engine
@@ -1949,6 +2223,114 @@ def family_phase(torch, log):
                 f"{sum(same)}/{len(same)}"
             res["b_paged_int8"]["bf16_paged_token_agreement"] = \
                 sum(agree) / len(agree)
+        results[arch] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, add_launches(*runs)
+
+
+# ------------------------------------- phase 14: the recurrent families
+def force_preemption(engine, every: int) -> None:
+    """Every ``every``-th step of ``engine`` that leaves a request queued
+    and one decoding preempts the youngest running request, as the
+    reference's ``test_preempt_resume_exact`` does by hand: the slot layout
+    never preempts on its own, and a stateful family swaps the request's
+    state out (``save_for_preempt``) and back at its re-admission
+    (``on_admit``)."""
+    step, count = engine.step, [0]
+
+    def forced():
+        st = step()
+        count[0] += 1
+        if (count[0] % every == 0 and len(engine.queue)
+                and any(r.tokens for r in engine.running.values())):
+            engine._preempt_one(st)
+        return st
+    engine.step = forced
+
+
+def recurrent_phase(torch, log, smi):
+    """Phase 14: xlstm-350m (ssm, 24 layers) and zamba2-2.7b (hybrid, 54
+    mamba layers and 9 shared-attention applications) at full size,
+    8:16+16:256 by magnitude from seed 0, each served with phase 4's
+    traffic; returns (results, launches summed over the serves)."""
+    from repro_torch.serving import ServingEngine
+
+    results, runs = {"device": smi}, []
+    bs = ATTN_SHAPE["bs"]
+    for arch in RECURRENT_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, build = build_model(torch, log, arch=arch)
+        res = {"weight_cases": family_weight_gate(torch, log, cfg, params),
+               "peak_build_gb": torch.cuda.max_memory_allocated() / 1e9}
+        prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+        log(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{build['compressed_gb']:.2f} GB compressed, peak "
+            f"{res['peak_build_gb']:.2f} GB while building")
+        if cfg.family == "ssm":
+            # (a) the slot layout, then half the slots with forced swap
+            # preemptions
+            out, base, launches = family_serve(
+                torch, log, cfg, params, build, "a_slot", prompts,
+                SERVE_GEN, profile=True, decode_checks=True)
+            res["a_slot"] = out
+            runs.append(launches)
+            out, pressed, launches = family_serve(
+                torch, log, cfg, params, build, "a_slot_swap", prompts,
+                SERVE_GEN, n_slots=XLSTM_PRESSURE_SLOTS,
+                preempt_every=PREEMPT_EVERY)
+            check(out["n_preemptions"] > 0 and out["preempted_requests"] > 0,
+                  f"{arch}: no request was preempted at "
+                  f"{XLSTM_PRESSURE_SLOTS} slots")
+            # a swap resume prefills at most the one token its last decode
+            # had not fed; a recompute would prefill its whole sequence
+            check(out["prefill_tokens"] <= out["prompt_tokens"]
+                  + out["n_preemptions"],
+                  f"{arch}: {out['prefill_tokens']} prefill tokens for "
+                  f"{out['prompt_tokens']} prompt tokens and "
+                  f"{out['n_preemptions']} preemptions: a resume recomputed")
+            res["a_slot_swap"] = out
+            runs.append(launches)
+            res["swap_vs_slot"] = stream_gate(
+                torch, f"{arch} swap-preempted vs unpressured", cfg, params,
+                prompts, base, pressed)
+        else:
+            # (b) paged (prefix caching asked for: the adapter turns it
+            # off), then slot; int8 KV refused
+            res["plain_call"] = plain_call_gate(
+                torch, log, cfg, params, max(prompts, key=len), "bf16")
+            out, paged, launches = family_serve(
+                torch, log, cfg, params, build, "b_paged", prompts,
+                SERVE_GEN, profile=True, decode_checks=True,
+                kv_layout="paged", block_size=bs, prefix_caching=True)
+            # no prefix cache in the pool: no lookup, no hit
+            check("prefix_cache" not in out["pool"],
+                  f"{arch}: the paged hybrid pool kept a prefix cache")
+            res["b_paged"] = out
+            runs.append(launches)
+            out, slot, launches = family_serve(
+                torch, log, cfg, params, build, "b_slot", prompts, SERVE_GEN)
+            res["b_slot"] = out
+            runs.append(launches)
+            # ill-conditioned at random init (``plain_call_gate``): the
+            # streams' divergences are measured beside the effect of one
+            # ulp, not gated; the kernels are held in context instead
+            res["slot_vs_paged"] = stream_gate(
+                torch, f"{arch} slot vs paged", cfg, params, prompts, slot,
+                paged, gated=False)
+            res["slot_vs_paged_identical"] = \
+                f"{sum(a == b for a, b in zip(slot, paged))}/{len(slot)}"
+            try:
+                ServingEngine(cfg, params, device="cuda", n_slots=8,
+                              max_len=1024, kv_layout="paged",
+                              kv_dtype="int8")
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            check(refused is not None and "kv_dtype" in refused,
+                  f"{arch}: int8 KV was not refused ({refused})")
+            res["int8_kv_refused"] = refused
         results[arch] = res
         del params
         gc.collect()
@@ -2182,7 +2564,8 @@ def trace_phase(torch, log, cfg, params):
 
 
 # ------------------------------------------- phase 11: speculative decoding
-def near_tie_bound(z, n_layers: int) -> float:
+def near_tie_bound(z, n_layers: int, roundings: int | None = None
+                   ) -> float:
     """How far below the largest logit ``z`` [V] (one position of one
     forward) a token of either stream may lie when a speculative and a
     plain stream diverge there: the NEAR_TIE bound.
@@ -2203,13 +2586,54 @@ def near_tie_bound(z, n_layers: int) -> float:
     both tokens must lie that close to the top: a flip of a near-tie
     passes, a wrong token (a draft accepted against the target) does not.
     At L = 32 that is 0.18 RMS + 1 ulp; a random token of llama3-8b's
-    vocabulary lies ~4.5 RMS below the top."""
+    vocabulary lies ~4.5 RMS below the top.  ``roundings`` replaces 2L + 1
+    for a stack of another shape (``residual_roundings``)."""
     zf = z.float()
     rms = float(zf.pow(2).mean().sqrt())
     top = float(zf.abs().max())
     ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
-    return (NEAR_TIE_SIGMAS * BF16_U * math.sqrt(2 * (2 * n_layers + 1))
-            * rms + ulp)
+    n = 2 * n_layers + 1 if roundings is None else roundings
+    return NEAR_TIE_SIGMAS * BF16_U * math.sqrt(2 * n) * rms + ulp
+
+
+def residual_roundings(cfg) -> int:
+    """The bf16 roundings on a model's residual path into the lm_head: one
+    per residual add and one for the final norm: 2L + 1 for a dense stack,
+    L + 1 for xLSTM (one add a block), L + 2 x applications + 1 for Zamba2
+    (a mamba block's add, the shared block's attention and MLP adds)."""
+    if cfg.family == "ssm":
+        return cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        return cfg.n_layers + 2 * (cfg.n_layers // cfg.attn_every) + 1
+    return 2 * cfg.n_layers + 1
+
+
+def last_logits(torch, cfg, params, tokens):
+    """Logits [V] of the last of ``tokens`` (a list) from one computation
+    of the whole sequence: the family's full-sequence ``forward`` (dense,
+    hybrid), or for ssm one ``unified_step`` chunk from fresh state with
+    the padding masked.  The recurrent families' chunkwise recurrence takes
+    whole chunks, so their sequence is padded at the end to a multiple of
+    128 tokens, which the causal model's earlier positions never see; the
+    mLSTM normalizer's intra-chunk sum would meet unmasked pad tokens'
+    gates (exp of a large decay times 0 is NaN in f32, in the reference's
+    formula too), so ssm masks them as the engine does."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import xlstm as xls
+    from repro_torch.models import zamba as zam
+    from repro_torch.serving.state_pool import RecurrentStateView
+    n, dev = len(tokens), params["embed"].device
+    pad = 0 if cfg.family not in ("ssm", "hybrid") or n <= 64 else -n % 128
+    t = torch.tensor([list(tokens) + [0] * pad], device=dev)
+    with torch.no_grad():
+        if cfg.family == "ssm":
+            view = RecurrentStateView.build(xls.init_state(cfg, 1, dev),
+                                            None, [0], [n])
+            z, _ = xls.unified_step(params, view, {"tokens": t}, cfg)
+        else:
+            fwd = zam.forward if cfg.family == "hybrid" else tfm.forward
+            z, _ = fwd(params, {"tokens": t}, cfg)
+    return z[0, n - 1].float()
 
 
 def first_divergence(a, b):
@@ -2220,13 +2644,17 @@ def first_divergence(a, b):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-def stream_gate(torch, label, cfg, params, prompts, base, spec):
+def stream_gate(torch, label, cfg, params, prompts, base, spec,
+                gated=True):
     """The stream gate: each speculative stream equals its plain stream up
     to its first divergence, and there one ``forward`` of the common prefix
     puts both tokens within ``near_tie_bound`` of the largest logit.
-    Returns each request's divergence (None where the streams agree)."""
-    from repro_torch.models import transformer as tfm
-
+    Returns each request's divergence (None where the streams agree).
+    With ``gated`` False (an ill-conditioned model: ``plain_call_gate``)
+    the divergences are measured and returned, not gated, each with the
+    measured effect of one bf16 ulp there: the largest change of those
+    logits when one element of the prefix's first embedding moves one ulp
+    (``nudged_embedding``)."""
     out = []
     for i, (p, x, y) in enumerate(zip(prompts, base, spec)):
         check(len(x) == len(y), f"{label}: request {i} streams of "
@@ -2235,21 +2663,23 @@ def stream_gate(torch, label, cfg, params, prompts, base, spec):
         if j is None:
             out.append(None)
             continue
-        tokens = torch.tensor([list(p) + list(x[:j])],
-                              device=params["embed"].device)
-        with torch.no_grad():
-            z, _ = tfm.forward(params, {"tokens": tokens}, cfg)
-        z = z[0, -1].float()
-        bound = near_tie_bound(z, cfg.n_layers)
+        prefix = list(p) + list(x[:j])
+        z = last_logits(torch, cfg, params, prefix)
+        bound = near_tie_bound(z, cfg.n_layers, residual_roundings(cfg))
+        sens = None
+        if not gated:
+            with nudged_embedding(torch, params, prefix[0]):
+                sens = float((last_logits(torch, cfg, params, prefix)
+                              - z).abs().max())
         top = float(z.max())
         gaps = (top - float(z[x[j]]), top - float(z[y[j]]))
-        check(max(gaps) <= bound,
+        check(not gated or max(gaps) <= bound,
               f"{label}: request {i} diverges at token {j} ({x[j]} plain, "
               f"{y[j]} speculative) with logits {gaps[0]:.4f} and "
               f"{gaps[1]:.4f} below the top, over the near-tie bound "
               f"{bound:.4f}")
         out.append({"at": j, "plain_gap": gaps[0], "spec_gap": gaps[1],
-                    "bound": bound})
+                    "bound": bound, "one_ulp_sensitivity": sens})
     return out
 
 
@@ -2296,11 +2726,11 @@ class VerifyLaunches:
             finally:
                 self._inside = False
 
-        def chunk(lanes, cur, n_new, tokens):
+        def chunk(lanes, cur, n_new, tokens, **kw):
             if not self._inside:
-                return step_chunk(lanes, cur, n_new, tokens)
+                return step_chunk(lanes, cur, n_new, tokens, **kw)
             before = read_launches()
-            out = step_chunk(lanes, cur, n_new, tokens)
+            out = step_chunk(lanes, cur, n_new, tokens, **kw)
             after = read_launches()
             self.calls.append((tuple(tokens.shape),
                                {k: after[k] - before[k] for k in after
@@ -2493,9 +2923,9 @@ class ReplicaLaunches:
                         self._counted(getattr(e.adapter, name), i))
 
     def _counted(self, fn, i):
-        def call(*args):
+        def call(*args, **kw):
             before = read_launches()
-            out = fn(*args)
+            out = fn(*args, **kw)
             after = read_launches()
             for k, n in after.items():
                 self.by_replica[i][k] += n - before[k]
@@ -3526,8 +3956,9 @@ def main() -> int:
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
-    log("phase 2b paged_attention at hd 256 (gemma-7b) and 192 "
-        "(nemotron-4-340b) vs plain version (bf16 and int8 arenas)")
+    log("phase 2b paged_attention at hd 256 (gemma-7b), 192 "
+        "(nemotron-4-340b) and 80 (zamba2-2.7b) vs plain version (bf16 and "
+        "int8 arenas)")
     hd_cases, hd_cases8 = paged_attention_hd_phase(torch, timer, log)
     attn_cases += hd_cases
     attn_cases8 += hd_cases8
@@ -3584,6 +4015,11 @@ def main() -> int:
         "(36 layers, paged then slot), gemma-7b (28 layers, hd 256, bf16 "
         "then int8 paged KV), nemotron-4-340b (2 of 96 layers, hd 192)")
     dense_family, family_launches = family_phase(torch, log)
+    log("phase 14 the recurrent families at full size, 8:16+16:256: "
+        "xlstm-350m (24 layers; slot, then half the slots with swap "
+        "preemptions), zamba2-2.7b (54 mamba layers, 9 shared-attention "
+        "applications at hd 80; paged, then slot)")
+    recurrent, recurrent_launches = recurrent_phase(torch, log, smi)
     log("phase 8 the paper's pipeline on llama3-8b, 32 layers: calibrate, "
         "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
     pipeline, ops_cases, ops_launches = pipeline_phase(
@@ -3598,11 +4034,13 @@ def main() -> int:
                    for k, n in plain_launches.items()}
 
     # the fused kernel's and paged attention's main-path launches: phase 4's
-    # and phase 6(a)'s serves, each with phase 11's, phase 12's and 13's
+    # and phase 6(a)'s serves, each with phase 11's, phase 12's, 13's and
+    # 14's (zamba2-2.7b's paged serve: the hd 80 bodies)
     main_launches = add_launches(main_launches, spec_launches, fleet_launches,
-                                 family_launches)
+                                 family_launches, recurrent_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
-                                  fleet_launches, family_launches)
+                                  fleet_launches, family_launches,
+                                  recurrent_launches)
     # phase 13's int8 KV serve (gemma-7b) joins paged_attention_int8's
     int8_launches = add_launches(int8_launches, family_launches)
 
@@ -3614,7 +4052,8 @@ def main() -> int:
                      paths(nm_launches, "nm_spmm")),
         kernel_entry("paged_attention", attn_cases,
                      paged_launches["paged_attention"],
-                     paths(paged_launches, "paged_attention")),
+                     paths(paged_launches, "paged_attention"),
+                     by_hd={80: recurrent_launches}),
         kernel_entry("fused_sparse_linear_int8",
                      cases["fused_sparse_linear_int8"],
                      int8_launches["fused_sparse_linear_int8"],
@@ -3624,7 +4063,8 @@ def main() -> int:
                      paths(plain_launches8, "nm_spmm_int8")),
         kernel_entry("paged_attention_int8", attn_cases8,
                      int8_launches["paged_attention_int8"],
-                     paths(int8_launches, "paged_attention_int8")),
+                     paths(int8_launches, "paged_attention_int8"),
+                     by_hd={80: recurrent_launches}),
         kernel_entry("outlier_spmm", ops_cases,
                      ops_launches["outlier_spmm"],
                      {path: ops_launches[f"outlier_spmm_{path}"]
@@ -3635,7 +4075,8 @@ def main() -> int:
               "serve_plain_nm_int8": plain_serve8, "serve_paged": paged_serve,
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
               "replay": replay, "speculative": speculative, "fleet": fleet,
-              "dense_family": dense_family, "training": training}
+              "dense_family": dense_family, "recurrent": recurrent,
+              "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

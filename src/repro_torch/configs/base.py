@@ -5,10 +5,10 @@ Each architecture has one module in this package defining ``CONFIG`` (its
 published hyper-parameters) and ``smoke()`` (a reduced config of the same
 family for CPU tests), with the reference's values; ``dtype`` is a
 ``torch.dtype``.  ``get(name)`` resolves an id.  Every family is
-registered, so ids and parameter counts match the reference's; only the
-dense family (and the vlm family's backbone through ``forward``/
-``loss_fn``) is ported: the model zoo and the serving engine raise
-``NotImplementedError`` naming the ROADMAP item of the others
+registered, so ids and parameter counts match the reference's; the dense,
+ssm (xLSTM) and hybrid (Zamba2) families are ported, and the vlm family's
+backbone through ``forward``/``loss_fn``: the model zoo and the serving
+engine raise ``NotImplementedError`` naming the ROADMAP item of the others
 (``FAMILY_ITEMS``).
 """
 from __future__ import annotations
@@ -136,8 +136,7 @@ SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
 
 # The ROADMAP item that ports each family not ported yet; the model zoo, the
 # serving engine and the serve CLI raise NotImplementedError naming it.
-FAMILY_ITEMS = {"moe": "A11b", "ssm": "A11c", "hybrid": "A11d",
-                "encdec": "A11e"}
+FAMILY_ITEMS = {"moe": "A11b", "encdec": "A11e"}
 
 
 def family_not_ported(cfg) -> NotImplementedError | None:

@@ -61,14 +61,17 @@
 //     int8 tile (int8 converted exactly by byte permutes and an f32 add);
 //     at R = 4 rows a tensor-core tile would waste 60 of its 64 rows, and
 //     the bound is bytes.  Scores: a lane pair takes one key, each lane
-//     half of hd (interleaved 16-byte chunks), for all R rows, summed by
-//     one shuffle; 1/sqrt(hd) in log2 units (and with int8 the key's
+//     half of hd (interleaved 16-byte chunks; at hd 80 an int8 row is 5
+//     chunks, the even lane takes 3 and the odd 2), for all R rows, summed
+//     by one shuffle; 1/sqrt(hd) in log2 units (and with int8 the key's
 //     k_scale) scales the f32 sum.  Softmax: a warp per row, a running max
 //     and sum per row in f32, exp2; with int8 v_scale is folded into P
 //     (l sums the unscaled p).  P V: a thread takes 4 columns and every
-//     G-th key (G = 128 / (hd / 4) key groups: 8, 4, 2 and 2 at hd 64,
-//     128, 192 and 256; at hd 192 the last warp has no group and idles),
-//     the groups' sums added in group order after the split's last tile;
+//     G-th key (G key groups of hd / 4 threads, the largest power of two
+//     of them that fits 128 threads, so G divides a tile's 64 keys: 8, 4,
+//     4, 2 and 2 at hd 64, 80, 128, 192 and 256; at hd 80 the last 48
+//     threads and at hd 192 the last 32 have no group and idle), the
+//     groups' sums added in group order after the split's last tile;
 //   * combine: a split that is its tile's only live one writes O / max(l,
 //     1e-30) itself; otherwise each live split writes (acc, m, l) in f32
 //     to the workspace and the last to arrive merges them in split order
@@ -106,19 +109,24 @@ struct Layout {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr int kEPC = 16 / int(sizeof(T));     // elements a chunk
   static constexpr int kCPR = HD / kEPC;               // chunks a key row
+  static constexpr int kCopies = (kTK * kCPR + kThreads - 1) / kThreads;
   static constexpr int kKRow = HD * int(sizeof(T)) + 32;  // padded K row
   static constexpr int kVRow = HD * int(sizeof(T));
   static constexpr int kScales = kTK * (kKRow + kVRow);   // int8: k, v scales
   static constexpr int kSlot = kScales + (kInt8 ? 2 * kTK * 4 : 0);
-  // P V key groups of HD / 4 threads; at hd 192 the last 32 threads have
+  // P V key groups of HD / 4 threads, a power of two of them (whole keys
+  // a group); at hd 80 the last 48 threads and at hd 192 the last 32 have
   // no group and skip the product
-  static constexpr int kGroups = kThreads / (HD / 4);
+  static constexpr int kGroupsFit = kThreads / (HD / 4);
+  static constexpr int kGroups = kGroupsFit >= 8   ? 8
+                                 : kGroupsFit >= 4 ? 4
+                                 : kGroupsFit >= 2 ? 2
+                                                   : 1;
   static constexpr int kRing = kStages * kSlot;
   static constexpr int kRed = kGroups * R * HD * 4;
   static constexpr int kFront = kRing > kRed ? kRing : kRed;
   static constexpr int kTotal = kFront + 4 * (R * HD + 2 * R * kTK + 3 * R);
-  static_assert(kCPR % 2 == 0 && kTK * kCPR % kThreads == 0,
-                "whole chunks a lane and copies a thread");
+  static_assert(HD % kEPC == 0 && HD % 16 == 0, "whole chunks a row");
   static_assert(R % 4 == 0 && kSlot % 16 == 0, "aligned rows");
   static_assert(kThreads == 2 * kTK, "a thread a scale");
   static_assert(kGroups >= 1 && kTK % kGroups == 0, "whole keys a group");
@@ -228,8 +236,9 @@ paged_decode_kernel(const Args a) {
     const int j0 = j_lo + t * kTK;
     unsigned char* base = smem + (t % kStages) * L::kSlot;
 #pragma unroll
-    for (int i = 0; i < kTK * CPR / kThreads; ++i) {
+    for (int i = 0; i < L::kCopies; ++i) {
       const int it = tid + i * kThreads;
+      if (kTK * CPR % kThreads != 0 && it >= kTK * CPR) break;
       const int key = it / CPR, c = it % CPR;
       const int j = j0 + key;
       const int jb = div_bs(a, j);
@@ -315,8 +324,9 @@ paged_decode_kernel(const Args a) {
       for (int r = 0; r < R; ++r) s[r] = 0.f;
       const unsigned char* krow = base + qk_key * L::kKRow;
 #pragma unroll
-      for (int c = 0; c < CPR / 2; ++c) {
+      for (int c = 0; c < (CPR + 1) / 2; ++c) {
         const int ch = 2 * c + qk_h;
+        if (CPR % 2 != 0 && ch >= CPR) break;   // odd: the even lane's last
         float kf[EPC];
         chunk_to_f32<T>(*reinterpret_cast<const uint4*>(krow + ch * 16), kf);
 #pragma unroll
@@ -501,7 +511,7 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
               void* out, void* ws, void* counters, int B, int S, int H,
               int KV, int hd, int bs, int nb, int n_arena, int window,
               int rows, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) ||
+  if ((hd != 64 && hd != 80 && hd != 128 && hd != 192 && hd != 256) ||
       (rows != 4 && rows != 8) || B < 1 ||
       S < 1 || KV < 1 || H % KV || bs < 1 || nb < 1 ||
       int64_t(nb) * bs > 0x7FFFFFFF - kSpan)
@@ -521,6 +531,9 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
     case 64:
       return rows == 4 ? launch<64, 4, T>(a, B, st)
                        : launch<64, 8, T>(a, B, st);
+    case 80:
+      return rows == 4 ? launch<80, 4, T>(a, B, st)
+                       : launch<80, 8, T>(a, B, st);
     case 128:
       return rows == 4 ? launch<128, 4, T>(a, B, st)
                        : launch<128, 8, T>(a, B, st);
@@ -537,9 +550,9 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
 
 // The wrapper (serving/paged/paged_attention.py) checks device, dtype,
 // shapes, contiguity and alignment (q and the arenas 16-byte aligned), that
-// hd is 64, 128, 192 or 256, bs a multiple of 8 and H a multiple of KV, and passes its
-// plan: `rows` a block (4 or 8), and the workspace and counters it sized for
-// ceil(nb * bs / kSpan) splits of each lane's keys.
+// hd is 64, 80, 128, 192 or 256, bs a multiple of 8 and H a multiple of
+// KV, and passes its plan: `rows` a block (4 or 8), and the workspace and
+// counters it sized for ceil(nb * bs / kSpan) splits of each lane's keys.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a plan it does not take.
 extern "C" int paged_attention_decode_bf16(

@@ -81,6 +81,14 @@
 //     reads;
 //   * shared memory at hd 256: bf16 fits BM 64 only (Q 32 KB + 3 slots of
 //     64 KB + 1 KB = 230,400 of 232,448 B), so plan takes BM 64 there;
+//   * hd 80 (zamba2-2.7b's shared attention) is not a multiple of the
+//     64-wide panels: the tiles, the q tile and the O accumulator are laid
+//     out at the padded width HDP = 128, as at hd 128.  Only the 80 real
+//     columns are copied (int8 rows are stored at 80 bytes and converted
+//     to the 80 real columns), Q K^T runs hd / 16 = 5 k16 steps, so the
+//     padding columns of Q and K are never read, and P V runs the hd-128
+//     m64n128 product, whose columns 80..127 (from the unwritten padding of
+//     the V tile) are never stored;
 //   * epilogue: O / max(l, 1e-30) in bf16; rows past S * n_rep are not
 //     written.  No atomics and no workspace: two calls give the same bits.
 //
@@ -111,10 +119,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kSmemLimit = 232448;     // dynamic shared memory a block
 
 // Bytes of the block's shared memory: the q tile, the bf16 operand buffers
-// (K and V tiles) of an int8 arena, then the ring of K/V slots.  An int8
-// arena converts each tile an iteration ahead, into the other of two
-// operand pairs and with one ring slot more, where that fits (kAhead: hd 64
-// and 128, and 192 at BM 64); else (hd 192 at BM 128, hd 256) into one pair,
+// (K and V tiles) of an int8 arena, then the ring of K/V slots; bf16 tiles
+// at the padded width kHDP (hd 80: 128).  An int8 arena converts each tile
+// an iteration ahead, into the other of two operand pairs and with one
+// ring slot more, where that fits (kAhead: hd 64, 80 and 128, and 192 at
+// BM 64); else (hd 192 at BM 128, hd 256) into one pair,
 // at the top of the tile's own iteration.  bf16 at hd 256 fits BM 64 only
 // (kFits; plan in serving/paged/paged_attention.py never picks BM 128
 // there, and prefill_smem_bytes mirrors these sizes).
@@ -122,8 +131,9 @@ template <int HD, int BM, typename T>
 struct Layout {
   static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr int kThreads = 2 * BM;         // a warpgroup per 64 rows
-  static constexpr int kQ = BM * HD * 2;          // [HD / 64][BM][64] bf16
-  static constexpr int kTile = kTK * HD * 2;      // [HD / 64][TK][64] bf16
+  static constexpr int kHDP = (HD + 63) / 64 * 64;   // padded to panels
+  static constexpr int kQ = BM * kHDP * 2;        // [HDP / 64][BM][64] bf16
+  static constexpr int kTile = kTK * kHDP * 2;    // [HDP / 64][TK][64] bf16
   static constexpr int kRaw = kTK * HD;           // [TK][HD] int8
   // bf16: K tile, V tile; int8: K rows, V rows, 64 k and 64 v scales
   static constexpr int kSlot = kInt8 ? 2 * kRaw + 2 * kTK * 4 : 2 * kTile;
@@ -136,6 +146,7 @@ struct Layout {
   static constexpr int kTotal = kQ + kOps + kSlots * kSlot + 1024;
   static constexpr bool kFits = kTotal <= kSmemLimit;
   static_assert(kQ % 1024 == 0 && kTile % 1024 == 0, "aligned tiles");
+  static_assert(HD % 16 == 0, "whole k16 steps and 16-byte chunks a row");
 };
 
 struct Args {
@@ -210,10 +221,10 @@ paged_prefill_kernel(const Args a) {
   constexpr bool INT8 = L::kInt8;
   constexpr bool AHEAD = L::kAhead;
   constexpr int NT = L::kThreads;
+  constexpr int HDP = L::kHDP;
   constexpr int CPR = HD * int(sizeof(T)) / 16;   // 16-byte chunks a row
   constexpr int KCH = kTK * CPR;                  // chunks of a K tile
   constexpr int NSLOT = L::kSlots;
-  static_assert(KCH % NT == 0, "whole copies a thread");
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (static_cast<unsigned>(
@@ -268,8 +279,9 @@ paged_prefill_kernel(const Args a) {
     const int j0 = kv_begin + t * kTK;
     unsigned char* base = slot(t % NSLOT);
 #pragma unroll
-    for (int i = 0; i < KCH / NT; ++i) {
+    for (int i = 0; i < (KCH + NT - 1) / NT; ++i) {
       const int it = tid + i * NT;
+      if (KCH % NT != 0 && it >= KCH) break;
       const int key = it / CPR, c = it % CPR;
       const int j = j0 + key;
       const int jb = div_bs(a, j);
@@ -318,7 +330,7 @@ paged_prefill_kernel(const Args a) {
         base + (is_v ? L::kRaw : 0) + key * HD + c * 8);
     uint4 lo, hi;
     int8x16_to_bf16(raw, lo, hi);
-    bf16* dst = (is_v ? v_ops : k_ops) + buf * (kTK * HD) +
+    bf16* dst = (is_v ? v_ops : k_ops) + buf * (kTK * HDP) +
                 (c >> 3) * (kTK * 64) + key * 64;
     *reinterpret_cast<uint4*>(dst + ((((c & 7)) ^ (key & 7)) << 3)) = lo;
     *reinterpret_cast<uint4*>(dst + ((((c & 7) + 1) ^ (key & 7)) << 3)) = hi;
@@ -326,14 +338,17 @@ paged_prefill_kernel(const Args a) {
   // converting in place, o is live across the conversion: two chunks in
   // flight (a full unroll hoisted every chunk's load and spilled at hd 256)
   auto convert = [&](const unsigned char* base, int buf) {
+    constexpr int N = (2 * CH + NT - 1) / NT;     // hd 80 at BM 128: 2.5
     if constexpr (AHEAD) {
 #pragma unroll
-      for (int i = 0; i < 2 * CH / NT; ++i)
-        convert_chunk(base, buf, tid + i * NT);
+      for (int i = 0; i < N; ++i)
+        if (2 * CH % NT == 0 || tid + i * NT < 2 * CH)
+          convert_chunk(base, buf, tid + i * NT);
     } else {
 #pragma unroll 2
-      for (int i = 0; i < 2 * CH / NT; ++i)
-        convert_chunk(base, buf, tid + i * NT);
+      for (int i = 0; i < N; ++i)
+        if (2 * CH % NT == 0 || tid + i * NT < 2 * CH)
+          convert_chunk(base, buf, tid + i * NT);
     }
   };
 
@@ -350,9 +365,9 @@ paged_prefill_kernel(const Args a) {
   }
   const float scale = kLog2e / sqrtf(float(HD));  // scores in log2 units
 
-  float o[HD / 2];
+  float o[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float s[32];                     // the tile's scores, then its P
 #pragma unroll
@@ -387,13 +402,14 @@ paged_prefill_kernel(const Args a) {
     cp_async_commit();
     const unsigned char* base = slot(t % NSLOT);
     const int buf = AHEAD ? (t & 1) : 0;
-    const bf16* kt = INT8 ? k_ops + buf * (kTK * HD)
+    const bf16* kt = INT8 ? k_ops + buf * (kTK * HDP)
                           : reinterpret_cast<const bf16*>(base);
-    const bf16* vt = INT8 ? v_ops + buf * (kTK * HD)
+    const bf16* vt = INT8 ? v_ops + buf * (kTK * HDP)
                           : reinterpret_cast<const bf16*>(base + L::kTile);
     const int j0 = kv_begin + t * kTK;
 
     // S = Q K^T: 64 rows of this warpgroup by 64 keys, hd / 16 k16 steps
+    // (the real columns only)
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
@@ -481,7 +497,7 @@ paged_prefill_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      pv_step<HD>(o, pa[kk], vt + kk * 16 * 64);
+      pv_step<HDP>(o, pa[kk], vt + kk * 16 * 64);
     wgmma_commit();
     // int8 ahead: the next tile converted into the other buffer while PV
     // runs
@@ -542,7 +558,7 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
               const void* vs, const void* tables, const void* cursor,
               void* out, int B, int S, int H, int KV, int hd, int bs, int nb,
               int n_arena, int window, int bm, void* stream) {
-  if ((hd != 64 && hd != 128 && hd != 192 && hd != 256) ||
+  if ((hd != 64 && hd != 80 && hd != 128 && hd != 192 && hd != 256) ||
       (bm != 64 && bm != 128) || B < 1 ||
       S < 1 || KV < 1 || H % KV || bs < 1 || nb < 1)
     return int(cudaErrorInvalidValue);
@@ -555,6 +571,7 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch_tile<64, T>(a, B, bm, st);
+    case 80: return launch_tile<80, T>(a, B, bm, st);
     case 128: return launch_tile<128, T>(a, B, bm, st);
     case 192: return launch_tile<192, T>(a, B, bm, st);
     default: return launch_tile<256, T>(a, B, bm, st);
@@ -565,8 +582,8 @@ int launch_hd(const void* q, const void* k, const void* v, const void* ks,
 
 // The wrapper (serving/paged/paged_attention.py) checks device, dtype,
 // shapes, contiguity and alignment (q and the arenas 16-byte aligned), that
-// hd is 64, 128, 192 or 256, bs a multiple of 8 and H a multiple of KV, and
-// passes its plan: `bm` rows a block (64 or 128; 64 only at hd 256 on a
+// hd is 64, 80, 128, 192 or 256, bs a multiple of 8 and H a multiple of KV,
+// and passes its plan: `bm` rows a block (64 or 128; 64 only at hd 256 on a
 // bf16 arena).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a plan it does not take.

@@ -4,11 +4,13 @@
 package's ``SparseWeight``) becomes the port's ``SparseWeight`` with its
 five buffers in the same layouts and the static ``n``/``m``/``o_n``/
 ``in_dim`` copied; every other leaf goes through ``np.asarray``.  The JAX
-package stacks layer weights [L, ...] under ``"layers"``; the port keeps a
-list of per-layer dicts, so that entry is split along its first axis (the
-[L, hd] ``q_norm``/``k_norm`` of a ``qk_norm`` model as every other leaf).
-The tree is carried as it is: a tied-embedding model's has no
-``lm_head``.
+package stacks layer weights [L, ...] under ``"layers"`` (and Zamba2's
+under ``"mamba"``); the port keeps a list of per-layer dicts, so those
+entries are split along their first axis (the [L, hd] ``q_norm``/
+``k_norm`` of a ``qk_norm`` model, xLSTM's [L, 4, H, dh, dh] ``r_gates``
+and Zamba2's f32 ``A_log``/``D``/``dt_bias`` as every other leaf).  The
+tree is carried as it is otherwise: a tied-embedding model's has no
+``lm_head``, and Zamba2's ``shared_attn`` stays one unstacked layer.
 
 bf16 arrays come out of ``np.asarray`` as ``ml_dtypes`` bfloat16, which
 ``torch.from_numpy`` rejects; they cross as their 16-bit patterns and are
@@ -75,12 +77,20 @@ def _split_layers(layers: dict) -> list[dict]:
             for i in range(n_layers.pop())]
 
 
+STACKED = ("layers", "mamba")
+"""The entries the JAX package stacks [L, ...]: every family's ``layers``
+(xLSTM's ``r_gates`` [L, 4, H, dh, dh] among them) and Zamba2's ``mamba``
+blocks; zamba's ``shared_attn`` is one unstacked layer and is carried as
+it is."""
+
+
 def from_jax_params(params, device="cuda") -> dict:
     """The port's params on ``device`` from a JAX params pytree (a dict
-    with stacked ``"layers"``)."""
+    whose ``STACKED`` entries are split into per-layer lists)."""
     out = _convert(params, resolve(device))
-    if isinstance(out.get("layers"), dict):
-        out["layers"] = _split_layers(out["layers"])
+    for key in STACKED:
+        if isinstance(out.get(key), dict):
+            out[key] = _split_layers(out[key])
     return out
 
 

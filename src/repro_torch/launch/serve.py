@@ -23,9 +23,16 @@ the KV arenas as int8 with per-position scales, on either layout.
 ``--arch`` takes every registered id (``configs.all_archs()``) and, with
 ``--smoke-arch``, every id ``configs.get_smoke`` resolves.  Dense ids serve
 (qwen3-8b, gemma-7b, internlm2-1.8b, nemotron-4-340b and the paper's
-models); the moe, ssm, hybrid and encdec families raise NotImplementedError
-naming their ROADMAP item, and the engine refuses vlm, as the reference's
-does.
+models), and so do xlstm-350m (ssm: recurrent state slots, any
+``--kv-layout`` served as slot) and zamba2-2.7b (hybrid: mamba state slots
+and the shared attention's KV, slot or paged, prefix caching off); the moe
+and encdec families raise NotImplementedError naming their ROADMAP item,
+the engine refuses vlm, as the reference's does, and ``--kv-dtype int8``
+is refused for ssm and hybrid:
+
+  python -m repro_torch.launch.serve --arch xlstm-350m --sparse
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke-arch \\
+      --device cpu --sparse --kv-layout paged --block-size 8
 
 ``--draft {ngram,sparse,self}`` turns on draft-verify speculative decoding
 (``serving/speculative.py``), ``--spec-k`` drafts a request (each
@@ -76,6 +83,8 @@ from ..configs import family_not_ported, get, get_smoke
 from ..core import SparsifyConfig
 from ..device import resolve
 from ..models import transformer as tfm
+from ..models import xlstm as xls
+from ..models import zamba as zam
 from ..models.sparse_serving import sparsify_for_serving
 from ..runtime.metrics import format_summary, summarize
 from ..serving import (ReplicaSet, RouterTracer, SamplingParams,
@@ -105,7 +114,9 @@ def build_params(cfg, args, device, generator: torch.Generator, *,
             for key in report:
                 report[key] += rep[key]
             return lp
-    params = tfm.init_params(cfg, generator, device, layer_fn=layer_fn)
+    init = {"ssm": xls.init_params,
+            "hybrid": zam.init_params}.get(cfg.family, tfm.init_params)
+    params = init(cfg, generator, device, layer_fn=layer_fn)
     report["ratio"] = report["compressed_bytes"] / max(report["dense_bytes"], 1)
     return params, report
 
@@ -226,12 +237,16 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
     n_tok = sum(len(r.tokens) for r in reqs)
     st = engine.stats()
     per = st.get("replicas", [st])
-    print(f"engine[{args.kv_layout}]: {args.batch} requests, {n_tok} tokens "
+    layout = getattr(engine, "kv_layout", args.kv_layout)
+    print(f"engine[{layout}]: {args.batch} requests, {n_tok} tokens "
           f"in {wall:.2f}s ({n_tok / max(wall, 1e-9):.1f} tok/s, "
           f"{st['n_steps']} steps, {args.slots} slots, "
           f"{sum(p['n_preemptions'] for p in per)} preemptions, {device})")
     for p in per:
         pool = p["pool"]
+        if "arena_bytes" not in pool:             # ssm: state slots only
+            print(f"state slots: {pool['n_slots']}, {pool['n_free']} free")
+            continue
         print(f"kv arena: {pool['kv_dtype']}, {pool['arena_bytes']} bytes "
               f"({pool['scale_bytes']} of scales)")
         pc = pool.get("prefix_cache")

@@ -11,18 +11,32 @@ step's kernels must do:
                   computes (B x S, padding lanes included: the weight
                   kernels multiply them), plus the two attention products,
                   4 x H x hd per visible key of every real row (i < n_new),
-                  the sliding window applied;
+                  the sliding window applied, in every attention layer;
+                  plus, for the recurrent families, 4 x H x dk x dv per
+                  real row in every layer whose recurrence has a matrix
+                  state (mLSTM, Mamba2: the state update's outer product
+                  and the read-out);
   bytes_accessed  the projections' deployed bytes (values, metadata,
                   outliers and scales) read once, plus each lane's visible
                   KV read once and its fresh KV written once, int8 arenas'
-                  f32 scales included.
+                  f32 scales included; plus, for the recurrent families,
+                  every lane's state read once and written once in every
+                  layer.
 
-Summed over the layers.  The embedding, the final norm, the dense output
-head and the activations are left out, as PERF.md's bound of a step leaves
-them out.  The figures are not comparable with the reference's: its
-``unified_step`` scans the layers (``src/repro/models/transformer.py``),
-and XLA's cost analysis counts a scan body once
-(``src/repro/launch/hlo_analysis.py``), so its figure is about one layer's.
+The projections a step reads: every layer's for the dense family; for ssm
+(xLSTM) an mLSTM layer's ``w_up``, ``w_q``, ``w_k``, ``w_v``, ``w_gates``
+and ``w_down`` and an sLSTM layer's ``w_up``, ``w_slstm``, ``r_gates``
+and ``w_down``; for hybrid (Zamba2) each mamba layer's ``in_proj`` and
+``out_proj`` and the shared block's projections once per application
+(each application reads them again).  The attention layers are the dense
+family's layers and the hybrid family's applications.
+
+The embedding, the final norm, the dense output head and the activations
+are left out, as PERF.md's bound of a step leaves them out.  The figures
+are not comparable with the reference's: its ``unified_step`` scans the
+layers (``src/repro/models/transformer.py``), and XLA's cost analysis
+counts a scan body once (``src/repro/launch/hlo_analysis.py``), so its
+figure is about one layer's.
 """
 from __future__ import annotations
 
@@ -32,13 +46,33 @@ import torch
 from ..models.sparse_serving import SparseWeight
 
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+MLSTM_PROJECTIONS = ("w_up", "w_q", "w_k", "w_v", "w_gates", "w_down")
+SLSTM_PROJECTIONS = ("w_up", "w_slstm", "r_gates", "w_down")
+MAMBA_PROJECTIONS = ("in_proj", "out_proj")
 
 
-def weight_totals(params) -> tuple[int, int]:
-    """(kept weights, deployed bytes) of every layer's projections."""
+def _read_layers(params, cfg) -> list:
+    """(layer dict, names of the projections a step reads there), once
+    per time the step reads them."""
+    fam = "dense" if cfg is None else cfg.family
+    if fam == "ssm":
+        k = cfg.slstm_every
+        return [(lp, SLSTM_PROJECTIONS if k and i % k == k - 1
+                 else MLSTM_PROJECTIONS)
+                for i, lp in enumerate(params["layers"])]
+    if fam == "hybrid":
+        apps = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+        return [(lp, MAMBA_PROJECTIONS) for lp in params["mamba"]] + \
+            [(params["shared_attn"], PROJECTIONS)] * apps
+    return [(lp, PROJECTIONS) for lp in params["layers"]]
+
+
+def weight_totals(params, cfg=None) -> tuple[int, int]:
+    """(kept weights, deployed bytes) of the projections one step reads
+    (the dense family's when ``cfg`` is None)."""
     kept = nbytes = 0
-    for lp in params["layers"]:
-        for name in PROJECTIONS:
+    for lp, names in _read_layers(params, cfg):
+        for name in names:
             w = lp.get(name)
             if isinstance(w, SparseWeight):
                 out = w.nm_meta.shape[0]
@@ -50,6 +84,34 @@ def weight_totals(params) -> tuple[int, int]:
                 kept += w.numel()
                 nbytes += w.numel() * w.element_size()
     return kept, nbytes
+
+
+def attention_layers(cfg) -> int:
+    """The layers (applications, for hybrid) that attend over KV."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    return cfg.n_layers
+
+
+def recurrent_state(cfg) -> tuple[int, int]:
+    """(f32 bytes of one lane's recurrent state over every layer, the
+    recurrences' flops per real row over every layer); (0, 0) for a
+    family without recurrent state."""
+    if cfg.family == "ssm":
+        H = cfg.n_heads
+        dh = 2 * cfg.d_model // H
+        k = cfg.slstm_every
+        n_s = sum(1 for i in range(cfg.n_layers) if k and i % k == k - 1)
+        n_m = cfg.n_layers - n_s
+        return (4 * (n_m * (H * dh * dh + H * dh) + n_s * 4 * H * dh),
+                n_m * 4 * H * dh * dh)
+    if cfg.family == "hybrid":
+        H = 2 * cfg.d_model // cfg.ssm_head_dim
+        per = H * cfg.ssm_state * cfg.ssm_head_dim
+        return 4 * cfg.n_layers * per, cfg.n_layers * 4 * per
+    return 0, 0
 
 
 def kv_bytes_per_position(cfg, kv_dtype: str = "bf16") -> int:
@@ -70,7 +132,8 @@ def step_cost(cfg, weights: tuple[int, int], cursor, n_new, rows: int,
     kept, w_bytes = weights
     cursor = np.asarray(cursor, np.int64)
     n_new = np.asarray(n_new, np.int64)
-    L = cfg.n_layers
+    L = attention_layers(cfg)
+    state_bytes, rec_flops = recurrent_state(cfg)
     # visible keys of row i of lane b: positions <= cursor + i, the last
     # ``window`` of them when the model has one
     t_max = int(n_new.max(initial=0))
@@ -86,6 +149,8 @@ def step_cost(cfg, weights: tuple[int, int], cursor, n_new, rows: int,
     read = np.where(n_new > 0, cursor + n_new - first, 0)
     attn_flops = 4 * cfg.n_heads * cfg.hd * int((visible * real).sum())
     per_pos = kv_bytes_per_position(cfg, kv_dtype)
-    return {"flops": L * attn_flops + 2 * kept * rows,
+    return {"flops": L * attn_flops + 2 * kept * rows
+            + rec_flops * int(n_new.sum()),
             "bytes_accessed": w_bytes
-            + L * per_pos * int(read.sum() + n_new.sum())}
+            + L * per_pos * int(read.sum() + n_new.sum())
+            + 2 * state_bytes * len(n_new)}

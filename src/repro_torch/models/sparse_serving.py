@@ -71,7 +71,9 @@ def sparse_apply(sw: SparseWeight, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W_hat^T from the compressed buffers, through the kernels;
     ``v_scale`` goes with them and dequantizes int8 values."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, sw.in_dim)
+    # the kernels take a contiguous [M, in]; a slice of a wider activation
+    # (xLSTM's cell input, one half of its up-projection) is copied once
+    x2 = x.reshape(-1, sw.in_dim).contiguous()
     if sw.o_values is None:
         y = nm_spmm(x2, sw.nm_values, sw.nm_meta, n=sw.n, m=sw.m,
                     scale=sw.v_scale)

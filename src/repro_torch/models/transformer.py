@@ -53,11 +53,15 @@ def _dense_init(out_dim: int, in_dim: int, dtype, generator, device):
 
 
 def _check_family(cfg) -> None:
-    """Raise for a family whose blocks the port lacks (moe: A11b; the
-    ssm, hybrid and encdec families have no transformer blocks)."""
+    """Raise for a family whose blocks the port lacks (moe: A11b, encdec:
+    A11e) and for the ssm and hybrid families, whose stacks are
+    ``models/xlstm.py`` and ``models/zamba.py``."""
     err = family_not_ported(cfg)
     if err is not None:
         raise err
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
+                         f"transformer stack")
 
 
 def init_layer(cfg, generator: torch.Generator, device) -> dict:

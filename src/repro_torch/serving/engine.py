@@ -1,16 +1,23 @@
-"""Continuous-batching serving engine, dense family on the slot and paged
-KV layouts (port of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine for the dense, ssm and hybrid
+families, on the slot and paged KV layouts (port of
+``repro/serving/engine.py``).
 
 Every ``step()`` evicts expired queue entries, spends up to
 ``token_budget`` prompt tokens on prefill chunks (in-flight cursors first,
 then FIFO admissions), and advances every prefill-complete request by one
-token in a single fused decode.  All model work is
-``models/transformer.unified_step`` over a ``SlotPoolView``: each step
-writes its fresh KV into the arena and attends in place with the
+token in a single fused decode.  All model work goes through the family
+adapter (``serving/families.py``): for the dense family
+``models/transformer.unified_step`` over a ``SlotPoolView``, where each
+step writes its fresh KV into the arena and attends in place with the
 per-request cursor as a length mask, so chunked prefill computes what the
-one-shot prefill does.  Chunks at the same cursor are padded to
-power-of-two length buckets (``_bucket``) and batched; padding lanes write
-nothing and their outputs are never read.
+one-shot prefill does; for ssm (xLSTM) ``models/xlstm.unified_step`` over
+recurrent state slots, and for hybrid (Zamba2) ``models/zamba.
+unified_step`` over state slots and the shared attention's KV.  An ssm
+engine serves the slot layout whatever was asked, and its token budget
+needs no chunk quantum (any budget; chunks as wide as the budget).  Chunks
+at the same cursor are padded to power-of-two length buckets (``_bucket``)
+and batched; padding lanes write nothing and their outputs are never
+read.
 
 Two KV layouts behind one API (``kv_layout=``):
 
@@ -54,10 +61,10 @@ step does no observability work: no synchronize, no event, no span.
 ``ingest``, ``withdraw`` and ``steal_youngest`` move queued, slotless
 requests between engines: the fleet's replicas (``serving/fleet/``).  Left
 out of this slice, raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A12), and the moe, ssm, hybrid and encdec families (A11b-e).  Every dense
-config is served, whatever its ``qk_norm``, tied embeddings, activation,
-gating and head dim; the vlm family is refused, as the reference's engine
-refuses it.
+A12), and the moe and encdec families (A11b, A11e).  Every dense config is
+served, whatever its ``qk_norm``, tied embeddings, activation, gating and
+head dim, and the ssm and hybrid families (xlstm-350m, zamba2-2.7b); the
+vlm family is refused, as the reference's engine refuses it.
 """
 from __future__ import annotations
 
@@ -69,7 +76,7 @@ import torch
 from ..configs import family_not_ported
 from ..device import resolve
 from .cache_pool import CachePoolError
-from .families import TransformerAdapter
+from .families import build_adapter
 from .observe import NULL_TRACER
 from .paged import OutOfBlocks
 from .request import Request, SamplingParams, Status
@@ -80,7 +87,7 @@ from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE,
                         resolve_token_budget, spec_verify_reserve)
 from .speculative import SpeculativeConfig, Speculator, verify_bucket
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
 KV_LAYOUTS = ("slot", "paged")
 
 
@@ -124,17 +131,28 @@ class ServingEngine:
                              f"engine runs on {self.device}")
         self.cfg = cfg
         self.params = params
-        self.adapter = TransformerAdapter(
-            cfg, params, n_slots=n_slots, max_len=max_len, device=self.device,
-            kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
-            prefix_caching=prefix_caching, kv_dtype=kv_dtype)
+        # the family adapter owns the state substrate (pools and arenas)
+        # and the model calls; the engine schedules against its pool.  ssm
+        # has no KV to page: its layout is coerced to "slot"
+        if cfg.family == "ssm":
+            kv_layout = "slot"
+        self.adapter = build_adapter(
+            cfg, params, device=self.device, kv_layout=kv_layout,
+            n_slots=n_slots, max_len=max_len, block_size=block_size,
+            n_blocks=n_blocks, prefix_caching=prefix_caching,
+            kv_dtype=kv_dtype)
         self.kv_layout = kv_layout
         self.kv_dtype = kv_dtype
         self.pool = self.adapter.pool
         self.queue = RequestQueue(max_queue, queue_timeout_s)
+        # a pure-recurrent request carries O(1) state: no block math and
+        # no shape ladder worth bounding, so the quantum floor check is
+        # waived (quantum 1) and the planning quantum widens to the budget
+        ssm = cfg.family == "ssm"
         self.token_budget = resolve_token_budget(
-            token_budget, max_prefill_per_step, max_len)
-        self.chunk_quantum = CHUNK_QUANTUM
+            token_budget, max_prefill_per_step, max_len,
+            quantum=1 if ssm else CHUNK_QUANTUM)
+        self.chunk_quantum = self.token_budget if ssm else CHUNK_QUANTUM
         self.lookahead_blocks = lookahead_blocks
         # speculative decoding (serving/speculative.py): the proposer
         # shares slot identity with the target; each decode step verifies
@@ -184,10 +202,12 @@ class ServingEngine:
 
     # ------------------------------------------------------------ admission
     def submit(self, prompt, sampling: SamplingParams | None = None,
-               on_token=None, on_finish=None,
+               on_token=None, on_finish=None, embeds=None,
                request_id: int | None = None) -> Request:
         """Enqueue a request; raises QueueFull when the queue is at capacity
-        and ValueError when the request can never fit the pool."""
+        and ValueError when the request can never fit the pool or its
+        family refuses it (``adapter.validate_submit``: every ported family
+        takes token prompts only, so ``embeds`` is refused)."""
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
@@ -203,6 +223,7 @@ class ServingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({sampling.max_new_tokens}) exceeds KV capacity "
                 f"{capacity}")
+        self.adapter.validate_submit(prompt, sampling, embeds)
         rid = self._next_id if request_id is None else int(request_id)
         req = Request(rid, prompt, sampling, on_token=on_token,
                       on_finish=on_finish)
@@ -419,6 +440,9 @@ class ServingEngine:
             self._install_running(req, row, now)
             if tr.enabled:
                 tr.on_admit(req, n_cached, cache_lookup)
+            # family admission work: a swap-preempted request of a stateful
+            # slot layout resumes with its saved state and cursor
+            n_cached = max(n_cached, self.adapter.on_admit(req, row))
             req.prefill_cursor = n_cached
             stats["admitted"] += 1
             return len(seq) - n_cached
@@ -520,7 +544,8 @@ class ServingEngine:
         else:
             self.pool.chunk_end_check(cursor, takes)
             lanes = self.pool.lane_rows(rows, B)
-        logits = self.adapter.step_chunk(lanes, cur, n_new, tokens)
+        logits = self.adapter.step_chunk(lanes, cur, n_new, tokens,
+                                         rows=rows)
         self.pool.advance_prefill(rows, [cursor + t for t in takes])
         stats["prefill_tokens"] += sum(takes)
         stats["prefill_chunks"] += n
@@ -554,16 +579,23 @@ class ServingEngine:
     def _preempt_one(self, stats: dict, exclude: Request | None = None,
                      reason: str = PREEMPT_DECODE_PRESSURE) -> None:
         """Push the youngest running request (never ``exclude``) back to
-        the queue head and release its slot or blocks.  On re-admission it
-        re-prefills prompt + generated tokens, which recomputes the same KV,
-        so its token stream is unchanged; on the paged layout its fully
-        written blocks are first published to the prefix cache, so the
-        resume starts at the last full block."""
+        the queue head and release its slot or blocks.  On re-admission a
+        dense request re-prefills prompt + generated tokens, which
+        recomputes the same KV, so its token stream is unchanged; on the
+        paged layout its fully written blocks are first published to the
+        prefix cache, so the resume starts at the last full block.  A
+        stateful slot-layout family (ssm, hybrid on slots) saves its state
+        instead (``adapter.save_for_preempt``) and resumes it verbatim."""
         candidates = ({s: r for s, r in self.running.items()
                        if r is not exclude}
                       if exclude is not None else self.running)
         victim_slot = pick_preemption_victim(candidates)
         req = self.running.pop(victim_slot)
+        # stateful slot-layout families swap their state out (recompute
+        # would change float summation order); attention-only families
+        # return None and recompute exactly
+        req.swap = self.adapter.save_for_preempt(
+            req, victim_slot, len(self._written_seq(req)))
         if self.kv_layout == "paged":
             self.pool.register_prefix(victim_slot, self._written_seq(req))
             self.pool.n_preemptions += 1

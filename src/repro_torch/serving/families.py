@@ -1,32 +1,60 @@
-"""Family adapter of the dense decoder (port of ``repro/serving/families.py``,
-``TransformerAdapter`` on the slot and paged layouts, with bf16 or int8 KV
-arenas).  It serves every dense config (``qk_norm``, tied embeddings, any
-activation, gating and head dim); the moe family raises NotImplementedError
-naming ROADMAP A11b (the ssm, hybrid and encdec families A11c-e), and vlm
-has no serving adapter, as in the reference.
+"""Family adapters: one per-request state substrate per model family behind
+one engine-facing surface (port of ``repro/serving/families.py``; the
+enc-dec family's ``EncDecAdapter`` waits for ROADMAP A11e and the moe
+family for A11b).
 
-The engine schedules requests; the adapter owns the KV pool and the two
-step functions over ``transformer.unified_step``:
+The engine schedules requests; it does not know what a family keeps per
+request.  Each adapter owns that answer: the pool the scheduler allocates
+slots from, any further arenas, and the two model calls over the family's
+``unified_step``:
 
-  ``step_chunk(lanes, cur, n_new, tokens)``
-      run one (cursor, bucket) prefill-chunk group, return logits [B, S, V];
-      ``lanes`` are the lanes' slots (slot layout) or block tables (paged);
+  ``step_chunk(lanes, cur, n_new, tokens, rows=None)``
+      run one (cursor, bucket) prefill-chunk group, return logits
+      [B, S, V]; ``lanes`` are the lanes' slots (slot layout) or block
+      tables (paged), ``rows`` the lanes' pool rows (the hybrid family's
+      state arena is indexed by row on the paged layout);
   ``step_decode(tokens, active)``
       run the fused S=1 decode over every lane, return logits
-      [n_slots, 1, V].  On the paged layout only the ``active`` rows write
-      their KV; the slot layout writes every lane (a stray write lands
-      where the next chunk or occupant overwrites it before any read).
+      [n_slots, 1, V];
+  ``on_admit(req, slot) -> n_restored``
+      per-request admission work: restore a swap-preempted request's state
+      verbatim and return how many tokens of its sequence it has absorbed,
+      so the engine resumes its cursor there;
+  ``save_for_preempt(req, slot, n_written) -> blob | None``
+      what preemption must save to keep the resumed stream exactly the
+      uninterrupted one: None means recompute is exact (softmax attention:
+      KV recomputed from tokens is the same numbers); the stateful slot
+      families return a swap blob, because a recurrent state recomputed
+      under other chunk boundaries differs in float summation order;
+  ``validate_submit(prompt, sampling, embeds)``
+      family-specific admission checks (every family here takes token
+      prompts only).
+
+Per family:
+
+  dense   ``TransformerAdapter``: slot or paged KV pool, bf16 or int8 KV.
+  ssm     ``RecurrentAdapter``: a ``RecurrentStatePool`` only, O(1) state a
+          request and no KV; the layout is coerced to "slot" (there is
+          nothing to page).  Swap preemption.
+  hybrid  ``HybridAdapter``: a slot or paged KV pool sized to the shared
+          attention's applications plus a ``RecurrentStatePool`` for the
+          mamba layers, one slot identity across both
+          (``HybridStatePool``), mixed in one step through
+          ``HybridPoolView``.  The slot layout swaps state and KV on
+          preemption (exact); the paged layout recomputes from scratch with
+          the prefix cache off (cached KV blocks cannot reconstruct the
+          SSM state), which may differ from the uninterrupted stream in the
+          last ulp, as in the reference.
 
 Host arrays (lanes, cursors, tokens) go to the device here, once per step.
 ``n_model_calls`` counts ``unified_step`` calls.  Each call runs through
 ``_traced``: a direct call under the default ``NULL_TRACER``, else the
 engine's ``ServingTracer.jit_call`` with kinds "step" (chunk groups) and
 "decode", keyed by the host arrays' shapes and costed by ``step_cost``.
-With ``kv_dtype="int8"`` the views carry the pool's scale arenas, so every
-layer quantizes its fresh KV as it writes it and dequantizes inside
-attention.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -34,12 +62,23 @@ import torch
 from ..configs import family_not_ported
 from ..launch import step_cost as cost
 from ..models import transformer as tfm
-from .cache_pool import SlotKVPool, SlotPoolView
+from ..models import xlstm as xls
+from ..models import zamba as zam
+from .cache_pool import CachePoolError, SlotKVPool, SlotPoolView
 from .observe import NULL_TRACER
 from .paged import PagedKVPool, PagedPoolView
+from .state_pool import (HybridPoolView, RecurrentStatePool,
+                         RecurrentStateView)
 
 
-class TransformerAdapter:
+class FamilyAdapter:
+    """Shared hooks; subclasses override what their family needs."""
+    cfg = None
+    params = None
+    pool = None
+    device = None
+    kv_layout = "slot"
+    kv_dtype = "bf16"
     # observability: the engine installs its ServingTracer here when
     # tracing is on; NULL_TRACER keeps ``_traced`` a direct call
     tracer = NULL_TRACER
@@ -47,26 +86,8 @@ class TransformerAdapter:
     # speculative draft model attributes as "draft_step"/"draft_decode")
     trace_kind_prefix = ""
 
-    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
-                 kv_layout: str = "slot", block_size: int = 16,
-                 n_blocks: int | None = None, prefix_caching: bool = True,
-                 kv_dtype: str = "bf16"):
-        not_ported = family_not_ported(cfg)
-        if not_ported is not None:
-            raise not_ported
-        if cfg.family != "dense":
-            raise ValueError(f"no serving adapter for family {cfg.family!r}")
+    def _setup(self, cfg, params, device) -> None:
         self.cfg, self.params, self.device = cfg, params, device
-        self.kv_layout = kv_layout
-        if kv_layout == "paged":
-            self.pool = PagedKVPool(cfg, n_slots, max_len, device=device,
-                                    block_size=block_size, n_blocks=n_blocks,
-                                    prefix_caching=prefix_caching,
-                                    kv_dtype=kv_dtype)
-        else:
-            self.pool = SlotKVPool(cfg, n_slots, max_len, device,
-                                   kv_dtype=kv_dtype)
-        self.kv_dtype = kv_dtype
         self.n_model_calls = 0
         self._weights = None                   # step_cost's weight totals
 
@@ -83,17 +104,66 @@ class TransformerAdapter:
         """The call's FLOPs and bytes (``launch/step_cost.py``), from the
         same host arrays the call takes."""
         if self._weights is None:
-            self._weights = cost.weight_totals(self.params)
+            self._weights = cost.weight_totals(self.params, self.cfg)
         return cost.step_cost(self.cfg, self._weights, cur, n_new,
                               tokens.size, self.kv_dtype)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+
+    def on_admit(self, req, slot: int) -> int:
+        return 0
+
+    def save_for_preempt(self, req, slot: int, n_written: int):
+        return None
+
+    def validate_submit(self, prompt, sampling, embeds) -> None:
+        if embeds is not None:
+            raise ValueError(
+                f"family {self.cfg.family!r} takes token prompts only; "
+                f"embeds= is for the enc-dec family")
+
+
+# --------------------------------------------------------------------------
+# dense: slot or paged KV, bf16 or int8
+# --------------------------------------------------------------------------
+
+class TransformerAdapter(FamilyAdapter):
+    """The dense family on the slot and paged layouts.  On the paged layout
+    only the ``active`` rows of a decode write their KV; the slot layout
+    writes every lane (a stray write lands where the next chunk or
+    occupant overwrites it before any read).  With ``kv_dtype="int8"``
+    the views carry the pool's scale arenas, so every layer quantizes its
+    fresh KV as it writes it and dequantizes inside attention."""
+
+    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
+                 kv_layout: str = "slot", block_size: int = 16,
+                 n_blocks: int | None = None, prefix_caching: bool = True,
+                 kv_dtype: str = "bf16"):
+        not_ported = family_not_ported(cfg)
+        if not_ported is not None:
+            raise not_ported
+        if cfg.family != "dense":
+            raise ValueError(f"no serving adapter for family {cfg.family!r}")
+        self._setup(cfg, params, device)
+        self.kv_layout = kv_layout
+        if kv_layout == "paged":
+            self.pool = PagedKVPool(cfg, n_slots, max_len, device=device,
+                                    block_size=block_size, n_blocks=n_blocks,
+                                    prefix_caching=prefix_caching,
+                                    kv_dtype=kv_dtype)
+        else:
+            self.pool = SlotKVPool(cfg, n_slots, max_len, device,
+                                   kv_dtype=kv_dtype)
+        self.kv_dtype = kv_dtype
 
     def _scales(self) -> dict:
         return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
 
     def _run(self, view, tokens: np.ndarray) -> torch.Tensor:
-        toks = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
         with torch.no_grad():
-            logits, _ = tfm.unified_step(self.params, view, {"tokens": toks},
+            logits, _ = tfm.unified_step(self.params, view,
+                                         {"tokens": self._tokens(tokens)},
                                          self.cfg)
         return logits
 
@@ -119,7 +189,8 @@ class TransformerAdapter:
                                       **self._scales())
         return self._run(view, tokens)
 
-    def step_chunk(self, lanes, cur, n_new, tokens) -> torch.Tensor:
+    def step_chunk(self, lanes, cur, n_new, tokens, rows=None
+                   ) -> torch.Tensor:
         self.n_model_calls += 1
         return self._traced("step", self._chunk, (lanes, cur, n_new, tokens))
 
@@ -134,3 +205,226 @@ class TransformerAdapter:
             n_new, lanes = np.ones_like(p.pos), None
         return self._traced("decode", self._decode,
                             (lanes, p.pos, n_new, tokens))
+
+
+def _active_mask(n: int, active: list[int]) -> np.ndarray:
+    act = np.zeros((n,), np.int64)
+    act[active] = 1
+    return act
+
+
+# --------------------------------------------------------------------------
+# ssm (xLSTM): recurrent state slots only, no KV anywhere
+# --------------------------------------------------------------------------
+
+class RecurrentAdapter(FamilyAdapter):
+    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device):
+        self._setup(cfg, params, device)
+        self.pool = RecurrentStatePool(
+            cfg, n_slots, max_len, lambda c, n: xls.init_state(c, n, device))
+
+    def _run(self, rows, cur, n_new, tokens) -> torch.Tensor:
+        view = RecurrentStateView.build(self.pool.states, rows, cur, n_new)
+        with torch.no_grad():
+            logits, states = xls.unified_step(
+                self.params, view, {"tokens": self._tokens(tokens)},
+                self.cfg)
+        self.pool.adopt(states)
+        return logits
+
+    def step_chunk(self, lanes, cur, n_new, tokens, rows=None
+                   ) -> torch.Tensor:
+        self.n_model_calls += 1
+        return self._traced("step", self._run, (lanes, cur, n_new, tokens))
+
+    def step_decode(self, tokens, active: list[int]) -> torch.Tensor:
+        # inactive lanes (mid-prefill rows, free slots) decode with n_new 0:
+        # their gates are fully masked and their state comes back bit for
+        # bit; unlike KV there is no overwrite-before-read to rely on
+        self.n_model_calls += 1
+        p = self.pool
+        return self._traced("decode", self._run,
+                            (None, p.pos, _active_mask(p.n_slots, active),
+                             tokens))
+
+    def save_for_preempt(self, req, slot, n_written):
+        return {"state": self.pool.save_slot(slot), "pos": n_written}
+
+    def on_admit(self, req, slot):
+        if req.swap is None:
+            return 0
+        blob, req.swap = req.swap, None
+        self.pool.restore_slot(slot, blob["state"])
+        return blob["pos"]
+
+
+# --------------------------------------------------------------------------
+# hybrid (Zamba2): shared-attention KV pool + mamba state slots
+# --------------------------------------------------------------------------
+
+class HybridStatePool:
+    """One slot identity across a KV pool (sized to the shared attention's
+    applications) and a recurrent-state pool (every mamba layer).
+
+    The engine drives the usual pool protocol; allocation and release hit
+    both sub-pools in lockstep on the slot layout, so one id indexes a
+    request's KV rows and its state.  Everything else (lane maps, capacity
+    checks, positions, the paged admission surface) goes to the KV pool,
+    whose per-row position doubles as the state cursor.  On the paged
+    layout rows come from ``admit`` and the state arena is indexed by row:
+    a reused row's stale state is never read (the cursor-0 init select)."""
+
+    def __init__(self, kv, state, paged: bool):
+        self.kv = kv
+        self.state = state
+        self._paged = paged
+
+    def __getattr__(self, name):
+        return getattr(self.kv, name)
+
+    def alloc(self):
+        row = self.kv.alloc()
+        if row is None:
+            return None
+        srow = self.state.alloc()
+        if srow != row:
+            raise CachePoolError(
+                f"hybrid sub-pools desynchronized: kv slot {row} vs state "
+                f"slot {srow}")
+        return row
+
+    def release(self, slot: int) -> None:
+        self.kv.release(slot)
+        if not self._paged:
+            self.state.release(slot)
+
+    free = release
+
+
+class HybridAdapter(FamilyAdapter):
+    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
+                 kv_layout: str = "slot", block_size: int = 16,
+                 n_blocks: int | None = None, prefix_caching: bool = True):
+        n_attn = zam.n_applications(cfg)
+        if n_attn == 0:
+            raise ValueError(
+                "hybrid serving needs at least one shared-attention "
+                "application (attn_every > 0); a pure-mamba stack should "
+                "use the 'ssm' family path")
+        self._setup(cfg, params, device)
+        self.kv_layout = kv_layout
+        kv_cfg = dataclasses.replace(cfg, n_layers=n_attn)
+        state = RecurrentStatePool(
+            cfg, n_slots, max_len,
+            lambda c, n: [zam.lane_init(c, i, n, device)
+                          for i in range(c.n_layers)])
+        if kv_layout == "paged":
+            # prefix caching is off whatever was asked: a cached KV block
+            # cannot reconstruct the SSM state that absorbed its tokens
+            kv = PagedKVPool(kv_cfg, n_slots, max_len, device=device,
+                             block_size=block_size, n_blocks=n_blocks,
+                             prefix_caching=False)
+        else:
+            kv = SlotKVPool(kv_cfg, n_slots, max_len, device)
+        self.pool = HybridStatePool(kv, state, paged=(kv_layout == "paged"))
+
+    def _run(self, kview, srows, cur, n_new, tokens) -> torch.Tensor:
+        kv, st = self.pool.kv, self.pool.state
+        sview = RecurrentStateView.build(st.states, srows, cur, n_new)
+        with torch.no_grad():
+            logits, _, states = zam.unified_step(
+                self.params, HybridPoolView(kview, sview),
+                {"tokens": self._tokens(tokens)}, self.cfg)
+        st.adopt(states)
+        return logits
+
+    def _chunk(self, lanes, cur, n_new, tokens, srows) -> torch.Tensor:
+        kv, S = self.pool.kv, tokens.shape[1]
+        if self.kv_layout == "paged":
+            kview = PagedPoolView.build(kv.k, kv.v, lanes, cur, n_new, S,
+                                        trash=kv.trash_block)
+        else:
+            kview = SlotPoolView.build(kv.k, kv.v, lanes, cur, n_new, S)
+        return self._run(kview, srows, cur, n_new, tokens)
+
+    def _decode(self, lanes, cur, act, tokens) -> torch.Tensor:
+        kv = self.pool.kv
+        if self.kv_layout == "paged":
+            # only the active rows write KV, into blocks prepare_decode
+            # made private, as the dense paged decode
+            kview = PagedPoolView.build(kv.k, kv.v, lanes, cur, act, 1,
+                                        trash=kv.trash_block,
+                                        device_tables=kv.block_tables)
+        else:
+            kview = SlotPoolView.build(kv.k, kv.v, None, cur,
+                                       np.ones_like(cur), 1)
+        return self._run(kview, None, cur, act, tokens)
+
+    def step_chunk(self, lanes, cur, n_new, tokens, rows=None
+                   ) -> torch.Tensor:
+        self.n_model_calls += 1
+        srows = lanes
+        if self.kv_layout == "paged":
+            srows = self.pool.state.lane_rows(rows, tokens.shape[0])
+        return self._traced("step", lambda *a: self._chunk(*a, srows),
+                            (lanes, cur, n_new, tokens))
+
+    def step_decode(self, tokens, active: list[int]) -> torch.Tensor:
+        self.n_model_calls += 1
+        kv = self.pool.kv
+        lanes = kv.host_tables if self.kv_layout == "paged" else None
+        return self._traced("decode", self._decode,
+                            (lanes, kv.pos, _active_mask(kv.n_slots, active),
+                             tokens))
+
+    def save_for_preempt(self, req, slot, n_written):
+        if self.kv_layout == "paged":
+            return None                      # recompute (module docstring)
+        kv, st = self.pool.kv, self.pool.state
+        return {"state": st.save_slot(slot), "k": kv.k[:, slot].clone(),
+                "v": kv.v[:, slot].clone(), "pos": n_written}
+
+    def on_admit(self, req, slot):
+        if req.swap is None:
+            return 0
+        blob, req.swap = req.swap, None
+        kv, st = self.pool.kv, self.pool.state
+        st.restore_slot(slot, blob["state"])
+        kv.k[:, slot] = blob["k"].to(kv.k.dtype)
+        kv.v[:, slot] = blob["v"].to(kv.v.dtype)
+        return blob["pos"]
+
+
+# --------------------------------------------------------------------------
+
+def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
+                  max_len: int, block_size: int = 16,
+                  n_blocks: int | None = None, prefix_caching: bool = True,
+                  kv_dtype: str = "bf16"):
+    """The family's adapter.  ssm has no KV at all, so any requested layout
+    is served as "slot" (the engine coerces it); quantized KV
+    (``kv_dtype="int8"``) exists only for the pure KV-transformer families,
+    as in the reference; encdec raises naming ROADMAP A11e and moe A11b."""
+    fam = cfg.family
+    if kv_dtype != "bf16" and fam not in ("dense", "moe"):
+        raise ValueError(
+            f"kv_dtype={kv_dtype!r} needs a KV-transformer family "
+            f"(dense/moe), not {fam!r}")
+    not_ported = family_not_ported(cfg)
+    if not_ported is not None:
+        raise not_ported
+    if fam == "dense":
+        return TransformerAdapter(
+            cfg, params, n_slots=n_slots, max_len=max_len, device=device,
+            kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
+            prefix_caching=prefix_caching, kv_dtype=kv_dtype)
+    if fam == "ssm":
+        return RecurrentAdapter(cfg, params, n_slots=n_slots,
+                                max_len=max_len, device=device)
+    if fam == "hybrid":
+        return HybridAdapter(
+            cfg, params, n_slots=n_slots, max_len=max_len, device=device,
+            kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
+            prefix_caching=prefix_caching)
+    raise ValueError(f"no serving adapter for family {fam!r}")
+

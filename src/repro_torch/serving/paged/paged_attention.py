@@ -20,9 +20,12 @@ head):
   S = Q K^T and O += P V on the tensor cores (wgmma), 64 or 128 rows a
   block, P rounded to bf16 before the second product.
 
-Both bodies take head dims 64, 128, 192 and 256 (``HEAD_DIMS``); at hd 256
-the prefill-chunk body fits its shared memory at 64 rows a block only
-(``prefill_smem_bytes``).  The first port's kernel,
+Both bodies take head dims 64, 80, 128, 192 and 256 (``HEAD_DIMS``); at
+hd 256 the prefill-chunk body fits its shared memory at 64 rows a block
+only (``prefill_smem_bytes``).  At hd 80 (zamba2-2.7b's shared attention)
+the prefill-chunk body computes at the padded width 128 (``padded_hd``:
+its tiles are 64-wide panels), loading and storing only the 80 real
+columns; the decode body works at 80 columns directly.  The first port's kernel,
 ``csrc/paged_attention.cu`` (hd 64 and 128), stays reachable
 through ``force_plan=Plan("tile")`` to be timed beside them; ``plan`` never
 picks it.
@@ -71,9 +74,9 @@ launches_tile = 0
 launches_tile_int8 = 0
 """Of ``launches_int8``, those of the old kernel, forced."""
 
-HEAD_DIMS = (64, 128, 192, 256)
-"""Head dims the two bodies are built for; another hd (zamba2's 80, ROADMAP
-B11) raises on a CUDA tensor."""
+HEAD_DIMS = (64, 80, 128, 192, 256)
+"""Head dims the two bodies are built for; another hd raises on a CUDA
+tensor."""
 SMEM_LIMIT = 232448
 """Dynamic shared memory a block may use on an H100 (227 KB)."""
 PREFILL_TK = 64                  # key positions a tile (kTK of the source)
@@ -110,15 +113,22 @@ class Plan:
     counters: int = 0         # decode: one per (lane, KV head, row tile)
 
 
+def padded_hd(hd: int) -> int:
+    """The width the prefill-chunk body computes at: hd rounded up to its
+    64-wide panels (80 -> 128; the others are multiples of 64)."""
+    return -(-hd // 64) * 64
+
+
 def prefill_smem_bytes(hd: int, bm: int, int8: bool) -> int:
     """Bytes of shared memory a prefill-chunk block takes at head dim ``hd``
     and ``bm`` rows: ``Layout<HD, BM, T>::kTotal`` of
     ``csrc/paged_attention_prefill.cu``.  The q tile, for int8 arenas bf16
     operand tiles of K and V (two pairs when converting a tile ahead fits,
     else one), the ring of K/V slots (one more when ahead) and 1 KB of
-    alignment."""
-    q = bm * hd * 2
-    tile = PREFILL_TK * hd * 2
+    alignment; the bf16 tiles at the padded width (``padded_hd``), int8
+    rows as stored."""
+    q = bm * padded_hd(hd) * 2
+    tile = PREFILL_TK * padded_hd(hd) * 2
     if not int8:
         return q + PREFILL_STAGES * 2 * tile + 1024
     slot = 2 * PREFILL_TK * hd + 2 * PREFILL_TK * 4
@@ -306,7 +316,7 @@ def paged_attention(q: torch.Tensor, k_arena: torch.Tensor,
         raise ValueError(f"prefill plan {p} needs "
                          f"{prefill_smem_bytes(hd, p.rows, int8)} bytes of "
                          f"shared memory at hd {hd}, over {SMEM_LIMIT}")
-    if p.path == "tile" and hd > 128:
+    if p.path == "tile" and hd not in (64, 128):
         raise ValueError(f"the old kernel takes hd 64 and 128, not {hd}")
     fn = getattr(build.library(), name)
     out = torch.empty_like(q)

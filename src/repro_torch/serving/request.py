@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 from ..runtime.metrics import RequestMetrics
 
@@ -81,6 +81,9 @@ class Request:
     # per-token chosen-token log-probabilities (log-softmax of the raw
     # logits at each emitted token), parallel to ``tokens``
     logprobs: list[float] = dataclasses.field(default_factory=list)
+    # swap-preemption blob of a stateful slot-layout family: its adapter's
+    # ``save_for_preempt`` fills it, ``on_admit`` restores and clears it
+    swap: Any = None
 
     @property
     def prompt_len(self) -> int:

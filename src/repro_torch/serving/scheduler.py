@@ -64,7 +64,8 @@ _budget_alias_warned = False
 
 def resolve_token_budget(token_budget: int | None,
                          max_prefill_per_step: int | None,
-                         max_len: int) -> int:
+                         max_len: int, *,
+                         quantum: int = CHUNK_QUANTUM) -> int:
     """Resolve the engine's per-step prefill token budget.
 
     ``max_prefill_per_step`` is the deprecated request-count knob; when
@@ -72,6 +73,12 @@ def resolve_token_budget(token_budget: int | None,
     ``max_len`` tokens each per step — and warns once per process.  With
     neither knob set the default budget is ``2 * max_len`` (the historical
     default of two full prefills between decode steps).
+
+    ``quantum`` is the engine's effective chunk quantum.  Families with no
+    paged layout and O(1) per-request state (pure-recurrent: no block math,
+    no shape ladder worth bounding) pass ``quantum=1`` so the block-quantum
+    floor check in ``validate_token_budget`` does not reject budgets that
+    are perfectly schedulable for them.
     """
     global _budget_alias_warned
     if max_prefill_per_step is not None:
@@ -85,7 +92,8 @@ def resolve_token_budget(token_budget: int | None,
             token_budget = max(int(max_prefill_per_step), 1) * max_len
     if token_budget is None:
         token_budget = 2 * max_len
-    return validate_token_budget(int(token_budget), max_len=max_len)
+    return validate_token_budget(int(token_budget), max_len=max_len,
+                                 quantum=quantum)
 
 
 def validate_token_budget(token_budget: int, *, max_len: int,

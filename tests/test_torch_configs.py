@@ -1,11 +1,11 @@
 """The port's ``configs`` package against the JAX package's: every
 registered config and every smoke twin field by field (``dtype`` mapped to
 its ``torch.dtype``), the parameter counts, the shapes and their
-applicability, the model zoo's input and cache specs and ``grow_caches``;
-and the families the port lacks raising NotImplementedError naming their
-ROADMAP item (moe A11b, ssm A11c, hybrid A11d, encdec A11e), while vlm
-runs ``forward`` and is refused by the engine, as the reference refuses
-it."""
+applicability, the model zoo's input and cache specs (the recurrent
+families' nested state specs too) and ``grow_caches``; and the families
+the port lacks raising NotImplementedError naming their ROADMAP item (moe
+A11b, encdec A11e), while vlm runs ``forward`` and is refused by the
+engine, as the reference refuses it."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,7 +27,6 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 
 SMOKE_IDS = sorted(configs.SMOKE_MODULES)
 NOT_PORTED = {"mixtral-8x7b": "A11b", "llama4-maverick-400b-a17b": "A11b",
-              "xlstm-350m": "A11c", "zamba2-2.7b": "A11d",
               "whisper-medium": "A11e"}
 
 
@@ -134,6 +133,45 @@ def test_input_and_cache_specs_match(name):
         want = {k: _spec(v) for k, v in
                 jax_zoo.cache_specs(j, jshape).items()}
         assert model_zoo.cache_specs(t, shape) == want
+
+
+def _nested_spec(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, (list, tuple)):
+        return [_nested_spec(t) for t in tree]
+    if isinstance(tree, dict):
+        return {k: _nested_spec(v) for k, v in tree.items()}
+    return _spec(tree)
+
+
+def _port_nested(tree):
+    """The port's (shape, dtype) leaves as [shape, dtype] lists, the
+    nesting kept, for comparison with ``_nested_spec`` of JAX's."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and len(tree) == 2 and \
+            isinstance(tree[1], torch.dtype):
+        return (tuple(tree[0]), tree[1])
+    if isinstance(tree, (list, tuple)):
+        return [_port_nested(t) for t in tree]
+    return {k: _port_nested(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("name", ["xlstm-350m", "zamba2-2.7b",
+                                  "xlstm-350m-smoke", "zamba2-2.7b-smoke"])
+def test_recurrent_input_and_cache_specs_match(name):
+    """ssm: per-layer mLSTM (C, n) and sLSTM (c, n, h, m) states; hybrid:
+    per-layer (S, None) states and per-application (k, v)."""
+    _both_registries()
+    j, t = jax_configs.get(name), configs.get(name)
+    for sname, shape in configs.SHAPES.items():
+        jshape = jax_configs.SHAPES[sname]
+        want = {k: _spec(v) for k, v in
+                jax_zoo.input_specs(j, jshape).items()}
+        assert model_zoo.input_specs(t, shape) == want
+        got = _port_nested(model_zoo.cache_specs(t, shape))
+        assert got == _nested_spec(jax_zoo.cache_specs(j, jshape))
 
 
 def test_grow_caches_matches():

@@ -1572,8 +1572,9 @@ def test_pipeline_on_cuda_matches_cpu(cuda):
             >= 0.999
 
 
-# ------------------ paged attention at head dims 192 and 256 (ROADMAP B11)
-WIDE_SHAPES = [(192, 24, 2), (256, 4, 4), (256, 16, 4)]      # hd, H, KV
+# ------------- paged attention at head dims 80, 192 and 256 (ROADMAP B11)
+WIDE_SHAPES = [(192, 24, 2), (256, 4, 4), (256, 16, 4),      # hd, H, KV
+               (80, 32, 32), (80, 8, 2)]
 WIDE_CASES = [(1, 16, [0, 15, 16, 77]), (2, 8, [5, 130]),
               (37, 16, [9, 130]), (512, 16, [256, 3])]      # S, bs, cursors
 # the prefill-chunk body at every case, the decode body where a lane has
@@ -1589,7 +1590,7 @@ WIDE = [(S, bs, cur, hd, H, KV, body)
 @pytest.mark.parametrize("S,bs,cursors,hd,H,KV,body", WIDE)
 def test_paged_attention_wide_heads_match_plain(cuda, S, bs, cursors, hd, H,
                                                 KV, body, window, quantize):
-    """Both bodies, each forced, at hd 192 and 256 against the plain
+    """Both bodies, each forced, at hd 80, 192 and 256 against the plain
     version (the decode body row by row), with the body's launch counted
     and the same bits on a second call."""
     from repro_torch.serving.paged import paged_attention as pa

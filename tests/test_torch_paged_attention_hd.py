@@ -1,5 +1,6 @@
-"""``paged_attention`` at head dims 192 (nemotron-4-340b) and 256 (gemma-7b)
-on the CPU: the plain version against the JAX package's
+"""``paged_attention`` at head dims 192 (nemotron-4-340b), 256 (gemma-7b)
+and 80 (zamba2-2.7b's shared attention, in a narrow grid of its own at the
+end) on the CPU: the plain version against the JAX package's
 ``paged_attention_ref`` and its Pallas kernel in interpret mode (with a
 head tile where H * hd >= 4,096, as the reference's ``_head_tile``
 picks), bf16 and int8 arenas; the CPU models of the decode and
@@ -184,3 +185,91 @@ def test_entry_points_take_the_wide_plans(hd):
                               int8) == "paged_attention_decode" + sfx
         assert pa.entry_point(pa.plan(2, 40, 8, 2, hd, 16, SMS, nb=9),
                               int8) == "paged_attention_prefill" + sfx
+
+
+# ---------------------------------------------- head dim 80 (zamba2-2.7b)
+# A narrow grid of its own: zamba2-2.7b's shared attention (H = KV, n_rep
+# 1) and a GQA shape, bf16 and int8 arenas.
+HD80 = 80
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S,H,KV,window", [(1, 4, 4, None), (9, 4, 4, 24),
+                                           (1, 8, 2, 24), (9, 8, 2, None)])
+def test_hd80_plain_matches_paged_attention_ref(S, H, KV, window, int8):
+    args = _inputs(3, S, H, KV, HD80, 16, [0, 37, 70], seed=S + H,
+                   int8=int8)
+    np.testing.assert_allclose(_plain(*args, window),
+                               _jax(paged_attention_ref, *args, window),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("H,KV", [(32, 32), (64, 16)])
+def test_hd80_plain_matches_paged_attention_pallas(H, KV, int8):
+    """zamba2-2.7b's 32 heads of 80 (H * hd = 2,560: no head tile) and 64
+    heads (5,120: the reference walks head tiles)."""
+    tile = _head_tile(H, KV, HD80)
+    assert (tile is not None) == (H * HD80 >= 4096)
+    args = _inputs(2, 5, H, KV, HD80, 8, [3, 20], seed=H + int8, int8=int8)
+    ref = _jax(paged_attention_pallas, *args, None, interpret=True,
+               head_tile=tile)
+    np.testing.assert_allclose(_plain(*args, None), ref, atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("n_rep,window", [(1, None), (4, 24)])
+def test_hd80_decode_model_matches_paged_attention_ref(n_rep, window, int8):
+    """The decode body's model at hd 80 (its 20-thread column groups change
+    no sum the model orders)."""
+    args = _inputs(3, 1, 2 * n_rep, 2, HD80, 16, [0, 127, 301],
+                   seed=80 + n_rep, int8=int8, wild=True)
+    np.testing.assert_allclose(
+        decode_model(*args, window),
+        _jax(paged_attention_ref, *args, window), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("n_rep,window,bm", [(1, None, 128), (4, 24, 64)])
+def test_hd80_prefill_model_matches_paged_attention_ref(n_rep, window, bm,
+                                                        int8):
+    """The prefill-chunk body's model at hd 80: the body computes at the
+    padded width 128, whose padding columns add nothing to the scores and
+    are never stored, so its arithmetic on the 80 real columns is the
+    model's."""
+    args = _inputs(2, 21, 2 * n_rep, 2, HD80, 16, [5, 64], seed=80 + bm,
+                   int8=int8, wild=True)
+    v, vs = args[2], args[6]
+    ref = _jax(paged_attention_ref, *args, window)
+    exact = prefill_model(*args, window, bm=bm, round_p=False)
+    np.testing.assert_allclose(exact, ref, atol=ATOL, rtol=RTOL)
+    got = prefill_model(*args, window, bm=bm)
+    assert np.abs(got - ref).max() <= 2.0 ** -8 * _v_max(v, vs) + ATOL + \
+        RTOL * np.abs(ref).max()
+
+
+def test_hd80_layouts_and_plans():
+    """hd 80 is a head dim of both bodies; the prefill-chunk body's tiles
+    are laid out at the padded width 128 (its q tile and bf16 tiles as at
+    hd 128), int8 rows at 80 bytes, converting a tile ahead at BM 64 and
+    128; zamba2-2.7b's decode step takes the decode body at R 4, its
+    512-token chunk BM 128."""
+    assert HD80 in pa.HEAD_DIMS
+    assert [pa.padded_hd(h) for h in (64, 80, 128, 192, 256)] == \
+        [64, 128, 128, 192, 256]
+    want = {64: (115712, 125952), 128: (132096, 142336)}
+    for bm, sizes in want.items():
+        assert tuple(pa.prefill_smem_bytes(HD80, bm, i)
+                     for i in (False, True)) == sizes
+        assert pa.prefill_smem_bytes(HD80, bm, False) == \
+            pa.prefill_smem_bytes(128, bm, False)
+    dec = pa.plan(8, 1, 32, 32, HD80, 16, SMS, nb=64)
+    assert (dec.path, dec.rows, dec.splits) == ("decode", 4, 8)
+    assert dec.workspace_bytes == 8 * 32 * 8 * 4 * (HD80 + 2) * 4
+    chunk = pa.plan(1, 512, 32, 32, HD80, 16, SMS, nb=64)
+    assert (chunk.path, chunk.rows, chunk.blocks) == ("prefill", 128, 128)
+    for int8 in (False, True):
+        sfx = "_int8" if int8 else "_bf16"
+        assert pa.entry_point(dec, int8) == "paged_attention_decode" + sfx
+        assert pa.entry_point(chunk, int8) == "paged_attention_prefill" + sfx
