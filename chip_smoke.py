@@ -66,8 +66,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      int8, each gated; T from the decode body against the prefill-chunk
      body at the decode case's lanes, the short lanes' count beside it.
      And the same gate and times at hd 256 (gemma-7b: H 16, KV 16), hd
-     192 (nemotron-4-340b: H 96, KV 8) and hd 80 (zamba2-2.7b's shared
-     attention: H 32, KV 32) for the decode case and the 512-token chunk,
+     192 (nemotron-4-340b: H 96, KV 8), hd 80 (zamba2-2.7b's shared
+     attention: H 32, KV 32) and hd 128 at llama4-maverick's 5 q heads a
+     KV head (H 40, KV 8) for the decode case and the 512-token chunk,
      bf16 and int8 arenas; nemotron's decode rows (12) take the
      prefill-chunk body, so its decode case also runs the decode body
      forced; no old kernel there (it takes hd 64 and 128 only);
@@ -152,6 +153,44 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      Reported: decode step p50, tok/s, TTFT, peak memory, launches and
      device ms a decode step by kernel class, with the card's name and
      power limit (``recurrent.device``).
+ 15. the moe and encdec families (run right after phase 14), each
+     8:16+16:256 by magnitude from seed 0, built one layer at a time (a
+     moe layer's routed experts stay dense bf16, drawn one expert at a
+     time); each new projection shape through phase 2's gate at M 8 and
+     512 (whisper's also at 1,500, its encoder's rows); every serve gated
+     on its launches a model call (the fused kernel: 4 attention
+     projections a moe layer plus llama4's 3 shared-expert ones, an
+     enc-dec decoder layer's 8 a step call and 6 an encoder layer plus 2 a
+     decoder layer an encoder call; paged attention: one a layer, by
+     body), and reporting decode step p50, tok/s, TTFT p50/p99 and the
+     ``"families"`` block of ``summarize``, peak memory and a decode and
+     a prefill profile:
+       (a) mixtral-8x7b at full width cut to 16 of 32 layers (45.1 GB of
+           dense experts): one MoE layer against its per-token f32
+           computation (``moe_layer_gate``: the choices against the f64
+           router, differing only at near-ties; the outputs within
+           ``MOE_TOL_REL``) on a decode batch and a 512-token chunk; one
+           512-token chunk call with every kernel launch held against its
+           plain version on the same inputs, its end-to-end difference
+           reported beside the one-ulp control and the routings that
+           differ (a top-2 router at random init turns one rounding into
+           another expert: ill-conditioned, as zamba2); phase 4's traffic
+           paged (a decode step held in context) then slot, the streams'
+           divergences reported with their one-ulp sensitivity; the
+           distinct experts a decode call routes to;
+       (b) llama4-maverick-400b-a17b at full width cut to 1 of 48 layers
+           (128 experts, 32.2 GB): the same layer and chunk checks, 4
+           requests of 64..256 tokens, 16 new tokens each, paged;
+       (c) whisper-medium at full size (24 + 24 layers), slot, 8 slots of
+           448 tokens, 1,500 encoder frames a request: the encoder and a
+           224-token chunk call with every launch held in context (192 +
+           192) and end to end within ``MODEL_TOL_REL``; 8 requests of
+           seeded random frames and 4..224-token prompts, 32 new tokens
+           each, with a decode step checked in context; then 4 slots with
+           the youngest running request preempted every 4 steps: gates
+           preemptions, swap resumes (no recompute, no second encoder
+           call) and streams equal to the unpressured run's up to a
+           near-tie.
 
   8. the paper's pipeline on llama3-8b, full width and depth, from seed 0
      (the same dense weights phase 4 compressed by magnitude):
@@ -303,17 +342,17 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            launched 7 x 4 times a forward on the body the rows select;
            perplexity of the dense, sparsified and tuned models reported.
 
-Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c)) also profiles
-one 512-token prefill chunk.  Prints the kernels line ``{"kernels": [...]}``
-(seven entries: the three serving kernels' bf16 and int8 variants, and
-``outlier_spmm``; each entry names its sources and splits its cases and
-launches by path, decode and prefill; ``nm_spmm``'s launches are phase
-5's and phase 10(c)'s, the bf16 fused kernel's phase 4's and paged
-attention's phase 6(a)'s, each with phase 11's, 12's, 13's and 14's;
-the int8 paged attention's phase 7(a)'s with phase 13(b)'s; both paged
-attention entries carry ``hd80``: the hd 80 cases' sums and phase 14's
-launches by body),
-the serve numbers, the
+Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
+profiles one 512-token prefill chunk (whisper's: 447 tokens, its
+admission's encoder call in the same step).  Prints the kernels line
+``{"kernels": [...]}`` (seven entries: the three serving kernels' bf16
+and int8 variants, and ``outlier_spmm``; each entry names its sources
+and splits its cases and launches by path, decode and prefill;
+``nm_spmm``'s launches are phase 5's and phase 10(c)'s, the bf16 fused
+kernel's phase 4's and paged attention's phase 6(a)'s, each with phase
+11's to 15's; the int8 paged attention's phase 7(a)'s with phase
+13(b)'s; both paged attention entries carry ``hd80``: the hd 80 cases'
+sums and phase 14's launches by body), the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -367,13 +406,17 @@ ATTN_CASES = [("decode", [63, 200, 500, 700, 767, 1000, 15, 16], 1, None),
               ("chunk64_window128", [0, 64, 300, 700], 64, 128)]
 # phase 2b at head dims 256, 192 and 80: gemma-7b's attention (H 16, KV
 # 16), nemotron-4-340b's (H 96, KV 8) and zamba2-2.7b's shared attention
-# (H 32, KV 32) at the decode case's lanes and a 512-token chunk;
+# (H 32, KV 32) at the decode case's lanes and a 512-token chunk, and the
+# same at hd 128 for llama4-maverick's 5 q heads a KV head (H 40, KV 8: 5
+# decode rows in a tile of R = 8);
 # nemotron's decode rows (12 = S x n_rep) exceed T, so its decode case also
 # runs the decode body forced (``decode_max_rows`` = 12: 2 tiles of R = 8
 # rows)
 ATTN_HD_SHAPES = {"gemma-7b": dict(H=16, KV=16, hd=256, bs=16),
                   "nemotron-4-340b": dict(H=96, KV=8, hd=192, bs=16),
-                  "zamba2-2.7b": dict(H=32, KV=32, hd=80, bs=16)}
+                  "zamba2-2.7b": dict(H=32, KV=32, hd=80, bs=16),
+                  "llama4-maverick-400b-a17b": dict(H=40, KV=8, hd=128,
+                                                    bs=16)}
 ATTN_HD_CASES = ATTN_CASES[:2]
 # the sweep that sets paged_attention's threshold T: the decode case's 8
 # lanes at these S (rows S * n_rep = 4..256), and 8 short lanes at ~64
@@ -432,6 +475,36 @@ PREEMPT_EVERY = 4
 # each new projection shape through phase 2's gate at a decode and a
 # prefill row count before it serves
 FAMILY_MS = (8, 512)
+# phase 15: the moe and encdec families.  mixtral-8x7b cut to 16 of 32
+# layers (its dense bf16 experts are 2.82 GB a layer: 32 would need ~92 GB),
+# phase 4's traffic paged then slot; llama4-maverick-400b-a17b cut to 1 of
+# 48 layers (one layer's 128 experts are 32.2 GB), 4 requests paged;
+# whisper-medium at full size on the slot layout: 8 slots of whisper's
+# 448-token text context, 1,500 encoder frames a request (its 30-s window
+# after the stride-2 convolution), decoder prompts of 4..224 tokens
+MOE_ARCHS = (("mixtral-8x7b", 16), ("llama4-maverick-400b-a17b", 1))
+MAVERICK_PROMPT_LENS = [64, 128, 192, 256]
+MAVERICK_GEN = 16
+WHISPER_FRAMES = 1500
+WHISPER_ENGINE = dict(n_slots=8, max_len=448, max_ctx=WHISPER_FRAMES,
+                      token_budget=512)
+WHISPER_PROMPT_LENS = [4, 32, 64, 96, 128, 160, 192, 224]
+WHISPER_PRESSURE_SLOTS = 4
+WHISPER_MS = (8, 512, WHISPER_FRAMES)       # the encoder's rows besides
+# the MoE layer check: the grouped bf16 path against each token's chosen
+# experts in f32.  The path rounds to bf16 (u = 2^-8) the gate and up
+# products, their activated product, the down product, its routing-weight
+# scaling and the sum over the k choices: ~6 roundings, each at most u of
+# the value it rounds; the down product's sum over d_ff carries the hidden
+# roundings as a random walk, a relative RMS of ~u.  At 4 standard
+# deviations of ~sqrt(6) u against an output RMS about a quarter of its
+# largest value, the difference stays under 2^-6 of the largest reference
+# output.  A choice may differ from the f64 router's only where the k-th
+# and (k+1)-th probabilities lie within ROUTE_TIE (f32 rounding of the
+# router's logits and softmax)
+MOE_TOL_REL = 2.0 ** -6
+ROUTE_TIE = 2.0 ** -20
+MOE_DECODE_ROWS = 8
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -1349,6 +1422,17 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def family_kw(torch, engine, g) -> dict:
+    """The ``submit`` keywords an engine's family needs beside the prompt:
+    an enc-dec request's encoder features (``max_ctx`` frames of bf16
+    N(0, 1) from ``g``), nothing for the others."""
+    if engine.cfg.family != "encdec":
+        return {}
+    return {"embeds": torch.randn(
+        (engine.adapter.ctx.max_ctx, engine.cfg.d_model), generator=g,
+        device="cuda").to(torch.bfloat16)}
+
+
 def profile_decode(torch, engine, g, n_steps=2):
     """Device time by kernel class over ``n_steps`` fused decode steps of
     all 8 lanes (torch.profiler; the profiler's own host cost lengthens the
@@ -1360,7 +1444,8 @@ def profile_decode(torch, engine, g, n_steps=2):
 
     reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
                                         generator=g, device="cuda").tolist(),
-                          SamplingParams(max_new_tokens=n_steps + 2))
+                          SamplingParams(max_new_tokens=n_steps + 2),
+                          **family_kw(torch, engine, g))
             for _ in range(engine.pool.n_slots)]
     while not all(r.status is Status.RUNNING for r in reqs):
         engine.step()
@@ -1420,14 +1505,16 @@ def profile_prefill(torch, engine, g, tokens=PREFILL_PROFILE_TOKENS):
     """Device time by kernel class over one model call that prefills one
     ``tokens``-long prompt as a single chunk on an idle engine
     (torch.profiler), with its launches by class and the device's busy
-    share of the profiled call's wall time.  None when the profiler records
+    share of the profiled call's wall time (an enc-dec request's step also
+    holds its admission's encoder call).  None when the profiler records
     no device kernels."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams
 
     engine.submit(torch.randint(0, engine.cfg.vocab, (tokens,), generator=g,
                                 device="cuda").tolist(),
-                  SamplingParams(max_new_tokens=1))
+                  SamplingParams(max_new_tokens=1),
+                  **family_kw(torch, engine, g))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1456,6 +1543,11 @@ def profile_prefill(torch, engine, g, tokens=PREFILL_PROFILE_TOKENS):
 # PROJ_NAMES)
 XLSTM_SPARSE = ("w_up", "w_q", "w_k", "w_v", "w_down", "w_slstm")
 MAMBA_SPARSE = ("in_proj", "out_proj")
+# a moe layer compresses its attention and its shared expert (the routed
+# experts ``we_*`` are 3-D and the router is skipped by name: both dense);
+# an enc-dec model every attention, cross-attention and MLP projection
+ATTN_PROJ = ("wq", "wk", "wv", "wo")
+MOE_SHARED_SPARSE = ("ws_gate", "ws_up", "ws_down")
 
 
 def sparse_names(cfg) -> set:
@@ -1468,6 +1560,15 @@ def sparse_names(cfg) -> set:
     if cfg.family == "hybrid":
         return ({f"mamba/{i}/{n}" for i in L for n in MAMBA_SPARSE}
                 | {f"shared_attn/{n}" for n in dense})
+    if cfg.family == "moe":
+        shared = MOE_SHARED_SPARSE if cfg.moe.shared_expert else ()
+        return {f"layers/{i}/{n}" for i in L
+                for n in ATTN_PROJ + tuple(f"moe/{m}" for m in shared)}
+    if cfg.family == "encdec":
+        enc = ATTN_PROJ + ("w_up", "w_down")
+        return ({f"enc/{i}/{n}" for i in range(cfg.enc_layers) for n in enc}
+                | {f"dec/{i}/{n}" for i in L
+                   for n in enc + tuple(f"c_{a}" for a in ATTN_PROJ)})
     return {f"layers/{i}/{n}" for i in L for n in dense}
 
 
@@ -1485,8 +1586,16 @@ def launches_per_call(cfg) -> tuple[int, int]:
     """(weight kernel launches, paged attention launches on the paged
     layout) of one model call: every projection the call reads (an mLSTM
     layer's 5, an sLSTM layer's 3; a mamba layer's 2 and the shared block's
-    projections once per application), and one attention launch per
-    attention layer or application."""
+    projections once per application; a moe layer's 4 attention
+    projections and 3 shared-expert ones; an enc-dec decoder layer's 8,
+    its cross-attention's K/V projections being the encoder call's), and
+    one attention launch per attention layer or application (the enc-dec
+    family is slot-only: none)."""
+    if cfg.family == "moe":
+        return (len(ATTN_PROJ) + 3 * cfg.moe.shared_expert) * cfg.n_layers, \
+            cfg.n_layers
+    if cfg.family == "encdec":
+        return 8 * cfg.n_layers, 0
     proj = sum(1 for n in PROJ_NAMES if n != "w_gate" or cfg.glu)
     if cfg.family == "ssm":
         k = cfg.slstm_every
@@ -1496,6 +1605,12 @@ def launches_per_call(cfg) -> tuple[int, int]:
         apps = cfg.n_layers // cfg.attn_every
         return 2 * cfg.n_layers + proj * apps, apps
     return proj * cfg.n_layers, cfg.n_layers
+
+
+def encode_launches(cfg) -> int:
+    """Weight kernel launches of one enc-dec encoder call: an encoder
+    layer's 6 projections and every decoder layer's ``c_wk``/``c_wv``."""
+    return 6 * cfg.enc_layers + 2 * cfg.n_layers
 
 
 def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
@@ -1574,21 +1689,26 @@ def read_launches() -> dict:
     return {name: getattr(mod, attr) for name, mod, attr in _counters()}
 
 
-def drive(torch, engine, waves, gen):
+def drive(torch, engine, waves, gen, embeds=None):
     """Serve ``waves`` of prompts greedily, each wave submitted once every
     request of the earlier waves has finished its prefill, with every
-    kernel's launch count set to 0 just before and read just after.
-    Returns (requests, wall seconds, decode-only step seconds, launches)."""
+    kernel's launch count set to 0 just before and read just after; an
+    enc-dec engine's requests carry ``embeds`` (one list a wave, parallel
+    to its prompts).  Returns (requests, wall seconds, decode-only step
+    seconds, launches)."""
     from repro_torch.serving import SamplingParams, Status
     sp = SamplingParams(max_new_tokens=gen)
-    reqs, decode_only, pending = [], [], list(waves)
+    reqs, decode_only = [], []
+    pending = [list(zip(w, e)) for w, e in
+               zip(waves, embeds or [[None] * len(w) for w in waves])]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
     while pending or engine.has_work:
         if pending and all(r.status not in (Status.QUEUED, Status.PREFILLING)
                            for r in reqs):
-            reqs += [engine.submit(p, sp) for p in pending.pop(0)]
+            reqs += [engine.submit(p, sp, embeds=e)
+                     for p, e in pending.pop(0)]
         s0 = time.perf_counter()
         st = engine.step()
         torch.cuda.synchronize()
@@ -1619,9 +1739,11 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
     suffix = "" if sw.v_scale is None else "_int8"
     weight_key = ("fused_sparse_linear" if sw.o_values is not None
                   else "nm_spmm") + suffix
-    # every projection a model call reads, once (``launches_per_call``)
+    # every projection a model call reads, once (``launches_per_call``);
+    # an enc-dec engine's encoder calls besides
     per_call, attn_per_call = launches_per_call(cfg)
-    want = {weight_key: per_call * calls}
+    encodes = getattr(engine.adapter, "n_encode_calls", 0)
+    want = {weight_key: per_call * calls + encode_launches(cfg) * encodes}
     attn_key = None
     if engine.kv_layout == "paged":
         attn_key = "paged_attention" + (
@@ -1663,7 +1785,9 @@ def serve_numbers(torch, engine, reqs, wall, decode_only, launches):
                 "p50": float(np.percentile(decode_only, 50)) * 1e3,
                 "mean": float(np.mean(decode_only)) * 1e3,
                 "n": len(decode_only)} if decode_only else None,
+            "families": s.get("families"),
             "steps": st["n_steps"], "model_calls": calls,
+            "encode_calls": encodes,
             "max_running": st["max_running"],
             "n_preemptions": st["n_preemptions"], "launches": launches,
             "pool": st["pool"],
@@ -1698,7 +1822,9 @@ def add_profile(torch, engine, out, seed):
         prof["idle_share_vs_unprofiled_step"] = 1.0 - (
             prof["device_busy_ms_per_step"] / out["decode_step_ms"]["p50"])
     out["decode_profile"] = prof
-    out["prefill_profile"] = profile_prefill(torch, engine, g)
+    out["prefill_profile"] = profile_prefill(
+        torch, engine, g, min(PREFILL_PROFILE_TOKENS,
+                              engine.pool.max_request_tokens - 1))
 
 
 def serve_phase(torch, log, cfg, params, build, *, prompt_lens=SERVE_PROMPT_LENS,
@@ -1947,12 +2073,24 @@ class in_context_checks:
         return False
 
 
-def family_weight_gate(torch, log, cfg, params):
-    """Layer 0's projections (and a hybrid's shared block's) whose (out,
-    in) shape phase 2 does not run,
-    each through ``weight_case`` at ``FAMILY_MS``: the fused kernel's
-    decode and prefill bodies at the model's in-dims, gated at one bf16 ulp
-    against the plain version."""
+def first_layers(params) -> list:
+    """The layer dicts holding one of each of a model's compressed
+    projection shapes: layer 0 (with a moe layer's ``moe`` dict), a hybrid's
+    first mamba layer and shared block, an enc-dec model's first encoder
+    and decoder layers."""
+    if "layers" in params:
+        lp = params["layers"][0]
+        return [lp] + ([lp["moe"]] if "moe" in lp else [])
+    if "enc" in params:
+        return [params["enc"][0], params["dec"][0]]
+    return [params["mamba"][0], params["shared_attn"]]
+
+
+def family_weight_gate(torch, log, cfg, params, ms=FAMILY_MS):
+    """The first layers' projections (``first_layers``) whose (out, in)
+    shape phase 2 does not run, each through ``weight_case`` at ``ms``
+    rows: the fused kernel's decode and prefill bodies at the model's
+    in-dims, gated at one bf16 ulp against the plain version."""
     from repro_torch.kernels import fused_sparse_linear as fsl
     from repro_torch.models.sparse_serving import SparseWeight
 
@@ -1960,18 +2098,14 @@ def family_weight_gate(torch, log, cfg, params):
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(6)
     cases = []
-    # the first layer's projections (Zamba2: a mamba layer's and the shared
-    # block's)
-    first = ([params["layers"][0]] if "layers" in params
-             else [params["mamba"][0], params["shared_attn"]])
-    for name, sw in [kv for lp in first for kv in lp.items()]:
+    for name, sw in [kv for lp in first_layers(params) for kv in lp.items()]:
         if not isinstance(sw, SparseWeight):
             continue
         shape = (sw.nm_values.shape[0], sw.in_dim)
         if shape in seen:
             continue
         seen.add(shape)
-        for M in FAMILY_MS:
+        for M in ms:
             x = torch.randn((M, sw.in_dim), generator=g, device="cuda").to(
                 torch.bfloat16)
             cases.append(weight_case(timer, log, "fused_sparse_linear",
@@ -1997,7 +2131,12 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
     call against its plain version on the same inputs instead
     (``in_context_checks``), and reports the logits' difference beside
     that of the plain call with one embedding element moved by one ulp
-    (``conditioning_err``)."""
+    (``conditioning_err``).  A moe model is gated the same way: where a
+    token's k-th and (k+1)-th router probabilities nearly tie, one bf16
+    rounding upstream picks another expert and replaces that token's FFN
+    output wholesale, so the two calls part by much of the logits' scale
+    at those tokens; ``routing_flips`` counts the (layer, token) choices
+    the kernel call and the plain call make differently."""
     import numpy as np
     from repro_torch.launch.step_cost import attention_layers
     from repro_torch.models import transformer as tfm
@@ -2033,13 +2172,15 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
         return logits.float()
     reset_launches()
     checks = None
-    if cfg.family == "hybrid":
-        with in_context_checks(torch) as checks:
+    routes = (routed_experts(torch, decode_only=False),
+              routed_experts(torch, decode_only=False))
+    if cfg.family in ("hybrid", "moe"):
+        with in_context_checks(torch) as checks, routes[0]:
             out = call()
     else:
         out = call()
     kernels = read_launches()
-    with plain_versions():
+    with plain_versions(), routes[1]:
         ref = call()
     after = read_launches()
     check(after == kernels, f"{cfg.name}: the plain call launched kernels")
@@ -2078,12 +2219,20 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
           f"weight and {attn_per_call} attention launches")
     res.update(in_context=by_kernel,
                conditioning_err=float((nudged - ref).abs().max()))
+    if cfg.family == "moe":
+        res["routing_decisions"] = sum(e.shape[0] for e in routes[0].picks)
+        res["routing_flips"] = sum(
+            int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+            for a, b in zip(routes[0].picks, routes[1].picks))
     log(f"  {cfg.name} {kv_dtype} KV: a {S}-token chunk call, every kernel "
         f"launch within one bf16 ulp of its plain version on the same "
         f"inputs ({json.dumps(by_kernel)}); end to end max|kernels-plain| "
         f"{err:.3e} of scale {scale:.3e} (greedy agreement {agree:.4f}), "
         f"the plain call against itself with one embedding element moved "
-        f"one ulp {res['conditioning_err']:.3e}")
+        f"one ulp {res['conditioning_err']:.3e}"
+        + (f"; {res['routing_flips']} of {res['routing_decisions']} "
+           f"(layer, token) routings differ" if "routing_flips" in res
+           else ""))
     return res
 
 
@@ -2095,7 +2244,8 @@ def decode_in_context(torch, engine, g) -> dict:
     from repro_torch.serving import SamplingParams, Status
     reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
                                         generator=g, device="cuda").tolist(),
-                          SamplingParams(max_new_tokens=3))
+                          SamplingParams(max_new_tokens=3),
+                          **family_kw(torch, engine, g))
             for _ in range(engine.pool.n_slots)]
     while not all(r.status is Status.RUNNING for r in reqs):
         engine.step()
@@ -2115,15 +2265,16 @@ def decode_in_context(torch, engine, g) -> dict:
 
 def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
                  profile=False, preempt_every=None, decode_checks=False,
-                 **kw):
+                 embeds=None, **kw):
     """Serve ``prompts`` greedily through ``ServingEngine(**kw)`` (8 slots,
     token budget 512 unless ``kw`` says otherwise), launches gated per
     model call by ``serve_numbers``; with ``profile`` a decode and a
     prefill profile (``add_profile``); with ``preempt_every`` the youngest
     running request preempted every that many steps while another waits
     (``force_preemption``); with ``decode_checks`` one decode step held
-    kernel by kernel in context (``decode_in_context``).  Returns
-    (numbers, streams, launches)."""
+    kernel by kernel in context (``decode_in_context``); ``embeds`` are an
+    enc-dec model's requests' encoder features.  Returns (numbers,
+    streams, launches)."""
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(cfg, params, **{
@@ -2132,7 +2283,8 @@ def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
     if preempt_every:
         force_preemption(engine, preempt_every)
     torch.cuda.reset_peak_memory_stats()
-    reqs, wall, decode_only, launches = drive(torch, engine, [prompts], gen)
+    reqs, wall, decode_only, launches = drive(
+        torch, engine, [prompts], gen, None if embeds is None else [embeds])
     out = dict(build, **serve_numbers(torch, engine, reqs, wall, decode_only,
                                       launches))
     out["label"] = label
@@ -2335,6 +2487,320 @@ def recurrent_phase(torch, log, smi):
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    return results, add_launches(*runs)
+
+
+# ------------------------------------------- phase 15: moe and encdec
+def moe_layer_gate(torch, log, cfg, p, x, label) -> dict:
+    """One MoE layer (``moe.moe_apply``: the grouped bf16 path, the shared
+    expert through the fused kernel) on tokens ``x`` [T, d] against the
+    plain per-token computation (``tests/test_models_smoke.py``'s manual
+    reference): each token's chosen experts in f32 (one expert's rows
+    batched; a row's product does not depend on the other rows), weighted
+    and summed, plus the shared expert through the plain versions.  The
+    choices are held against the router in f64, differing only at
+    near-ties (``ROUTE_TIE``); the outputs within ``MOE_TOL_REL`` of the
+    largest reference output."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.layers import activation, linear
+
+    k = cfg.moe.top_k
+    with torch.no_grad():
+        y = moe_lib.moe_apply(p, x, cfg).float()
+        w, e = moe_lib.route(p, x, cfg)
+        probs = torch.softmax(x.double() @ p["router"].double().T, dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1)
+        margin = top.values[:, k - 1] - top.values[:, k]
+        differ = (e.sort(-1).values
+                  != top.indices[:, :k].sort(-1).values).any(-1)
+        near = margin <= ROUTE_TIE
+        ref = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for ex in e.unique().tolist():
+            tok, j = (e == ex).nonzero(as_tuple=True)
+            xt = x[tok].float()
+            wu = p["we_up"][ex].float()
+            if cfg.glu:
+                h = activation(cfg.act, xt @ p["we_gate"][ex].float()) \
+                    * (xt @ wu)
+            else:
+                h = activation(cfg.act, xt @ wu)
+            del wu
+            ref.index_add_(0, tok, w[tok, j][:, None]
+                           * (h @ p["we_down"][ex].float()))
+        if cfg.moe.shared_expert:
+            with plain_versions():
+                hidden = activation(cfg.act, linear(p["ws_gate"], x)) \
+                    * linear(p["ws_up"], x)
+                ref += linear(p["ws_down"], hidden).float()
+        torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((y - ref).abs().max())
+    res = {"tokens": x.shape[0], "max_abs_err": err, "scale": scale,
+           "tol_rel": MOE_TOL_REL, "experts_used": int(e.unique().numel()),
+           "choices_differing_from_f64": int(differ.sum()),
+           "near_ties": int(near.sum())}
+    check(bool(torch.isfinite(y).all()) and not bool((differ & ~near).any()),
+          f"{cfg.name} MoE layer ({label}): {int((differ & ~near).sum())} "
+          f"tokens chose other experts than the f64 router away from a "
+          f"near-tie")
+    check(err <= MOE_TOL_REL * scale,
+          f"{cfg.name} MoE layer ({label}): max|grouped-per-token| {err:.3e}"
+          f" > {MOE_TOL_REL} x {scale:.3e}")
+    log(f"  {cfg.name} MoE layer, {label} ({x.shape[0]} tokens): "
+        f"{res['experts_used']} experts, max|grouped bf16 - per-token f32| "
+        f"{err:.3e} of {scale:.3e}; {res['choices_differing_from_f64']} "
+        f"choices differ from the f64 router, {res['near_ties']} near-ties")
+    return res
+
+
+class routed_experts:
+    """Within the block, the experts every decode call of a transformer
+    adapter routes to (every ``moe.route`` call with ``decode_only``
+    False), a layer at a time (``moe.route`` and
+    ``TransformerAdapter.step_decode`` wrapped; the chosen ids are kept on
+    the card and counted after the block, so no step waits on them)."""
+
+    def __init__(self, torch, decode_only=True):
+        self.torch, self.picks, self.decode_only = torch, [], decode_only
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.serving.families import TransformerAdapter
+        self.saved = (moe_lib.route, TransformerAdapter.step_decode)
+        route, step_decode = self.saved
+        decoding = [not self.decode_only]
+
+        def routed(p, x2, cfg):
+            w, e = route(p, x2, cfg)
+            if decoding[0]:
+                self.picks.append(e.detach())
+            return w, e
+
+        def decode(adapter, *args, **kw):
+            decoding[0] = True
+            try:
+                return step_decode(adapter, *args, **kw)
+            finally:
+                decoding[0] = False
+        moe_lib.route = routed
+        if self.decode_only:
+            TransformerAdapter.step_decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+        from repro_torch.serving.families import TransformerAdapter
+        moe_lib.route, TransformerAdapter.step_decode = self.saved
+        return False
+
+    def summary(self) -> dict:
+        n = [int(self.torch.unique(e).numel()) for e in self.picks]
+        return {"layer_calls": len(n),
+                "rows": int(self.picks[0].shape[0]) if self.picks else 0,
+                "distinct_min": min(n, default=0),
+                "distinct_mean": sum(n) / len(n) if n else 0.0,
+                "distinct_max": max(n, default=0)}
+
+
+def expert_bytes(params) -> int:
+    """Bytes of a moe model's routed experts (dense bf16)."""
+    return sum(lp["moe"][n].numel() * lp["moe"][n].element_size()
+               for lp in params["layers"]
+               for n in ("we_gate", "we_up", "we_down"))
+
+
+def encdec_call_gate(torch, log, cfg, params, prompt, frames) -> dict:
+    """One enc-dec admission and chunk, as the engine runs them: the
+    encoder over ``frames`` [S_enc, d] at their true length
+    (``whisper.encode_ctx``) and one chunk call of ``prompt`` at cursor 0
+    of a fresh slot over that context, with every kernel launch held
+    against its plain version on the same inputs (``in_context_checks``:
+    192 + 192 at whisper-medium), then end to end against the same two
+    calls through the plain versions at ``MODEL_TOL_REL`` of the logits'
+    scale, beside the plain calls' own change when one element of the
+    first token's embedding moves one bf16 ulp (``conditioning_err``)."""
+    from repro_torch.models import whisper as whi
+    from repro_torch.serving.state_pool import EncDecPoolView
+
+    S = len(prompt)
+    tokens = torch.tensor([prompt], device="cuda")
+    shape = (cfg.n_layers, 1, S, cfg.n_kv_heads, cfg.hd)
+
+    def call():
+        with torch.no_grad():
+            ck, cv = whi.encode_ctx(params, frames[None], cfg)
+            k = torch.zeros(shape, dtype=cfg.dtype, device="cuda")
+            view = EncDecPoolView.build(k, torch.zeros_like(k), None, [0],
+                                        [S], S, ck=ck, cv=cv,
+                                        ctx_len=[frames.shape[0]])
+            logits, _ = whi.unified_step(params, view, {"tokens": tokens},
+                                         cfg)
+        torch.cuda.synchronize()
+        return logits.float()
+    reset_launches()
+    with in_context_checks(torch) as checks:
+        out = call()
+    kernels = read_launches()
+    with plain_versions():
+        ref = call()
+        with nudged_embedding(torch, params, prompt[0]):
+            nudged = call()
+    check(read_launches() == kernels,
+          f"{cfg.name}: the plain call launched kernels")
+    want = encode_launches(cfg) + launches_per_call(cfg)[0]
+    check(len(checks.cases) == want
+          and kernels["fused_sparse_linear"] == want,
+          f"{cfg.name}: {len(checks.cases)} launches checked in context, "
+          f"want {want}")
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    worst = max(e / tol if tol else 0.0 for _, _, e, tol in checks.cases)
+    res = {"S": S, "frames": frames.shape[0], "max_abs_err": err,
+           "scale": scale, "tol_rel": MODEL_TOL_REL,
+           "conditioning_err": float((nudged - ref).abs().max()),
+           "greedy_agreement": float((out.argmax(-1) == ref.argmax(-1))
+                                     .float().mean()),
+           "in_context": {"launches": len(checks.cases),
+                          "worst_err_over_tol": worst}}
+    check(bool(torch.isfinite(out).all()) and err <= MODEL_TOL_REL * scale,
+          f"{cfg.name}: encoder + chunk call max|kernels-plain| {err:.3e} > "
+          f"{MODEL_TOL_REL} x {scale:.3e} (one ulp moves the plain call "
+          f"{res['conditioning_err']:.3e})")
+    log(f"  {cfg.name}: encoder over {frames.shape[0]} frames + a {S}-token "
+        f"chunk call, {len(checks.cases)} kernel launches each within "
+        f"{worst:.2f} of one bf16 ulp of its plain version; end to end "
+        f"max|kernels-plain| {err:.3e} of scale {scale:.3e} (greedy "
+        f"agreement {res['greedy_agreement']:.4f}; one ulp on one "
+        f"embedding element moves the plain call "
+        f"{res['conditioning_err']:.3e})")
+    return res
+
+
+def moe_encdec_phase(torch, log, smi):
+    """Phase 15: mixtral-8x7b (16 of 32 layers) and llama4-maverick-400b-
+    a17b (1 of 48) at full width, whisper-medium at full size, each
+    8:16+16:256 by magnitude from seed 0 built one layer at a time (the
+    routed experts stay dense, drawn an expert at a time); new projection
+    shapes through phase 2's gate; the MoE layer against its per-token
+    computation; whisper's encoder and a chunk call in context and end to
+    end; then served, launches gated per model call; returns (results,
+    launches summed over the serves)."""
+    bs = ATTN_SHAPE["bs"]
+    paged = dict(kv_layout="paged", block_size=bs)
+    results, runs = {"device": smi}, []
+    for arch, n_layers in MOE_ARCHS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, params, build = build_model(torch, log, arch=arch,
+                                         n_layers=n_layers)
+        res = {"weight_cases": family_weight_gate(torch, log, cfg, params)}
+        head = sum(params[n].numel() * params[n].element_size()
+                   for n in ("embed", "lm_head"))
+        res["memory"] = {"experts_gb": expert_bytes(params) / 1e9,
+                         "compressed_gb": build["compressed_gb"],
+                         "embed_and_head_gb": head / 1e9,
+                         "peak_build_gb":
+                             torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+            f"{' + shared' if cfg.moe.shared_expert else ''}; dense experts "
+            f"{res['memory']['experts_gb']:.2f} GB, compressed "
+            f"{build['compressed_gb']:.2f} GB, embed and head "
+            f"{head / 1e9:.2f} GB, peak {res['memory']['peak_build_gb']:.2f}"
+            f" GB while building")
+        g = torch.Generator(device="cuda").manual_seed(13)
+        lp = params["layers"][0]["moe"]
+        res["moe_layer"] = {
+            label: moe_layer_gate(
+                torch, log, cfg, lp,
+                torch.randn((n, cfg.d_model), generator=g,
+                            device="cuda").to(cfg.dtype), label)
+            for label, n in (("decode", MOE_DECODE_ROWS),
+                             ("chunk512", PREFILL_PROFILE_TOKENS))}
+        if arch == "mixtral-8x7b":
+            prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+            gen = SERVE_GEN
+            serves = [("a_paged", dict(paged, decode_checks=True)),
+                      ("a_slot", {})]
+        else:
+            prompts = prompts_for(torch, cfg, MAVERICK_PROMPT_LENS, seed=10)
+            gen = MAVERICK_GEN
+            serves = [("b_paged", dict(paged, n_slots=4, max_len=512))]
+        res["plain_call"] = plain_call_gate(torch, log, cfg, params,
+                                            max(prompts, key=len), "bf16")
+        streams = {}
+        for label, kw in serves:
+            # the experts each decode step (the profile's included) routes
+            # its lanes to, free lanes too
+            with routed_experts(torch) as picks:
+                out, streams[label], launches = family_serve(
+                    torch, log, cfg, params, build, label, prompts, gen,
+                    profile=True, **kw)
+            out["decode_experts"] = picks.summary()
+            log(f"  ({label}) distinct experts a decode call routes to, a "
+                f"layer: {json.dumps(out['decode_experts'])}")
+            res[label] = out
+            runs.append(launches)
+        if arch == "mixtral-8x7b":
+            # ill-conditioned at random init through its routing
+            # (``plain_call_gate``): the streams' divergences are measured
+            # beside the effect of one ulp, not gated; the kernels are held
+            # in context instead
+            res["slot_vs_paged"] = stream_gate(
+                torch, f"{arch} slot vs paged", cfg, params, prompts,
+                streams["a_slot"], streams["a_paged"], gated=False)
+            same = sum(a == b for a, b in zip(streams["a_slot"],
+                                              streams["a_paged"]))
+            res["slot_vs_paged_identical"] = f"{same}/{len(prompts)}"
+        results[arch] = res
+        del params, lp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) whisper-medium: the encoder at its true length at admission,
+    # decoder slots over the context rows
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, build = build_model(torch, log, arch="whisper-medium")
+    res = {"weight_cases": family_weight_gate(torch, log, cfg, params,
+                                              ms=WHISPER_MS),
+           "peak_build_gb": torch.cuda.max_memory_allocated() / 1e9}
+    prompts = prompts_for(torch, cfg, WHISPER_PROMPT_LENS, seed=10)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    frames = [torch.randn((WHISPER_FRAMES, cfg.d_model), generator=g,
+                          device="cuda").to(cfg.dtype) for _ in prompts]
+    log(f"  whisper-medium: {cfg.enc_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {build['compressed_gb']:.2f} GB compressed, peak "
+        f"{res['peak_build_gb']:.2f} GB while building")
+    res["call"] = encdec_call_gate(torch, log, cfg, params,
+                                   max(prompts, key=len), frames[0])
+    out, base, launches = family_serve(
+        torch, log, cfg, params, build, "c_slot", prompts, SERVE_GEN,
+        profile=True, decode_checks=True, embeds=frames, **WHISPER_ENGINE)
+    res["c_slot"] = out
+    runs.append(launches)
+    out, pressed, launches = family_serve(
+        torch, log, cfg, params, build, "c_slot_swap", prompts, SERVE_GEN,
+        preempt_every=PREEMPT_EVERY, embeds=frames,
+        **dict(WHISPER_ENGINE, n_slots=WHISPER_PRESSURE_SLOTS))
+    check(out["n_preemptions"] > 0 and out["preempted_requests"] > 0,
+          f"whisper-medium: no request was preempted at "
+          f"{WHISPER_PRESSURE_SLOTS} slots")
+    # a swap resume prefills at most the one token its last decode had not
+    # fed and runs no second encoder call
+    check(out["prefill_tokens"] <= out["prompt_tokens"]
+          + out["n_preemptions"] and out["encode_calls"] == len(prompts),
+          f"whisper-medium: {out['prefill_tokens']} prefill tokens for "
+          f"{out['prompt_tokens']} prompt tokens and {out['n_preemptions']}"
+          f" preemptions, {out['encode_calls']} encoder calls: a resume "
+          f"recomputed")
+    res["c_slot_swap"] = out
+    runs.append(launches)
+    res["swap_vs_slot"] = stream_gate(
+        torch, "whisper-medium swap-preempted vs unpressured", cfg, params,
+        prompts, base, pressed, embeds=frames)
+    results["whisper-medium"] = res
+    del params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
     return results, add_launches(*runs)
 
 
@@ -2600,7 +3066,12 @@ def residual_roundings(cfg) -> int:
     """The bf16 roundings on a model's residual path into the lm_head: one
     per residual add and one for the final norm: 2L + 1 for a dense stack,
     L + 1 for xLSTM (one add a block), L + 2 x applications + 1 for Zamba2
-    (a mamba block's add, the shared block's attention and MLP adds)."""
+    (a mamba block's add, the shared block's attention and MLP adds), and
+    for an enc-dec model 3L + 1 in the decoder (self-attention, cross-
+    attention and MLP adds) plus 2 L_enc + 1 in the encoder, whose output
+    the cross-attention reads."""
+    if cfg.family == "encdec":
+        return 3 * cfg.n_layers + 1 + 2 * cfg.enc_layers + 1
     if cfg.family == "ssm":
         return cfg.n_layers + 1
     if cfg.family == "hybrid":
@@ -2608,17 +3079,19 @@ def residual_roundings(cfg) -> int:
     return 2 * cfg.n_layers + 1
 
 
-def last_logits(torch, cfg, params, tokens):
+def last_logits(torch, cfg, params, tokens, embeds=None):
     """Logits [V] of the last of ``tokens`` (a list) from one computation
     of the whole sequence: the family's full-sequence ``forward`` (dense,
-    hybrid), or for ssm one ``unified_step`` chunk from fresh state with
-    the padding masked.  The recurrent families' chunkwise recurrence takes
-    whole chunks, so their sequence is padded at the end to a multiple of
-    128 tokens, which the causal model's earlier positions never see; the
+    moe, hybrid; an enc-dec model's encoder over ``embeds`` and decoder
+    over the tokens), or for ssm one ``unified_step`` chunk from fresh
+    state with the padding masked.  The recurrent families' chunkwise
+    recurrence takes whole chunks, so their sequence is padded at the end
+    to a multiple of 128 tokens, which the causal model's earlier positions never see; the
     mLSTM normalizer's intra-chunk sum would meet unmasked pad tokens'
     gates (exp of a large decay times 0 is NaN in f32, in the reference's
     formula too), so ssm masks them as the engine does."""
     from repro_torch.models import transformer as tfm
+    from repro_torch.models import whisper as whi
     from repro_torch.models import xlstm as xls
     from repro_torch.models import zamba as zam
     from repro_torch.serving.state_pool import RecurrentStateView
@@ -2630,6 +3103,9 @@ def last_logits(torch, cfg, params, tokens):
             view = RecurrentStateView.build(xls.init_state(cfg, 1, dev),
                                             None, [0], [n])
             z, _ = xls.unified_step(params, view, {"tokens": t}, cfg)
+        elif cfg.family == "encdec":
+            z, _ = whi.decode_full(params, t, whi.encode(
+                params, embeds[None], cfg), cfg)
         else:
             fwd = zam.forward if cfg.family == "hybrid" else tfm.forward
             z, _ = fwd(params, {"tokens": t}, cfg)
@@ -2645,7 +3121,7 @@ def first_divergence(a, b):
 
 
 def stream_gate(torch, label, cfg, params, prompts, base, spec,
-                gated=True):
+                gated=True, embeds=None):
     """The stream gate: each speculative stream equals its plain stream up
     to its first divergence, and there one ``forward`` of the common prefix
     puts both tokens within ``near_tie_bound`` of the largest logit.
@@ -2654,9 +3130,11 @@ def stream_gate(torch, label, cfg, params, prompts, base, spec,
     the divergences are measured and returned, not gated, each with the
     measured effect of one bf16 ulp there: the largest change of those
     logits when one element of the prefix's first embedding moves one ulp
-    (``nudged_embedding``)."""
+    (``nudged_embedding``).  ``embeds`` are an enc-dec model's requests'
+    encoder features."""
     out = []
     for i, (p, x, y) in enumerate(zip(prompts, base, spec)):
+        emb = None if embeds is None else embeds[i]
         check(len(x) == len(y), f"{label}: request {i} streams of "
               f"{len(x)} and {len(y)} tokens")
         j = first_divergence(x, y)
@@ -2664,12 +3142,12 @@ def stream_gate(torch, label, cfg, params, prompts, base, spec,
             out.append(None)
             continue
         prefix = list(p) + list(x[:j])
-        z = last_logits(torch, cfg, params, prefix)
+        z = last_logits(torch, cfg, params, prefix, emb)
         bound = near_tie_bound(z, cfg.n_layers, residual_roundings(cfg))
         sens = None
         if not gated:
             with nudged_embedding(torch, params, prefix[0]):
-                sens = float((last_logits(torch, cfg, params, prefix)
+                sens = float((last_logits(torch, cfg, params, prefix, emb)
                               - z).abs().max())
         top = float(z.max())
         gaps = (top - float(z[x[j]]), top - float(z[y[j]]))
@@ -3957,8 +4435,8 @@ def main() -> int:
         "flushed)")
     attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
     log("phase 2b paged_attention at hd 256 (gemma-7b), 192 "
-        "(nemotron-4-340b) and 80 (zamba2-2.7b) vs plain version (bf16 and "
-        "int8 arenas)")
+        "(nemotron-4-340b), 80 (zamba2-2.7b) and 128 at H 40 / KV 8 "
+        "(llama4-maverick) vs plain version (bf16 and int8 arenas)")
     hd_cases, hd_cases8 = paged_attention_hd_phase(torch, timer, log)
     attn_cases += hd_cases
     attn_cases8 += hd_cases8
@@ -4020,6 +4498,14 @@ def main() -> int:
         "preemptions), zamba2-2.7b (54 mamba layers, 9 shared-attention "
         "applications at hd 80; paged, then slot)")
     recurrent, recurrent_launches = recurrent_phase(torch, log, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 15 the moe and encdec families, 8:16+16:256: mixtral-8x7b "
+        "(16 of 32 layers; paged, then slot), llama4-maverick-400b-a17b (1 "
+        "of 48 layers, paged), whisper-medium (24 + 24 layers, 1,500 "
+        "encoder frames a request; slot, then half the slots with swap "
+        "preemptions)")
+    moe_encdec, moe_encdec_launches = moe_encdec_phase(torch, log, smi)
     log("phase 8 the paper's pipeline on llama3-8b, 32 layers: calibrate, "
         "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
     pipeline, ops_cases, ops_launches = pipeline_phase(
@@ -4034,13 +4520,14 @@ def main() -> int:
                    for k, n in plain_launches.items()}
 
     # the fused kernel's and paged attention's main-path launches: phase 4's
-    # and phase 6(a)'s serves, each with phase 11's, phase 12's, 13's and
-    # 14's (zamba2-2.7b's paged serve: the hd 80 bodies)
+    # and phase 6(a)'s serves, each with phase 11's, phase 12's, 13's, 14's
+    # (zamba2-2.7b's paged serve: the hd 80 bodies) and 15's
     main_launches = add_launches(main_launches, spec_launches, fleet_launches,
-                                 family_launches, recurrent_launches)
+                                 family_launches, recurrent_launches,
+                                 moe_encdec_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
                                   fleet_launches, family_launches,
-                                  recurrent_launches)
+                                  recurrent_launches, moe_encdec_launches)
     # phase 13's int8 KV serve (gemma-7b) joins paged_attention_int8's
     int8_launches = add_launches(int8_launches, family_launches)
 
@@ -4076,6 +4563,7 @@ def main() -> int:
               "serve_int8_paged": int8_serve, "pipeline": pipeline,
               "replay": replay, "speculative": speculative, "fleet": fleet,
               "dense_family": dense_family, "recurrent": recurrent,
+              "moe_encdec": moe_encdec,
               "training": training}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,

@@ -1,10 +1,9 @@
 """Architecture registry: ``repro_torch.configs.get("qwen3-8b")`` etc. (port
 of ``repro/configs/__init__.py``)."""
 
-from .base import (ASSIGNED, FAMILY_ITEMS, PAPER_ARCHS, SHAPES,
-                   SUBQUADRATIC_FAMILIES, ModelConfig, MoEConfig, ShapeConfig,
-                   all_archs, family_not_ported, get, register,
-                   shape_applicable)
+from .base import (ASSIGNED, PAPER_ARCHS, SHAPES, SUBQUADRATIC_FAMILIES,
+                   ModelConfig, MoEConfig, ShapeConfig, all_archs, get,
+                   register, shape_applicable)
 
 SMOKE_MODULES = {
     "qwen2-vl-72b": "qwen2_vl_72b",

@@ -6,10 +6,9 @@ published hyper-parameters) and ``smoke()`` (a reduced config of the same
 family for CPU tests), with the reference's values; ``dtype`` is a
 ``torch.dtype``.  ``get(name)`` resolves an id.  Every family is
 registered, so ids and parameter counts match the reference's; the dense,
-ssm (xLSTM) and hybrid (Zamba2) families are ported, and the vlm family's
-backbone through ``forward``/``loss_fn``: the model zoo and the serving
-engine raise ``NotImplementedError`` naming the ROADMAP item of the others
-(``FAMILY_ITEMS``).
+moe, ssm (xLSTM), hybrid (Zamba2) and encdec (Whisper) families are
+served, and the vlm family's backbone runs through ``forward``/``loss_fn``
+(the serving engine refuses it, as the reference's does).
 """
 from __future__ import annotations
 
@@ -133,21 +132,6 @@ SHAPES = {
 # Archs with recurrent/hybrid state run long_500k; pure full-attention skip
 # it.
 SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
-
-# The ROADMAP item that ports each family not ported yet; the model zoo, the
-# serving engine and the serve CLI raise NotImplementedError naming it.
-FAMILY_ITEMS = {"moe": "A11b", "encdec": "A11e"}
-
-
-def family_not_ported(cfg) -> NotImplementedError | None:
-    """The error for a config of a family the port lacks, else None."""
-    item = FAMILY_ITEMS.get(cfg.family)
-    if item is None:
-        return None
-    return NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family is not ported yet "
-        f"(ROADMAP {item})")
-
 
 def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
     if shape.name == "long_500k":

@@ -4,13 +4,16 @@
 package's ``SparseWeight``) becomes the port's ``SparseWeight`` with its
 five buffers in the same layouts and the static ``n``/``m``/``o_n``/
 ``in_dim`` copied; every other leaf goes through ``np.asarray``.  The JAX
-package stacks layer weights [L, ...] under ``"layers"`` (and Zamba2's
-under ``"mamba"``); the port keeps a list of per-layer dicts, so those
-entries are split along their first axis (the [L, hd] ``q_norm``/
-``k_norm`` of a ``qk_norm`` model, xLSTM's [L, 4, H, dh, dh] ``r_gates``
-and Zamba2's f32 ``A_log``/``D``/``dt_bias`` as every other leaf).  The
-tree is carried as it is otherwise: a tied-embedding model's has no
-``lm_head``, and Zamba2's ``shared_attn`` stays one unstacked layer.
+package stacks layer weights [L, ...] under ``"layers"`` (Zamba2's under
+``"mamba"``, Whisper's under ``"enc"`` and ``"dec"``); the port keeps a
+list of per-layer dicts, so those entries are split along their first axis
+(the [L, hd] ``q_norm``/``k_norm`` of a ``qk_norm`` model, xLSTM's
+[L, 4, H, dh, dh] ``r_gates``, Zamba2's f32 ``A_log``/``D``/``dt_bias``
+and a moe layer's nested ``moe`` dict, whose [L, E, in, out] experts
+become [E, in, out], as every other leaf).  The tree is carried as it is
+otherwise: a tied-embedding model's has no ``lm_head``, Zamba2's
+``shared_attn`` stays one unstacked layer, and Whisper's ``enc_norm``,
+``final_norm`` and ``lm_head`` stay as they are.
 
 bf16 arrays come out of ``np.asarray`` as ``ml_dtypes`` bfloat16, which
 ``torch.from_numpy`` rejects; they cross as their 16-bit patterns and are
@@ -61,27 +64,33 @@ def _convert(tree, device):
 
 def _split_layers(layers: dict) -> list[dict]:
     """{name: [L, ...]} -> [{name: [...]}] * L, for tensors and
-    SparseWeights alike."""
+    SparseWeights alike, nested dicts (a moe layer's ``moe``) split the
+    same way."""
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
     def first_dim(v):
         return (v.nm_values if isinstance(v, SparseWeight) else v).shape[0]
 
     def take(v, i):
+        if isinstance(v, dict):
+            return {k: take(x, i) for k, x in v.items()}
         if isinstance(v, SparseWeight):
             return v.map(lambda t: t[i].contiguous())
         return v[i].contiguous()
 
-    n_layers = {first_dim(v) for v in layers.values()}
+    n_layers = {first_dim(v) for v in leaves(layers)}
     if len(n_layers) != 1:
         raise ValueError(f"stacked layer leaves disagree on L: {n_layers}")
-    return [{k: take(v, i) for k, v in layers.items()}
-            for i in range(n_layers.pop())]
+    return [take(layers, i) for i in range(n_layers.pop())]
 
 
-STACKED = ("layers", "mamba")
+STACKED = ("layers", "mamba", "enc", "dec")
 """The entries the JAX package stacks [L, ...]: every family's ``layers``
-(xLSTM's ``r_gates`` [L, 4, H, dh, dh] among them) and Zamba2's ``mamba``
-blocks; zamba's ``shared_attn`` is one unstacked layer and is carried as
-it is."""
+(xLSTM's ``r_gates`` [L, 4, H, dh, dh] among them), Zamba2's ``mamba``
+blocks and Whisper's encoder and decoder blocks; zamba's ``shared_attn``
+is one unstacked layer and is carried as it is."""
 
 
 def from_jax_params(params, device="cuda") -> dict:

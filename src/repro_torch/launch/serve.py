@@ -23,16 +23,23 @@ the KV arenas as int8 with per-position scales, on either layout.
 ``--arch`` takes every registered id (``configs.all_archs()``) and, with
 ``--smoke-arch``, every id ``configs.get_smoke`` resolves.  Dense ids serve
 (qwen3-8b, gemma-7b, internlm2-1.8b, nemotron-4-340b and the paper's
-models), and so do xlstm-350m (ssm: recurrent state slots, any
-``--kv-layout`` served as slot) and zamba2-2.7b (hybrid: mamba state slots
-and the shared attention's KV, slot or paged, prefix caching off); the moe
-and encdec families raise NotImplementedError naming their ROADMAP item,
-the engine refuses vlm, as the reference's does, and ``--kv-dtype int8``
-is refused for ssm and hybrid:
+models), and so do mixtral-8x7b and llama4-maverick-400b-a17b (moe: the
+routed experts stay dense, the attention and a shared expert compress),
+xlstm-350m (ssm: recurrent state slots, any ``--kv-layout`` served as
+slot), zamba2-2.7b (hybrid: mamba state slots and the shared attention's
+KV, slot or paged, prefix caching off) and whisper-medium (encdec: each
+request carries random encoder ``embeds`` [prompt_len, d] drawn from the
+run's generator; slot layout only, no ``--trace``); the engine refuses
+vlm, as the reference's does, and ``--kv-dtype int8`` is refused for ssm,
+hybrid and encdec:
 
   python -m repro_torch.launch.serve --arch xlstm-350m --sparse
   python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke-arch \\
       --device cpu --sparse --kv-layout paged --block-size 8
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke-arch \\
+      --device cpu --sparse --kv-layout paged --block-size 8
+  python -m repro_torch.launch.serve --arch whisper-medium --smoke-arch \\
+      --device cpu --sparse
 
 ``--draft {ngram,sparse,self}`` turns on draft-verify speculative decoding
 (``serving/speculative.py``), ``--spec-k`` drafts a request (each
@@ -79,10 +86,11 @@ import time
 
 import torch
 
-from ..configs import family_not_ported, get, get_smoke
+from ..configs import get, get_smoke
 from ..core import SparsifyConfig
 from ..device import resolve
 from ..models import transformer as tfm
+from ..models import whisper as whi
 from ..models import xlstm as xls
 from ..models import zamba as zam
 from ..models.sparse_serving import sparsify_for_serving
@@ -114,8 +122,8 @@ def build_params(cfg, args, device, generator: torch.Generator, *,
             for key in report:
                 report[key] += rep[key]
             return lp
-    init = {"ssm": xls.init_params,
-            "hybrid": zam.init_params}.get(cfg.family, tfm.init_params)
+    init = {"ssm": xls.init_params, "hybrid": zam.init_params,
+            "encdec": whi.init_params}.get(cfg.family, tfm.init_params)
     params = init(cfg, generator, device, layer_fn=layer_fn)
     report["ratio"] = report["compressed_bytes"] / max(report["dense_bytes"], 1)
     return params, report
@@ -222,16 +230,23 @@ def _write_observability(tracer, args) -> None:
 
 
 def run_engine(cfg, params, args, device, generator: torch.Generator):
-    """Serve ``--batch`` random prompts drawn from ``generator``; returns
-    the finished requests and the engine (or the ``--replicas`` fleet)."""
+    """Serve ``--batch`` random prompts drawn from ``generator`` (with an
+    enc-dec model, each with random encoder features [prompt_len, d] drawn
+    after them); returns the finished requests and the engine (or the
+    ``--replicas`` fleet)."""
     engine, tracer = _build_target(cfg, params, args, device,
                                    max_len=args.prompt_len + args.gen)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=generator, device=generator.device)
+    embeds = [None] * args.batch
+    if cfg.family == "encdec":
+        embeds = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                             generator=generator, device=generator.device)
     sp = SamplingParams(max_new_tokens=args.gen, temperature=args.temperature,
                         top_k=args.top_k, seed=args.seed)
     t0 = time.perf_counter()
-    reqs = [engine.submit(p.tolist(), sp) for p in prompts]
+    reqs = [engine.submit(p.tolist(), sp, embeds=e)
+            for p, e in zip(prompts, embeds)]
     engine.run()
     wall = time.perf_counter() - t0
     n_tok = sum(len(r.tokens) for r in reqs)
@@ -344,6 +359,10 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
+    if args.trace is not None and (get_smoke(args.arch) if args.smoke_arch
+                                   else get(args.arch)).family == "encdec":
+        ap.error("--trace carries token prompts only; the enc-dec family "
+                 "needs per-request encoder features")
     return args
 
 
@@ -351,9 +370,6 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve(args.device)
     cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
-    not_ported = family_not_ported(cfg)
-    if not_ported is not None:
-        raise not_ported
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params, report = build_params(cfg, args, device, generator)
     if args.sparse:

@@ -23,6 +23,20 @@ step's kernels must do:
                   every lane's state read once and written once in every
                   layer.
 
+A moe layer adds its routed experts, which a step reads only where it
+routes: 2 flops per expert weight for each of the T x k (row, choice)
+pairs of its T = B x S rows (padding rows route too), and the bytes of
+min(E, T x k) experts, the most the pairs can touch (a bound: two pairs
+may share an expert).  Its router and shared expert count as projections.
+
+An enc-dec step call (the decoder) adds its cross-attention: 4 x H x hd
+per context row of every real row and each lane's context rows read once
+(``ctx_len``), in every decoder layer.  An encoder call
+(``encode_cost``) reads the encoder's projections and every decoder
+layer's ``c_wk``/``c_wv``, does 4 x H x hd per (query, key) pair of its
+bidirectional attention in every encoder layer, and writes the context
+rows it projects.
+
 The projections a step reads: every layer's for the dense family; for ssm
 (xLSTM) an mLSTM layer's ``w_up``, ``w_q``, ``w_k``, ``w_v``, ``w_gates``
 and ``w_down`` and an sLSTM layer's ``w_up``, ``w_slstm``, ``r_gates``
@@ -49,12 +63,26 @@ PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 MLSTM_PROJECTIONS = ("w_up", "w_q", "w_k", "w_v", "w_gates", "w_down")
 SLSTM_PROJECTIONS = ("w_up", "w_slstm", "r_gates", "w_down")
 MAMBA_PROJECTIONS = ("in_proj", "out_proj")
+MOE_PROJECTIONS = ("router", "ws_gate", "ws_up", "ws_down")
+DECODER_PROJECTIONS = ("wq", "wk", "wv", "wo", "c_wq", "c_wo", "w_up",
+                       "w_down")
+ENCODER_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+CONTEXT_PROJECTIONS = ("c_wk", "c_wv")
 
 
-def _read_layers(params, cfg) -> list:
-    """(layer dict, names of the projections a step reads there), once
-    per time the step reads them."""
+def _read_layers(params, cfg, kind: str = "step") -> list:
+    """(layer dict, names of the projections a call reads there), once
+    per time the call reads them; ``kind`` "encode" is an enc-dec model's
+    encoder call."""
     fam = "dense" if cfg is None else cfg.family
+    if fam == "encdec":
+        if kind == "encode":
+            return [(lp, ENCODER_PROJECTIONS) for lp in params["enc"]] + \
+                [(lp, CONTEXT_PROJECTIONS) for lp in params["dec"]]
+        return [(lp, DECODER_PROJECTIONS) for lp in params["dec"]]
+    if fam == "moe":
+        return [pair for lp in params["layers"]
+                for pair in ((lp, PROJECTIONS), (lp["moe"], MOE_PROJECTIONS))]
     if fam == "ssm":
         k = cfg.slstm_every
         return [(lp, SLSTM_PROJECTIONS if k and i % k == k - 1
@@ -67,11 +95,11 @@ def _read_layers(params, cfg) -> list:
     return [(lp, PROJECTIONS) for lp in params["layers"]]
 
 
-def weight_totals(params, cfg=None) -> tuple[int, int]:
-    """(kept weights, deployed bytes) of the projections one step reads
-    (the dense family's when ``cfg`` is None)."""
+def weight_totals(params, cfg=None, kind: str = "step") -> tuple[int, int]:
+    """(kept weights, deployed bytes) of the projections one call of
+    ``kind`` reads (the dense family's step when ``cfg`` is None)."""
     kept = nbytes = 0
-    for lp, names in _read_layers(params, cfg):
+    for lp, names in _read_layers(params, cfg, kind):
         for name in names:
             w = lp.get(name)
             if isinstance(w, SparseWeight):
@@ -124,11 +152,25 @@ def kv_bytes_per_position(cfg, kv_dtype: str = "bf16") -> int:
     return 2 * per * cfg.dtype.itemsize
 
 
+def routed_experts(cfg, rows: int) -> tuple[int, int]:
+    """(flops, bytes) of a moe model's routed experts over ``rows`` token
+    rows, every layer; (0, 0) without ``cfg.moe``."""
+    m = cfg.moe
+    if m is None:
+        return 0, 0
+    per_expert = (3 if cfg.glu else 2) * cfg.d_model * m.d_ff_expert
+    pairs = rows * m.top_k
+    return (cfg.n_layers * 2 * per_expert * pairs,
+            cfg.n_layers * min(m.num_experts, pairs) * per_expert
+            * cfg.dtype.itemsize)
+
+
 def step_cost(cfg, weights: tuple[int, int], cursor, n_new, rows: int,
-              kv_dtype: str = "bf16") -> dict:
+              kv_dtype: str = "bf16", ctx_len=None) -> dict:
     """{"flops", "bytes_accessed"} of one ``unified_step`` over lanes at
     ``cursor`` [B] writing ``n_new`` [B] fresh positions, ``rows`` = B x S
-    token rows, with ``weights`` from ``weight_totals``."""
+    token rows, with ``weights`` from ``weight_totals``; ``ctx_len`` [B]
+    are an enc-dec step's context rows a lane."""
     kept, w_bytes = weights
     cursor = np.asarray(cursor, np.int64)
     n_new = np.asarray(n_new, np.int64)
@@ -149,8 +191,27 @@ def step_cost(cfg, weights: tuple[int, int], cursor, n_new, rows: int,
     read = np.where(n_new > 0, cursor + n_new - first, 0)
     attn_flops = 4 * cfg.n_heads * cfg.hd * int((visible * real).sum())
     per_pos = kv_bytes_per_position(cfg, kv_dtype)
+    moe_flops, moe_bytes = routed_experts(cfg, rows)
+    ctx_flops = ctx_bytes = 0
+    if ctx_len is not None:
+        ctx = np.where(n_new > 0, np.asarray(ctx_len, np.int64), 0)
+        ctx_flops = L * 4 * cfg.n_heads * cfg.hd * int((ctx * n_new).sum())
+        ctx_bytes = L * per_pos * int(ctx.sum())
     return {"flops": L * attn_flops + 2 * kept * rows
-            + rec_flops * int(n_new.sum()),
+            + rec_flops * int(n_new.sum()) + moe_flops + ctx_flops,
             "bytes_accessed": w_bytes
             + L * per_pos * int(read.sum() + n_new.sum())
-            + 2 * state_bytes * len(n_new)}
+            + 2 * state_bytes * len(n_new) + moe_bytes + ctx_bytes}
+
+
+def encode_cost(cfg, weights: tuple[int, int], s_enc: int) -> dict:
+    """{"flops", "bytes_accessed"} of one enc-dec encoder call over
+    ``s_enc`` frames (one request), with ``weights`` from
+    ``weight_totals(..., kind="encode")``: the projections, the encoder's
+    attention products over all s_enc^2 pairs, and the context rows it
+    writes (every decoder layer's ck/cv)."""
+    kept, w_bytes = weights
+    attn = cfg.enc_layers * 4 * cfg.n_heads * cfg.hd * s_enc * s_enc
+    return {"flops": 2 * kept * s_enc + attn,
+            "bytes_accessed": w_bytes + cfg.n_layers * s_enc
+            * kv_bytes_per_position(cfg)}

@@ -22,6 +22,14 @@ def linear(w, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, w)
 
 
+def dense_init(out_dim: int, in_dim: int, dtype, generator, device):
+    """A [out, in] weight drawn N(0, 1/in) in f32 from ``generator``, then
+    rounded to ``dtype``."""
+    w = torch.randn((out_dim, in_dim), generator=generator, device=device,
+                    dtype=torch.float32)
+    return w.div_(math.sqrt(in_dim)).to(dtype)       # in place: one f32 copy
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
@@ -158,6 +166,30 @@ def attend_length_masked(q: torch.Tensor, k_cache: torch.Tensor,
     if window is not None:
         valid &= kpos[None, None, :] > qpos[:, :, None] - window
     scores = torch.where(valid[:, None], scores,
+                         torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def attend_kv_length(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over a length-masked KV buffer: the enc-dec
+    family's cross-attention while serving.  ``q`` [B,S,H,hd] attends to
+    positions ``j < kv_len[b]`` of ``k_cache``/``v_cache`` [B,T,KV,hd]:
+    every query of a row sees the same keys whatever its own position (the
+    encoder context is fully visible), and padding past each row's true
+    length is masked at ``-1e30``.  The einsum and softmax structure of
+    ``attend_length_masked``, in f32."""
+    B, S, H, hd = q.shape
+    k = _repeat_kv(k_cache, H)
+    v = _repeat_kv(v_cache, H)
+    qf = q.to(torch.float32) / math.sqrt(hd)
+    scores = torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32))
+    kpos = torch.arange(k_cache.shape[1], device=q.device)             # [T]
+    valid = kpos[None, :] < kv_len[:, None]                            # [B,T]
+    scores = torch.where(valid[:, None, None], scores,
                          torch.full((), -1e30, device=q.device))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs, v.to(torch.float32))

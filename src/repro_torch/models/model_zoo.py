@@ -7,10 +7,11 @@
   logits, caches = zoo.prefill(params, batch)
   logits, caches = zoo.decode(params, caches, batch)
 
-The dense family and the vlm backbone run ``models/transformer.py``, ssm
-``models/xlstm.py`` and hybrid ``models/zamba.py``; the moe and encdec
-families raise NotImplementedError naming their ROADMAP item
-(``configs.FAMILY_ITEMS``).  ``input_specs`` and ``cache_specs`` give the
+The dense and moe families and the vlm backbone run
+``models/transformer.py``, ssm ``models/xlstm.py``, hybrid
+``models/zamba.py`` and encdec ``models/whisper.py`` (whose batches carry
+the encoder's ``embeds`` beside the decoder's ``tokens``).
+``input_specs`` and ``cache_specs`` give the
 (shape, dtype) of every input of a step and of the decode cache, as the
 reference's ``ShapeDtypeStruct`` stand-ins do, without allocating.  The
 reference's ``param_specs`` waits for the dry-run tools (ROADMAP A14b).
@@ -23,14 +24,14 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
-from ..configs import family_not_ported
 from ..device import resolve
 from . import transformer as tfm
+from . import whisper as whi
 from . import xlstm as xls
 from . import zamba as zam
 
-TRANSFORMER_FAMILIES = ("dense", "vlm")
-FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "hybrid")
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +45,6 @@ class ModelZoo:
 
 
 def _check_family(cfg) -> None:
-    err = family_not_ported(cfg)
-    if err is not None:
-        raise err
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
 
@@ -74,6 +72,13 @@ def get_model(cfg, device="cuda") -> ModelZoo:
             prefill=lambda p, b: zam.prefill(p, b, cfg),
             decode=lambda p, c, b: zam.decode_lockstep(p, c, b, cfg),
             init_cache=lambda bs, ml: zam.init_cache(cfg, bs, ml, device))
+    if cfg.family == "encdec":
+        return ModelZoo(
+            cfg=cfg,
+            init=lambda generator: whi.init_params(cfg, generator, device),
+            loss=lambda p, b: whi.loss_fn(p, b, cfg),
+            prefill=lambda p, b: whi.prefill(p, b, cfg),
+            decode=lambda p, c, b: whi.decode_lockstep(p, c, b, cfg))
     return ModelZoo(
         cfg=cfg,
         init=lambda generator: tfm.init_params(cfg, generator, device),
@@ -100,6 +105,9 @@ def input_specs(cfg, shape) -> dict:
     if cfg.family == "vlm":
         base = {"embeds": ((B, S, cfg.d_model), cfg.dtype),
                 "positions": ((3, B, S), i32)}
+    elif cfg.family == "encdec":
+        base = {"embeds": ((B, S, cfg.d_model), cfg.dtype),
+                "tokens": ((B, S), i32)}
     else:
         base = {"tokens": ((B, S), i32)}
     if shape.kind == "train":
@@ -111,8 +119,9 @@ def input_specs(cfg, shape) -> dict:
 
 def cache_specs(cfg, shape) -> dict:
     """(shape, dtype) of each leaf of the decode cache: the dense layout's
-    k/v, ssm's per-layer states (mLSTM (C, n), sLSTM (c, n, h, m)), or
-    hybrid's per-layer (S, None) states and per-application (k, v)."""
+    k/v (encdec's with the cross-attention's ck/cv beside them), ssm's
+    per-layer states (mLSTM (C, n), sLSTM (c, n, h, m)), or hybrid's
+    per-layer (S, None) states and per-application (k, v)."""
     _check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
     f32, pos = torch.float32, ((), torch.int32)
@@ -137,15 +146,18 @@ def cache_specs(cfg, shape) -> dict:
                 "kv": [(kv, kv) for _ in range(zam.n_applications(cfg))],
                 "pos": pos}
     kv = ((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd), cfg.dtype)
+    if cfg.family == "encdec":
+        return {"k": kv, "v": kv, "ck": kv, "cv": kv, "pos": pos}
     return {"k": kv, "v": kv, "pos": pos}
 
 
 def grow_caches(caches: dict, new_len: int) -> dict:
     """Pad decode caches with zeros so the sequence axis holds ``new_len``
-    positions: the dense layout's ``k``/``v`` [L, B, S, KV, hd], the
-    hybrid family's per-application ``kv`` pairs [B, S, KV, hd]; recurrent
-    ``states`` need no growth.  A no-op for buffers already at >=
-    new_len."""
+    positions: the self-attention ``k``/``v`` [L, B, S, KV, hd] of the
+    dense, moe, vlm and encdec layouts (encdec's cross-attention ``ck``/
+    ``cv`` stay at the encoder's length), the hybrid family's
+    per-application ``kv`` pairs [B, S, KV, hd]; recurrent ``states`` need
+    no growth.  A no-op for buffers already at >= new_len."""
     out = dict(caches)
     for key in ("k", "v"):
         if key in out and isinstance(out[key], torch.Tensor):

@@ -1,16 +1,18 @@
-"""Decoder-only transformer of the dense family and the vlm backbone (port
-of ``repro/models/transformer.py``): llama2/3, mistral (window), qwen3
-(``qk_norm``), gemma (GeGLU, head dim 256, tied embeddings), internlm2,
-nemotron-4 (squared ReLU, non-gated) and qwen2-vl's backbone (M-RoPE,
-``embeds`` inputs).  A config with ``moe`` raises NotImplementedError
-naming ROADMAP A11b.
+"""Decoder-only transformer of the dense and moe families and the vlm
+backbone (port of ``repro/models/transformer.py``): llama2/3, mistral
+(window), qwen3 (``qk_norm``), gemma (GeGLU, head dim 256, tied
+embeddings), internlm2, nemotron-4 (squared ReLU, non-gated), mixtral and
+llama4 (a ``moe`` FFN, ``models/moe.py``, in every layer) and qwen2-vl's
+backbone (M-RoPE, ``embeds`` inputs).
 
 Parameters are a dict ``{"embed", "layers", "final_norm"}`` plus
 ``"lm_head"`` unless ``cfg.tie_embeddings`` (then the head is ``embed``),
 where ``layers`` is a list of per-layer dicts (the JAX package stacks them
 [L, ...] for ``lax.scan``; the port loops over layers in Python).  A
 projection is a dense [out, in] tensor or a ``SparseWeight``; with
-``qk_norm`` a layer also holds the [hd] ``q_norm``/``k_norm`` scales.
+``qk_norm`` a layer also holds the [hd] ``q_norm``/``k_norm`` scales, and
+with ``moe`` its FFN is ``lp["moe"]`` (``moe.init_moe``'s dict) in place of
+``w_gate``/``w_up``/``w_down``.
 
 ``unified_step`` is the only serving entry: chunked prefill (S = chunk),
 one-shot prefill (S = prompt, cursor 0) and fused decode (S = 1 over every
@@ -34,32 +36,21 @@ S = 1, and updates the cache in place.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs import family_not_ported
 from ..device import resolve
-from .layers import (activation, apply_rope, attend_length_masked, linear,
-                     rms_norm, sdpa)
-
-
-def _dense_init(out_dim: int, in_dim: int, dtype, generator, device):
-    w = torch.randn((out_dim, in_dim), generator=generator, device=device,
-                    dtype=torch.float32)
-    return w.div_(math.sqrt(in_dim)).to(dtype)       # in place: one f32 copy
+from . import moe as moe_lib
+from .layers import (activation, apply_rope, attend_length_masked,
+                     dense_init, linear, rms_norm, sdpa)
 
 
 def _check_family(cfg) -> None:
-    """Raise for a family whose blocks the port lacks (moe: A11b, encdec:
-    A11e) and for the ssm and hybrid families, whose stacks are
-    ``models/xlstm.py`` and ``models/zamba.py``."""
-    err = family_not_ported(cfg)
-    if err is not None:
-        raise err
-    if cfg.family not in ("dense", "vlm"):
+    """Raise for the ssm, hybrid and encdec families, whose stacks are
+    ``models/xlstm.py``, ``models/zamba.py`` and ``models/whisper.py``."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
                          f"transformer stack")
 
@@ -70,7 +61,7 @@ def init_layer(cfg, generator: torch.Generator, device) -> dict:
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
 
     def dense(out_dim, in_dim):
-        return _dense_init(out_dim, in_dim, cfg.dtype, generator, device)
+        return dense_init(out_dim, in_dim, cfg.dtype, generator, device)
 
     lp = {"attn_norm": torch.zeros((d,), dtype=cfg.dtype, device=device),
           "wq": dense(H * hd, d), "wk": dense(KV * hd, d),
@@ -79,6 +70,9 @@ def init_layer(cfg, generator: torch.Generator, device) -> dict:
     if cfg.qk_norm:
         lp["q_norm"] = torch.zeros((hd,), dtype=cfg.dtype, device=device)
         lp["k_norm"] = torch.zeros((hd,), dtype=cfg.dtype, device=device)
+    if cfg.moe is not None:
+        lp["moe"] = moe_lib.init_moe(cfg, generator, device)
+        return lp
     if cfg.glu:
         lp["w_gate"] = dense(cfg.d_ff, d)
     lp["w_up"] = dense(cfg.d_ff, d)
@@ -109,7 +103,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
               "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                         device=device)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
+        params["lm_head"] = dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
                                         generator, device)
     return params
 
@@ -134,6 +128,8 @@ def _project_qkv(lp, x, cfg, positions):
 
 
 def _mlp(lp, x, cfg):
+    if cfg.moe is not None:
+        return moe_lib.moe_apply(lp["moe"], x, cfg)
     if cfg.glu:
         hidden = activation(cfg.act, linear(lp["w_gate"], x)) \
             * linear(lp["w_up"], x)
@@ -331,7 +327,9 @@ def forward(params, batch, cfg, collect_kv: bool = False):
 
 def loss_fn(params, batch, cfg):
     """Mean next-token cross-entropy over labels >= 0, in f32.  Returns
-    (loss, aux); aux is empty for the dense family."""
+    (loss, aux); aux is empty for the dense family.  A moe model adds
+    0.01 x the load-balance loss (``aux["lb_loss"]``), taken on layer 0's
+    input embeddings, as the reference takes it."""
     logits, _ = forward(params, batch, cfg)
     labels = batch["labels"]
     lf = logits.to(torch.float32)
@@ -339,7 +337,13 @@ def loss_fn(params, batch, cfg):
     gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     loss = torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0)
-    return loss, {}
+    aux = {}
+    if cfg.moe is not None:
+        x, _ = _embed_inputs(params, batch, cfg)
+        aux["lb_loss"] = moe_lib.aux_load_balance_loss(
+            params["layers"][0]["moe"], x, cfg)
+        loss = loss + 0.01 * aux["lb_loss"]
+    return loss, aux
 
 
 def prefill(params, batch, cfg):

@@ -30,9 +30,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
-from .layers import linear, rms_norm
+from .layers import dense_init, linear, rms_norm
 from .linear_attn import chunked_gla, masked_gates
-from .transformer import _dense_init
 
 NEG = -1e30
 
@@ -52,7 +51,7 @@ def init_layer(cfg, generator: torch.Generator, device) -> dict:
     di, H, dh = _dims(cfg)
 
     def dense(out_dim, in_dim):
-        return _dense_init(out_dim, in_dim, cfg.dtype, generator, device)
+        return dense_init(out_dim, in_dim, cfg.dtype, generator, device)
 
     r = torch.randn((4, H, dh, dh), generator=generator, device=device,
                     dtype=torch.float32).div_(math.sqrt(dh))
@@ -78,7 +77,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     return {"embed": embed.to(cfg.dtype), "layers": layers,
             "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                       device=device),
-            "lm_head": _dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
+            "lm_head": dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
                                    generator, device)}
 
 

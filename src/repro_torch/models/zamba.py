@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from . import transformer as tfm
-from .layers import linear, rms_norm
+from .layers import dense_init, linear, rms_norm
 from .linear_attn import chunked_gla, masked_gates
 
 
@@ -59,9 +59,9 @@ def init_mamba_layer(cfg, generator: torch.Generator, device) -> dict:
     di, H, N = _dims(cfg)
     f32 = torch.float32
     return {"norm": torch.zeros((d,), dtype=cfg.dtype, device=device),
-            "in_proj": tfm._dense_init(2 * di + 2 * N + H, d, cfg.dtype,
+            "in_proj": dense_init(2 * di + 2 * N + H, d, cfg.dtype,
                                        generator, device),
-            "out_proj": tfm._dense_init(d, di, cfg.dtype, generator, device),
+            "out_proj": dense_init(d, di, cfg.dtype, generator, device),
             "A_log": torch.zeros((H,), dtype=f32, device=device),
             "D": torch.ones((H,), dtype=f32, device=device),
             "dt_bias": torch.zeros((H,), dtype=f32, device=device)}
@@ -83,7 +83,7 @@ def init_params(cfg, generator: torch.Generator, device="cuda",
     params = {"embed": embed.to(cfg.dtype), "mamba": mamba,
               "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
                                         device=device),
-              "lm_head": tfm._dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
+              "lm_head": dense_init(cfg.vocab, cfg.d_model, cfg.dtype,
                                          generator, device)}
     if cfg.attn_every:
         params["shared_attn"] = done(tfm.init_layer(_shared_block_cfg(cfg),

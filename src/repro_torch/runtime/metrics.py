@@ -135,6 +135,24 @@ def summarize(metrics: list[RequestMetrics], wall_s: float) -> dict:
             "accepted": accepted,
             "acceptance_rate": accepted / drafted,
         }
+    families = sorted({m.family for m in done if m.family})
+    if families:
+        # per-family throughput and latency tails over the SAME wall clock
+        # (families sharing a step loop each get their share of the
+        # window, not a solo run's rate); absent when no request carries
+        # a family (served outside an engine)
+        out["families"] = {
+            fam: {
+                "n_requests": len(sub),
+                "total_tokens": sum(m.n_tokens for m in sub),
+                "tok_per_s": (sum(m.n_tokens for m in sub) / wall_s
+                              if wall_s > 0 else float("nan")),
+                "ttft": percentiles([m.ttft for m in sub]),
+                "itl": percentiles([g for m in sub for g in m.itl]),
+            }
+            for fam in families
+            for sub in [[m for m in done if m.family == fam]]
+        }
     return out
 
 

@@ -21,15 +21,16 @@ workloads, JSON round-trip, open-loop ``replay``) and observability
 Prometheus-text counter registry, per-variant attribution of the model
 calls; the default NULL_TRACER costs nothing per step).
 
-The engine serves the dense, ssm (xLSTM) and hybrid (Zamba2) families
-through their adapters (serving/families.py); recurrent state lives in
-``RecurrentStatePool`` slots (serving/state_pool.py).
+The engine serves the dense, moe, ssm (xLSTM), hybrid (Zamba2) and encdec
+(Whisper) families through their adapters (serving/families.py); recurrent
+state lives in ``RecurrentStatePool`` slots and an enc-dec request's
+encoder context in ``EncoderContextPool`` rows (serving/state_pool.py).
 """
 
 from .cache_pool import (CachePoolError, CapacityError, DoubleFree,
                          KVCachePool, SlotKVPool, SlotPoolView)
 from .engine import KV_LAYOUTS, SUPPORTED_FAMILIES, ServingEngine
-from .families import (FamilyAdapter, HybridAdapter,
+from .families import (EncDecAdapter, FamilyAdapter, HybridAdapter,
                        RecurrentAdapter, TransformerAdapter, build_adapter)
 from .fleet import ROUTING_POLICIES, ReplicaSet, RouteDecision, Router
 from .observe import (NULL_ROUTER_TRACER, NULL_TRACER, NullRouterTracer,
@@ -40,6 +41,7 @@ from .scheduler import (CHUNK_QUANTUM, QueueFull, RequestQueue, plan_chunks,
                         resolve_token_budget, spec_verify_reserve,
                         validate_token_budget)
 from .speculative import SpeculativeConfig
-from .state_pool import HybridPoolView, RecurrentStatePool, RecurrentStateView
+from .state_pool import (EncDecPoolView, EncoderContextPool, HybridPoolView,
+                         RecurrentStatePool, RecurrentStateView)
 from .trace import (TraceRequest, fleet_trace, load_trace, long_prompt_trace,
                     poisson_trace, replay, save_trace)

@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine for the dense, ssm and hybrid
-families, on the slot and paged KV layouts (port of
+"""Continuous-batching serving engine for the dense, moe, ssm, hybrid and
+encdec families, on the slot and paged KV layouts (port of
 ``repro/serving/engine.py``).
 
 Every ``step()`` evicts expired queue entries, spends up to
@@ -10,9 +10,13 @@ adapter (``serving/families.py``): for the dense family
 ``models/transformer.unified_step`` over a ``SlotPoolView``, where each
 step writes its fresh KV into the arena and attends in place with the
 per-request cursor as a length mask, so chunked prefill computes what the
-one-shot prefill does; for ssm (xLSTM) ``models/xlstm.unified_step`` over
-recurrent state slots, and for hybrid (Zamba2) ``models/zamba.
-unified_step`` over state slots and the shared attention's KV.  An ssm
+one-shot prefill does (the moe family the same, its FFN routed through
+``models/moe.py``); for ssm (xLSTM) ``models/xlstm.unified_step`` over
+recurrent state slots, for hybrid (Zamba2) ``models/zamba.unified_step``
+over state slots and the shared attention's KV, and for encdec (Whisper)
+``models/whisper.unified_step`` over decoder KV slots and the encoder
+context rows its adapter projected at admission from the request's
+``embeds`` (``submit(embeds=)``; ``max_ctx`` frames a slot).  An ssm
 engine serves the slot layout whatever was asked, and its token budget
 needs no chunk quantum (any budget; chunks as wide as the budget).  Chunks
 at the same cursor are padded to power-of-two length buckets (``_bucket``)
@@ -59,12 +63,11 @@ every hook's call site is guarded by ``tracer.enabled``, so an untraced
 step does no observability work: no synchronize, no event, no span.
 
 ``ingest``, ``withdraw`` and ``steal_youngest`` move queued, slotless
-requests between engines: the fleet's replicas (``serving/fleet/``).  Left
-out of this slice, raising ``NotImplementedError``: ``mesh=`` (ROADMAP
-A12), and the moe and encdec families (A11b, A11e).  Every dense config is
-served, whatever its ``qk_norm``, tied embeddings, activation, gating and
-head dim, and the ssm and hybrid families (xlstm-350m, zamba2-2.7b); the
-vlm family is refused, as the reference's engine refuses it.
+requests between engines: the fleet's replicas (``serving/fleet/``).
+``mesh=`` raises ``NotImplementedError`` (ROADMAP A12).  Every registered
+config of the five families is served (mixtral-8x7b and
+llama4-maverick-400b-a17b for moe, whisper-medium for encdec); the vlm
+family is refused, as the reference's engine refuses it.
 """
 from __future__ import annotations
 
@@ -73,7 +76,6 @@ import time
 import numpy as np
 import torch
 
-from ..configs import family_not_ported
 from ..device import resolve
 from .cache_pool import CachePoolError
 from .families import build_adapter
@@ -87,7 +89,7 @@ from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE,
                         resolve_token_budget, spec_verify_reserve)
 from .speculative import SpeculativeConfig, Speculator, verify_bucket
 
-SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 KV_LAYOUTS = ("slot", "paged")
 
 
@@ -111,11 +113,9 @@ class ServingEngine:
                  kv_layout: str = "slot", kv_dtype: str = "bf16",
                  block_size: int = 16, n_blocks: int | None = None,
                  prefix_caching: bool = True, lookahead_blocks: int = 1,
-                 mesh=None, clock=time.monotonic, tracer=None,
+                 mesh=None, max_ctx: int | None = None,
+                 clock=time.monotonic, tracer=None,
                  draft: SpeculativeConfig | None = None):
-        not_ported = family_not_ported(cfg)
-        if not_ported is not None:
-            raise not_ported
         if cfg.family not in SUPPORTED_FAMILIES:
             raise ValueError(
                 f"ServingEngine supports {SUPPORTED_FAMILIES} families, not "
@@ -133,14 +133,15 @@ class ServingEngine:
         self.params = params
         # the family adapter owns the state substrate (pools and arenas)
         # and the model calls; the engine schedules against its pool.  ssm
-        # has no KV to page: its layout is coerced to "slot"
+        # has no KV to page: its layout is coerced to "slot"; encdec
+        # refuses "paged"
         if cfg.family == "ssm":
             kv_layout = "slot"
         self.adapter = build_adapter(
             cfg, params, device=self.device, kv_layout=kv_layout,
             n_slots=n_slots, max_len=max_len, block_size=block_size,
             n_blocks=n_blocks, prefix_caching=prefix_caching,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, max_ctx=max_ctx)
         self.kv_layout = kv_layout
         self.kv_dtype = kv_dtype
         self.pool = self.adapter.pool
@@ -206,8 +207,9 @@ class ServingEngine:
                request_id: int | None = None) -> Request:
         """Enqueue a request; raises QueueFull when the queue is at capacity
         and ValueError when the request can never fit the pool or its
-        family refuses it (``adapter.validate_submit``: every ported family
-        takes token prompts only, so ``embeds`` is refused)."""
+        family refuses it (``adapter.validate_submit``).  ``embeds`` is the
+        enc-dec family's encoder input ([S_enc, d] frontend features, run
+        once at admission); every other family refuses it."""
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
@@ -226,7 +228,7 @@ class ServingEngine:
         self.adapter.validate_submit(prompt, sampling, embeds)
         rid = self._next_id if request_id is None else int(request_id)
         req = Request(rid, prompt, sampling, on_token=on_token,
-                      on_finish=on_finish)
+                      on_finish=on_finish, embeds=embeds)
         req.metrics.family = self.cfg.family
         self._next_id = max(self._next_id + 1, rid + 1)
         req.metrics.arrival = self._clock()

@@ -1,7 +1,5 @@
 """Family adapters: one per-request state substrate per model family behind
-one engine-facing surface (port of ``repro/serving/families.py``; the
-enc-dec family's ``EncDecAdapter`` waits for ROADMAP A11e and the moe
-family for A11b).
+one engine-facing surface (port of ``repro/serving/families.py``).
 
 The engine schedules requests; it does not know what a family keeps per
 request.  Each adapter owns that answer: the pool the scheduler allocates
@@ -27,12 +25,14 @@ slots from, any further arenas, and the two model calls over the family's
       families return a swap blob, because a recurrent state recomputed
       under other chunk boundaries differs in float summation order;
   ``validate_submit(prompt, sampling, embeds)``
-      family-specific admission checks (every family here takes token
-      prompts only).
+      family-specific admission checks (the enc-dec family needs the
+      encoder's ``embeds``, every other family takes token prompts only).
 
 Per family:
 
-  dense   ``TransformerAdapter``: slot or paged KV pool, bf16 or int8 KV.
+  dense, moe
+          ``TransformerAdapter``: slot or paged KV pool, bf16 or int8 KV
+          (a moe model's routed experts are part of its ``unified_step``).
   ssm     ``RecurrentAdapter``: a ``RecurrentStatePool`` only, O(1) state a
           request and no KV; the layout is coerced to "slot" (there is
           nothing to page).  Swap preemption.
@@ -45,12 +45,20 @@ Per family:
           the prefix cache off (cached KV blocks cannot reconstruct the
           SSM state), which may differ from the uninterrupted stream in the
           last ulp, as in the reference.
+  encdec  ``EncDecAdapter``: decoder KV in a slot pool and the read-only
+          encoder context rows in an ``EncoderContextPool``, one slot
+          identity across both.  Admission runs the encoder once at the
+          request's true length (an "encode" call); steps attend over
+          both through ``EncDecPoolView``.  Swap preemption (context rows,
+          KV and position); no paged layout.
 
 Host arrays (lanes, cursors, tokens) go to the device here, once per step.
-``n_model_calls`` counts ``unified_step`` calls.  Each call runs through
+``n_model_calls`` counts ``unified_step`` calls (and the enc-dec
+adapter's ``n_encode_calls`` its encoder calls).  Each call runs through
 ``_traced``: a direct call under the default ``NULL_TRACER``, else the
-engine's ``ServingTracer.jit_call`` with kinds "step" (chunk groups) and
-"decode", keyed by the host arrays' shapes and costed by ``step_cost``.
+engine's ``ServingTracer.jit_call`` with kinds "step" (chunk groups),
+"decode" and "encode", keyed by the host arrays' shapes and costed by
+``step_cost`` (an encoder call by ``encode_cost``).
 """
 from __future__ import annotations
 
@@ -59,16 +67,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..configs import family_not_ported
 from ..launch import step_cost as cost
 from ..models import transformer as tfm
+from ..models import whisper as whi
 from ..models import xlstm as xls
 from ..models import zamba as zam
 from .cache_pool import CachePoolError, SlotKVPool, SlotPoolView
 from .observe import NULL_TRACER
 from .paged import PagedKVPool, PagedPoolView
-from .state_pool import (HybridPoolView, RecurrentStatePool,
-                         RecurrentStateView)
+from .state_pool import (EncDecPoolView, EncoderContextPool, HybridPoolView,
+                         RecurrentStatePool, RecurrentStateView)
 
 
 class FamilyAdapter:
@@ -91,14 +99,15 @@ class FamilyAdapter:
         self.n_model_calls = 0
         self._weights = None                   # step_cost's weight totals
 
-    def _traced(self, kind: str, fn, args: tuple):
+    def _traced(self, kind: str, fn, args: tuple, cost=None):
         """Run a model call, attributed when tracing is on: wall and issue
         time, new-variant detection and its work per shape variant
-        (``ServingTracer.jit_call``)."""
+        (``ServingTracer.jit_call``, costed by ``cost``, ``step_cost`` by
+        default)."""
         if not self.tracer.enabled:
             return fn(*args)
         return self.tracer.jit_call(self.trace_kind_prefix + kind, fn, args,
-                                    cost=self.step_cost)
+                                    cost=cost or self.step_cost)
 
     def step_cost(self, lanes, cur, n_new, tokens) -> dict:
         """The call's FLOPs and bytes (``launch/step_cost.py``), from the
@@ -125,11 +134,12 @@ class FamilyAdapter:
 
 
 # --------------------------------------------------------------------------
-# dense: slot or paged KV, bf16 or int8
+# dense / moe: slot or paged KV, bf16 or int8
 # --------------------------------------------------------------------------
 
 class TransformerAdapter(FamilyAdapter):
-    """The dense family on the slot and paged layouts.  On the paged layout
+    """The dense and moe families on the slot and paged layouts.  On the
+    paged layout
     only the ``active`` rows of a decode write their KV; the slot layout
     writes every lane (a stray write lands where the next chunk or
     occupant overwrites it before any read).  With ``kv_dtype="int8"``
@@ -140,10 +150,7 @@ class TransformerAdapter(FamilyAdapter):
                  kv_layout: str = "slot", block_size: int = 16,
                  n_blocks: int | None = None, prefix_caching: bool = True,
                  kv_dtype: str = "bf16"):
-        not_ported = family_not_ported(cfg)
-        if not_ported is not None:
-            raise not_ported
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(f"no serving adapter for family {cfg.family!r}")
         self._setup(cfg, params, device)
         self.kv_layout = kv_layout
@@ -396,24 +403,118 @@ class HybridAdapter(FamilyAdapter):
 
 
 # --------------------------------------------------------------------------
+# encdec (Whisper): decoder KV slots + read-only encoder context rows
+# --------------------------------------------------------------------------
+
+class EncDecAdapter(FamilyAdapter):
+    def __init__(self, cfg, params, *, n_slots: int, max_len: int,
+                 max_ctx: int, device):
+        self._setup(cfg, params, device)
+        self.pool = SlotKVPool(cfg, n_slots, max_len, device)
+        self.ctx = EncoderContextPool(cfg, n_slots, max_ctx, device)
+        self.n_encode_calls = 0
+        self._enc_weights = None              # encode_cost's weight totals
+
+    def _run(self, rows, cur, n_new, tokens, ctx_len) -> torch.Tensor:
+        p, c = self.pool, self.ctx
+        view = EncDecPoolView.build(p.k, p.v, rows, cur, n_new,
+                                    tokens.shape[1], ck=c.ck, cv=c.cv,
+                                    ctx_len=ctx_len)
+        with torch.no_grad():
+            logits, _ = whi.unified_step(self.params, view,
+                                         {"tokens": self._tokens(tokens)},
+                                         self.cfg)
+        return logits
+
+    def _encode(self, embeds) -> tuple:
+        with torch.no_grad():
+            return whi.encode_ctx(self.params, embeds, self.cfg)
+
+    def step_cost(self, lanes, cur, n_new, tokens, ctx_len) -> dict:
+        """A decoder call's FLOPs and bytes, its cross-attention over each
+        lane's ``ctx_len`` context rows included."""
+        if self._weights is None:
+            self._weights = cost.weight_totals(self.params, self.cfg)
+        return cost.step_cost(self.cfg, self._weights, cur, n_new,
+                              tokens.size, ctx_len=ctx_len)
+
+    def encode_cost(self, embeds) -> dict:
+        """An encoder call's FLOPs and bytes (``step_cost.encode_cost``)."""
+        if self._enc_weights is None:
+            self._enc_weights = cost.weight_totals(self.params, self.cfg,
+                                                   kind="encode")
+        return cost.encode_cost(self.cfg, self._enc_weights,
+                                embeds.shape[1])
+
+    def step_chunk(self, lanes, cur, n_new, tokens, rows=None
+                   ) -> torch.Tensor:
+        self.n_model_calls += 1
+        ctx_len = self.ctx.lane_lens(rows, tokens.shape[0])
+        return self._traced("step", self._run,
+                            (lanes, cur, n_new, tokens, ctx_len))
+
+    def step_decode(self, tokens, active: list[int]) -> torch.Tensor:
+        self.n_model_calls += 1
+        p = self.pool
+        return self._traced("decode", self._run,
+                            (None, p.pos, np.ones_like(p.pos), tokens,
+                             self.ctx.lens.copy()))
+
+    def validate_submit(self, prompt, sampling, embeds) -> None:
+        if embeds is None:
+            raise ValueError(
+                "the enc-dec family needs embeds= at submit: the encoder "
+                "frontend's [S_enc, d] features, run once at admission")
+        n = (embeds.shape if hasattr(embeds, "shape")
+             else np.shape(embeds))[0]
+        if n > self.ctx.max_ctx:
+            raise ValueError(
+                f"encoder input of {n} frames exceeds the context arena "
+                f"(max_ctx={self.ctx.max_ctx})")
+
+    def on_admit(self, req, slot):
+        """Restore a swap-preempted request's context, KV and position;
+        else run the encoder over its ``embeds`` at their true length and
+        install the context rows."""
+        if req.swap is not None:
+            blob, req.swap = req.swap, None
+            self.ctx.restore_slot(slot, blob["ctx"])
+            p = self.pool
+            p.k[:, slot] = blob["k"].to(p.k.dtype)
+            p.v[:, slot] = blob["v"].to(p.v.dtype)
+            return blob["pos"]
+        emb = torch.as_tensor(req.embeds, device=self.device).to(
+            self.cfg.dtype)[None]                          # [1, S_enc, d]
+        self.n_encode_calls += 1
+        ck, cv = self._traced("encode", self._encode, (emb,),
+                              cost=self.encode_cost)
+        self.ctx.write(slot, ck[:, 0], cv[:, 0])
+        return 0
+
+    def save_for_preempt(self, req, slot, n_written):
+        p = self.pool
+        return {"ctx": self.ctx.save_slot(slot), "k": p.k[:, slot].clone(),
+                "v": p.v[:, slot].clone(), "pos": n_written}
+
+
+# --------------------------------------------------------------------------
 
 def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
                   max_len: int, block_size: int = 16,
                   n_blocks: int | None = None, prefix_caching: bool = True,
-                  kv_dtype: str = "bf16"):
+                  kv_dtype: str = "bf16", max_ctx: int | None = None):
     """The family's adapter.  ssm has no KV at all, so any requested layout
-    is served as "slot" (the engine coerces it); quantized KV
-    (``kv_dtype="int8"``) exists only for the pure KV-transformer families,
-    as in the reference; encdec raises naming ROADMAP A11e and moe A11b."""
+    is served as "slot" (the engine coerces it); encdec pages neither its
+    decoder slots nor its read-only context rows and refuses "paged"; its
+    context arena holds ``max_ctx`` encoder frames a slot (``max_len`` when
+    None).  Quantized KV (``kv_dtype="int8"``) exists only for the pure
+    KV-transformer families, as in the reference."""
     fam = cfg.family
     if kv_dtype != "bf16" and fam not in ("dense", "moe"):
         raise ValueError(
             f"kv_dtype={kv_dtype!r} needs a KV-transformer family "
             f"(dense/moe), not {fam!r}")
-    not_ported = family_not_ported(cfg)
-    if not_ported is not None:
-        raise not_ported
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         return TransformerAdapter(
             cfg, params, n_slots=n_slots, max_len=max_len, device=device,
             kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
@@ -426,5 +527,13 @@ def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
             cfg, params, n_slots=n_slots, max_len=max_len, device=device,
             kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
             prefix_caching=prefix_caching)
+    if fam == "encdec":
+        if kv_layout == "paged":
+            raise ValueError(
+                "the enc-dec family has no paged layout: decoder KV is "
+                "slot-resident and the encoder context rows are read-only")
+        return EncDecAdapter(cfg, params, n_slots=n_slots, max_len=max_len,
+                             max_ctx=max_len if max_ctx is None else max_ctx,
+                             device=device)
     raise ValueError(f"no serving adapter for family {fam!r}")
 

@@ -100,17 +100,19 @@ class ReplicaSet:
 
     # ------------------------------------------------------------ admission
     def submit(self, prompt, sampling: SamplingParams | None = None,
-               on_token=None, on_finish=None, session=None) -> Request:
-        """Route and enqueue one request.  Raises QueueFull when every
-        replica's queue is at capacity and ValueError when the request can
-        never fit a replica's pool: the single-engine contract, so replay
-        and the CLI handle admission unchanged."""
+               on_token=None, on_finish=None, embeds=None,
+               session=None) -> Request:
+        """Route and enqueue one request (an enc-dec request's ``embeds``
+        go to its replica with it).  Raises QueueFull when every replica's
+        queue is at capacity and ValueError when the request can never fit
+        a replica's pool: the single-engine contract, so replay and the CLI
+        handle admission unchanged."""
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         decision = self.router.route(prompt, session)
         rid = self._next_id
         req = self.replicas[decision.replica].submit(
             prompt, sampling, on_token=on_token, on_finish=on_finish,
-            request_id=rid)
+            embeds=embeds, request_id=rid)
         self._next_id += 1
         self.home[rid] = decision.replica
         if self.tracer.enabled:

@@ -18,7 +18,8 @@ and the same hooks populate three artifacts:
 
    - an *engine* process: one "step" span per ``engine.step()`` with
      child spans for the plan / chunk / decode / emit phases and each
-     model call ("jit:step", "jit:decode", ...), plus instants for
+     model call ("jit:step", "jit:decode", an enc-dec admission's
+     "jit:encode", ...), plus instants for
      compiles and retraces (a new shape variant of a model call),
      preemptions (victim + reason), and prefix-cache lookups
      (matched-block depth);

@@ -81,6 +81,9 @@ class Request:
     # per-token chosen-token log-probabilities (log-softmax of the raw
     # logits at each emitted token), parallel to ``tokens``
     logprobs: list[float] = dataclasses.field(default_factory=list)
+    # enc-dec family: the encoder frontend's features [S_enc, d] (the
+    # encoder runs over them once, at admission, at their true length)
+    embeds: Any = None
     # swap-preemption blob of a stateful slot-layout family: its adapter's
     # ``save_for_preempt`` fills it, ``on_admit`` restores and clears it
     swap: Any = None

@@ -1,7 +1,5 @@
-"""Per-request state beyond KV: recurrent state slots (port of
-``repro/serving/state_pool.py``'s ``RecurrentStateView``,
-``RecurrentStatePool`` and ``HybridPoolView``; the enc-dec family's
-``EncoderContextPool`` and ``EncDecPoolView`` wait for ROADMAP A11e).
+"""Per-request state beyond KV: recurrent state slots and encoder context
+rows (port of ``repro/serving/state_pool.py``).
 
 ``RecurrentStatePool``
     Fixed-size state slots behind the engine's pool protocol: each slot
@@ -31,6 +29,16 @@
     shared-attention applications and a ``RecurrentStateView`` for the
     mamba layers, each with its own ``n_new``.
 
+``EncoderContextPool``
+    The enc-dec family's read-only cross-attention context: per decoder
+    layer the projected encoder K/V of each slot's request,
+    [L, n_slots, max_ctx, KV, hd], and its true length on the host.  Rows
+    are written once at admission and only read afterwards.
+
+``EncDecPoolView``
+    A ``SlotPoolView`` of the decoder's self-attention arenas with the
+    context arenas and each lane's context length beside it.
+
 The port updates the arenas in place where a view has lane rows (a chunk
 step); the fused decode (``rows`` None) returns fresh state tensors, which
 the pool adopts.  Positions live on the host (numpy), as the KV pools'.
@@ -43,7 +51,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .cache_pool import CapacityError, DoubleFree
+from .cache_pool import CapacityError, DoubleFree, SlotPoolView
 
 
 def map_state(fn, *trees):
@@ -237,3 +245,80 @@ class HybridPoolView:
     @property
     def cursor(self):
         return self.state.cursor
+
+
+class EncoderContextPool:
+    """Read-only cross-attention context rows for the enc-dec family.
+
+    ``ck``/``cv`` hold each decoder layer's projected encoder K/V,
+    [L, n_slots, max_ctx, KV, hd] in the model's dtype (the shape grammar
+    of a KV arena); ``lens`` [n_slots] is each slot's true context length,
+    on the host.  A slot's rows are written once, at admission, and only
+    read afterwards, so the pool has no advance/adopt lifecycle."""
+
+    def __init__(self, cfg, n_slots: int, max_ctx: int, device):
+        shape = (cfg.n_layers, n_slots, max_ctx, cfg.n_kv_heads, cfg.hd)
+        self.ck = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        self.cv = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        self.lens = np.zeros((n_slots,), np.int64)
+        self.n_slots = n_slots
+        self.max_ctx = max_ctx
+
+    def write(self, slot: int, ck, cv) -> None:
+        """Install one request's projected context ([L, S_enc, KV, hd]) at
+        its true encoder length."""
+        n = ck.shape[1]
+        if n > self.max_ctx:
+            raise CapacityError(
+                f"encoder context of {n} exceeds max_ctx {self.max_ctx}")
+        self.ck[:, slot, :n] = ck.to(self.ck.dtype)
+        self.cv[:, slot, :n] = cv.to(self.cv.dtype)
+        self.lens[slot] = n
+
+    def save_slot(self, slot: int):
+        """(ck, cv, length) of one slot, copies, for swap-out."""
+        return (self.ck[:, slot].clone(), self.cv[:, slot].clone(),
+                int(self.lens[slot]))
+
+    def restore_slot(self, slot: int, saved) -> None:
+        ck, cv, n = saved
+        self.ck[:, slot] = ck.to(self.ck.dtype)
+        self.cv[:, slot] = cv.to(self.cv.dtype)
+        self.lens[slot] = n
+
+    def lane_lens(self, rows: list[int], n_rows_padded: int) -> np.ndarray:
+        """Per-lane context lengths of a chunk group; padding lanes get 0
+        (their cross-attention output is never read)."""
+        out = np.zeros((n_rows_padded,), np.int64)
+        out[:len(rows)] = self.lens[np.asarray(rows, np.int64)]
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecPoolView(SlotPoolView):
+    """A ``SlotPoolView`` of the decoder's self-attention arenas (and its
+    lane addressing) with the read-only encoder context: the per-layer
+    ``ck``/``cv`` arenas [L, n_slots, max_ctx, KV, hd] and each lane's true
+    context length ``ctx_len`` [B]."""
+    ck: Any = None
+    cv: Any = None
+    ctx_len: Any = None
+
+    @classmethod
+    def build(cls, k, v, rows, cursor, n_new, S: int, *, ck, cv,
+              ctx_len) -> "EncDecPoolView":
+        """``SlotPoolView.build``'s view with the context arenas and the
+        host array ``ctx_len`` beside it."""
+        view = super().build(k, v, rows, cursor, n_new, S)
+        return dataclasses.replace(
+            view, ck=ck, cv=cv,
+            ctx_len=torch.as_tensor(np.asarray(ctx_len, np.int64),
+                                    device=k.device))
+
+    def lane_ctx(self, ck_l, cv_l):
+        """Per-lane [B, max_ctx, KV, hd] context rows of one layer; padding
+        lanes' rows are clamped into the arena, as ``lane_kv`` clamps."""
+        if self.rows is None:
+            return ck_l, cv_l
+        rows = self.rows.clamp(max=ck_l.shape[0] - 1)
+        return ck_l[rows], cv_l[rows]

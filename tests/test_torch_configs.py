@@ -2,9 +2,9 @@
 registered config and every smoke twin field by field (``dtype`` mapped to
 its ``torch.dtype``), the parameter counts, the shapes and their
 applicability, the model zoo's input and cache specs (the recurrent
-families' nested state specs too) and ``grow_caches``; and the families
-the port lacks raising NotImplementedError naming their ROADMAP item (moe
-A11b, encdec A11e), while vlm runs ``forward`` and is refused by the
+families' nested state specs, the moe family's and encdec's ``embeds``
+input and ``ck``/``cv`` caches too) and ``grow_caches``; every family
+builds through the zoo, while vlm runs ``forward`` and is refused by the
 engine, as the reference refuses it."""
 import pytest
 
@@ -22,12 +22,9 @@ from repro.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
-from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 SMOKE_IDS = sorted(configs.SMOKE_MODULES)
-NOT_PORTED = {"mixtral-8x7b": "A11b", "llama4-maverick-400b-a17b": "A11b",
-              "whisper-medium": "A11e"}
 
 
 def _both_registries():
@@ -114,7 +111,10 @@ def test_shapes_and_applicability_match():
 # ------------------------------------------------------------- model zoo
 ZOO_ARCHS = ["qwen3-8b", "gemma-7b", "internlm2-1.8b", "nemotron-4-340b",
              "qwen2-vl-72b", "llama3-8b", "qwen3-8b-smoke", "gemma-7b-smoke",
-             "qwen2-vl-72b-smoke"]
+             "qwen2-vl-72b-smoke", "mixtral-8x7b",
+             "llama4-maverick-400b-a17b", "whisper-medium",
+             "mixtral-8x7b-smoke", "llama4-maverick-400b-a17b-smoke",
+             "whisper-medium-smoke"]
 
 
 def _spec(s):
@@ -190,28 +190,44 @@ def test_grow_caches_matches():
     assert same["k"] is out["k"]
 
 
-# ------------------------------------------- families the port lacks yet
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_families_raise_naming_roadmap(name):
-    cfg = configs.get_smoke(name)
-    item = NOT_PORTED[name]
-    assert configs.FAMILY_ITEMS[cfg.family] == item
-    g = torch.Generator().manual_seed(0)
-    calls = [lambda: tfm.init_params(cfg, g, "cpu"),
-             lambda: model_zoo.get_model(cfg, "cpu"),
-             lambda: model_zoo.input_specs(cfg, configs.SHAPES["train_4k"]),
-             lambda: ServingEngine(cfg, {"embed": torch.zeros(1)},
-                                   device="cpu"),
-             lambda: serve.main(["--arch", name.removesuffix("-smoke"),
-                                 "--smoke-arch", "--device", "cpu"])]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
-    full = configs.get(name.removesuffix("-smoke"))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        model_zoo.get_model(full)
+def test_grow_caches_keeps_encdec_context_at_encoder_length():
+    """encdec's self-attention k/v grow; the cross-attention ck/cv stay at
+    the encoder's length, as the reference's ``grow_caches`` keeps them."""
+    rng = np.random.default_rng(1)
+    arrs = {key: rng.standard_normal((2, 3, n, 2, 4)).astype(np.float32)
+            for key, n in (("k", 5), ("v", 5), ("ck", 7), ("cv", 7))}
+    jout = jax_zoo.grow_caches({**{k: jnp.asarray(a) for k, a in arrs.items()},
+                                "pos": jnp.asarray(5)}, 9)
+    out = model_zoo.grow_caches({**{k: torch.from_numpy(a)
+                                    for k, a in arrs.items()},
+                                 "pos": torch.tensor(5)}, 9)
+    for key in arrs:
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(jout[key]))
+    assert out["k"].shape[2] == 9 and out["ck"].shape[2] == 7
 
 
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "whisper-medium"])
+def test_moe_and_encdec_build_through_the_zoo(name):
+    """``get_model`` of the full config builds nothing, and of the smoke
+    twin draws a tree whose loss is finite, for every family the reference
+    serves."""
+    assert model_zoo.get_model(configs.get(name), "cpu").cfg.name == name
+    cfg = dataclasses.replace(configs.get_smoke(name), dtype=torch.float32)
+    zoo = model_zoo.get_model(cfg, "cpu")
+    params = zoo.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 6))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 6)))}
+    if cfg.family == "encdec":
+        batch["embeds"] = torch.randn(2, 5, cfg.d_model)
+    with torch.no_grad():
+        loss, aux = zoo.loss(params, batch)
+    assert bool(torch.isfinite(loss))
+    assert set(aux) == ({"lb_loss"} if cfg.family == "moe" else set())
+
+
+# ------------------------------------------------------------------ vlm
 def test_vlm_is_refused_by_both_engines():
     jcfg = jax_configs.get_smoke("qwen2-vl-72b")
     cfg = configs.get_smoke("qwen2-vl-72b")
