@@ -341,6 +341,40 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            (its decode body), within phase 8(e)'s gate, with ``nm_spmm``
            launched 7 x 4 times a forward on the body the rows select;
            perplexity of the dense, sparsified and tuned models reported.
+ 16. the training driver and the one-shot serve loop (run after phase
+     10), with the card's name and power limit beside the numbers:
+       (a) qwen2-vl-72b at full width cut to 24 of 80 layers (8:16+16:256
+           by magnitude, built one layer at a time; the down projection's
+           in-dim 29,568 is no multiple of 256, so it is plain 8:16 on
+           ``nm_spmm``): its new shapes through phase 2's gate at M 8 and
+           4,096; one prefill call of 8 x 512 random ``embeds`` at M-RoPE
+           positions ``arange(512)`` and one decode step with every launch
+           held in context (6 x 24 fused, 24 ``nm_spmm``), the prefill
+           call also end to end within ``MODEL_TOL_REL`` of the plain
+           versions; then ``launch/serve.run_oneshot``, 32 greedy tokens,
+           its launches gated per model call and by body; reports prefill
+           s, decode tok/s, peak memory and a decode step's kernels by
+           class;
+       (b) ``--legacy`` on llama3-8b, 4 layers, 8:16+16:256: the one-shot
+           loop then the slot engine on the same 8 prompts of 512 tokens,
+           32 new, each run's launches gated per model call, every
+           diverging stream within ``near_tie_bound``;
+       (c) ``launch/train.run`` on llama3-8b, 4 layers, phase 10's batch
+           and lr, 4 steps, saves at 2 and 4, a failure at step 2 (right
+           after the first save), one checkpoint kept, in a temporary
+           directory it removes (the disk's free space checked against
+           the checkpoint's bytes first): gates 1 restart from step 2, the
+           restored state bit for bit equal to the one the driver saved
+           and held, one checkpoint left, and the losses within
+           ``DRIVER_LOSS_TOL_REL`` of an uninterrupted run's at the same
+           steps; reports save and restore seconds and GB/s and ms a
+           step;
+       (d) ``make_train_step``, 8 steps on one random batch of 4 x 512 at
+           phase 10's lr (xlstm-350m's of 4 x 128): xlstm-350m,
+           zamba2-2.7b and whisper-medium at full size, mixtral-8x7b cut
+           to 2 of 32 layers; gates finite
+           losses and gradient norms and the last loss below the first;
+           reports ms a step and peak memory.
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
 profiles one 512-token prefill chunk (whisper's: 447 tokens, its
@@ -348,9 +382,9 @@ admission's encoder call in the same step).  Prints the kernels line
 ``{"kernels": [...]}`` (seven entries: the three serving kernels' bf16
 and int8 variants, and ``outlier_spmm``; each entry names its sources
 and splits its cases and launches by path, decode and prefill;
-``nm_spmm``'s launches are phase 5's and phase 10(c)'s, the bf16 fused
-kernel's phase 4's and paged attention's phase 6(a)'s, each with phase
-11's to 15's; the int8 paged attention's phase 7(a)'s with phase
+``nm_spmm``'s launches are phase 5's, phase 10(c)'s and phase 16(a)'s,
+the bf16 fused kernel's phase 4's and paged attention's phase 6(a)'s,
+each with phase 11's to 15's, the fused kernel's with phase 16's; the int8 paged attention's phase 7(a)'s with phase
 13(b)'s; both paged attention entries carry ``hd80``: the hd 80 cases'
 sums and phase 14's launches by body), the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
@@ -505,6 +539,33 @@ WHISPER_MS = (8, 512, WHISPER_FRAMES)       # the encoder's rows besides
 MOE_TOL_REL = 2.0 ** -6
 ROUTE_TIE = 2.0 ** -20
 MOE_DECODE_ROWS = 8
+# phase 16: the training driver and the one-shot serve slice.  (a)
+# qwen2-vl-72b at full width cut to 24 of 80 layers (~1.18 GB of compressed
+# weights a layer; 80 would need ~100 GB), 8 lanes of a 512-token prompt of
+# random embeds, 32 greedy tokens through the one-shot loop, its new
+# projection shapes gated at a decode step's rows and a prefill call's
+# (8 x 512); (b) --legacy on llama3-8b at phase 10's depth; (c) the training
+# driver at phase 10's shape: 4 steps, saves at 2 and 4, a failure at step
+# 2, the first after the first save (the restored state is then the one
+# the driver saved, held against it bit for bit), one checkpoint kept;
+# (d) 8 train steps a family of 4 sequences, mixtral-8x7b cut to 2 of 32
+# layers (its params, grads and f32 moments ~38 GB), xlstm-350m's of 128
+# tokens (its sLSTM layers step over time in Python, forward twice under
+# remat: several seconds a step at 512).  The resumed losses
+# against the uninterrupted run's: the forward is bf16 and the embedding's
+# backward accumulates with atomics, so a step's update may round one bf16
+# ulp apart; the loss averages 2,048 token losses and stays within one bf16
+# ulp of its own value
+VLM_LAYERS = 24
+VLM_LOOP = dict(batch=8, prompt_len=512, gen=32)
+VLM_MS = (8, 4096)
+LEGACY_LOOP = dict(n_layers=4, batch=8, prompt_len=512, gen=32)
+DRIVER = dict(steps=4, save_every=2, fail_at_step=2, keep_last_k=1)
+DRIVER_LOSS_TOL_REL = 2.0 ** -7
+FAMILY_TRAIN = (("xlstm-350m", None, 128), ("zamba2-2.7b", None, 512),
+                ("whisper-medium", None, 512), ("mixtral-8x7b", 2, 512))
+FAMILY_TRAIN_STEPS = 8
+FAMILY_TRAIN_BATCH = 4
 # phase 8: the paper's pipeline
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
@@ -1638,7 +1699,10 @@ def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
           "not every projection is a SparseWeight (or a leaf that stays "
           f"dense is one): {sorted(set(found) ^ sparse_names(cfg))[:8]}")
     sws = list(found.values())
-    check(all((s.o_values is not None) == (outlier is not None) for s in sws),
+    # a projection whose in-dim is not a multiple of 256 keeps no outliers
+    # (``sparse_serving.leaf_cfg``: qwen2-vl-72b's down projection)
+    check(all((s.o_values is not None)
+              == (outlier is not None and s.in_dim % 256 == 0) for s in sws),
           "outlier buffers do not match the pattern")
     want = torch.int8 if quantize else torch.bfloat16
     check(all(s.nm_values.dtype == want and (s.v_scale is not None) == quantize
@@ -2090,8 +2154,10 @@ def family_weight_gate(torch, log, cfg, params, ms=FAMILY_MS):
     """The first layers' projections (``first_layers``) whose (out, in)
     shape phase 2 does not run, each through ``weight_case`` at ``ms``
     rows: the fused kernel's decode and prefill bodies at the model's
-    in-dims, gated at one bf16 ulp against the plain version."""
+    in-dims (``nm_spmm``'s for a projection without outliers), gated at one
+    bf16 ulp against the plain version."""
     from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.kernels import nm_spmm as nms
     from repro_torch.models.sparse_serving import SparseWeight
 
     seen = {(n, k) for _, n, k in PROJECTIONS}
@@ -2108,9 +2174,12 @@ def family_weight_gate(torch, log, cfg, params, ms=FAMILY_MS):
         for M in ms:
             x = torch.randn((M, sw.in_dim), generator=g, device="cuda").to(
                 torch.bfloat16)
-            cases.append(weight_case(timer, log, "fused_sparse_linear",
+            kernel = (("fused_sparse_linear", fsl.fused_sparse_linear,
+                       fsl.plain) if sw.o_values is not None else
+                      ("nm_spmm", nms.nm_spmm, nms.plain))
+            cases.append(weight_case(timer, log, kernel[0],
                                      f"{cfg.name}/{name}", x, sw,
-                                     fsl.fused_sparse_linear, fsl.plain))
+                                     *kernel[1:]))
     del timer
     torch.cuda.empty_cache()
     return cases
@@ -4393,6 +4462,424 @@ def training_phase(torch, log):
     return out, launches
 
 
+# ------------------- phase 16: the training driver and the one-shot loop
+def vlm_oneshot_phase(torch, log, smi):
+    """16(a): qwen2-vl-72b at full width cut to ``VLM_LAYERS`` layers,
+    8:16+16:256 by magnitude (the down projection, in-dim 29,568, plain
+    8:16 on ``nm_spmm``), built one layer at a time; its new projection
+    shapes through phase 2's gate at ``VLM_MS``; one prefill call and one
+    decode step with every kernel launch held in context, the prefill call
+    also end to end against the plain versions; then
+    ``launch/serve.run_oneshot`` over ``VLM_LOOP``'s random ``embeds`` with
+    its launches gated per model call.  Returns (results, launches)."""
+    import argparse
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.model_zoo import grow_caches
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, build = build_model(torch, log, arch="qwen2-vl-72b",
+                                     n_layers=VLM_LAYERS)
+    res = {"device": smi, "build": build,
+           "weight_cases": family_weight_gate(torch, log, cfg, params,
+                                              ms=VLM_MS)}
+    head = sum(params[n].numel() * params[n].element_size()
+               for n in ("embed", "lm_head"))
+    res["memory"] = {"compressed_gb": build["compressed_gb"],
+                     "compressed_gb_per_layer":
+                         build["compressed_gb"] / cfg.n_layers,
+                     "dense_gb_per_layer": build["dense_gb"] / cfg.n_layers,
+                     "embed_and_head_gb": head / 1e9,
+                     "peak_build_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  qwen2-vl-72b: {cfg.n_layers} of 80 layers, d {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, M-RoPE {cfg.mrope_sections}: "
+        f"{json.dumps(res['memory'])}")
+    B, S, gen = VLM_LOOP["batch"], VLM_LOOP["prompt_len"], VLM_LOOP["gen"]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    prompts, embeds = serve.draw_inputs(
+        cfg, argparse.Namespace(batch=B, prompt_len=S), g)
+    batch = serve.oneshot_batch(cfg, prompts, embeds)
+    check(set(batch) == {"embeds", "positions"}
+          and tuple(batch["positions"].shape) == (3, B, S),
+          f"vlm batch: {({k: tuple(v.shape) for k, v in batch.items()})}")
+    n_nm = cfg.n_layers                        # w_down, no outliers
+    n_fused = launches_per_call(cfg)[0] - n_nm
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+
+    def by_kernel(checks):
+        out = {}
+        for name, _, e, tol in checks.cases:
+            k = out.setdefault(name, {"launches": 0,
+                                      "worst_err_over_tol": 0.0})
+            k["launches"] += 1
+            k["worst_err_over_tol"] = max(k["worst_err_over_tol"],
+                                          e / tol if tol else 0.0)
+        return out
+
+    with torch.no_grad():
+        with in_context_checks(torch) as pre:
+            logits, caches = prefill(params, batch)
+        with plain_versions():
+            ref, ref_caches = prefill(params, batch)
+        del ref_caches
+        out, ref = logits.float(), ref.float()
+        check(bool(torch.isfinite(out).all()), "vlm prefill: non-finite")
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+        check(err <= MODEL_TOL_REL * scale,
+              f"vlm prefill call: max|kernels-plain| {err:.3e} > "
+              f"{MODEL_TOL_REL} x {scale:.3e}")
+        caches = grow_caches(caches, S + 2)
+        tok = logits.argmax(-1)[:, None]
+        with in_context_checks(torch) as dec:
+            _, caches = decode(params, caches, {"tokens": tok})
+        profiled = profile_call(torch, lambda: decode(params, caches,
+                                                      {"tokens": tok}))
+    del caches
+    want = {"fused_sparse_linear": n_fused, "nm_spmm": n_nm}
+    for label, checks in (("prefill", pre), ("decode", dec)):
+        got = by_kernel(checks)
+        check({k: v["launches"] for k, v in got.items()} == want,
+              f"vlm {label} call in context: {got}, want {want}")
+        res[f"{label}_in_context"] = got
+    res["prefill_call"] = {"max_abs_err": err, "scale": scale,
+                           "tol_rel": MODEL_TOL_REL,
+                           "greedy_agreement": agree}
+    res["decode_profile"] = profiled
+    log(f"  vlm prefill call {B}x{S} and a decode step: every launch within "
+        f"one bf16 ulp of its plain version ({json.dumps(res['prefill_in_context'])}"
+        f"; {json.dumps(res['decode_in_context'])}); the prefill call end to "
+        f"end {err:.3e} of scale {scale:.3e} (greedy agreement {agree:.4f})")
+    # the one-shot loop, the counts set to 0 just before and read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tokens, numbers = serve.run_oneshot(cfg, params, batch, gen)
+    launches = read_launches()
+    check(tuple(tokens.shape) == (B, gen) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab)).all()),
+        f"vlm one-shot tokens {tuple(tokens.shape)}")
+    check(torch.equal(tokens[:, 0], logits.argmax(-1)),
+          "vlm one-shot: the first tokens differ from the checked prefill "
+          "call's")
+    check_launch_counts(launches, {k: v * gen for k, v in want.items()},
+                        f"qwen2-vl-72b one-shot, {gen} model calls")
+    for name, n in want.items():
+        check(launches[f"{name}_prefill"] == n
+              and launches[f"{name}_decode"] == n * (gen - 1),
+              f"{name}: prefill body {launches[f'{name}_prefill']}, decode "
+              f"body {launches[f'{name}_decode']}; want {n} and "
+              f"{n * (gen - 1)}")
+    res["oneshot"] = dict(numbers, batch=B, prompt_len=S, gen=gen,
+                          decode_step_ms=numbers["decode_s"] / (gen - 1) * 1e3,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          launches=launches, sample=tokens[0, :8].tolist())
+    log(f"  (a) vlm one-shot: {json.dumps({k: v for k, v in res['oneshot'].items() if k != 'launches'})}")
+    del params, logits, ref, out, batch, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def legacy_phase(torch, log):
+    """16(b): ``--legacy`` on llama3-8b at full width, phase 10's depth,
+    8:16+16:256: ``run_oneshot`` then the slot engine on the same 8 random
+    prompts (``serve.legacy_parity``), each run's launches gated per model
+    call; the diverging streams gated by ``near_tie_bound``.  Returns
+    (results, launches of both runs)."""
+    from repro_torch.launch import serve
+
+    cfg, params, build = build_model(torch, log,
+                                     n_layers=LEGACY_LOOP["n_layers"])
+    args = serve.parse_args([
+        "--arch", "llama3-8b", "--sparse", "--legacy",
+        "--batch", str(LEGACY_LOOP["batch"]),
+        "--prompt-len", str(LEGACY_LOOP["prompt_len"]),
+        "--gen", str(LEGACY_LOOP["gen"])])
+    inputs = serve.draw_inputs(cfg, args, torch.Generator(
+        device="cuda").manual_seed(17))
+    per_call = launches_per_call(cfg)[0]
+    torch.cuda.synchronize()
+    reset_launches()
+    tokens, numbers = serve.run_oneshot(
+        cfg, params, serve.oneshot_batch(cfg, *inputs), args.gen)
+    one = read_launches()
+    check_launch_counts(one, {"fused_sparse_linear": per_call * args.gen},
+                        "llama3-8b one-shot")
+    reset_launches()
+    t0 = time.perf_counter()
+    eng, n_bad, engine = serve.legacy_parity(cfg, params, args, "cuda",
+                                             inputs, tokens)
+    wall = time.perf_counter() - t0
+    two = read_launches()
+    calls = engine.stats()["n_model_calls"]
+    check_launch_counts(two, {"fused_sparse_linear": per_call * calls},
+                        f"llama3-8b --legacy engine, {calls} model calls")
+    one_streams = tokens.tolist()
+    divergences = stream_gate(torch, "one-shot vs engine (--legacy)", cfg,
+                              params, [p.tolist() for p in inputs[0]],
+                              one_streams, eng)
+    res = {"build": build, "layers": cfg.n_layers, "oneshot": numbers,
+           "engine_wall_s": wall, "engine_model_calls": calls,
+           "streams_identical": f"{len(eng) - n_bad}/{len(eng)}",
+           "divergences": divergences,
+           "launches_oneshot": one, "launches_engine": two}
+    log(f"  (b) --legacy: {json.dumps({k: v for k, v in res.items() if not k.startswith('launches')})}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, add_launches(one, two)
+
+
+class TimedCheckpoints:
+    """Within the block, ``launch/train``'s ``CheckpointManager`` records
+    each save's host copy (the caller's part) and the background write
+    until its commit, in seconds, and each restore's seconds and how many
+    of its leaves equal, bit for bit, those of the state it was asked to
+    be like (the state the driver saved, when it fails right after a
+    save)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        torch = self.torch
+        from repro_torch.launch import train
+        from repro_torch.runtime.checkpoint import CheckpointManager
+        self.saves, self.restores = [], []
+        outer = self
+
+        class Timed(CheckpointManager):
+            def save(self, step, tree, cfg=None, blocking=True):
+                t0 = time.perf_counter()
+                super().save(step, tree, cfg=cfg, blocking=blocking)
+                outer.saves.append({"step": step, "host_copy_s":
+                                    time.perf_counter() - t0,
+                                    "returned": time.perf_counter()})
+
+            def _gc(self):
+                last = outer.saves[-1]
+                last["write_s"] = time.perf_counter() - last.pop("returned")
+                super()._gc()
+
+            def restore(self, like, step=None, shardings=None):
+                from repro_torch.tree import flatten
+                t0 = time.perf_counter()
+                out = super().restore(like, step, shardings)
+                seconds = time.perf_counter() - t0
+                pairs = list(zip(flatten(out[0]), flatten(like)))
+                outer.restores.append({
+                    "step": out[1]["step"], "seconds": seconds,
+                    "leaves": len(pairs),
+                    "leaves_bit_equal_to_like": sum(
+                        a.dtype == b.dtype and a.device == b.device
+                        and torch.equal(a.view(torch.uint8) if a.ndim else a,
+                                        b.view(torch.uint8) if b.ndim else b)
+                        for a, b in pairs)})
+                return out
+        self.saved = train.CheckpointManager
+        train.CheckpointManager = Timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+        train.CheckpointManager = self.saved
+        return False
+
+
+def driver_phase(torch, log):
+    """16(c): ``launch/train.run`` on llama3-8b at full width, phase 10's
+    depth, batch and learning rate, with a failure right after the first
+    of its two saves (``DRIVER``), in a temporary directory removed
+    afterwards; gates the restart, the restored step, the restored state
+    bit for bit against the state the driver saved (the one it held when
+    it failed), one checkpoint left on disk, and the losses against an
+    uninterrupted run's at the same steps (``DRIVER_LOSS_TOL_REL``)."""
+    import tempfile
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainOptions
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import flatten
+
+    cfg = dataclasses.replace(get("llama3-8b"), n_layers=TRAIN["n_layers"])
+    # bf16 params, f32 m and v: 10 bytes a parameter (norms aside)
+    state_gb = 10 * cfg.param_count() / 1e9
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        disk = shutil.disk_usage(tmp)
+        res = {"checkpoint_gb_estimate": state_gb,
+               "disk": {"dir": tmp, "total_gb": disk.total / 1e9,
+                        "free_gb": disk.free / 1e9}}
+        log(f"  (c) a checkpoint of {state_gb:.1f} GB (bf16 params, f32 m "
+            f"and v); {json.dumps(res['disk'])}")
+        # keep_last_k 1: the next commit removes the last, so two at most
+        check(disk.free > 2.2 * state_gb * 1e9,
+              f"{disk.free / 1e9:.1f} GB free under {tmp}: two checkpoints "
+              f"of {state_gb:.1f} GB do not fit")
+        argv = ["--arch", "llama3-8b", "--n-layers", str(TRAIN["n_layers"]),
+                "--batch", str(TRAIN["batch"]), "--seq",
+                str(TRAIN["seq_len"]), "--lr", str(TRAIN["lr"]),
+                "--ckpt-dir", tmp, "--seed", "0", "--device", "cuda"] + [
+            f"--{k.replace('_', '-')}={v}" for k, v in DRIVER.items()]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TimedCheckpoints(torch) as timed:
+            report, state = train.run(train.parse_args(argv))
+        wall = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in flatten(state))
+        del state
+        steps_on_disk = sorted(p.name for p in pathlib.Path(tmp).iterdir())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fail, every = DRIVER["fail_at_step"], DRIVER["save_every"]
+    resumed = fail // every * every
+    check(report.restarts == 1 and report.restored_steps == [resumed],
+          f"driver: {report.restarts} restarts, restored "
+          f"{report.restored_steps}, want 1 and [{resumed}]")
+    check(len(timed.saves) == DRIVER["steps"] // every
+          and all("write_s" in s for s in timed.saves),
+          f"driver: saves {timed.saves}")
+    check(len(timed.restores) == 1 and timed.restores[0]["step"] == resumed
+          and timed.restores[0]["leaves_bit_equal_to_like"]
+          == timed.restores[0]["leaves"],
+          f"driver: the restored state is not the saved one bit for bit: "
+          f"{timed.restores}")
+    check(steps_on_disk == [f"step_{DRIVER['steps']:06d}"],
+          f"keep_last_k 1 left {steps_on_disk}")
+    # the uninterrupted run: the same init, batches and step, no checkpoint
+    ocfg = AdamWConfig(lr=TRAIN["lr"])
+    step = train.build(cfg, ocfg, TrainOptions())
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                       batch=TRAIN["batch"], seed=0)
+    params = get_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params, ocfg)
+    plain, times = [], []
+    for i in range(DRIVER["steps"]):
+        batch = {k: torch.as_tensor(v, device="cuda").long()
+                 for k, v in data.batch_at(i).items()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        plain.append(float(m["loss"]))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the driver's losses: steps 0 .. fail - 1, then resumed .. steps - 1
+    first, after = report.losses[:fail], report.losses[fail:]
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(first + after, plain[:fail] + plain[resumed:])]
+    check(len(after) == DRIVER["steps"] - resumed
+          and all(math.isfinite(x) for x in report.losses)
+          and max(rel) <= DRIVER_LOSS_TOL_REL,
+          f"driver losses {report.losses} against the uninterrupted "
+          f"{plain}: relative {max(rel):.2e} > {DRIVER_LOSS_TOL_REL:.2e}")
+    save_s = [s["host_copy_s"] + s["write_s"] for s in timed.saves]
+    restore_s = timed.restores[0]["seconds"]
+    res.update(
+        layers=cfg.n_layers, argv=argv, wall_s=wall,
+        losses=report.losses, uninterrupted_losses=plain,
+        loss_rel_diff=rel, tol_rel=DRIVER_LOSS_TOL_REL,
+        restarts=report.restarts, restored_steps=report.restored_steps,
+        checkpoint_gb=nbytes / 1e9, saves=timed.saves,
+        save_gb_per_s=[nbytes / 1e9 / s for s in save_s],
+        restores=timed.restores, restore_gb_per_s=nbytes / 1e9 / restore_s,
+        step_ms=times, step_ms_median=sorted(times[1:])[len(times[1:]) // 2],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  (c) driver: {json.dumps({k: v for k, v in res.items() if k != 'argv'})}")
+    return res
+
+
+def family_train_phase(torch, log):
+    """16(d): ``make_train_step`` on xlstm-350m, zamba2-2.7b and
+    whisper-medium at full size and mixtral-8x7b at 2 of 32 layers, fresh
+    from seed 0, ``FAMILY_TRAIN_STEPS`` steps on one random batch of
+    ``model_zoo.input_specs``' shapes (``FAMILY_TRAIN``'s sequence length)
+    at phase 10's learning rate; gates finite losses and gradient norms
+    and the last loss below the first."""
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.launch import steps
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.tree import flatten
+
+    ocfg = AdamWConfig(lr=TRAIN["lr"])
+    out = {}
+    for arch, n_layers, seq in FAMILY_TRAIN:
+        cfg = get(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        params = model_zoo.get_model(cfg, "cuda").init(g)
+        n_params = sum(t.numel() for t in flatten(params))
+        opt = adamw_init(params, ocfg)
+        shape = ShapeConfig("train", seq, FAMILY_TRAIN_BATCH, "train")
+        batch = {}
+        for name, (dims, dtype) in model_zoo.input_specs(cfg, shape).items():
+            if name == "embeds":
+                batch[name] = torch.randn(dims, generator=g, device="cuda"
+                                          ).to(dtype)
+            else:
+                batch[name] = torch.randint(0, cfg.vocab, dims, generator=g,
+                                            device="cuda")
+        step = steps.make_train_step(cfg, ocfg)
+        losses, gnorms, times = [], [], []
+        for _ in range(FAMILY_TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, m = step(params, opt, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        check(all(math.isfinite(x) for x in losses + gnorms),
+              f"{arch} training: non-finite loss or gradient norm "
+              f"({losses}, {gnorms})")
+        check(losses[-1] < losses[0], f"{arch} training: last loss "
+              f"{losses[-1]:.4f} not below the first {losses[0]:.4f}")
+        rest = sorted(times[1:])
+        out[arch] = {"layers": cfg.n_layers, "params": n_params,
+                     "batch": shape.global_batch, "seq": shape.seq_len,
+                     "losses": losses, "grad_norms": gnorms,
+                     "step_ms": times, "step_ms_median": rest[len(rest) // 2],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  (d) {arch}: {json.dumps(out[arch])}")
+        del params, opt, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def slice_phase(torch, log, smi):
+    """Phase 16: (a) the vlm one-shot serve, (b) ``--legacy``, (c) the
+    training driver, (d) a train step per family.  Returns (results,
+    launches of (a) and (b))."""
+    t0 = time.perf_counter()
+    vlm, vlm_launches = vlm_oneshot_phase(torch, log, smi)
+    legacy, legacy_launches = legacy_phase(torch, log)
+    driver = driver_phase(torch, log)
+    families = family_train_phase(torch, log)
+    out = {"device": smi, "vlm_oneshot": vlm, "legacy": legacy,
+           "driver": driver, "family_train": families,
+           "seconds": time.perf_counter() - t0}
+    log(f"  phase 16: {out['seconds']:.1f}s ({smi})")
+    return out, add_launches(vlm_launches, legacy_launches)
+
+
 def main() -> int:
     import torch
 
@@ -4514,17 +5001,25 @@ def main() -> int:
     log("phase 10 train llama3-8b, 4 layers, full width: train_small_lm, "
         "make_train_step, EBFT to 8:16 and the packed forward")
     training, train_launches = training_phase(torch, log)
-    # nm_spmm's main-path launches: phase 5's serve and phase 10(c)'s
-    # packed forwards
+    gc.collect()
+    log("phase 16 the training driver and the one-shot loop: (a) "
+        "qwen2-vl-72b (24 of 80 layers) served by run_oneshot, (b) "
+        "--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
+        "and a resume (llama3-8b, 4 layers), (d) a train step a family")
+    slice_16, slice_launches = slice_phase(torch, log, smi)
+    # nm_spmm's main-path launches: phase 5's serve, phase 10(c)'s packed
+    # forwards and phase 16(a)'s one-shot loop (qwen2-vl's down projection)
     nm_launches = {k: n + train_launches.get(k, 0)
+                   + slice_launches.get(k, 0)
                    for k, n in plain_launches.items()}
 
     # the fused kernel's and paged attention's main-path launches: phase 4's
     # and phase 6(a)'s serves, each with phase 11's, phase 12's, 13's, 14's
-    # (zamba2-2.7b's paged serve: the hd 80 bodies) and 15's
+    # (zamba2-2.7b's paged serve: the hd 80 bodies), 15's and 16's (the
+    # one-shot loops and --legacy's engine; no paged attention)
     main_launches = add_launches(main_launches, spec_launches, fleet_launches,
                                  family_launches, recurrent_launches,
-                                 moe_encdec_launches)
+                                 moe_encdec_launches, slice_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
                                   fleet_launches, family_launches,
                                   recurrent_launches, moe_encdec_launches)
@@ -4564,7 +5059,7 @@ def main() -> int:
               "replay": replay, "speculative": speculative, "fleet": fleet,
               "dense_family": dense_family, "recurrent": recurrent,
               "moe_encdec": moe_encdec,
-              "training": training}
+              "training": training, "slice": slice_16}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

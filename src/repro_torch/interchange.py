@@ -19,6 +19,11 @@ bf16 arrays come out of ``np.asarray`` as ``ml_dtypes`` bfloat16, which
 ``torch.from_numpy`` rejects; they cross as their 16-bit patterns and are
 viewed as ``torch.bfloat16``, which is exact.
 
+``to_jax_layout`` stacks the port's per-layer lists back to [L, ...]
+under the same keys, at any depth (an optimizer state's ``m`` and ``v``
+too), and ``from_jax_layout`` splits them again: the int8 gradient round
+trip and the checkpoint layout go through them.
+
 ``stats_from_jax`` and ``sparsified_from_jax`` carry the pipeline's
 calibration statistics and per-layer results across, so that tests compare
 the two packages' containers field by field.
@@ -96,11 +101,39 @@ is one unstacked layer and is carried as it is."""
 def from_jax_params(params, device="cuda") -> dict:
     """The port's params on ``device`` from a JAX params pytree (a dict
     whose ``STACKED`` entries are split into per-layer lists)."""
-    out = _convert(params, resolve(device))
-    for key in STACKED:
-        if isinstance(out.get(key), dict):
-            out[key] = _split_layers(out[key])
-    return out
+    return from_jax_layout(_convert(params, resolve(device)))
+
+
+def _stack_layers(layers: list, stack) -> dict:
+    """[{name: [...]}] * L -> {name: stack([...] * L)}, nested dicts (a moe
+    layer's ``moe``) stacked the same way: ``_split_layers``' inverse."""
+    first = layers[0]
+    return {k: (_stack_layers([lp[k] for lp in layers], stack)
+                if isinstance(first[k], dict)
+                else stack([lp[k] for lp in layers])) for k in first}
+
+
+def to_jax_layout(tree, stack=torch.stack):
+    """``tree`` with every ``STACKED`` entry that is a per-layer list, at
+    any depth (``params["layers"]``, an optimizer state's
+    ``opt["m"]["layers"]``), stacked [L, ...] under the same keys, as the
+    JAX package keeps it; ``stack`` joins one leaf's layers (``np.stack``
+    for host arrays).  Other entries are carried as they are."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (_stack_layers(v, stack) if k in STACKED
+                and isinstance(v, list) else to_jax_layout(v, stack))
+            for k, v in tree.items()}
+
+
+def from_jax_layout(tree):
+    """``to_jax_layout``'s inverse over tensors: every ``STACKED`` entry
+    that is a dict of [L, ...] leaves, at any depth, split into a
+    per-layer list."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (_split_layers(v) if k in STACKED and isinstance(v, dict)
+                else from_jax_layout(v)) for k, v in tree.items()}
 
 
 def stats_from_jax(stats: dict, device="cpu") -> dict:

@@ -1,6 +1,7 @@
 """Serving driver: a thin CLI over the port's continuous-batching engine
-(port of ``repro/launch/serve.py``'s ``build_params``, ``run_engine``,
-``run_trace``, the fleet and the observability outputs).
+and the one-shot lock-step loop (port of ``repro/launch/serve.py``'s
+``build_params``, ``run_oneshot``, ``run_engine``, ``run_trace``,
+``--legacy``, the fleet and the observability outputs).
 
 With ``--sparse`` every projection is deployed as an 8:16 (+16:256
 outlier) ``SparseWeight`` as soon as its layer is drawn, so a full-size
@@ -29,9 +30,17 @@ xlstm-350m (ssm: recurrent state slots, any ``--kv-layout`` served as
 slot), zamba2-2.7b (hybrid: mamba state slots and the shared attention's
 KV, slot or paged, prefix caching off) and whisper-medium (encdec: each
 request carries random encoder ``embeds`` [prompt_len, d] drawn from the
-run's generator; slot layout only, no ``--trace``); the engine refuses
-vlm, as the reference's does, and ``--kv-dtype int8`` is refused for ssm,
-hybrid and encdec:
+run's generator; slot layout only, no ``--trace``); ``--kv-dtype int8``
+is refused for ssm, hybrid and encdec.  The engine refuses vlm, as the
+reference's does: qwen2-vl-72b serves through the one-shot loop
+(``run_oneshot``: one batched ``prefill`` of random ``embeds`` [B, S, d]
+drawn from the run's generator at M-RoPE positions ``arange(S)`` on all
+three rows, ``grow_caches`` to ``prompt_len + gen``, then greedy lock-step
+``decode``).  ``--legacy`` runs that loop for any family and then, for a
+greedy engine-served one, the engine on the same prompts: the streams must
+be identical at f32 (it exits otherwise), and below f32 the diverging
+streams are counted.  ``--max-prefill-per-step N`` is the engine's
+request-count spelling of ``--token-budget``:
 
   python -m repro_torch.launch.serve --arch xlstm-350m --sparse
   python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke-arch \\
@@ -40,6 +49,10 @@ hybrid and encdec:
       --device cpu --sparse --kv-layout paged --block-size 8
   python -m repro_torch.launch.serve --arch whisper-medium --smoke-arch \\
       --device cpu --sparse
+  python -m repro_torch.launch.serve --arch qwen2-vl-72b --smoke-arch \\
+      --device cpu --sparse
+  python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
+      --device cpu --sparse --legacy
 
 ``--draft {ngram,sparse,self}`` turns on draft-verify speculative decoding
 (``serving/speculative.py``), ``--spec-k`` drafts a request (each
@@ -93,11 +106,13 @@ from ..models import transformer as tfm
 from ..models import whisper as whi
 from ..models import xlstm as xls
 from ..models import zamba as zam
+from ..models.model_zoo import grow_caches
 from ..models.sparse_serving import sparsify_for_serving
 from ..runtime.metrics import format_summary, summarize
-from ..serving import (ReplicaSet, RouterTracer, SamplingParams,
-                       ServingEngine, ServingTracer, SpeculativeConfig,
-                       load_trace, replay)
+from ..serving import (SUPPORTED_FAMILIES, ReplicaSet, RouterTracer,
+                       SamplingParams, ServingEngine, ServingTracer,
+                       SpeculativeConfig, load_trace, replay)
+from .steps import make_decode_step, make_prefill_step
 
 
 def build_params(cfg, args, device, generator: torch.Generator, *,
@@ -189,6 +204,7 @@ def _build_target(cfg, params, args, device, *, max_len: int):
     tracer whose buffer to write, None without --trace-out)."""
     kw = dict(device=device, n_slots=args.slots, max_len=max_len,
               max_queue=args.max_queue, token_budget=args.token_budget,
+              max_prefill_per_step=args.max_prefill_per_step,
               kv_layout=args.kv_layout, block_size=args.block_size,
               n_blocks=args.n_blocks,
               prefix_caching=not args.no_prefix_cache,
@@ -229,19 +245,86 @@ def _write_observability(tracer, args) -> None:
           f"counters in {counters}")
 
 
-def run_engine(cfg, params, args, device, generator: torch.Generator):
+def draw_inputs(cfg, args, generator: torch.Generator):
+    """``--batch`` random prompts [B, prompt_len] drawn from ``generator``
+    and, for the vlm and enc-dec families, random ``embeds``
+    [B, prompt_len, d] drawn after them (None otherwise)."""
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=generator, device=generator.device)
+    embeds = None
+    if cfg.family in ("vlm", "encdec"):
+        embeds = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                             generator=generator, device=generator.device)
+    return prompts, embeds
+
+
+def oneshot_batch(cfg, prompts, embeds=None) -> dict:
+    """The one-shot loop's prefill batch: ``tokens`` [B, S], with an
+    enc-dec model's ``embeds`` beside them; a vlm batch is ``embeds`` and
+    M-RoPE ``positions`` [3, B, S] = ``arange(S)`` on all three rows, and
+    no tokens."""
+    batch = {"tokens": prompts}
+    if embeds is not None:
+        batch["embeds"] = embeds
+    if cfg.family == "vlm":
+        B, S = prompts.shape
+        batch["positions"] = torch.arange(S, device=prompts.device).expand(
+            3, B, S)
+        del batch["tokens"]
+    return batch
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_oneshot(cfg, params, batch: dict, gen: int):
+    """The lock-step loop for every family: one batched ``prefill`` of
+    ``batch`` (``oneshot_batch``), ``grow_caches`` to hold ``gen`` more
+    positions, then ``gen - 1`` greedy ``decode`` steps of the whole batch.
+    Returns (tokens [B, gen], {"prefill_s", "decode_s", "tok_per_s"})."""
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    B, S = (batch["tokens"] if "tokens" in batch else batch["embeds"]
+            ).shape[:2]
+    device = params["embed"].device
+    with torch.no_grad():
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch)
+        # reserve decode headroom in every family's cache layout up front
+        caches = grow_caches(caches, S + gen)
+        tok = logits.argmax(-1)[:, None]
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, caches = decode(params, caches, {"tokens": tok})
+            tok = logits.argmax(-1)[:, None]
+            out.append(tok)
+        _sync(device)
+        decode_s = time.perf_counter() - t0
+    tok_per_s = B * (gen - 1) / max(decode_s, 1e-9)
+    print(f"prefill {B}x{S} in {prefill_s:.2f}s; decoded {gen} tokens in "
+          f"{decode_s:.2f}s ({tok_per_s:.1f} tok/s)")
+    return torch.cat(out, dim=1), {"prefill_s": prefill_s,
+                                   "decode_s": decode_s,
+                                   "tok_per_s": tok_per_s}
+
+
+def run_engine(cfg, params, args, device, generator: torch.Generator,
+               inputs=None, quiet: bool = False):
     """Serve ``--batch`` random prompts drawn from ``generator`` (with an
     enc-dec model, each with random encoder features [prompt_len, d] drawn
-    after them); returns the finished requests and the engine (or the
+    after them; ``draw_inputs``), or ``inputs`` (prompts, embeds) when
+    given; returns the finished requests and the engine (or the
     ``--replicas`` fleet)."""
     engine, tracer = _build_target(cfg, params, args, device,
                                    max_len=args.prompt_len + args.gen)
-    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                            generator=generator, device=generator.device)
-    embeds = [None] * args.batch
-    if cfg.family == "encdec":
-        embeds = torch.randn((args.batch, args.prompt_len, cfg.d_model),
-                             generator=generator, device=generator.device)
+    prompts, embeds = inputs or draw_inputs(cfg, args, generator)
+    if embeds is None:
+        embeds = [None] * args.batch
     sp = SamplingParams(max_new_tokens=args.gen, temperature=args.temperature,
                         top_k=args.top_k, seed=args.seed)
     t0 = time.perf_counter()
@@ -249,6 +332,8 @@ def run_engine(cfg, params, args, device, generator: torch.Generator):
             for p, e in zip(prompts, embeds)]
     engine.run()
     wall = time.perf_counter() - t0
+    if quiet:
+        return reqs, engine
     n_tok = sum(len(r.tokens) for r in reqs)
     st = engine.stats()
     per = st.get("replicas", [st])
@@ -293,6 +378,33 @@ def run_trace(cfg, params, args, device):
     return dict(res, summary=summary, engine=engine, tracer=tracer)
 
 
+def legacy_parity(cfg, params, args, device, inputs, oneshot_tokens):
+    """``--legacy``'s check: the engine serves ``inputs`` (prompts, embeds)
+    greedily, and its streams must equal the one-shot loop's
+    ``oneshot_tokens`` at f32 (SystemExit otherwise); below f32 the
+    diverging streams are counted.  Returns (engine streams, number of
+    diverging streams, the engine)."""
+    reqs, engine = run_engine(cfg, params, args, device, None,
+                              inputs=inputs, quiet=True)
+    eng = [r.tokens for r in reqs]
+    one = oneshot_tokens.tolist()
+    n_bad = sum(a != b for a, b in zip(one, eng))
+    if n_bad == 0:
+        print("legacy parity: engine token streams identical")
+    elif cfg.dtype == torch.float32:
+        raise SystemExit("legacy parity FAILED: engine and one-shot token "
+                         "streams differ")
+    else:
+        # the engine's chunked calls and the loop's full-sequence forward
+        # round low-precision chains in other orders: a greedy argmax may
+        # flip at a near-tie; token identity is asserted at f32
+        print(f"legacy parity: {n_bad}/{args.batch} streams diverge "
+              f"(greedy near-ties under "
+              f"{str(cfg.dtype).removeprefix('torch.')} fusion rounding; "
+              f"rerun an f32 config for the bit-exact check)")
+    return eng, n_bad, engine
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
@@ -320,6 +432,12 @@ def parse_args(argv=None):
                          "affinity; the baselines cycle or pick the "
                          "emptiest")
     ap.add_argument("--token-budget", type=int, default=None)
+    ap.add_argument("--max-prefill-per-step", type=int, default=None,
+                    help="DEPRECATED: request-count interleave bound; "
+                         "aliased to --token-budget N*capacity")
+    ap.add_argument("--legacy", action="store_true",
+                    help="one-shot lock-step loop, then the engine on the "
+                         "same prompts as a parity check")
     ap.add_argument("--kv-layout", default="slot", choices=("slot", "paged"),
                     help="contiguous per-slot KV vs paged block pool")
     ap.add_argument("--block-size", type=int, default=16,
@@ -357,10 +475,18 @@ def parse_args(argv=None):
                          "run here (load in ui.perfetto.dev); a Prometheus "
                          "counter snapshot lands next to it")
     args = ap.parse_args(argv)
+    cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    if args.trace is not None and (get_smoke(args.arch) if args.smoke_arch
-                                   else get(args.arch)).family == "encdec":
+    if args.trace is not None and args.legacy:
+        ap.error("--trace replays through the engine; drop --legacy")
+    if args.replicas > 1 and args.legacy:
+        ap.error("--replicas needs the engine path; drop --legacy")
+    if args.trace is not None and cfg.family not in SUPPORTED_FAMILIES:
+        ap.error(f"--trace replays through the engine, which serves "
+                 f"{SUPPORTED_FAMILIES} families; {args.arch!r} is "
+                 f"{cfg.family!r}")
+    if args.trace is not None and cfg.family == "encdec":
         ap.error("--trace carries token prompts only; the enc-dec family "
                  "needs per-request encoder features")
     return args
@@ -379,9 +505,24 @@ def main(argv=None):
               f"({report['ratio']:.3f}x)")
     if args.trace is not None:
         return run_trace(cfg, params, args, device)
-    reqs, _ = run_engine(cfg, params, args, device, generator)
-    print("sample:", reqs[0].tokens[:12])
-    return reqs
+    if not args.legacy and cfg.family in SUPPORTED_FAMILIES:
+        reqs, _ = run_engine(cfg, params, args, device, generator)
+        print("sample:", reqs[0].tokens[:12])
+        return reqs
+    if args.legacy:
+        print("--legacy: the one-shot loop, then the engine on the same "
+              "prompts as a parity check")
+    else:
+        print(f"family {cfg.family!r} is not engine-served; using the "
+              f"one-shot loop")
+    inputs = draw_inputs(cfg, args, generator)
+    tokens, _ = run_oneshot(cfg, params, oneshot_batch(cfg, *inputs),
+                            args.gen)
+    if (args.legacy and cfg.family in SUPPORTED_FAMILIES
+            and args.temperature == 0):
+        legacy_parity(cfg, params, args, device, inputs, tokens)
+    print("sample:", tokens[0, :12].tolist())
+    return tokens
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""The train step (port of ``repro/launch/steps.py``'s
-``make_train_step``).
+"""Step functions: train, prefill, decode (port of
+``repro/launch/steps.py``).
 
 ``make_train_step(cfg, opt_cfg, opts)`` returns ``train_step(params,
 opt_state, batch) -> (params, opt_state, {"loss", "grad_norm"})``: the
-gradient of ``transformer.loss_fn`` through ``torch.autograd``, then one
+gradient of the family's loss (``models.model_zoo.get_model(cfg).loss``,
+so every family trains) through ``torch.autograd``, then one
 ``optim.adamw_step``.  With ``microbatches > 1`` the batch is split along
 axis 0 into contiguous chunks (microbatch i holds rows i*B/mb ..
 (i+1)*B/mb, as the reference's reshape groups them); the gradients are
@@ -11,12 +12,14 @@ summed in f32 and divided by ``mb``, and the loss is the mean over the
 microbatches.  With ``grad_compression`` each microbatch's gradients go
 through ``grad_compress.compress_with_feedback`` and ``decompress`` from a
 zero error, as in the reference, which drops the error every microbatch;
-each projection's layers share one scale, as the reference's stacked
-[L, ...] leaves do.
+each per-layer leaf is stacked [L, ...] first
+(``interchange.to_jax_layout``), so its layers share one absmax scale, as
+the reference's stacked leaves do.
 
-As in the reference, M-RoPE positions [3, B, S] split along axis 1.  Not
-ported yet: ``make_prefill_step``/``make_decode_step`` (ROADMAP A13b, over
-``models/model_zoo``'s ``prefill`` and ``decode_lockstep``).
+As in the reference, M-RoPE positions [3, B, S] split along axis 1.
+``make_prefill_step`` and ``make_decode_step`` wrap the zoo's ``prefill``
+and ``decode``; the port has no layer scan, so ``unroll`` (the
+reference's dry-run switch) changes nothing.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import dataclasses
 
 import torch
 
-from ..models import transformer as tfm
+from ..interchange import from_jax_layout, to_jax_layout
+from ..models.model_zoo import get_model
 from ..optim import AdamWConfig, adamw_step
 from ..optim import grad_compress as gc
 from ..tree import flatten, unflatten, value_and_grad
@@ -32,16 +36,11 @@ from ..tree import flatten, unflatten, value_and_grad
 
 def _int8_round_trip(grads):
     """One microbatch's gradients through ``compress_with_feedback`` from a
-    zero error and back.  The reference stacks each layer weight [L, ...],
-    so a projection's L layers share one absmax scale; the port's layer
-    list is stacked the same way for the round trip."""
-    layers = grads["layers"]
-    stacked = dict(grads, layers={k: torch.stack([lp[k] for lp in layers])
-                                  for k in layers[0]})
+    zero error and back, every per-layer list stacked [L, ...] as the
+    reference keeps it, so each leaf's L layers share one absmax scale."""
+    stacked = to_jax_layout(grads)
     q, _ = gc.compress_with_feedback(stacked, gc.init_error(stacked))
-    out = gc.decompress(q, stacked)
-    return dict(out, layers=[{k: v[i] for k, v in out["layers"].items()}
-                             for i in range(len(layers))])
+    return from_jax_layout(gc.decompress(q, stacked))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +53,10 @@ class TrainOptions:
 
 def make_train_step(cfg, opt_cfg: AdamWConfig,
                     opts: TrainOptions = TrainOptions()):
+    zoo = get_model(cfg)
+
     def loss_of(params, batch):
-        return tfm.loss_fn(params, batch, cfg)[0]
+        return zoo.loss(params, batch)[0]
 
     def train_step(params, opt_state, batch):
         mb = opts.microbatches
@@ -88,3 +89,24 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
         return new_params, new_opt, {"loss": loss, **metrics}
 
     return train_step
+
+
+def make_prefill_step(cfg, unroll: bool = False):
+    """``prefill_step(params, batch) -> (last logits [B, V], caches)``."""
+    zoo = get_model(cfg)
+
+    def prefill_step(params, batch):
+        return zoo.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(cfg, unroll: bool = False):
+    """``decode_step(params, caches, {"tokens": [B, 1]}) -> (logits
+    [B, V], caches)``, one lock-step token for every row."""
+    zoo = get_model(cfg)
+
+    def decode_step(params, caches, batch):
+        return zoo.decode(params, caches, batch)
+
+    return decode_step

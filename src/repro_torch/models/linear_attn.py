@@ -10,7 +10,12 @@ product, and the state is carried across chunks by a Python loop (the
 reference's ``lax.scan``).  Gates are scalar per (step, head) with
 log_f <= 0, so the intra-chunk factors exp(F_t - F_s) are <= 1.  Every
 product runs in f32 whatever the inputs' dtype, as in the reference; the
-output is cast back to ``v``'s dtype.
+output is cast back to ``v``'s dtype.  Above the diagonal the reference
+takes exp of the gap and masks it afterwards; there the gap grows with
+the decay over the chunk and overflows at Mamba2's decays over 128-step
+chunks, which leaves the forward right but makes the gradient NaN (0 x
+inf).  The port masks the gap before the exponent: the same forward bits,
+and a finite gradient.
 
 The reference computes all of this outside any Pallas kernel, so the port
 has no kernel here: plain tensor products on either device.
@@ -43,8 +48,6 @@ def chunked_gla(q, k, v, log_f, log_i=None, *, chunk: int = 64,
         if n is None:
             n = torch.zeros((B, H, dk), dtype=f32, device=dev)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev))
-    tri_f = tri[None, :, :, None].to(f32)
-    zero = torch.zeros((), dtype=f32, device=dev)
     ys = []
     for s0 in range(0, S, c):
         sl = slice(s0, s0 + c)
@@ -55,9 +58,12 @@ def chunked_gla(q, k, v, log_f, log_i=None, *, chunk: int = 64,
         eF = torch.exp(F)
         # inter-chunk: y_t += exp(F_t) q_t^T C_prev
         y_inter = torch.einsum("bthk,bhkv->bthv", qf * eF[..., None], C)
-        # intra-chunk: A[t, s] = exp(F_t - F_s + i_s) for s <= t
+        # intra-chunk: A[t, s] = exp(F_t - F_s + i_s) for s <= t; the
+        # gap is masked to -inf above the diagonal before the exponent,
+        # where it may overflow: exp gives exactly the reference's 0 there,
+        # and its gradient 0 rather than 0 x inf = NaN
         gap = F[:, :, None, :] - F[:, None, :, :] + ii[:, None, :, :]
-        A = torch.where(tri[None, :, :, None], torch.exp(gap), zero)
+        A = torch.exp(gap.masked_fill(~tri[None, :, :, None], -torch.inf))
         scores = torch.einsum("bthk,bshk->btsh", qf, kf) * A
         y = y_inter + torch.einsum("btsh,bshv->bthv", scores, vf)
         # decayed keys of the state and normalizer updates
@@ -65,7 +71,7 @@ def chunked_gla(q, k, v, log_f, log_i=None, *, chunk: int = 64,
         C_new = C * torch.exp(Ftot)[..., None, None] \
             + torch.einsum("bthk,bthv->bhkv", kdec, vf)
         if normalizer:
-            n_t = torch.einsum("bshk,btsh->bthk", kf, torch.exp(gap) * tri_f) \
+            n_t = torch.einsum("bshk,btsh->bthk", kf, A) \
                 + n[:, None] * eF[..., None]
             denom = torch.abs(torch.einsum("bthk,bthk->bth", qf, n_t))
             y = y / torch.clamp(denom, min=1.0)[..., None]

@@ -1,1 +1,1 @@
-"""Host-side runtime instrumentation."""
+"""Host-side runtime: metrics, telemetry, checkpoints and fault tolerance."""
