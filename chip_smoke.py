@@ -375,6 +375,29 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            to 2 of 32 layers; gates finite
            losses and gradient norms and the last loss below the first;
            reports ms a step and peak memory.
+ 17. the serving mesh (A12a; the card here is one H100, so a rank of a
+     wider mesh is measured by its shapes and by two processes on it):
+       (a) after phase 12 on phase 4's params, and after phase 7 on its
+           int8 params: phase 6(a)'s (7(a)'s) paged engine without a
+           placement, then ``ServingEngine(mesh=make_serving_mesh("1x1"))``
+           on a world-size-1 NCCL group, the same traffic: gates 8/8
+           streams bit-identical, ``stats()["placement"]`` and each
+           run's launches per model call; reports each run's decode step
+           p50 and its kernels a step by class (the gathers' extra
+           launches, class ``collective`` for NCCL's);
+       (b) after phase 16: every projection shape one rank of a 1x2,
+           1x4 and 1x8 llama3-8b mesh launches (``MESH_SHARDS``: 11
+           distinct [out / m, in] shapes) through phase 2's gate, the
+           fused kernel with bf16 and int8 values at M 8 and 512, and
+           its H / m, KV / m attention through phase 2b's (decode case
+           and 512-token chunk, bf16 and int8 arenas);
+       (c) a 1x2 mesh as two processes on the one card over gloo (its
+           collectives take CUDA tensors; NCCL refuses two ranks on one
+           device): llama3-8b at full width, 4 layers, phase 6(a)'s
+           traffic; gates each rank's placement, its arenas at 4 of 8 KV
+           heads, its launches per model call, both ranks' streams
+           equal, and each stream equal to the unplaced engine's up to a
+           divergence at a near-tie (``near_tie_bound``, as phase 11).
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
 profiles one 512-token prefill chunk (whisper's: 447 tokens, its
@@ -386,7 +409,10 @@ and splits its cases and launches by path, decode and prefill;
 the bf16 fused kernel's phase 4's and paged attention's phase 6(a)'s,
 each with phase 11's to 15's, the fused kernel's with phase 16's; the int8 paged attention's phase 7(a)'s with phase
 13(b)'s; both paged attention entries carry ``hd80``: the hd 80 cases'
-sums and phase 14's launches by body), the serve numbers, the
+sums and phase 14's launches by body; the fused kernel's and paged
+attention's entries, bf16 and int8, carry ``mesh_shards``: phase 17(b)'s
+sums for each mesh, and their launches add phase 17(a)'s), the serve
+numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -567,6 +593,13 @@ FAMILY_TRAIN = (("xlstm-350m", None, 128), ("zamba2-2.7b", None, 512),
 FAMILY_TRAIN_STEPS = 8
 FAMILY_TRAIN_BATCH = 4
 # phase 8: the paper's pipeline
+# phase 17: the serving mesh.  (b) the shard shapes of one rank of a 1x2,
+# 1x4 and 1x8 llama3-8b mesh at these M; (c) a 1x2 mesh as two processes
+# on the one card over gloo, at full width and 4 layers
+MESH_SHARDS = (2, 4, 8)
+MESH_MS = (8, 512)
+MESH_TWO_RANK_LAYERS = 4
+MESH_TWO_RANK_DEADLINE_S = 300
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
 PPL = dict(n_batches=2, batch=2, seq_len=512)
@@ -1480,6 +1513,8 @@ def _kernel_class(name: str) -> str:
         return "dense_gemm"
     if "softmax" in name.lower():
         return "softmax"
+    if "nccl" in name.lower():
+        return "collective"
     return "other"
 
 
@@ -1634,12 +1669,18 @@ def sparse_names(cfg) -> set:
 
 
 def sparse_leaves(params) -> dict:
-    """path: SparseWeight of every compressed leaf of a params tree."""
+    """path: SparseWeight of every compressed leaf of a params tree (a mesh
+    rank's rows of it where a placement split it)."""
     from repro_torch.core.pipeline import map_leaves
     from repro_torch.models.sparse_serving import SparseWeight
+    from repro_torch.parallel import RowShard
     out = {}
-    map_leaves(params, lambda name, leaf: out.__setitem__(name, leaf)
-               if isinstance(leaf, SparseWeight) else None)
+
+    def one(name, leaf):
+        leaf = leaf.local if isinstance(leaf, RowShard) else leaf
+        if isinstance(leaf, SparseWeight):
+            out[name] = leaf
+    map_leaves(params, one)
     return out
 
 
@@ -4880,6 +4921,232 @@ def slice_phase(torch, log, smi):
     return out, add_launches(vlm_launches, legacy_launches)
 
 
+# ------------------------------------------- phase 17: the serving mesh
+def mesh_serve_phase(torch, log, cfg, params, mesh, *, kv_dtype="bf16"):
+    """Phase 17(a): phase 6(a)'s paged engine (phase 7(a)'s with int8 KV)
+    on phase 4's (7's) params, without a placement and then on the 1x1
+    mesh ``mesh`` (a world-size-1 NCCL group), the same traffic through
+    each: the streams must be bit-identical (the placement's gathers copy,
+    every product is the same kernel at the same shape), ``stats()
+    ["placement"]`` must describe the mesh, and each run's launches are
+    gated per model call.  Reports each run's decode step wall and, from a
+    decode profile, its kernels a step by class: the gathers' extra
+    launches.  Returns (results, the two runs' launches summed)."""
+    from repro_torch.serving import ServingEngine
+
+    base = dict(device="cuda", n_slots=8, max_len=1024, token_budget=512,
+                kv_layout="paged", kv_dtype=kv_dtype,
+                block_size=ATTN_SHAPE["bs"])
+    prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+    runs, streams, launches = {}, {}, []
+    for label, m in (("plain", None), ("mesh_1x1", mesh)):
+        engine = ServingEngine(cfg, params, mesh=m, **base)
+        torch.cuda.reset_peak_memory_stats()
+        reqs, wall, decode_only, got = drive(torch, engine, [prompts],
+                                             SERVE_GEN)
+        out = serve_numbers(torch, engine, reqs, wall, decode_only, got)
+        out["placement"] = engine.stats()["placement"]
+        g = torch.Generator(device="cuda").manual_seed(11)
+        out["decode_profile"] = profile_decode(torch, engine, g)
+        runs[label], streams[label] = out, [r.tokens for r in reqs]
+        launches.append(got)
+        log(f"  (a) {kv_dtype} KV, {label}: " + json.dumps(out))
+        del engine
+        torch.cuda.empty_cache()
+    check(runs["plain"]["placement"] == {"devices": 1, "mesh": None}
+          and runs["mesh_1x1"]["placement"] == {
+              "devices": 1, "mesh": {"data": 1, "model": 1}},
+          f"placement: {runs['plain']['placement']}, "
+          f"{runs['mesh_1x1']['placement']}")
+    same = sum(a == b for a, b in zip(streams["plain"], streams["mesh_1x1"]))
+    check(same == len(prompts), f"1x1 mesh ({kv_dtype} KV): {same} of "
+                                f"{len(prompts)} streams bit-identical")
+    profs = [runs[k]["decode_profile"] for k in ("plain", "mesh_1x1")]
+    res = {"kv_dtype": kv_dtype, "streams_identical": f"{same}/{same}",
+           "decode_step_ms_p50": [runs[k]["decode_step_ms"]["p50"]
+                                  for k in ("plain", "mesh_1x1")],
+           "runs": runs}
+    if all(p is not None for p in profs):
+        res["kernels_per_decode_step"] = [p["kernels_per_step"]
+                                          for p in profs]
+        res["extra_launches_per_decode_step"] = (
+            profs[1]["kernels_per_step"] - profs[0]["kernels_per_step"])
+    log(f"  (a) {kv_dtype} KV: plain vs 1x1 mesh: decode step "
+        f"{res['decode_step_ms_p50'][0]:.2f} vs "
+        f"{res['decode_step_ms_p50'][1]:.2f} ms, kernels a step "
+        f"{res.get('kernels_per_decode_step')}")
+    return res, add_launches(*launches)
+
+
+def shard_phase(torch, timer, log):
+    """Phase 17(b): every projection shape and attention head count one
+    rank of a 1x2, 1x4 and 1x8 llama3-8b mesh launches, through phase 2's
+    gate (the fused kernel, bf16 and int8 values, M in ``MESH_MS``) and
+    phase 2b's (decode case and 512-token chunk, bf16 and int8 arenas):
+    each held against its plain version at one bf16 ulp, timed beside it,
+    the library call and the bound.  Returns {kernel: cases}."""
+    from repro_torch.core import SparsifyConfig
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.models.sparse_serving import to_sparse_weight
+    from repro_torch.serving.cache_pool import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256",
+                          scorer="magnitude", use_smoothquant=False)
+    shapes = {}
+    for m in MESH_SHARDS:
+        for proj, N, K in PROJECTIONS:
+            shapes.setdefault((N // m, K), []).append(f"{proj}@1x{m}")
+    out = {"fused_sparse_linear": [], "fused_sparse_linear_int8": [],
+           "paged_attention": [], "paged_attention_int8": []}
+    for (N, K), names in shapes.items():
+        w = (torch.randn((N, K), generator=g, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        sw, sw8 = (to_sparse_weight(w, scfg, quantize=q) for q in (False,
+                                                                   True))
+        del w
+        for M in MESH_MS:
+            x = torch.randn((M, K), generator=g, device="cuda").to(
+                torch.bfloat16)
+            for key, s in (("fused_sparse_linear", sw),
+                           ("fused_sparse_linear_int8", sw8)):
+                case = weight_case(timer, log, key, "+".join(names), x, s,
+                                   fsl.fused_sparse_linear, fsl.plain)
+                out[key].append(dict(case, mesh=names))
+        del sw, sw8
+    ga = torch.Generator().manual_seed(18)
+    for m in MESH_SHARDS:
+        shape = dict(ATTN_SHAPE, H=ATTN_SHAPE["H"] // m,
+                     KV=ATTN_SHAPE["KV"] // m)
+        for name, cursors, S, window in ATTN_HD_CASES:
+            q, k, v, tables, cur = attention_case(torch, ga, cursors, S,
+                                                  window, **shape)
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            args = (f"{name}_1x{m}", cursors, S, window)
+            for key, kv, sc in (("paged_attention", (k, v), None),
+                                ("paged_attention_int8", (k8, v8),
+                                 (ks, vs))):
+                case = attention_run(torch, timer, log, key, args, q, *kv,
+                                     tables, cur, sc, shape=shape)
+                out[key].append(dict(case, mesh=f"1x{m}"))
+            del q, k, v, k8, v8, ks, vs
+    return out
+
+
+def _two_rank_worker(rank, world, store, out_dir):
+    """One of phase 17(c)'s ranks: a gloo group through a ``file://``
+    store, the card for both, llama3-8b at 4 layers from seed 0 placed on
+    the 1 x ``world`` mesh, phase 6(a)'s traffic; writes its streams,
+    launches and numbers to ``<out_dir>/rank<r>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_serving_mesh(f"1x{world}", "cuda")
+        cfg, params, _ = build_model(torch, lambda msg: None,
+                                     n_layers=MESH_TWO_RANK_LAYERS)
+        engine = ServingEngine(cfg, params, device="cuda", n_slots=8,
+                               max_len=1024, token_budget=512,
+                               kv_layout="paged", mesh=mesh,
+                               block_size=ATTN_SHAPE["bs"])
+        del params
+        prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+        reqs, wall, decode_only, launches = drive(torch, engine, [prompts],
+                                                  SERVE_GEN)
+        out = serve_numbers(torch, engine, reqs, wall, decode_only,
+                            launches)
+        out.update(streams=[r.tokens for r in reqs],
+                   placement=engine.stats()["placement"],
+                   arena_heads=engine.pool.blocks.k.shape[-2])
+        (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_rank_phase(torch, log):
+    """Phase 17(c): a 1x2 mesh as two processes on the one card over gloo
+    (whose collectives take CUDA tensors; NCCL refuses two ranks on one
+    device), llama3-8b at full width and ``MESH_TWO_RANK_LAYERS`` layers,
+    phase 6(a)'s traffic, against the same model served here without a
+    placement: each rank's launches gated per model call (its own shards),
+    its arenas at 4 of the 8 KV heads, both ranks' streams equal, and each
+    stream equal to the unplaced one up to a divergence at a near-tie
+    (``near_tie_bound``, as phase 11: a shard's rows may take another
+    split of K than the whole product's)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, _ = build_model(torch, log, n_layers=MESH_TWO_RANK_LAYERS)
+    engine = ServingEngine(cfg, params, device="cuda", n_slots=8,
+                           max_len=1024, token_budget=512, kv_layout="paged",
+                           block_size=ATTN_SHAPE["bs"])
+    prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
+    reqs, wall, decode_only, launches = drive(torch, engine, [prompts],
+                                              SERVE_GEN)
+    plain = serve_numbers(torch, engine, reqs, wall, decode_only, launches)
+    base = [r.tokens for r in reqs]
+    del engine
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(_two_rank_worker,
+                                 args=(2, f"{d}/store", d), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TWO_RANK_DEADLINE_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"two ranks still running after "
+                      f"{MESH_TWO_RANK_DEADLINE_S}s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        ranks = [json.loads((pathlib.Path(d) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    for r, res in enumerate(ranks):
+        check(res["placement"] == {"devices": 2,
+                                   "mesh": {"data": 1, "model": 2}}
+              and res["arena_heads"] == cfg.n_kv_heads // 2,
+              f"rank {r}: placement {res['placement']}, arena heads "
+              f"{res['arena_heads']}")
+    check(ranks[0]["streams"] == ranks[1]["streams"],
+          "the two ranks' streams differ")
+    divergences = stream_gate(torch, "phase 17(c) 1x2 mesh", cfg, params,
+                              prompts, base, ranks[0]["streams"])
+    del params
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.n_layers, "plain": plain,
+           "ranks": [{k: v for k, v in res.items() if k != "streams"}
+                     for res in ranks],
+           "divergences": divergences,
+           "streams_identical": sum(d is None for d in divergences)}
+    log(f"  (c) 1x2 over gloo, {cfg.n_layers} layers: "
+        f"{out['streams_identical']}/{len(prompts)} streams identical to "
+        f"the unplaced engine's; decode step "
+        f"{plain['decode_step_ms']['p50']:.2f} ms unplaced, "
+        f"{[res['decode_step_ms']['p50'] for res in ranks]} ms a rank")
+    return out
+
+
+def mesh_entries(cases) -> dict:
+    """Phase 17(b)'s shard cases of one kernel for its kernels-line entry:
+    their sums for each mesh, as ``case_sums`` gives them."""
+    return {f"1x{m}": dict(case_sums(part), cases=len(part))
+            for m in MESH_SHARDS
+            if (part := [c for c in cases
+                         if f"1x{m}" in str(c.get("mesh"))])}
+
+
 def main() -> int:
     import torch
 
@@ -4964,6 +5231,14 @@ def main() -> int:
         "tenant trace through 1 replica, 2 round-robin, 2 prefix-routed, "
         "2 stealing at threshold 1, and serve --replicas 2 --trace-out")
     fleet, fleet_launches = fleet_phase(torch, log, cfg, params)
+    log("phase 17(a) the serving mesh: phase 6(a)'s engine without a "
+        "placement and on a 1x1 mesh (a world-size-1 NCCL group), phase "
+        "4's params")
+    from repro_torch.launch.mesh import make_serving_mesh
+    t17 = time.perf_counter()
+    mesh = make_serving_mesh("1x1", "cuda")
+    mesh_a, mesh_launches = mesh_serve_phase(torch, log, cfg, params, mesh)
+    mesh_seconds = {"a_bf16": time.perf_counter() - t17}
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -4974,6 +5249,12 @@ def main() -> int:
         paged_serve["c_block_pressure"])
     for run in int8_serve.values():
         run.update(build_info8)
+    log("phase 17(a) the serving mesh on int8 KV: phase 7(a)'s engine "
+        "without a placement and on the 1x1 mesh, phase 7's params")
+    t17 = time.perf_counter()
+    mesh_a8, mesh_launches8 = mesh_serve_phase(torch, log, cfg, params, mesh,
+                                               kv_dtype="int8")
+    mesh_seconds["a_int8"] = time.perf_counter() - t17
     del params
     torch.cuda.empty_cache()
     log("phase 13 the dense family at full width, 8:16+16:256: qwen3-8b "
@@ -5007,6 +5288,28 @@ def main() -> int:
         "--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
         "and a resume (llama3-8b, 4 layers), (d) a train step a family")
     slice_16, slice_launches = slice_phase(torch, log, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 17(b) the shard shapes of one rank of a 1x2, 1x4 and 1x8 "
+        "llama3-8b mesh: the fused kernel (bf16 and int8 values) and "
+        "paged_attention (bf16 and int8 arenas) vs plain versions")
+    t17 = time.perf_counter()
+    timer = Timer(torch)
+    shards = shard_phase(torch, timer, log)
+    del timer
+    mesh_seconds["b"] = time.perf_counter() - t17
+    log("phase 17(c) a 1x2 mesh as two processes on the one card over "
+        "gloo: llama3-8b, 4 layers, phase 6(a)'s traffic")
+    t17 = time.perf_counter()
+    two_ranks = two_rank_phase(torch, log)
+    mesh_seconds["c"] = time.perf_counter() - t17
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    mesh17 = {"device": smi, "a_bf16": mesh_a, "a_int8": mesh_a8,
+              "b_shards": shards, "c_two_ranks": two_ranks,
+              "seconds": mesh_seconds}
+    log(f"  phase 17: {sum(mesh_seconds.values()):.1f}s "
+        f"{json.dumps(mesh_seconds)} ({smi})")
     # nm_spmm's main-path launches: phase 5's serve, phase 10(c)'s packed
     # forwards and phase 16(a)'s one-shot loop (qwen2-vl's down projection)
     nm_launches = {k: n + train_launches.get(k, 0)
@@ -5019,12 +5322,16 @@ def main() -> int:
     # one-shot loops and --legacy's engine; no paged attention)
     main_launches = add_launches(main_launches, spec_launches, fleet_launches,
                                  family_launches, recurrent_launches,
-                                 moe_encdec_launches, slice_launches)
+                                 moe_encdec_launches, slice_launches,
+                                 mesh_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
                                   fleet_launches, family_launches,
-                                  recurrent_launches, moe_encdec_launches)
-    # phase 13's int8 KV serve (gemma-7b) joins paged_attention_int8's
-    int8_launches = add_launches(int8_launches, family_launches)
+                                  recurrent_launches, moe_encdec_launches,
+                                  mesh_launches)
+    # phase 13's int8 KV serve (gemma-7b) and phase 17(a)'s int8 pair join
+    # the int8 variants'
+    int8_launches = add_launches(int8_launches, family_launches,
+                                 mesh_launches8)
 
     kernels = {"kernels": [
         kernel_entry("fused_sparse_linear", cases["fused_sparse_linear"],
@@ -5051,6 +5358,9 @@ def main() -> int:
                      ops_launches["outlier_spmm"],
                      {path: ops_launches[f"outlier_spmm_{path}"]
                       for path in ("decode", "prefill")})]}
+    for entry in kernels["kernels"]:
+        if entry["name"] in shards:
+            entry["mesh_shards"] = mesh_entries(shards[entry["name"]])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
@@ -5059,7 +5369,7 @@ def main() -> int:
               "replay": replay, "speculative": speculative, "fleet": fleet,
               "dense_family": dense_family, "recurrent": recurrent,
               "moe_encdec": moe_encdec,
-              "training": training, "slice": slice_16}
+              "training": training, "slice": slice_16, "mesh": mesh17}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "kernels": kernels["kernels"], "resources": resources,

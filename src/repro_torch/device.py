@@ -1,6 +1,8 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -17,6 +19,11 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
-    # "cuda" names the current card; tensors report it with its index
-    return dev if dev.index is not None else torch.device(
-        "cuda", torch.cuda.current_device())
+    if dev.index is not None:
+        return dev
+    # a rank of a process group (one process a card, ``launch/mesh``)
+    # serves on card LOCAL_RANK; otherwise "cuda" names the current card,
+    # which tensors report with its index
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,113 @@
+"""Serving meshes over ``torch.distributed`` (port of
+``repro/launch/mesh.py``).
+
+JAX serves a mesh from one controller process; the port runs one process
+per card, started by ``torchrun``, each holding a ``torch.distributed``
+process group (NCCL on the card, gloo on the CPU) and a
+``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
+"model")``.  The layers call explicit collectives on the ``"model"``
+group (``parallel/tensor_parallel.py``).
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
+      --arch llama3-8b --sparse --mesh 1x8
+
+Only the serving mesh is ported: the production training mesh and the
+fleet's per-replica meshes wait for ROADMAP A12c and A12b.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    raise NotImplementedError(
+        "the production training mesh is not ported yet (ROADMAP A12c)")
+
+
+def parse_mesh_spec(spec: str | None) -> tuple[int, int] | None:
+    """CLI mesh spec -> (data, model) sizes.
+
+    ``"1x8"`` -> (1, 8); a bare ``"8"`` means model-only TP, i.e. (1, 8);
+    None/"" -> None (no mesh: the single-device serving path)."""
+    if spec is None or spec == "" or spec.lower() == "none":
+        return None
+    parts = spec.lower().split("x")
+    try:
+        if len(parts) == 1:
+            dm = 1, int(parts[0])
+        elif len(parts) == 2:
+            dm = int(parts[0]), int(parts[1])
+        else:
+            dm = None
+    except ValueError:
+        dm = None
+    if dm is None or dm[0] < 1 or dm[1] < 1:
+        raise ValueError(f"mesh spec must be positive sizes like '1x8' or "
+                         f"'8', got {spec!r}")
+    return dm
+
+
+def _start_process_group(size: int, device: torch.device) -> None:
+    """Join the process group, unless this process already has one:
+    ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``
+    and its rendezvous) when it is there, else a world of one process over
+    an in-process store when ``size`` is 1.  NCCL on the card (after
+    selecting ``cuda:LOCAL_RANK``), gloo on the CPU."""
+    if dist.is_initialized():
+        return
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if not launched and size != 1:
+        raise ValueError(
+            f"a mesh of {size} ranks needs one process per rank: start them "
+            f"with torchrun --nproc-per-node {size}")
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if launched:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+
+
+def make_serving_mesh(spec: str | None, device="cuda"):
+    """The serving ("data", "model") ``DeviceMesh`` named by a CLI spec
+    over the process group's ranks (joined or started here,
+    ``_start_process_group``); None when no mesh is requested.  Every rank
+    of the group serves, so the mesh's size must be the world size."""
+    dm = parse_mesh_spec(spec)
+    if dm is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    d, m = dm
+    device = torch.device(device)
+    _start_process_group(d * m, device)
+    world = dist.get_world_size()
+    if d * m != world:
+        raise ValueError(
+            f"mesh {d}x{m} needs {d * m} ranks but the process group has "
+            f"world size {world} (start one process per rank: torchrun "
+            f"--nproc-per-node {d * m})")
+    return DeviceMesh(device.type, torch.arange(world).view(d, m),
+                      mesh_dim_names=("data", "model"))
+
+
+def make_host_mesh(device="cuda"):
+    """The 1x1 mesh (same axis names), on a world of one process."""
+    return make_serving_mesh("1x1", device)
+
+
+def make_replica_meshes(spec: str | None, n_replicas: int) -> list:
+    """Per-replica serving meshes for the fleet: ``[None] * n_replicas``
+    (every replica on the single-device path) when no spec is given; a
+    spec waits for ROADMAP A12b."""
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if parse_mesh_spec(spec) is None:
+        return [None] * n_replicas
+    raise NotImplementedError(
+        "replica meshes (--mesh with --replicas) are not ported yet "
+        "(ROADMAP A12b)")

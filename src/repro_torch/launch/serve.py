@@ -91,13 +91,26 @@ share one file:
   python -m repro_torch.launch.serve --arch llama-paper --smoke-arch \\
       --device cpu --sparse --kv-layout paged --trace t.json --max-len 32 \\
       --replicas 2 --routing prefix --trace-out out.json
+
+``--mesh 1xM`` serves tensor-parallel over M ranks, one process a card
+started by ``torchrun`` (``launch/mesh.py``, ``serving/placement.py``):
+every rank draws the same params from the run's seed, keeps its out-dim
+rows and KV heads, and serves the same requests in lockstep; only rank 0
+prints and writes ``--trace-out``.  The dense family is served so; with
+``--replicas > 1`` or the one-shot loop it raises (ROADMAP A12b):
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
+      --arch llama3-8b --sparse --kv-layout paged --mesh 1x8
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get, get_smoke
 from ..core import SparsifyConfig
@@ -112,6 +125,7 @@ from ..runtime.metrics import format_summary, summarize
 from ..serving import (SUPPORTED_FAMILIES, ReplicaSet, RouterTracer,
                        SamplingParams, ServingEngine, ServingTracer,
                        SpeculativeConfig, load_trace, replay)
+from .mesh import make_replica_meshes, make_serving_mesh, parse_mesh_spec
 from .steps import make_decode_step, make_prefill_step
 
 
@@ -197,11 +211,12 @@ def _make_fleet_tracers(args, n: int):
     return tracers, router
 
 
-def _build_target(cfg, params, args, device, *, max_len: int):
-    """The serving target of ``args``: one engine, or ``--replicas N`` of
-    them behind the router (``ReplicaSet`` takes the engine's surface, so
-    ``run_engine`` and ``replay`` drive either).  Returns (target, the
-    tracer whose buffer to write, None without --trace-out)."""
+def _build_target(cfg, params, args, device, *, max_len: int, mesh=None):
+    """The serving target of ``args``: one engine (on ``mesh`` when given),
+    or ``--replicas N`` of them behind the router (``ReplicaSet`` takes the
+    engine's surface, so ``run_engine`` and ``replay`` drive either).
+    Returns (target, the tracer whose buffer to write, None without
+    --trace-out)."""
     kw = dict(device=device, n_slots=args.slots, max_len=max_len,
               max_queue=args.max_queue, token_budget=args.token_budget,
               max_prefill_per_step=args.max_prefill_per_step,
@@ -212,7 +227,11 @@ def _build_target(cfg, params, args, device, *, max_len: int):
               draft=_make_draft(cfg, params, args, device))
     if args.replicas == 1:
         tracer = _make_tracer(args)
-        return ServingEngine(cfg, params, tracer=tracer, **kw), tracer
+        if mesh is not None:
+            print(f"serving mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" ({mesh.size()} ranks, {dist.get_backend()})")
+        return ServingEngine(cfg, params, tracer=tracer, mesh=mesh,
+                             **kw), tracer
     tracers, router_tracer = _make_fleet_tracers(args, args.replicas)
     fleet = ReplicaSet(cfg, params, n_replicas=args.replicas,
                        routing=args.routing, tracers=tracers,
@@ -314,14 +333,15 @@ def run_oneshot(cfg, params, batch: dict, gen: int):
 
 
 def run_engine(cfg, params, args, device, generator: torch.Generator,
-               inputs=None, quiet: bool = False):
+               inputs=None, quiet: bool = False, mesh=None):
     """Serve ``--batch`` random prompts drawn from ``generator`` (with an
     enc-dec model, each with random encoder features [prompt_len, d] drawn
     after them; ``draw_inputs``), or ``inputs`` (prompts, embeds) when
     given; returns the finished requests and the engine (or the
     ``--replicas`` fleet)."""
     engine, tracer = _build_target(cfg, params, args, device,
-                                   max_len=args.prompt_len + args.gen)
+                                   max_len=args.prompt_len + args.gen,
+                                   mesh=mesh)
     prompts, embeds = inputs or draw_inputs(cfg, args, generator)
     if embeds is None:
         embeds = [None] * args.batch
@@ -360,14 +380,16 @@ def run_engine(cfg, params, args, device, generator: torch.Generator,
     return reqs, engine
 
 
-def run_trace(cfg, params, args, device):
+def run_trace(cfg, params, args, device, mesh=None):
     """Replay the --trace file through the engine (or the --replicas
     fleet); returns replay's result dict with the target and its tracer
-    (None without --trace-out)."""
+    (None without --trace-out).  On a mesh, arrivals fall due by rank 0's
+    clock (the engine's ``shared_clock``)."""
     engine, tracer = _build_target(cfg, params, args, device,
-                                   max_len=args.max_len)
+                                   max_len=args.max_len, mesh=mesh)
     trace = load_trace(args.trace)
-    res = replay(engine, trace, time_scale=args.time_scale)
+    kw = {} if mesh is None else {"clock": engine.shared_clock}
+    res = replay(engine, trace, time_scale=args.time_scale, **kw)
     summary = summarize([r.metrics for r in res["finished"]], res["wall_s"])
     print(format_summary("trace", summary))
     _print_fleet_stats(engine)
@@ -463,6 +485,10 @@ def parse_args(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="serve tensor-parallel on a DATAxMODEL mesh (e.g. "
+                         "1x8; DATA must be 1), one rank a process under "
+                         "torchrun --nproc-per-node DATA*MODEL")
     ap.add_argument("--trace", default=None,
                     help="JSON request trace to replay through the engine")
     ap.add_argument("--max-len", type=int, default=256,
@@ -492,10 +518,33 @@ def parse_args(argv=None):
     return args
 
 
+def check_mesh_args(cfg, args) -> None:
+    """Raise for what ``--mesh`` does not serve yet (ROADMAP A12b): a
+    fleet of replica meshes and the one-shot loop."""
+    if parse_mesh_spec(args.mesh) is None:
+        return
+    if args.replicas > 1:
+        make_replica_meshes(args.mesh, args.replicas)
+    if args.legacy or cfg.family not in SUPPORTED_FAMILIES:
+        raise NotImplementedError(
+            "--mesh with the one-shot loop is not ported yet (ROADMAP A12b)")
+
+
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve(args.device)
     cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
+    check_mesh_args(cfg, args)
+    mesh = make_serving_mesh(args.mesh, args.device)
+    if mesh is not None and dist.get_rank() != 0:
+        # every rank serves; rank 0 alone prints and writes the trace
+        args = argparse.Namespace(**dict(vars(args), trace_out=None))
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _serve(cfg, args, mesh)
+    return _serve(cfg, args, mesh)
+
+
+def _serve(cfg, args, mesh):
+    device = resolve(args.device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params, report = build_params(cfg, args, device, generator)
     if args.sparse:
@@ -504,9 +553,9 @@ def main(argv=None):
               f"{report['compressed_bytes'] / 2**20:.1f}MiB "
               f"({report['ratio']:.3f}x)")
     if args.trace is not None:
-        return run_trace(cfg, params, args, device)
+        return run_trace(cfg, params, args, device, mesh=mesh)
     if not args.legacy and cfg.family in SUPPORTED_FAMILIES:
-        reqs, _ = run_engine(cfg, params, args, device, generator)
+        reqs, _ = run_engine(cfg, params, args, device, generator, mesh=mesh)
         print("sample:", reqs[0].tokens[:12])
         return reqs
     if args.legacy:

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..models.sparse_serving import SparseWeight
+from ..parallel.tensor_parallel import RowShard
 
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 MLSTM_PROJECTIONS = ("w_up", "w_q", "w_k", "w_v", "w_gates", "w_down")
@@ -102,6 +103,8 @@ def weight_totals(params, cfg=None, kind: str = "step") -> tuple[int, int]:
     for lp, names in _read_layers(params, cfg, kind):
         for name in names:
             w = lp.get(name)
+            if isinstance(w, RowShard):          # a mesh rank's rows
+                w = w.local
             if isinstance(w, SparseWeight):
                 out = w.nm_meta.shape[0]
                 kept += out * w.in_dim * w.n // w.m

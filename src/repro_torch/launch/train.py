@@ -10,7 +10,7 @@ once) restores the last committed checkpoint and replays the stream from
 its step.  A run whose ``--ckpt-dir`` already holds a checkpoint resumes
 from it.  ``--n-layers`` cuts a full-width model's depth (a one-card
 run), ``--keep-last-k`` bounds the checkpoints kept on disk.
-``--production-mesh`` waits for placement (ROADMAP A12).
+``--production-mesh`` waits for the training mesh (ROADMAP A12c).
 
   python -m repro_torch.launch.train --arch llama3-8b --steps 50
   python -m repro_torch.launch.train --arch llama-paper --smoke-arch \\
@@ -37,12 +37,12 @@ from .steps import TrainOptions, make_train_step
 
 
 def build(cfg, opt_cfg, opts: TrainOptions, mesh=None):
-    """The train step of ``cfg``; ``mesh`` (the reference's sharded step)
-    waits for placement."""
+    """The train step of ``cfg``; ``mesh`` (the reference's sharded FSDP
+    step) waits for ROADMAP A12c."""
     if mesh is not None:
         raise NotImplementedError(
-            "a sharded train step needs placement, which is not ported yet "
-            "(ROADMAP A12)")
+            "a sharded train step (FSDP over a mesh) is not ported yet "
+            "(ROADMAP A12c)")
     return make_train_step(cfg, opt_cfg, opts)
 
 
@@ -78,8 +78,8 @@ def run(args):
     state ``{"params", "opt"}``)."""
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh needs placement, which is not ported yet "
-            "(ROADMAP A12)")
+            "--production-mesh needs the training mesh, which is not ported "
+            "yet (ROADMAP A12c)")
     device = resolve(args.device)
     cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
     if args.n_layers is not None:

@@ -11,15 +11,37 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.tensor_parallel import RowShard
 from .sparse_serving import SparseWeight, sparse_apply
 
 
 def linear(w, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W^T.  ``SparseWeight`` goes to the sparse kernels; a dense
-    weight to a plain dense product, as XLA took it in the JAX package."""
+    weight to a plain dense product, as XLA took it in the JAX package.  A
+    ``RowShard`` (a mesh placement's out-dim split) computes this rank's
+    rows the same way and all-gathers them along the last dim."""
+    if isinstance(w, RowShard):
+        return w.axis.gather(linear(w.local, x), dim=-1)
     if isinstance(w, SparseWeight):
         return sparse_apply(w, x)
     return F.linear(x, w)
+
+
+def embed(table, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` [vocab, d] at ``tokens``.  A ``RowShard``
+    table (vocab rows split over the model axis) looks up the tokens this
+    rank holds, zeroes the others and sums over ranks: exact, since one
+    rank contributes each row."""
+    if not isinstance(table, RowShard):
+        return table[tokens]
+    local = table.local
+    n = local.shape[0]
+    idx = tokens - table.axis.rank * n
+    mine = (idx >= 0) & (idx < n)
+    rows = local[idx.clamp(0, n - 1)]
+    return table.axis.sum(torch.where(mine[..., None], rows,
+                                      torch.zeros((), dtype=rows.dtype,
+                                                  device=rows.device)))
 
 
 def dense_init(out_dim: int, in_dim: int, dtype, generator, device):

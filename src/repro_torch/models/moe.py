@@ -19,7 +19,7 @@ for its grouped products, and stay dense: ``sparsify_for_serving`` keeps
 3-D leaves as they are.
 
 The reference's expert-parallel path under a mesh (``_moe_ep``: capacity
-dispatch and all-to-all) is ROADMAP A12's.
+dispatch and all-to-all) is ROADMAP A12c's.
 """
 from __future__ import annotations
 

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve
 from . import moe as moe_lib
 from .layers import (activation, apply_rope, attend_length_masked,
-                     dense_init, linear, rms_norm, sdpa)
+                     dense_init, embed, linear, rms_norm, sdpa)
 
 
 def _check_family(cfg) -> None:
@@ -158,14 +158,18 @@ def attend_over_pool(q, pool_view, *, window: int | None = None):
 
 
 def _block_step(lp, x, k_l, v_l, view, positions, cfg, ks_l=None,
-                vs_l=None):
+                vs_l=None, heads=None):
     """One block: project q/k/v at the lane positions, scatter the fresh KV
     into the layer's arena slice in place (quantized per position when the
     layer's scale slices ``ks_l``/``vs_l`` are given), attend over the
-    pool."""
+    pool.  With ``heads`` (a ``HeadShard``: the arena holds this rank's KV
+    heads) the rank writes and attends its own heads and gathers the
+    attention output over heads before ``wo``."""
     B, S, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(lp, h, cfg, positions)
+    if heads is not None:
+        q, k, v = heads.local(q, k, v)
     if ks_l is not None:
         view.write_layer_quantized(k_l, v_l, ks_l, vs_l, k, v)
     else:
@@ -174,6 +178,8 @@ def _block_step(lp, x, k_l, v_l, view, positions, cfg, ks_l=None,
         q, dataclasses.replace(view, k=k_l, v=v_l, k_scale=ks_l,
                                v_scale=vs_l),
         window=cfg.window)
+    if heads is not None:
+        attn = heads.gather(attn)
     x = x + linear(lp["wo"], attn.reshape(B, S, -1))
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + _mlp(lp, h, cfg)
@@ -189,23 +195,25 @@ def _pool_positions(cursor: torch.Tensor, S: int, cfg) -> torch.Tensor:
     return base
 
 
-def unified_step(params, view, batch, cfg):
+def unified_step(params, view, batch, cfg, heads=None):
     """One attend-in-place step over the pool (slot or paged view).
 
     ``batch["tokens"]`` [B, S] are the next S tokens of each lane, starting
     at ``view.cursor``.  Returns (logits [B, S, V], (k, v)), or
     (logits, (k, v, k_scale, v_scale)) for an int8 view; the arenas are the
-    view's, updated in place."""
+    view's, updated in place.  On a mesh, ``params`` are a rank's
+    (``ServingPlacement.place_params``) and ``heads`` its attention heads
+    when the arenas hold only those (``ServingPlacement.heads``)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     positions = _pool_positions(view.cursor, S, cfg)
     quantized = view.k_scale is not None
     for i, lp in enumerate(params["layers"]):
         scales = ((view.k_scale[i], view.v_scale[i]) if quantized
                   else (None, None))
         x = _block_step(lp, x, view.k[i], view.v[i], view, positions, cfg,
-                        *scales)
+                        *scales, heads=heads)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     arenas = (view.k, view.v)
     if quantized:
@@ -272,7 +280,7 @@ def _embed_inputs(params, batch, cfg):
     if "embeds" in batch:
         x = batch["embeds"].to(cfg.dtype)
     else:
-        x = params["embed"][batch["tokens"]]
+        x = embed(params["embed"], batch["tokens"])
     B, S = x.shape[:2]
     if "positions" in batch:
         return x, batch["positions"]

@@ -26,7 +26,8 @@ only a ``.tmp`` directory that ``gc_stale_tmp`` removes.  ``restore(like)``
 reads the leaves ``like``'s structure names, checks each global shape
 against the manifest and ``like``'s, and returns the port's per-layer lists on the
 device of ``like``'s leaves.  One process writes shard 0; restoring onto
-a mesh (``shardings=``) waits for placement (ROADMAP A12).
+a mesh (``shardings=``) waits for the training half of placement
+(ROADMAP A12c).
 """
 from __future__ import annotations
 
@@ -195,8 +196,8 @@ class CheckpointManager:
         latest by default), each leaf on the device of ``like``'s."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a mesh: placement is "
-                "not ported yet (ROADMAP A12)")
+                "restore(shardings=...) re-shards onto a training mesh, "
+                "which is not ported yet (ROADMAP A12c)")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

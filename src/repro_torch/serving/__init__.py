@@ -25,6 +25,11 @@ The engine serves the dense, moe, ssm (xLSTM), hybrid (Zamba2) and encdec
 (Whisper) families through their adapters (serving/families.py); recurrent
 state lives in ``RecurrentStatePool`` slots and an enc-dec request's
 encoder context in ``EncoderContextPool`` rows (serving/state_pool.py).
+
+``mesh=`` (``launch/mesh.make_serving_mesh``) serves the dense family
+tensor-parallel through ``ServingPlacement`` (serving/placement.py): one
+process a rank, out-dim splits, token streams identical to the
+single-device engine.
 """
 
 from .cache_pool import (CachePoolError, CapacityError, DoubleFree,
@@ -36,6 +41,7 @@ from .fleet import ROUTING_POLICIES, ReplicaSet, RouteDecision, Router
 from .observe import (NULL_ROUTER_TRACER, NULL_TRACER, NullRouterTracer,
                       NullTracer, RouterTracer, ServingTracer)
 from .paged import OutOfBlocks, PagedKVPool, PagedPoolView
+from .placement import ServingPlacement
 from .request import Request, SamplingParams, Status
 from .scheduler import (CHUNK_QUANTUM, QueueFull, RequestQueue, plan_chunks,
                         resolve_token_budget, spec_verify_reserve,

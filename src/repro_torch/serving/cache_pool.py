@@ -182,28 +182,42 @@ class SlotPoolView(ArenaWrites):
         return k_l[rows], v_l[rows]
 
 
-def kv_arenas(shape: tuple, kv_dtype: str, dtype: torch.dtype, device):
+def kv_arenas(shape: tuple, kv_dtype: str, dtype: torch.dtype, device,
+              placement=None):
     """Zeroed k/v arenas of ``shape`` and, for int8, their f32 scale arenas
     (``shape`` without the head dim, initialised to 1, so an unwritten
-    position dequantizes to finite zeros); (k, v, k_scale, v_scale)."""
+    position dequantizes to finite zeros); (k, v, k_scale, v_scale).  A
+    mesh ``placement`` keeps this rank's KV heads of each
+    (``place_kv``/``place_kv_scale``)."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
                          f"not {kv_dtype!r}")
     arena_dtype = torch.int8 if kv_dtype == "int8" else dtype
     k = torch.zeros(shape, dtype=arena_dtype, device=device)
     v = torch.zeros(shape, dtype=arena_dtype, device=device)
+    if placement is not None:
+        k, v = placement.place_kv(k), placement.place_kv(v)
     if kv_dtype != "int8":
         return k, v, None, None
-    return (k, v, torch.ones(shape[:-1], dtype=torch.float32, device=device),
-            torch.ones(shape[:-1], dtype=torch.float32, device=device))
+    ks = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    vs = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+    if placement is not None:
+        ks, vs = placement.place_kv_scale(ks), placement.place_kv_scale(vs)
+    return k, v, ks, vs
 
 
 class SlotKVPool:
+    """One slot a request.  On a mesh (``placement``) the arenas hold this
+    rank's KV heads; ``stats`` reports the whole arena's bytes, as the JAX
+    package's global arrays do."""
+
     def __init__(self, cfg, n_slots: int, max_len: int, device,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", placement=None):
         L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
         self.k, self.v, self.k_scale, self.v_scale = kv_arenas(
-            (L, n_slots, max_len, KV, hd), kv_dtype, cfg.dtype, device)
+            (L, n_slots, max_len, KV, hd), kv_dtype, cfg.dtype, device,
+            placement)
+        self.kv_shards = 1 if placement is None else placement.kv_shards
         self.kv_dtype = kv_dtype
         self.pos = np.zeros((n_slots,), np.int64)
         self.n_slots = n_slots
@@ -229,11 +243,13 @@ class SlotKVPool:
     def stats(self) -> dict:
         """Occupancy and the arena's whole device bill: int8 values and
         their f32 scales (``scale_bytes``), as the JAX pool reports it."""
-        scale_bytes = arena_nbytes(self.k_scale, self.v_scale)
+        scale_bytes = arena_nbytes(self.k_scale, self.v_scale) \
+            * self.kv_shards
         return {"layout": "slot", "n_slots": self.n_slots,
                 "n_free": self.n_free, "max_len": self.max_len,
                 "kv_dtype": self.kv_dtype,
-                "arena_bytes": arena_nbytes(self.k, self.v) + scale_bytes,
+                "arena_bytes": arena_nbytes(self.k, self.v) * self.kv_shards
+                + scale_bytes,
                 "scale_bytes": scale_bytes}
 
     def lane_rows(self, rows: list[int], n_rows_padded: int) -> np.ndarray:

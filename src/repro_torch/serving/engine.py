@@ -64,8 +64,18 @@ step does no observability work: no synchronize, no event, no span.
 
 ``ingest``, ``withdraw`` and ``steal_youngest`` move queued, slotless
 requests between engines: the fleet's replicas (``serving/fleet/``).
-``mesh=`` raises ``NotImplementedError`` (ROADMAP A12).  Every registered
-config of the five families is served (mixtral-8x7b and
+
+``mesh=`` (a ``DeviceMesh`` from ``launch/mesh.make_serving_mesh``)
+serves tensor-parallel through ``ServingPlacement``
+(``serving/placement.py``): out-dim splits of every projection, the
+embedding and the head, KV heads split across the ranks' arenas, explicit
+gathers in the layers.  One process a rank, every rank running this
+engine on the same requests; every clock read is rank 0's, broadcast, so
+every rank evicts, admits and plans the same work and its collectives
+meet the others'.  The dense family is served so (ROADMAP A12a); the other
+families, moe and ``draft=`` under a mesh raise (ROADMAP A12b).
+
+Every registered config of the five families is served (mixtral-8x7b and
 llama4-maverick-400b-a17b for moe, whisper-medium for encdec); the vlm
 family is refused, as the reference's engine refuses it.
 """
@@ -78,9 +88,10 @@ import torch
 
 from ..device import resolve
 from .cache_pool import CachePoolError
-from .families import build_adapter
+from .families import build_adapter, require_placeable
 from .observe import NULL_TRACER
 from .paged import OutOfBlocks
+from .placement import ServingPlacement
 from .request import Request, SamplingParams, Status
 from .sampling import sample_tokens_logprobs, verify_draft
 from .scheduler import (CHUNK_QUANTUM, PREEMPT_DECODE_PRESSURE,
@@ -123,8 +134,12 @@ class ServingEngine:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"not {kv_layout!r}")
-        if mesh is not None:
-            raise _not_ported("mesh placement (mesh=)", "A12")
+        self.placement = ServingPlacement(mesh, cfg)
+        if self.placement.active:
+            require_placeable(cfg, self.placement)
+            if draft is not None:
+                raise _not_ported("speculative decoding on a mesh", "A12b")
+            params = self.placement.place_params(params)
         self.device = resolve(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -141,7 +156,7 @@ class ServingEngine:
             cfg, params, device=self.device, kv_layout=kv_layout,
             n_slots=n_slots, max_len=max_len, block_size=block_size,
             n_blocks=n_blocks, prefix_caching=prefix_caching,
-            kv_dtype=kv_dtype, max_ctx=max_ctx)
+            kv_dtype=kv_dtype, max_ctx=max_ctx, placement=self.placement)
         self.kv_layout = kv_layout
         self.kv_dtype = kv_dtype
         self.pool = self.adapter.pool
@@ -175,6 +190,9 @@ class ServingEngine:
         self.running: dict[int, Request] = {}        # slot -> request
         self.finished: list[Request] = []
         self._clock = clock
+        # what scheduling reads (arrivals, queue timeouts, admission
+        # order): ``clock`` itself, or rank 0's on a mesh
+        self.shared_clock = self.placement.shared_clock(clock)
         # observability: NULL_TRACER is a no-op singleton and every call
         # site is guarded by ``tracer.enabled`` (serving/observe.py)
         self.tracer = NULL_TRACER if tracer is None else tracer
@@ -231,7 +249,7 @@ class ServingEngine:
                       on_finish=on_finish, embeds=embeds)
         req.metrics.family = self.cfg.family
         self._next_id = max(self._next_id + 1, rid + 1)
-        req.metrics.arrival = self._clock()
+        req.metrics.arrival = self.shared_clock()
         if not self.queue.try_push(req):
             raise QueueFull(f"queue at capacity ({self.queue.max_size})")
         if self.tracer.enabled:
@@ -299,7 +317,7 @@ class ServingEngine:
         """One token-budgeted iteration: evict -> prefill chunks under the
         budget (in-flight cursors first, then admissions) -> fused decode
         of every prefill-complete request."""
-        now = self._clock()
+        now = self.shared_clock()
         tr = self.tracer
         if tr.enabled:
             tr.begin_step(self.n_steps, now)
@@ -351,7 +369,8 @@ class ServingEngine:
                "n_prefill_tokens": self.n_prefill_tokens,
                "family": self.cfg.family, "kv_layout": self.kv_layout,
                "kv_dtype": self.kv_dtype, "token_budget": self.token_budget,
-               "device": str(self.device), "pool": self.pool.stats()}
+               "device": str(self.device), "pool": self.pool.stats(),
+               "placement": self.placement.describe()}
         if self.spec is not None:
             out["speculative"] = {
                 "method": self.spec.cfg.method,
@@ -750,7 +769,7 @@ class ServingEngine:
 
         if tr.enabled:
             tr.begin_phase("emit", n_rows=n)
-        now = self._clock()
+        now = self.shared_clock()
         n_finished = 0
         drafted = accepted = emitted = 0
         for i, s in enumerate(active):
@@ -803,7 +822,7 @@ class ServingEngine:
         toks, lps = sample_tokens_logprobs(
             self._slot_logits, self._temps, self._topks, self._seeds,
             self._gen_count)
-        now = self._clock()
+        now = self.shared_clock()
         n_finished = 0
         for slot in slots:
             req = self.running[slot]

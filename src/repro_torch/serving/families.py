@@ -149,7 +149,7 @@ class TransformerAdapter(FamilyAdapter):
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
                  kv_layout: str = "slot", block_size: int = 16,
                  n_blocks: int | None = None, prefix_caching: bool = True,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", placement=None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"no serving adapter for family {cfg.family!r}")
         self._setup(cfg, params, device)
@@ -158,11 +158,14 @@ class TransformerAdapter(FamilyAdapter):
             self.pool = PagedKVPool(cfg, n_slots, max_len, device=device,
                                     block_size=block_size, n_blocks=n_blocks,
                                     prefix_caching=prefix_caching,
-                                    kv_dtype=kv_dtype)
+                                    kv_dtype=kv_dtype, placement=placement)
         else:
             self.pool = SlotKVPool(cfg, n_slots, max_len, device,
-                                   kv_dtype=kv_dtype)
+                                   kv_dtype=kv_dtype, placement=placement)
         self.kv_dtype = kv_dtype
+        # on a mesh: the rank's attention heads when its arenas hold only
+        # those (``params`` are then the rank's, ``place_params``)
+        self.heads = None if placement is None else placement.heads
 
     def _scales(self) -> dict:
         return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
@@ -171,7 +174,7 @@ class TransformerAdapter(FamilyAdapter):
         with torch.no_grad():
             logits, _ = tfm.unified_step(self.params, view,
                                          {"tokens": self._tokens(tokens)},
-                                         self.cfg)
+                                         self.cfg, heads=self.heads)
         return logits
 
     def _chunk(self, lanes, cur, n_new, tokens) -> torch.Tensor:
@@ -499,16 +502,32 @@ class EncDecAdapter(FamilyAdapter):
 
 # --------------------------------------------------------------------------
 
+def require_placeable(cfg, placement) -> None:
+    """Raise unless ``cfg`` can be served on ``placement``'s mesh: only the
+    dense family without experts is (ROADMAP A12a); the other families and
+    moe under a mesh are ROADMAP A12b."""
+    if placement is None or not placement.active:
+        return
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"serving the {cfg.family} family"
+            f"{' (moe FFN)' if cfg.moe is not None else ''} on a mesh is "
+            f"not ported yet (ROADMAP A12b)")
+
+
 def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
                   max_len: int, block_size: int = 16,
                   n_blocks: int | None = None, prefix_caching: bool = True,
-                  kv_dtype: str = "bf16", max_ctx: int | None = None):
+                  kv_dtype: str = "bf16", max_ctx: int | None = None,
+                  placement=None):
     """The family's adapter.  ssm has no KV at all, so any requested layout
     is served as "slot" (the engine coerces it); encdec pages neither its
     decoder slots nor its read-only context rows and refuses "paged"; its
     context arena holds ``max_ctx`` encoder frames a slot (``max_len`` when
     None).  Quantized KV (``kv_dtype="int8"``) exists only for the pure
-    KV-transformer families, as in the reference."""
+    KV-transformer families, as in the reference.  A mesh ``placement``
+    (its params already placed) serves the dense family only."""
+    require_placeable(cfg, placement)
     fam = cfg.family
     if kv_dtype != "bf16" and fam not in ("dense", "moe"):
         raise ValueError(
@@ -518,7 +537,8 @@ def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
         return TransformerAdapter(
             cfg, params, n_slots=n_slots, max_len=max_len, device=device,
             kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
-            prefix_caching=prefix_caching, kv_dtype=kv_dtype)
+            prefix_caching=prefix_caching, kv_dtype=kv_dtype,
+            placement=placement)
     if fam == "ssm":
         return RecurrentAdapter(cfg, params, n_slots=n_slots,
                                 max_len=max_len, device=device)

@@ -37,7 +37,8 @@ one stream.  Every replica holds the one ``params`` dict that was passed
 in, with no copy and no per-replica conversion (the counterpart of the
 reference's shared compile cache): the compressed weights are held once,
 and each replica adds only its KV arenas.  ``meshes=`` (a device slice
-per replica) waits for ROADMAP A12, as ``ServingEngine(mesh=)`` does.
+per replica, ``launch/mesh.make_replica_meshes``) waits for ROADMAP A12b;
+``ServingEngine(mesh=)`` serves one engine on a mesh.
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ class ReplicaSet:
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
         if meshes is not None:
-            raise _not_ported("replica meshes (meshes=)", "A12")
+            raise _not_ported("replica meshes (meshes=)", "A12b")
         if tracers is not None and len(tracers) != n_replicas:
             raise ValueError(
                 f"{len(tracers)} tracers for {n_replicas} replicas")

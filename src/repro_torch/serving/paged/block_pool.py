@@ -33,12 +33,15 @@ class OutOfBlocks(RuntimeError):
 
 class BlockPool:
     def __init__(self, cfg, n_blocks: int, block_size: int, device,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", placement=None):
         if n_blocks < 1:
             raise ValueError("need at least one block")
         shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+        # on a mesh the arena holds this rank's KV heads; ``occupancy``
+        # reports the whole arena's bytes
         self.k, self.v, self.k_scale, self.v_scale = kv_arenas(
-            shape, kv_dtype, cfg.dtype, device)
+            shape, kv_dtype, cfg.dtype, device, placement)
+        self.kv_shards = 1 if placement is None else placement.kv_shards
         self.kv_dtype = kv_dtype
         self.n_blocks = n_blocks
         self.block_size = block_size
@@ -58,12 +61,14 @@ class BlockPool:
     def occupancy(self) -> dict:
         """Allocated, free and evictable blocks, and the arena's whole
         device bill: int8 values and their f32 scales (``scale_bytes``)."""
-        scale_bytes = arena_nbytes(self.k_scale, self.v_scale)
+        scale_bytes = arena_nbytes(self.k_scale, self.v_scale) \
+            * self.kv_shards
         return {"n_blocks": self.n_blocks, "n_free": self.n_free,
                 "n_allocated": self.n_blocks - self.n_free,
                 "n_cached_idle": self.n_cached_idle,
                 "kv_dtype": self.kv_dtype,
-                "arena_bytes": arena_nbytes(self.k, self.v) + scale_bytes,
+                "arena_bytes": arena_nbytes(self.k, self.v) * self.kv_shards
+                + scale_bytes,
                 "scale_bytes": scale_bytes}
 
     def alloc(self) -> int:

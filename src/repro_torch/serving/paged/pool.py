@@ -111,14 +111,16 @@ class PagedPoolView(ArenaWrites):
 class PagedKVPool:
     def __init__(self, cfg, n_rows: int, max_len: int, *, device,
                  block_size: int = 16, n_blocks: int | None = None,
-                 prefix_caching: bool = True, kv_dtype: str = "bf16"):
+                 prefix_caching: bool = True, kv_dtype: str = "bf16",
+                 placement=None):
         self.block_size = block_size
         self.max_blocks_per_row = blocks_needed(max_len, block_size)
         if n_blocks is None:
             # the same device memory as a SlotKVPool(n_rows, max_len)
             n_blocks = n_rows * self.max_blocks_per_row
         self.blocks = BlockPool(cfg, n_blocks + 1, block_size, device,
-                                kv_dtype=kv_dtype)            # +1 trash
+                                kv_dtype=kv_dtype,            # +1 trash
+                                placement=placement)
         self.kv_dtype = kv_dtype
         self._trash = self.blocks.alloc()                       # permanent
         self.n_blocks = n_blocks                                # usable

@@ -157,19 +157,21 @@ def load_trace(path: str) -> list[TraceRequest]:
 
 
 def replay(engine, trace: list[TraceRequest], *, time_scale: float = 1.0,
-           verbose: bool = False) -> dict:
+           verbose: bool = False, clock=time.monotonic) -> dict:
     """Feed ``trace`` into ``engine`` against the wall clock.
 
     ``time_scale`` compresses (<1) or stretches (>1) arrival gaps.  Requests
     rejected by admission control are recorded, not retried (open-loop
     workload).  Returns {"finished": [...], "rejected": n, "wall_s": s}.
+    ``clock`` decides which arrivals are due: on a mesh the engine's
+    ``shared_clock`` (rank 0's), so every rank submits in the same steps.
     """
     pending = sorted(trace, key=lambda t: t.arrival_s)
-    t0 = time.monotonic()
+    t0 = clock()
     rejected = 0
     i = 0
     while i < len(pending) or engine.has_work:
-        now = time.monotonic() - t0
+        now = clock() - t0
         while i < len(pending) and pending[i].arrival_s * time_scale <= now:
             tr = pending[i]
             i += 1
@@ -193,6 +195,6 @@ def replay(engine, trace: list[TraceRequest], *, time_scale: float = 1.0,
         elif i < len(pending):
             # idle until the next arrival is due
             next_due = pending[i].arrival_s * time_scale
-            time.sleep(min(max(next_due - (time.monotonic() - t0), 0.0), 0.05))
-    wall_s = time.monotonic() - t0
+            time.sleep(min(max(next_due - (clock() - t0), 0.0), 0.05))
+    wall_s = clock() - t0
     return {"finished": engine.finished, "rejected": rejected, "wall_s": wall_s}

@@ -132,10 +132,18 @@ def test_default_device_raises_without_cuda(param_pairs):
         ServingEngine(CFG, param_pairs["dense"][1])
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(mesh=object()), "A12")])
-def test_left_out_options_raise_naming_roadmap(kwargs, item, param_pairs):
+@pytest.mark.parametrize("kwargs,item", [
+    pytest.param(dict(mesh={"data": 1, "model": 1}), "A12b",
+                 id="kwargs0-A12")])
+def test_left_out_options_raise_naming_roadmap(kwargs, item):
+    """``mesh=`` serves the dense family (ROADMAP A12a); a mesh with an ssm
+    config raises naming A12b, before any tensor is placed."""
+    from repro_torch.models import xlstm
+    cfg = dataclasses.replace(configs.get_smoke("xlstm-350m"),
+                              dtype=torch.float32)
+    params = xlstm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match=item):
-        ServingEngine(CFG, param_pairs["dense"][1], device="cpu", **kwargs)
+        ServingEngine(cfg, params, device="cpu", **kwargs)
 
 
 def test_draft_of_another_vocab_raises(param_pairs):

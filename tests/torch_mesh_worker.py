@@ -1,0 +1,209 @@
+"""One rank of the gloo meshes that ``tests/test_torch_mesh_serving.py``
+spawns, and the serving cases both sides share.  Imports only numpy, torch
+and the port (``repro_torch``): the JAX side of the comparison runs in the
+test's own process.
+
+Each rank joins a gloo process group through a ``file://`` store, builds
+the 1 x world ``DeviceMesh`` with ``launch/mesh.make_serving_mesh``, and
+serves every case of ``cases()`` on ``ServingEngine(mesh=)`` in lockstep
+with the other ranks; it saves what it saw (streams, the plan of every
+step, the pool's stats, its arenas' heads, whether its ``SparseWeight``
+rows are the co-sliced rows of the whole container) to
+``<out_dir>/rank<r>.pt`` for the test to hold against the JAX
+single-device engine and the other ranks.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import io
+import pathlib
+
+import numpy as np
+
+BS, GEN, VOCAB = 8, 5, 512
+SHAPE = dict(n_layers=2, d_model=128, n_heads=8, head_dim=16, d_ff=256,
+             vocab=VOCAB)
+KV_HEADS = {"dense": 8, "sparse": 8, "gqa": 2}      # gqa: KV divides no mesh
+
+
+def _prompts(n, length, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, VOCAB, length).tolist() for _ in range(n)]
+
+
+def cases() -> dict:
+    """name -> (params key, engine kwargs, waves): each wave a list of
+    (prompt, SamplingParams kwargs), submitted when the engine has drained
+    the previous one.  The reference's mesh cases (``tests/
+    test_mesh_serving.py``): dense and 8:16 + 16:256, slot and paged KV,
+    bf16 and int8 KV, prefix-cache hits, preemption and resume; and GQA
+    with 2 KV heads, which divide neither 4 nor 8 ranks (arenas
+    replicated)."""
+    greedy = [[(p, dict(max_new_tokens=GEN)) for p in _prompts(3, 12, 1)]]
+    out = {}
+    # every pair of (weights, layout), (weights, KV dtype) and (layout, KV
+    # dtype) in four runs
+    for which, layout, kv_dtype in (("dense", "slot", "bf16"),
+                                    ("sparse", "paged", "bf16"),
+                                    ("dense", "paged", "int8"),
+                                    ("sparse", "slot", "int8")):
+        out[f"{which}-{layout}-{kv_dtype}"] = (
+            which, dict(n_slots=4, max_len=32, kv_layout=layout,
+                        block_size=BS, kv_dtype=kv_dtype), greedy)
+    system = _prompts(1, 3 * BS, 5)[0]
+    out["prefix-hits"] = (
+        "sparse", dict(n_slots=4, max_len=64, kv_layout="paged",
+                       block_size=BS),
+        [[(system + t, dict(max_new_tokens=GEN))]
+         for t in _prompts(3, 6, 6)])
+    out["preemption"] = (
+        "dense", dict(n_slots=4, max_len=40, kv_layout="paged",
+                      block_size=BS, n_blocks=10, prefix_caching=False),
+        [[(p, dict(max_new_tokens=12)) for p in _prompts(4, 16, 9)]])
+    for layout, kv_dtype in (("paged", "int8"), ("slot", "bf16")):
+        out[f"gqa-{layout}-{kv_dtype}"] = (
+            "gqa", dict(n_slots=4, max_len=32, kv_layout=layout,
+                        block_size=BS, kv_dtype=kv_dtype), greedy)
+    return out
+
+
+def sampled_case():
+    """The reference's seeded-stochastic mix, held against the port's own
+    single-device engine (the two packages draw from different
+    generators)."""
+    return ("dense", dict(n_slots=4, max_len=32, kv_layout="paged",
+                          block_size=BS),
+            [[(p, dict(max_new_tokens=GEN, temperature=t, top_k=k, seed=s))
+              for p, (t, k, s) in zip(_prompts(3, 12, 1),
+                                      [(0.0, 0, 0), (0.0, 0, 0),
+                                       (1.0, 8, 5)])]])
+
+
+def serve(engine, waves, sampling_cls, max_steps: int = 400):
+    """Submit each wave once the engine drained the previous one; returns
+    (token streams in submission order, each step's stats)."""
+    reqs, plans = [], []
+    for wave in waves:
+        reqs += [engine.submit(p, sampling_cls(**kw)) for p, kw in wave]
+        while engine.has_work and len(plans) < max_steps:
+            plans.append(engine.step())
+    return [list(r.tokens) for r in reqs], plans
+
+
+def _coslice(placed, whole, rank: int, world: int) -> tuple[int, bool]:
+    """(how many leaves are split, whether each is this rank's block of
+    rows of the whole leaf: every buffer of a SparseWeight, the embedding
+    and the head)."""
+    import torch
+    from repro_torch.models.sparse_serving import SparseWeight
+    from repro_torch.parallel import RowShard
+
+    pairs = [(placed[k], whole[k]) for k in ("embed", "lm_head")
+             if k in whole]
+    for plp, wlp in zip(placed["layers"], whole["layers"]):
+        pairs += [(plp[k], wlp[k]) for k in wlp]
+    n, ok = 0, True
+    for p, w in pairs:
+        if not isinstance(p, RowShard):
+            continue
+        n += 1
+        if isinstance(w, SparseWeight):
+            bufs = [(getattr(p.local, f), getattr(w, f))
+                    for f in ("nm_values", "nm_meta", "o_values", "o_meta",
+                              "v_scale") if getattr(w, f) is not None]
+        else:
+            bufs = [(p.local, w)]
+        for lb, wb in bufs:
+            rows = wb.shape[0] // world
+            ok &= lb.shape[0] == rows and torch.equal(
+                lb, wb.narrow(0, rank * rows, rows))
+    return n, bool(ok)
+
+
+def _run_case(cfg, params, mesh, kw, waves, rank, world):
+    from repro_torch.serving import SamplingParams, ServingEngine
+    engine = ServingEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+    pool = engine.pool.blocks if kw["kv_layout"] == "paged" else engine.pool
+    arena, ptr = pool.k, pool.k.data_ptr()
+    streams, plans = serve(engine, waves, SamplingParams)
+    st = engine.stats()
+    # the arenas were written in place, on their head-split layout; the
+    # scheduling state the steps ship (positions, block tables) is host
+    # numpy, whole on every rank
+    host = [engine.pool.pos.tolist()]
+    if kw["kv_layout"] == "paged":
+        host.append(engine.pool._bt_np.tolist())
+    return {"streams": streams, "plans": plans, "pool": st["pool"],
+            "placement": st["placement"],
+            "n_preemptions": engine.n_preemptions,
+            "arena_heads": pool.k.shape[-2],
+            "scale_heads": None if pool.k_scale is None
+            else pool.k_scale.shape[-1],
+            "coslice": _coslice(engine.params, params, rank, world),
+            "in_place": pool.k is arena and pool.k.data_ptr() == ptr
+            and bool(pool.k.abs().sum() > 0),
+            "host": host}
+
+
+def _cli(world: int, trace: str, trace_out: str) -> dict:
+    """``launch/serve --mesh 1x<world>`` replaying ``trace`` on this rank,
+    as under ``torchrun``: (what it printed, the finished streams, the
+    world-size error of a mesh twice as large)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(["--arch", "llama-paper", "--smoke-arch", "--device",
+                          "cpu", "--kv-layout", "paged",
+                          "--block-size", "8", "--trace", trace, "--max-len",
+                          "32", "--time-scale", "0.05", "--mesh",
+                          f"1x{world}", "--trace-out", trace_out])
+    try:
+        make_serving_mesh(f"1x{2 * world}", "cpu")
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"stdout": buf.getvalue(), "error": error,
+            "streams": sorted((r.request_id, list(r.tokens))
+                              for r in res["finished"])}
+
+
+def rank_main(rank: int, world: int, store: str, cfgs: dict, params: dict,
+              out_dir: str) -> None:
+    """One rank: join the group, serve every case on the mesh and the CLI
+    on its trace, save."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=90))
+    try:
+        from repro_torch.launch.mesh import make_serving_mesh
+        from repro_torch.serving import SamplingParams, ServingEngine
+        out = pathlib.Path(out_dir)
+        mesh = make_serving_mesh(f"1x{world}", "cpu")
+        res = {name: _run_case(cfgs[key], params[key], mesh, kw, waves,
+                               rank, world)
+               for name, (key, kw, waves) in cases().items()}
+        key, kw, waves = sampled_case()
+        res["sampled"] = _run_case(cfgs[key], params[key], mesh, kw, waves,
+                                   rank, world)
+        if rank == 0:
+            solo = ServingEngine(cfgs[key], params[key], device="cpu", **kw)
+            res["sampled_solo"] = serve(solo, waves, SamplingParams)[0]
+        res["cli"] = _cli(world, str(out / "trace.json"),
+                          str(out / "trace_out.json"))
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def port_cfg(key: str):
+    import torch
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke("llama-paper"),
+                               name="mesh-serving-test", dtype=torch.float32,
+                               n_kv_heads=KV_HEADS[key], **SHAPE)
