@@ -296,7 +296,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
        (b) round-robin and (c) prefix routing over 2 replicas of 256
            blocks: gates both replicas finishing work;
        (d) prefix routing stealing at threshold 1: gates steals > 0;
-       (a)-(c) run cold, then warm (reported numbers from the warm run);
+       (a)-(d) run once each, from cold;
        every replica holds phase 4's very tensors (same ``data_ptr``) and
        building a set adds no more than its pools' arena bytes + 5%; each
        cold stream of (b)-(d) equals (a)'s up to its first divergence,
@@ -359,8 +359,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            loop then the slot engine on the same 8 prompts of 512 tokens,
            32 new, each run's launches gated per model call, every
            diverging stream within ``near_tie_bound``;
-       (c) ``launch/train.run`` on llama3-8b, 4 layers, phase 10's batch
-           and lr, 4 steps, saves at 2 and 4, a failure at step 2 (right
+       (c) ``launch/train.run`` on llama3-8b, ``DRIVER_LAYERS`` (1)
+           layer, phase 10's batch and lr, 4 steps, saves at 2 and 4, a failure at step 2 (right
            after the first save), one checkpoint kept, in a temporary
            directory it removes (the disk's free space checked against
            the checkpoint's bytes first): gates 1 restart from step 2, the
@@ -397,7 +397,32 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            traffic; gates each rank's placement, its arenas at 4 of 8 KV
            heads, its launches per model call, both ranks' streams
            equal, and each stream equal to the unplaced engine's up to a
-           divergence at a near-tie (``near_tie_bound``, as phase 11).
+           divergence at a near-tie (``near_tie_bound``, as phase 11);
+  18. every family on the serving mesh:
+       (a) inside phases 14 and 15, while their params live: xlstm-350m's
+           slot serve, zamba2-2.7b's paged serve, mixtral-8x7b's paged
+           serve and whisper-medium's slot serve again on the 1x1 mesh
+           (the same traffic, the same params: a world of one copies no
+           block): gates the streams bit-identical to the unplaced
+           serve's and the launches per model call; reports the decode
+           step p50, the device's busy time, kernels a step by class and
+           the collectives a model call issues (``ModelAxis`` gathers and
+           sums, counted on the host);
+       (b) after phase 17(b): the shard shapes one rank of a 1x2, 1x4 and
+           1x8 mesh of xlstm-350m, zamba2-2.7b and whisper-medium
+           launches (``FAMILY_MESH_PROJECTIONS``: [out / m, in], bf16
+           values, M 8 and 512) through phase 2's gate, and zamba2's
+           (hd 80) and mixtral's (window 4,096) attention at a rank's
+           heads through phase 2b's (decode case and 512-token chunk);
+       (c) after phase 17(c): a 1x2 mesh as two processes over gloo on
+           the one card, each family cut to a layer of each kind
+           (``MESH_FAMILY_CUTS``): gates each rank's launches per model
+           call, its state, expert and arena blocks, both ranks' streams
+           equal; xlstm's and whisper's streams against the unplaced
+           engine's through ``near_tie_bound``; zamba2 and mixtral
+           (ill-conditioned at random init) hold every kernel launch of
+           the ranks' serves in context and report their streams.
+Each phase's own wall is under ``phase_seconds`` in the JSON.
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
 profiles one 512-token prefill chunk (whisper's: 447 tokens, its
@@ -411,8 +436,9 @@ each with phase 11's to 15's, the fused kernel's with phase 16's; the int8 paged
 13(b)'s; both paged attention entries carry ``hd80``: the hd 80 cases'
 sums and phase 14's launches by body; the fused kernel's and paged
 attention's entries, bf16 and int8, carry ``mesh_shards``: phase 17(b)'s
-sums for each mesh, and their launches add phase 17(a)'s), the serve
-numbers, the
+sums for each mesh, and their launches add phase 17(a)'s; the bf16
+fused kernel's and paged attention's carry ``family_mesh_shards``: phase
+18(b)'s, and their launches add phase 18(a)'s), the serve numbers, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Run alone (without the checkout) or
 without CUDA it fails.
@@ -571,7 +597,7 @@ MOE_DECODE_ROWS = 8
 # random embeds, 32 greedy tokens through the one-shot loop, its new
 # projection shapes gated at a decode step's rows and a prefill call's
 # (8 x 512); (b) --legacy on llama3-8b at phase 10's depth; (c) the training
-# driver at phase 10's shape: 4 steps, saves at 2 and 4, a failure at step
+# driver at phase 10's width: 4 steps, saves at 2 and 4, a failure at step
 # 2, the first after the first save (the restored state is then the one
 # the driver saved, held against it bit for bit), one checkpoint kept;
 # (d) 8 train steps a family of 4 sequences, mixtral-8x7b cut to 2 of 32
@@ -587,6 +613,9 @@ VLM_LOOP = dict(batch=8, prompt_len=512, gen=32)
 VLM_MS = (8, 4096)
 LEGACY_LOOP = dict(n_layers=4, batch=8, prompt_len=512, gen=32)
 DRIVER = dict(steps=4, save_every=2, fail_at_step=2, keep_last_k=1)
+# the training driver's depth: one of phase 10's layers (embedding and
+# head whole), a checkpoint of 12.7 GB against 19.2 at phase 10's 4 layers
+DRIVER_LAYERS = 1
 DRIVER_LOSS_TOL_REL = 2.0 ** -7
 FAMILY_TRAIN = (("xlstm-350m", None, 128), ("zamba2-2.7b", None, 512),
                 ("whisper-medium", None, 512), ("mixtral-8x7b", 2, 512))
@@ -600,6 +629,34 @@ MESH_SHARDS = (2, 4, 8)
 MESH_MS = (8, 512)
 MESH_TWO_RANK_LAYERS = 4
 MESH_TWO_RANK_DEADLINE_S = 300
+# phase 18: every family on the serving mesh.  (b) the compressed
+# projections' [out, in] shapes of these models (xlstm-350m's w_gates and
+# r_gates stay dense, as the reference keeps them), sliced to a rank's
+# out / m rows, and the paged attention of zamba2's shared block (hd 80,
+# MHA) and of mixtral (GQA, window 4,096) at a rank's H / m, KV / m heads;
+# (c) a 1x2 mesh as two processes over gloo, each model cut to a layer of
+# each kind (xlstm's sLSTM layer, zamba2's shared-attention applications,
+# whisper's encoder), the cut models' traffic
+FAMILY_MESH_PROJECTIONS = [
+    ("xlstm-350m/w_up", 4096, 1024), ("xlstm-350m/w_q,w_k,w_v", 2048, 2048),
+    ("xlstm-350m/w_slstm", 8192, 2048), ("xlstm-350m/w_down", 1024, 2048),
+    ("zamba2-2.7b/in_proj", 10448, 2560), ("zamba2-2.7b/out_proj", 2560, 5120),
+    ("zamba2-2.7b/wq,wk,wv,wo", 2560, 2560),
+    ("zamba2-2.7b/w_gate,w_up", 10240, 2560),
+    ("zamba2-2.7b/w_down", 2560, 10240),
+    ("whisper-medium/wq..c_wo", 1024, 1024),
+    ("whisper-medium/w_up", 4096, 1024), ("whisper-medium/w_down", 1024, 4096)]
+FAMILY_MESH_ATTN = {"zamba2-2.7b": (dict(H=32, KV=32, hd=80, bs=16), None),
+                    "mixtral-8x7b": (dict(H=32, KV=8, hd=128, bs=16), 4096)}
+MESH_FAMILY_CUTS = {"xlstm-350m": dict(n_layers=4, slstm_every=4),
+                    "zamba2-2.7b": dict(n_layers=4, attn_every=2),
+                    "mixtral-8x7b": dict(n_layers=2),
+                    "whisper-medium": dict(n_layers=2, enc_layers=2)}
+# ill-conditioned at random init (ROADMAP C): kernels held in context
+MESH_FAMILY_IN_CONTEXT = ("zamba2-2.7b", "mixtral-8x7b")
+MESH_FAMILY_PROMPT_LENS = [64, 160, 256, 352]
+MESH_FAMILY_GEN = 8
+MESH_FAMILY_ENGINE = dict(n_slots=4, max_len=512, token_budget=512)
 PROJ_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 CALIB = dict(n_batches=4, batch=4, seq_len=512)          # 8,192 tokens
 PPL = dict(n_batches=2, batch=2, seq_len=512)
@@ -1716,14 +1773,16 @@ def encode_launches(cfg) -> int:
 
 
 def build_model(torch, log, *, arch="llama3-8b", n_layers=None,
-                outlier="16:256", quantize=False):
-    """``arch`` (llama3-8b by default) at full width (``n_layers`` deep),
-    every projection a SparseWeight (int8 N:M values when ``quantize``),
-    drawn from seed 0; returns (cfg, params, build numbers)."""
+                outlier="16:256", quantize=False, **cut):
+    """``arch`` (llama3-8b by default) at full width (``n_layers`` deep;
+    ``cut`` replaces other depth fields: ``enc_layers``, ``slstm_every``,
+    ``attn_every``), every projection a SparseWeight (int8 N:M values when
+    ``quantize``), drawn from seed 0; returns (cfg, params, build
+    numbers)."""
     from repro_torch.configs import get
     from repro_torch.launch import serve
 
-    cfg = get(arch)
+    cfg = dataclasses.replace(get(arch), **cut)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     args = serve.parse_args(["--arch", arch, "--sparse",
@@ -1920,16 +1979,39 @@ def check_launch_counts(launches, want, label):
                   f"!= the wrapper's {total} ({label})")
 
 
-def add_profile(torch, engine, out, seed):
+def add_profile(torch, engine, out, seed, prefill=True):
     g = torch.Generator(device="cuda").manual_seed(seed)
     prof = profile_decode(torch, engine, g)
     if prof is not None and out["decode_step_ms"]:
         prof["idle_share_vs_unprofiled_step"] = 1.0 - (
             prof["device_busy_ms_per_step"] / out["decode_step_ms"]["p50"])
     out["decode_profile"] = prof
-    out["prefill_profile"] = profile_prefill(
-        torch, engine, g, min(PREFILL_PROFILE_TOKENS,
-                              engine.pool.max_request_tokens - 1))
+    if prefill:
+        out["prefill_profile"] = profile_prefill(
+            torch, engine, g, min(PREFILL_PROFILE_TOKENS,
+                                  engine.pool.max_request_tokens - 1))
+
+
+class counted_collectives:
+    """Within the block, every collective a placed step issues (a
+    ``ModelAxis`` gather or sum) is counted on the host: ``n``."""
+
+    def __enter__(self):
+        from repro_torch.parallel import ModelAxis
+        self.n, self.saved = 0, (ModelAxis.gather, ModelAxis.sum)
+
+        def counted(fn):
+            def call(axis, *args, **kw):
+                self.n += 1
+                return fn(axis, *args, **kw)
+            return call
+        ModelAxis.gather, ModelAxis.sum = (counted(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import ModelAxis
+        ModelAxis.gather, ModelAxis.sum = self.saved
+        return False
 
 
 def serve_phase(torch, log, cfg, params, build, *, prompt_lens=SERVE_PROMPT_LENS,
@@ -2383,8 +2465,11 @@ def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
     running request preempted every that many steps while another waits
     (``force_preemption``); with ``decode_checks`` one decode step held
     kernel by kernel in context (``decode_in_context``); ``embeds`` are an
-    enc-dec model's requests' encoder features.  Returns (numbers,
-    streams, launches)."""
+    enc-dec model's requests' encoder features.  ``profile="decode"``
+    profiles the decode step alone; on a mesh (``kw["mesh"]``) the
+    collectives the serve issued are counted (``counted_collectives``)
+    and the placement described.  Returns (numbers, streams,
+    launches)."""
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(cfg, params, **{
@@ -2393,18 +2478,26 @@ def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
     if preempt_every:
         force_preemption(engine, preempt_every)
     torch.cuda.reset_peak_memory_stats()
-    reqs, wall, decode_only, launches = drive(
-        torch, engine, [prompts], gen, None if embeds is None else [embeds])
+    with counted_collectives() as coll:
+        reqs, wall, decode_only, launches = drive(
+            torch, engine, [prompts], gen,
+            None if embeds is None else [embeds])
     out = dict(build, **serve_numbers(torch, engine, reqs, wall, decode_only,
                                       launches))
     out["label"] = label
+    if kw.get("mesh") is not None:
+        calls = out["model_calls"] + out["encode_calls"]
+        out.update(placement=engine.stats()["placement"],
+                   collectives=coll.n,
+                   collectives_per_model_call=coll.n / calls)
     if preempt_every:
         out["preempted_requests"] = sum(r.n_preempted > 0 for r in reqs)
         out["prompt_tokens"] = sum(len(p) for p in prompts)
         out["prefill_tokens"] = engine.n_prefill_tokens
     engine.__dict__.pop("step", None)          # the class's step again
     if profile:
-        add_profile(torch, engine, out, seed=11)
+        add_profile(torch, engine, out, seed=11,
+                    prefill=profile != "decode")
     if decode_checks:
         out["decode_in_context"] = decode_in_context(
             torch, engine, torch.Generator(device="cuda").manual_seed(12))
@@ -2512,11 +2605,58 @@ def force_preemption(engine, every: int) -> None:
     engine.step = forced
 
 
-def recurrent_phase(torch, log, smi):
+def mesh_family_serve(torch, log, cfg, params, build, label, prompts, gen,
+                      base, base_streams, mesh, embeds=None, **kw):
+    """Phase 18(a): the unplaced serve ``label`` of phase 14 or 15 (its
+    numbers ``base``, its streams ``base_streams``) again on the 1x1 mesh
+    ``mesh``, on the same params and traffic: the streams must be
+    bit-identical (the same kernels at the same shapes; a world of one's
+    gathers copy) and the launches per model call are gated
+    (``family_serve``).  Returns (the pair's numbers, the mesh run's
+    launches)."""
+    t0 = time.perf_counter()
+    out, streams, launches = family_serve(
+        torch, log, cfg, params, build, f"{label}_mesh_1x1", prompts, gen,
+        profile="decode", embeds=embeds, mesh=mesh, **kw)
+    check(out["placement"] == {"devices": 1,
+                               "mesh": {"data": 1, "model": 1}},
+          f"18(a) {cfg.name}: placement {out['placement']}")
+    same = sum(a == b for a, b in zip(base_streams, streams))
+    check(same == len(prompts),
+          f"18(a) {cfg.name} on the 1x1 mesh: {same} of {len(prompts)} "
+          f"streams bit-identical to the unplaced serve's")
+    profs = [base.get("decode_profile"), out.get("decode_profile")]
+    res = {"serve": label, "streams_identical": f"{same}/{len(prompts)}",
+           "decode_step_ms_p50": [r["decode_step_ms"]["p50"]
+                                  for r in (base, out)],
+           "collectives": out["collectives"],
+           "collectives_per_model_call": out["collectives_per_model_call"],
+           "seconds": time.perf_counter() - t0, "run": out}
+    if all(p is not None for p in profs):
+        res.update(
+            device_busy_ms_per_step=[p["device_busy_ms_per_step"]
+                                     for p in profs],
+            kernels_per_step=[p["kernels_per_step"] for p in profs],
+            launches_per_step_by_class=[p["launches_per_step_by_class"]
+                                        for p in profs],
+            device_ms_per_step_by_class=[p["device_ms_per_step_by_class"]
+                                         for p in profs])
+    log(f"  (18a) {cfg.name} {label}: unplaced vs 1x1 mesh: decode step "
+        f"{res['decode_step_ms_p50'][0]:.2f} vs "
+        f"{res['decode_step_ms_p50'][1]:.2f} ms, busy "
+        f"{res.get('device_busy_ms_per_step')} ms, kernels a step "
+        f"{res.get('kernels_per_step')}, "
+        f"{res['collectives_per_model_call']:.1f} collectives a call")
+    return res, launches
+
+
+def recurrent_phase(torch, log, smi, mesh=None):
     """Phase 14: xlstm-350m (ssm, 24 layers) and zamba2-2.7b (hybrid, 54
     mamba layers and 9 shared-attention applications) at full size,
     8:16+16:256 by magnitude from seed 0, each served with phase 4's
-    traffic; returns (results, launches summed over the serves)."""
+    traffic; with ``mesh`` (the 1x1 serving mesh) phase 18(a)'s serves of
+    each beside the unplaced one; returns (results, launches summed over
+    the serves)."""
     from repro_torch.serving import ServingEngine
 
     results, runs = {"device": smi}, []
@@ -2538,6 +2678,11 @@ def recurrent_phase(torch, log, smi):
                 SERVE_GEN, profile=True, decode_checks=True)
             res["a_slot"] = out
             runs.append(launches)
+            if mesh is not None:
+                res["mesh_1x1"], launches = mesh_family_serve(
+                    torch, log, cfg, params, build, "a_slot", prompts,
+                    SERVE_GEN, out, base, mesh)
+                runs.append(launches)
             out, pressed, launches = family_serve(
                 torch, log, cfg, params, build, "a_slot_swap", prompts,
                 SERVE_GEN, n_slots=XLSTM_PRESSURE_SLOTS,
@@ -2571,6 +2716,12 @@ def recurrent_phase(torch, log, smi):
                   f"{arch}: the paged hybrid pool kept a prefix cache")
             res["b_paged"] = out
             runs.append(launches)
+            if mesh is not None:
+                res["mesh_1x1"], launches = mesh_family_serve(
+                    torch, log, cfg, params, build, "b_paged", prompts,
+                    SERVE_GEN, out, paged, mesh, kv_layout="paged",
+                    block_size=bs, prefix_caching=True)
+                runs.append(launches)
             out, slot, launches = family_serve(
                 torch, log, cfg, params, build, "b_slot", prompts, SERVE_GEN)
             res["b_slot"] = out
@@ -2786,14 +2937,16 @@ def encdec_call_gate(torch, log, cfg, params, prompt, frames) -> dict:
     return res
 
 
-def moe_encdec_phase(torch, log, smi):
+def moe_encdec_phase(torch, log, smi, mesh=None):
     """Phase 15: mixtral-8x7b (16 of 32 layers) and llama4-maverick-400b-
     a17b (1 of 48) at full width, whisper-medium at full size, each
     8:16+16:256 by magnitude from seed 0 built one layer at a time (the
     routed experts stay dense, drawn an expert at a time); new projection
     shapes through phase 2's gate; the MoE layer against its per-token
     computation; whisper's encoder and a chunk call in context and end to
-    end; then served, launches gated per model call; returns (results,
+    end; then served, launches gated per model call; with ``mesh`` (the
+    1x1 serving mesh) phase 18(a)'s serves of mixtral's paged and
+    whisper's slot serve beside the unplaced ones; returns (results,
     launches summed over the serves)."""
     bs = ATTN_SHAPE["bs"]
     paged = dict(kv_layout="paged", block_size=bs)
@@ -2850,6 +3003,11 @@ def moe_encdec_phase(torch, log, smi):
                 f"layer: {json.dumps(out['decode_experts'])}")
             res[label] = out
             runs.append(launches)
+            if mesh is not None and label == "a_paged":
+                res["mesh_1x1"], launches = mesh_family_serve(
+                    torch, log, cfg, params, build, label, prompts, gen,
+                    out, streams[label], mesh, **paged)
+                runs.append(launches)
         if arch == "mixtral-8x7b":
             # ill-conditioned at random init through its routing
             # (``plain_call_gate``): the streams' divergences are measured
@@ -2887,6 +3045,11 @@ def moe_encdec_phase(torch, log, smi):
         profile=True, decode_checks=True, embeds=frames, **WHISPER_ENGINE)
     res["c_slot"] = out
     runs.append(launches)
+    if mesh is not None:
+        res["mesh_1x1"], launches = mesh_family_serve(
+            torch, log, cfg, params, build, "c_slot", prompts, SERVE_GEN,
+            out, base, mesh, embeds=frames, **WHISPER_ENGINE)
+        runs.append(launches)
     out, pressed, launches = family_serve(
         torch, log, cfg, params, build, "c_slot_swap", prompts, SERVE_GEN,
         preempt_every=PREEMPT_EVERY, embeds=frames,
@@ -3617,7 +3780,9 @@ def fleet_phase(torch, log, cfg, params):
     """Phase 12: the fleet trace replayed at time scale 0 through (a) a
     1-replica set with the fleet's KV, (b) round-robin and (c) prefix
     routing over 2 replicas, (d) prefix routing stealing at threshold 1,
-    (e) the CLI's ``run_trace --replicas 2 --routing prefix`` traced.
+    each once from cold (their warm replays were cut for the script's
+    wall), (e) the CLI's ``run_trace --replicas 2 --routing prefix``
+    traced.
     Returns (numbers, the launches of every phase-12 run summed)."""
     from repro_torch.launch import serve
     from repro_torch.runtime.metrics import format_summary
@@ -3664,8 +3829,7 @@ def fleet_phase(torch, log, cfg, params):
                   f"tensors")
         return fleet, {"added_bytes": added, "arena_bytes": arena}
 
-    def measured(name, n_replicas, routing, blocks, steal_threshold=4,
-                 warm=True):
+    def measured(name, n_replicas, routing, blocks, steal_threshold=4):
         fleet, mem = build(n_replicas, routing, blocks, steal_threshold)
         counted = ReplicaLaunches(fleet)
         res, launches, calls = fleet_replay(torch, cfg, fleet, counted,
@@ -3673,17 +3837,9 @@ def fleet_phase(torch, log, cfg, params):
         runs.append(launches)
         cold[name] = [res["finished"][i].tokens for i in range(n_req)]
         nums = {"cold": fleet_numbers(fleet, res, prompt_tokens, calls),
-                "memory": mem}
-        if warm:
-            fleet.clear_finished()
-            fleet.reset_stats()
-            res, launches, calls = fleet_replay(torch, cfg, fleet, counted,
-                                                trace, f"({name}) warm")
-            runs.append(launches)
-            nums["warm"] = fleet_numbers(fleet, res, prompt_tokens, calls)
-        nums["launches"] = {k: n for k, n in add_launches(
-            *runs[-2 if warm else -1:]).items() if n}
-        rep = nums.get("warm", nums["cold"])
+                "memory": mem,
+                "launches": {k: n for k, n in launches.items() if n}}
+        rep = nums["cold"]
         log(f"  ({name}) {rep['tok_per_s']:.2f} tok/s over the wall, "
             f"{rep['tok_per_s_critical_path']:.2f} over the critical path; "
             f"busy {[round(b, 3) for b in rep['busy_s']]} s; prefix hits "
@@ -3705,7 +3861,7 @@ def fleet_phase(torch, log, cfg, params):
               f"{nums['cold']['finished_by_replica']}")
         out[key] = nums
     # (d) prefix routing with work-stealing at threshold 1
-    nums = measured("d", R, "prefix", NB, steal_threshold=1, warm=False)
+    nums = measured("d", R, "prefix", NB, steal_threshold=1)
     check(nums["cold"]["n_steals"] > 0, "(d) no work was stolen")
     out["d_prefix_steal"] = nums
 
@@ -4729,8 +4885,9 @@ class TimedCheckpoints:
 
 
 def driver_phase(torch, log):
-    """16(c): ``launch/train.run`` on llama3-8b at full width, phase 10's
-    depth, batch and learning rate, with a failure right after the first
+    """16(c): ``launch/train.run`` on llama3-8b at full width,
+    ``DRIVER_LAYERS`` deep, phase 10's batch and learning rate, with a
+    failure right after the first
     of its two saves (``DRIVER``), in a temporary directory removed
     afterwards; gates the restart, the restored step, the restored state
     bit for bit against the state the driver saved (the one it held when
@@ -4745,7 +4902,7 @@ def driver_phase(torch, log):
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.tree import flatten
 
-    cfg = dataclasses.replace(get("llama3-8b"), n_layers=TRAIN["n_layers"])
+    cfg = dataclasses.replace(get("llama3-8b"), n_layers=DRIVER_LAYERS)
     # bf16 params, f32 m and v: 10 bytes a parameter (norms aside)
     state_gb = 10 * cfg.param_count() / 1e9
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -4760,7 +4917,7 @@ def driver_phase(torch, log):
         check(disk.free > 2.2 * state_gb * 1e9,
               f"{disk.free / 1e9:.1f} GB free under {tmp}: two checkpoints "
               f"of {state_gb:.1f} GB do not fit")
-        argv = ["--arch", "llama3-8b", "--n-layers", str(TRAIN["n_layers"]),
+        argv = ["--arch", "llama3-8b", "--n-layers", str(DRIVER_LAYERS),
                 "--batch", str(TRAIN["batch"]), "--seq",
                 str(TRAIN["seq_len"]), "--lr", str(TRAIN["lr"]),
                 "--ckpt-dir", tmp, "--seed", "0", "--device", "cuda"] + [
@@ -5138,6 +5295,252 @@ def two_rank_phase(torch, log):
     return out
 
 
+# ---------------------------------- phase 18: every family on the mesh
+def family_shard_phase(torch, timer, log):
+    """Phase 18(b): the compressed projection shapes one rank of a 1x2,
+    1x4 and 1x8 mesh of xlstm-350m, zamba2-2.7b and whisper-medium
+    launches ([out / m, in], ``FAMILY_MESH_PROJECTIONS``) through phase
+    2's gate (the fused kernel, bf16 values, M in ``MESH_MS``), and the
+    attention of zamba2's shared block and of mixtral at a rank's heads
+    through phase 2b's (decode case and 512-token chunk, bf16 arenas):
+    each held against its plain version at one bf16 ulp, timed beside it,
+    the library call and the bound.  Returns {kernel: cases}."""
+    from repro_torch.core import SparsifyConfig
+    from repro_torch.kernels import fused_sparse_linear as fsl
+    from repro_torch.models.sparse_serving import to_sparse_weight
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    scfg = SparsifyConfig(weight_pattern="8:16", outlier_pattern="16:256",
+                          scorer="magnitude", use_smoothquant=False)
+    shapes = {}
+    for m in MESH_SHARDS:
+        for proj, N, K in FAMILY_MESH_PROJECTIONS:
+            shapes.setdefault((N // m, K), []).append(f"{proj}@1x{m}")
+    out = {"fused_sparse_linear": [], "paged_attention": []}
+    for (N, K), names in shapes.items():
+        w = (torch.randn((N, K), generator=g, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        sw = to_sparse_weight(w, scfg)
+        del w
+        for M in MESH_MS:
+            x = torch.randn((M, K), generator=g, device="cuda").to(
+                torch.bfloat16)
+            case = weight_case(timer, log, "fused_sparse_linear",
+                               "+".join(names), x, sw,
+                               fsl.fused_sparse_linear, fsl.plain)
+            out["fused_sparse_linear"].append(dict(case, mesh=names))
+        del sw
+    ga = torch.Generator().manual_seed(20)
+    for arch, (whole, window) in FAMILY_MESH_ATTN.items():
+        for m in MESH_SHARDS:
+            shape = dict(whole, H=whole["H"] // m, KV=whole["KV"] // m)
+            for name, cursors, S, _ in ATTN_HD_CASES:
+                q, k, v, tables, cur = attention_case(torch, ga, cursors, S,
+                                                      window, **shape)
+                case = attention_run(
+                    torch, timer, log, "paged_attention",
+                    (f"{name}_{arch}_1x{m}", cursors, S, window), q, k, v,
+                    tables, cur, None, shape=shape)
+                out["paged_attention"].append(dict(case, mesh=f"1x{m}",
+                                                   arch=arch))
+                del q, k, v
+    return out
+
+
+def family_traffic(torch, cfg):
+    """Phase 18(c)'s requests of a cut model: (prompts, an enc-dec model's
+    encoder features or None), the same draws in every process."""
+    if cfg.family != "encdec":
+        return prompts_for(torch, cfg, MESH_FAMILY_PROMPT_LENS, seed=10), \
+            None
+    prompts = prompts_for(torch, cfg, WHISPER_PROMPT_LENS[:4], seed=10)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    return prompts, [torch.randn((WHISPER_FRAMES, cfg.d_model), generator=g,
+                                 device="cuda").to(cfg.dtype)
+                     for _ in prompts]
+
+
+def family_engine_kw(cfg) -> dict:
+    """Phase 18(c)'s engine of a cut model: the paged layout where the
+    family has one (ssm is served on slots, encdec too, with the context
+    rows of ``WHISPER_FRAMES`` frames)."""
+    if cfg.family == "encdec":
+        return dict(WHISPER_ENGINE, n_slots=MESH_FAMILY_ENGINE["n_slots"])
+    kw = dict(MESH_FAMILY_ENGINE)
+    if cfg.family in ("hybrid", "moe"):
+        kw.update(kv_layout="paged", block_size=ATTN_SHAPE["bs"])
+    return kw
+
+
+def rank_blocks(torch, engine) -> dict:
+    """What a rank holds of a cut model: its arenas' KV heads, its context
+    rows' heads, its recurrent layers' splits and state leaves' shapes,
+    its expert stacks' shapes."""
+    from repro_torch.parallel import ColShard
+    out = {}
+    pool = engine.pool
+    st = getattr(pool, "state", pool)
+    if hasattr(st, "shards"):
+        out["state_modes"] = sorted({s.mode for s in st.shards})
+        out["state_shapes"] = sorted({tuple(a.shape) for layer in st.states
+                                      for a in layer if a is not None})
+    kv = getattr(pool, "kv", pool)
+    kv = getattr(kv, "blocks", kv)
+    if hasattr(kv, "k"):
+        out["arena_heads"] = kv.k.shape[-2]
+    if engine.cfg.family == "encdec":
+        out["context_heads"] = engine.adapter.ctx.ck.shape[-2]
+    if engine.cfg.family == "moe":
+        moe = engine.params["layers"][0]["moe"]
+        out["experts"] = {k: list(moe[k].local.shape) for k in moe
+                          if isinstance(moe[k], ColShard)}
+    return out
+
+
+def _family_rank_worker(rank, world, store, out_dir):
+    """One of phase 18(c)'s ranks: a gloo group through a ``file://``
+    store, the card for both; each cut model (``MESH_FAMILY_CUTS``) from
+    seed 0 placed on the 1 x ``world`` mesh and served its traffic, the
+    ill-conditioned ones with every kernel launch held in context; writes
+    its streams, launches, blocks and numbers to
+    ``<out_dir>/rank<r>.json``."""
+    import contextlib
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import ServingEngine
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_serving_mesh(f"1x{world}", "cuda")
+        res = {}
+        for arch, cut in MESH_FAMILY_CUTS.items():
+            cfg, params, _ = build_model(torch, lambda msg: None, arch=arch,
+                                         **cut)
+            prompts, embeds = family_traffic(torch, cfg)
+            engine = ServingEngine(cfg, params, device="cuda", mesh=mesh,
+                                   **family_engine_kw(cfg))
+            del params
+            torch.cuda.empty_cache()
+            held = arch in MESH_FAMILY_IN_CONTEXT
+            with (in_context_checks(torch) if held
+                  else contextlib.nullcontext()) as checks, \
+                    counted_collectives() as coll:
+                reqs, wall, decode_only, launches = drive(
+                    torch, engine, [prompts], MESH_FAMILY_GEN,
+                    None if embeds is None else [embeds])
+            out = serve_numbers(torch, engine, reqs, wall, decode_only,
+                                launches)
+            calls = out["model_calls"] + out["encode_calls"]
+            out.update(streams=[r.tokens for r in reqs],
+                       placement=engine.stats()["placement"],
+                       collectives_per_model_call=coll.n / calls,
+                       blocks=rank_blocks(torch, engine))
+            if held:
+                worst = max(e / t if t else 0.0
+                            for _, _, e, t in checks.cases)
+                out["in_context"] = {"launches": len(checks.cases),
+                                     "worst_err_over_tol": worst}
+            res[arch] = out
+            del engine, reqs
+            torch.cuda.empty_cache()
+        (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(
+            json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def family_two_rank_phase(torch, log):
+    """Phase 18(c): a 1x2 mesh as two processes on the one card over gloo
+    (``_family_rank_worker``), each family's cut model at full width,
+    against the same model served here without a placement, one model at
+    a time after the ranks are done: each rank's placement and blocks
+    (state split by heads, experts by their last dim, arenas and context
+    rows by KV heads), both ranks' streams equal, the launches per model
+    call gated in each rank; xlstm's and whisper's streams equal to the
+    unplaced engine's up to a divergence at a near-tie (``near_tie_bound``,
+    as phase 17(c)); zamba2's and mixtral's divergences reported beside
+    the effect of one ulp (their kernels were held in context)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.serving import ServingEngine
+
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(_family_rank_worker,
+                                 args=(2, f"{d}/store", d), nprocs=2,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TWO_RANK_DEADLINE_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"two ranks still running after "
+                      f"{MESH_TWO_RANK_DEADLINE_S}s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        ranks = [json.loads((pathlib.Path(d) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    out = {}
+    for arch, cut in MESH_FAMILY_CUTS.items():
+        cfg, params, _ = build_model(torch, log, arch=arch, **cut)
+        got = [r[arch] for r in ranks]
+        for r, res in enumerate(got):
+            blocks = res["blocks"]
+            heads = cfg.n_kv_heads // 2 if cfg.n_kv_heads % 2 == 0 \
+                else cfg.n_kv_heads
+            check(res["placement"] == {"devices": 2,
+                                       "mesh": {"data": 1, "model": 2}}
+                  and blocks.get("arena_heads", heads) == heads
+                  and blocks.get("context_heads", heads) == heads
+                  and blocks.get("state_modes", ["heads"]) == ["heads"]
+                  and all(v[-1] * 2 == (cfg.d_model if k == "we_down"
+                                        else cfg.moe.d_ff_expert)
+                          for k, v in blocks.get("experts", {}).items()),
+                  f"18(c) {arch} rank {r}: {res['placement']}, {blocks}")
+        check(got[0]["streams"] == got[1]["streams"],
+              f"18(c) {arch}: the two ranks' streams differ")
+        prompts, embeds = family_traffic(torch, cfg)
+        engine = ServingEngine(cfg, params, device="cuda",
+                               **family_engine_kw(cfg))
+        reqs, wall, decode_only, launches = drive(
+            torch, engine, [prompts], MESH_FAMILY_GEN,
+            None if embeds is None else [embeds])
+        plain = serve_numbers(torch, engine, reqs, wall, decode_only,
+                              launches)
+        base = [r.tokens for r in reqs]
+        del engine, reqs
+        gated = arch not in MESH_FAMILY_IN_CONTEXT
+        divergences = stream_gate(torch, f"phase 18(c) {arch} 1x2 mesh",
+                                  cfg, params, prompts, base,
+                                  got[0]["streams"], gated=gated,
+                                  embeds=embeds)
+        out[arch] = {
+            "cut": cut, "plain": plain, "gated": gated,
+            "ranks": [{k: v for k, v in res.items() if k != "streams"}
+                      for res in got],
+            "divergences": divergences,
+            "streams_identical":
+                f"{sum(x is None for x in divergences)}/{len(prompts)}"}
+        log(f"  (18c) {arch} {cut}: {out[arch]['streams_identical']} "
+            f"streams equal to the unplaced engine's"
+            f"{'' if gated else ' (reported)'}; decode step "
+            f"{plain['decode_step_ms']['p50']:.2f} ms unplaced, "
+            f"{[res['decode_step_ms']['p50'] for res in got]} ms a rank; "
+            f"{got[0]['collectives_per_model_call']:.1f} collectives a "
+            f"call; blocks {got[0]['blocks']}"
+            + (f"; in context {got[0]['in_context']}" if not gated else ""))
+        del params, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def mesh_entries(cases) -> dict:
     """Phase 17(b)'s shard cases of one kernel for its kernels-line entry:
     their sums for each mesh, as ``case_sums`` gives them."""
@@ -5165,151 +5568,192 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    walls = {}
+
+    def timed(key, fn, *args, **kw):
+        """``fn(*args, **kw)``, its wall under ``walls[key]``."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
     smi = nvidia_smi_line()
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
     build.library()
-    log(f"phase 1 build: {lib.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.1f}s")
-    resources = resource_usage(lib, log)
+    walls["1_build"] = time.perf_counter() - t0
+    log(f"phase 1 build: {lib.relative_to(ROOT)} in {walls['1_build']:.1f}s")
+    resources = timed("1_resources", resource_usage, lib, log)
 
     timer = Timer(torch)
     log("phase 2 weight kernels vs plain versions (bf16 and int8 values, L2 "
         "flushed per call)")
-    cases = kernel_phase(torch, timer, log)
+    cases = timed("2", kernel_phase, torch, timer, log)
     log("phase 2 sweep: decode kernel vs prefill kernel (and the old tile "
         "kernel) of fused_sparse_linear and nm_spmm, w_gate and w_down")
-    sweep = sweep_phase(torch, timer, log)
+    sweep = timed("2_sweep", sweep_phase, torch, timer, log)
     log("phase 2 sweep: outlier_spmm's decode body vs prefill body (and the "
         "old kernel), w_gate and w_down, 16:256 and 4:256")
-    sweep["outlier_spmm"] = outlier_sweep_phase(torch, timer, log)
+    sweep["outlier_spmm"] = timed("2_sweep_outlier", outlier_sweep_phase,
+                                  torch, timer, log)
     log("phase 2b paged_attention vs plain version (bf16 and int8 arenas, L2 "
         "flushed)")
-    attn_cases, attn_cases8 = paged_attention_phase(torch, timer, log)
+    attn_cases, attn_cases8 = timed("2b", paged_attention_phase, torch,
+                                    timer, log)
     log("phase 2b paged_attention at hd 256 (gemma-7b), 192 "
         "(nemotron-4-340b), 80 (zamba2-2.7b) and 128 at H 40 / KV 8 "
         "(llama4-maverick) vs plain version (bf16 and int8 arenas)")
-    hd_cases, hd_cases8 = paged_attention_hd_phase(torch, timer, log)
+    hd_cases, hd_cases8 = timed("2b_hd", paged_attention_hd_phase, torch,
+                                timer, log)
     attn_cases += hd_cases
     attn_cases8 += hd_cases8
     log("phase 2b sweep: paged_attention's decode body vs prefill-chunk "
         "body, bf16 and int8 arenas, S 1..64 over the decode case's lanes")
-    sweep["paged_attention"] = attention_sweep_phase(torch, timer, log)
+    sweep["paged_attention"] = timed("2b_sweep", attention_sweep_phase,
+                                     torch, timer, log)
     del timer
     log("phase 3 small-model reference check")
-    small = small_model_phase(torch, log)
+    small = timed("3", small_model_phase, torch, log)
     log("phase 4 serve llama3-8b, 32 layers, 8:16+16:256")
-    cfg, params, build_info = build_model(torch, log)
-    main_serve, slot_streams, main_launches = serve_phase(
-        torch, log, cfg, params, build_info)
+    cfg, params, build_info = timed("4", build_model, torch, log)
+    main_serve, slot_streams, main_launches = timed(
+        "4", serve_phase, torch, log, cfg, params, build_info)
     log("phase 5 serve llama3-8b, 4 layers, plain 8:16")
-    cfg5, params5, build5 = build_model(torch, log, n_layers=4, outlier=None)
-    plain_serve, _, plain_launches = serve_phase(
-        torch, log, cfg5, params5, build5, prompt_lens=PLAIN_PROMPT_LENS,
-        gen=PLAIN_GEN, alone=False)
+    cfg5, params5, build5 = timed("5", build_model, torch, log, n_layers=4,
+                                  outlier=None)
+    plain_serve, _, plain_launches = timed(
+        "5", serve_phase, torch, log, cfg5, params5, build5,
+        prompt_lens=PLAIN_PROMPT_LENS, gen=PLAIN_GEN, alone=False)
     del params5
     log("phase 5 (int8) serve llama3-8b, 4 layers, plain 8:16, int8 values")
-    cfg5, params5, build5 = build_model(torch, log, n_layers=4, outlier=None,
-                                        quantize=True)
-    plain_serve8, _, plain_launches8 = serve_phase(
-        torch, log, cfg5, params5, build5, prompt_lens=PLAIN_PROMPT_LENS,
-        gen=PLAIN_GEN, alone=False)
+    cfg5, params5, build5 = timed("5_int8", build_model, torch, log,
+                                  n_layers=4, outlier=None, quantize=True)
+    plain_serve8, _, plain_launches8 = timed(
+        "5_int8", serve_phase, torch, log, cfg5, params5, build5,
+        prompt_lens=PLAIN_PROMPT_LENS, gen=PLAIN_GEN, alone=False)
     del params5
     log("phase 6 serve llama3-8b, 32 layers, 8:16+16:256, paged layout")
-    paged_serve, paged_launches, paged_streams = paged_serve_phase(
-        torch, log, cfg, params, slot_streams)
+    paged_serve, paged_launches, paged_streams = timed(
+        "6", paged_serve_phase, torch, log, cfg, params, slot_streams)
     log("phase 9 replay a Poisson trace through launch/serve.run_trace, "
         "untraced and traced (phase 4's params, phase 6(a)'s engine)")
-    replay = trace_phase(torch, log, cfg, params)
+    replay = timed("9", trace_phase, torch, log, cfg, params)
     log("phase 11 speculative decoding on llama3-8b: (a) phase 4's params "
         "draft for their densification, (b) n-gram on phase 4's target, "
         "(c) the CLI's --draft sparse at 4 layers")
-    speculative, spec_launches = spec_phase(torch, log, cfg, params)
+    speculative, spec_launches = timed("11", spec_phase, torch, log, cfg,
+                                       params)
     log("phase 12 the fleet on llama3-8b (phase 4's params): a 32-request "
         "tenant trace through 1 replica, 2 round-robin, 2 prefix-routed, "
-        "2 stealing at threshold 1, and serve --replicas 2 --trace-out")
-    fleet, fleet_launches = fleet_phase(torch, log, cfg, params)
+        "2 stealing at threshold 1, each once from cold, and serve "
+        "--replicas 2 --trace-out")
+    fleet, fleet_launches = timed("12", fleet_phase, torch, log, cfg, params)
     log("phase 17(a) the serving mesh: phase 6(a)'s engine without a "
         "placement and on a 1x1 mesh (a world-size-1 NCCL group), phase "
         "4's params")
     from repro_torch.launch.mesh import make_serving_mesh
-    t17 = time.perf_counter()
     mesh = make_serving_mesh("1x1", "cuda")
-    mesh_a, mesh_launches = mesh_serve_phase(torch, log, cfg, params, mesh)
-    mesh_seconds = {"a_bf16": time.perf_counter() - t17}
+    mesh_a, mesh_launches = timed("17a_bf16", mesh_serve_phase, torch, log,
+                                  cfg, params, mesh)
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
         "paged KV")
-    cfg, params, build_info8 = build_model(torch, log, quantize=True)
-    int8_serve, int8_launches = int8_serve_phase(
-        torch, log, cfg, params, paged_streams,
+    cfg, params, build_info8 = timed("7", build_model, torch, log,
+                                     quantize=True)
+    int8_serve, int8_launches = timed(
+        "7", int8_serve_phase, torch, log, cfg, params, paged_streams,
         paged_serve["c_block_pressure"])
     for run in int8_serve.values():
         run.update(build_info8)
     log("phase 17(a) the serving mesh on int8 KV: phase 7(a)'s engine "
         "without a placement and on the 1x1 mesh, phase 7's params")
-    t17 = time.perf_counter()
-    mesh_a8, mesh_launches8 = mesh_serve_phase(torch, log, cfg, params, mesh,
-                                               kv_dtype="int8")
-    mesh_seconds["a_int8"] = time.perf_counter() - t17
+    mesh_a8, mesh_launches8 = timed("17a_int8", mesh_serve_phase, torch, log,
+                                    cfg, params, mesh, kv_dtype="int8")
     del params
     torch.cuda.empty_cache()
     log("phase 13 the dense family at full width, 8:16+16:256: qwen3-8b "
         "(36 layers, paged then slot), gemma-7b (28 layers, hd 256, bf16 "
         "then int8 paged KV), nemotron-4-340b (2 of 96 layers, hd 192)")
-    dense_family, family_launches = family_phase(torch, log)
+    dense_family, family_launches = timed("13", family_phase, torch, log)
     log("phase 14 the recurrent families at full size, 8:16+16:256: "
         "xlstm-350m (24 layers; slot, then half the slots with swap "
         "preemptions), zamba2-2.7b (54 mamba layers, 9 shared-attention "
-        "applications at hd 80; paged, then slot)")
-    recurrent, recurrent_launches = recurrent_phase(torch, log, smi)
+        "applications at hd 80; paged, then slot); with phase 18(a): "
+        "xlstm's slot and zamba2's paged serve again on the 1x1 mesh")
+    recurrent, recurrent_launches = timed("14", recurrent_phase, torch, log,
+                                          smi, mesh)
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 15 the moe and encdec families, 8:16+16:256: mixtral-8x7b "
         "(16 of 32 layers; paged, then slot), llama4-maverick-400b-a17b (1 "
         "of 48 layers, paged), whisper-medium (24 + 24 layers, 1,500 "
         "encoder frames a request; slot, then half the slots with swap "
-        "preemptions)")
-    moe_encdec, moe_encdec_launches = moe_encdec_phase(torch, log, smi)
+        "preemptions); with phase 18(a): mixtral's paged and whisper's "
+        "slot serve again on the 1x1 mesh")
+    moe_encdec, moe_encdec_launches = timed("15", moe_encdec_phase, torch,
+                                            log, smi, mesh)
+    # phase 18(a)'s share of phases 14 and 15
+    walls["18a"] = sum(
+        fam["mesh_1x1"]["seconds"]
+        for fam in (recurrent["xlstm-350m"], recurrent["zamba2-2.7b"],
+                    moe_encdec["mixtral-8x7b"], moe_encdec["whisper-medium"]))
     log("phase 8 the paper's pipeline on llama3-8b, 32 layers: calibrate, "
         "compress (RIA + SmoothQuant + VC), serve, ops, perplexity")
-    pipeline, ops_cases, ops_launches = pipeline_phase(
-        torch, log, paged_serve["a_phase4_traffic"])
+    pipeline, ops_cases, ops_launches = timed(
+        "8", pipeline_phase, torch, log, paged_serve["a_phase4_traffic"])
     gc.collect()
     log("phase 10 train llama3-8b, 4 layers, full width: train_small_lm, "
         "make_train_step, EBFT to 8:16 and the packed forward")
-    training, train_launches = training_phase(torch, log)
+    training, train_launches = timed("10", training_phase, torch, log)
     gc.collect()
     log("phase 16 the training driver and the one-shot loop: (a) "
         "qwen2-vl-72b (24 of 80 layers) served by run_oneshot, (b) "
-        "--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
-        "and a resume (llama3-8b, 4 layers), (d) a train step a family")
-    slice_16, slice_launches = slice_phase(torch, log, smi)
+        f"--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
+        f"and a resume (llama3-8b, {DRIVER_LAYERS} layer), (d) a train step "
+        f"a family")
+    slice_16, slice_launches = timed("16", slice_phase, torch, log, smi)
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 17(b) the shard shapes of one rank of a 1x2, 1x4 and 1x8 "
         "llama3-8b mesh: the fused kernel (bf16 and int8 values) and "
         "paged_attention (bf16 and int8 arenas) vs plain versions")
-    t17 = time.perf_counter()
     timer = Timer(torch)
-    shards = shard_phase(torch, timer, log)
+    shards = timed("17b", shard_phase, torch, timer, log)
+    log("phase 18(b) the shard shapes of one rank of a 1x2, 1x4 and 1x8 "
+        "mesh of xlstm-350m, zamba2-2.7b and whisper-medium (the fused "
+        "kernel) and of zamba2's and mixtral's attention (paged_attention) "
+        "vs plain versions")
+    family_shards = timed("18b", family_shard_phase, torch, timer, log)
     del timer
-    mesh_seconds["b"] = time.perf_counter() - t17
     log("phase 17(c) a 1x2 mesh as two processes on the one card over "
         "gloo: llama3-8b, 4 layers, phase 6(a)'s traffic")
-    t17 = time.perf_counter()
-    two_ranks = two_rank_phase(torch, log)
-    mesh_seconds["c"] = time.perf_counter() - t17
+    two_ranks = timed("17c", two_rank_phase, torch, log)
+    log("phase 18(c) a 1x2 mesh as two processes on the one card over "
+        "gloo: xlstm-350m, zamba2-2.7b, mixtral-8x7b and whisper-medium, "
+        "each cut to a layer of each kind")
+    family_ranks = timed("18c", family_two_rank_phase, torch, log)
     import torch.distributed as dist
     dist.destroy_process_group()
+    mesh_seconds = {k: walls[k] for k in ("17a_bf16", "17a_int8", "17b",
+                                          "17c")}
     mesh17 = {"device": smi, "a_bf16": mesh_a, "a_int8": mesh_a8,
               "b_shards": shards, "c_two_ranks": two_ranks,
               "seconds": mesh_seconds}
+    mesh18 = {"device": smi,
+              "a_1x1": {arch: fam["mesh_1x1"] for arch, fam in (
+                  ("xlstm-350m", recurrent["xlstm-350m"]),
+                  ("zamba2-2.7b", recurrent["zamba2-2.7b"]),
+                  ("mixtral-8x7b", moe_encdec["mixtral-8x7b"]),
+                  ("whisper-medium", moe_encdec["whisper-medium"]))},
+              "b_shards": family_shards, "c_two_ranks": family_ranks,
+              "seconds": {k: walls[k] for k in ("18a", "18b", "18c")}}
     log(f"  phase 17: {sum(mesh_seconds.values()):.1f}s "
-        f"{json.dumps(mesh_seconds)} ({smi})")
+        f"{json.dumps(mesh_seconds)}; phase 18: "
+        f"{sum(mesh18['seconds'].values()):.1f}s "
+        f"{json.dumps(mesh18['seconds'])} ({smi})")
     # nm_spmm's main-path launches: phase 5's serve, phase 10(c)'s packed
     # forwards and phase 16(a)'s one-shot loop (qwen2-vl's down projection)
     nm_launches = {k: n + train_launches.get(k, 0)
@@ -5361,6 +5805,9 @@ def main() -> int:
     for entry in kernels["kernels"]:
         if entry["name"] in shards:
             entry["mesh_shards"] = mesh_entries(shards[entry["name"]])
+        if entry["name"] in family_shards:
+            entry["family_mesh_shards"] = mesh_entries(
+                family_shards[entry["name"]])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     serves = {"serve": main_serve, "serve_plain_nm": plain_serve,
@@ -5369,9 +5816,11 @@ def main() -> int:
               "replay": replay, "speculative": speculative, "fleet": fleet,
               "dense_family": dense_family, "recurrent": recurrent,
               "moe_encdec": moe_encdec,
-              "training": training, "slice": slice_16, "mesh": mesh17}
+              "training": training, "slice": slice_16, "mesh": mesh17,
+              "mesh_families": mesh18}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
+         "phase_seconds": walls,
          "kernels": kernels["kernels"], "resources": resources,
          "sweep": sweep, "small_model": small, **serves},
         indent=1))

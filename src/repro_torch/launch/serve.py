@@ -96,8 +96,10 @@ share one file:
 started by ``torchrun`` (``launch/mesh.py``, ``serving/placement.py``):
 every rank draws the same params from the run's seed, keeps its out-dim
 rows and KV heads, and serves the same requests in lockstep; only rank 0
-prints and writes ``--trace-out``.  The dense family is served so; with
-``--replicas > 1`` or the one-shot loop it raises (ROADMAP A12b):
+prints and writes ``--trace-out``.  Every engine-served family is served
+so (dense, moe, ssm, hybrid, encdec); ``--replicas > 1`` raises (ROADMAP
+A12b), and the one-shot loop (``--legacy``, the vlm family) is refused:
+the reference's ``run_oneshot`` takes no mesh either.
 
   torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
       --arch llama3-8b --sparse --kv-layout paged --mesh 1x8
@@ -519,15 +521,19 @@ def parse_args(argv=None):
 
 
 def check_mesh_args(cfg, args) -> None:
-    """Raise for what ``--mesh`` does not serve yet (ROADMAP A12b): a
-    fleet of replica meshes and the one-shot loop."""
+    """Raise for what ``--mesh`` does not serve: a fleet of replica meshes
+    (not ported yet, ROADMAP A12b) and the one-shot loop, which takes no
+    mesh in the reference either (its ``run_oneshot`` has no mesh
+    argument), so ``--mesh`` serves through the engine only."""
     if parse_mesh_spec(args.mesh) is None:
         return
     if args.replicas > 1:
         make_replica_meshes(args.mesh, args.replicas)
     if args.legacy or cfg.family not in SUPPORTED_FAMILIES:
-        raise NotImplementedError(
-            "--mesh with the one-shot loop is not ported yet (ROADMAP A12b)")
+        raise ValueError(
+            "--mesh serves through the engine; the one-shot loop (--legacy, "
+            f"or the {cfg.family} family it serves) takes no mesh, as the "
+            "reference's run_oneshot takes none")
 
 
 def main(argv=None):

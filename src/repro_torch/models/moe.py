@@ -18,8 +18,17 @@ routed experts are [E, in, out] tensors, as the reference lays them out
 for its grouped products, and stay dense: ``sparsify_for_serving`` keeps
 3-D leaves as they are.
 
-The reference's expert-parallel path under a mesh (``_moe_ep``: capacity
-dispatch and all-to-all) is ROADMAP A12c's.
+On a serving mesh the expert stacks are ``ColShard``s, split on their
+last dim as the reference's serving placement splits them: a rank holds
+``we_gate``/``we_up`` [E, d, F / m] and ``we_down`` [E, F, d / m].  It
+computes its F columns of every routed row, gathers the whole [N, F]
+hidden rows once, computes its d columns of every row's down product and
+gathers the whole [N, d] once: two collectives a MoE layer whatever the
+routing, and every output element the same full-length product the
+single-device path computes.  The router stays whole on every rank, so
+every rank routes alike and reads the same group sizes.  The reference's
+expert-parallel path under a mesh (``_moe_ep``: capacity dispatch and
+all-to-all) is ROADMAP A12c's; serving never takes it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import math
 
 import torch
 
+from ..parallel.tensor_parallel import ColShard
 from .layers import activation, dense_init, linear
 
 
@@ -66,23 +76,43 @@ def route(p, x2: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return top_w / top_w.sum(-1, keepdim=True), top_e
 
 
+def _cols(w):
+    """(an expert stack, or a mesh rank's columns of it; its axis or None
+    when the stack is whole)."""
+    return (w.local, w.axis) if isinstance(w, ColShard) else (w, None)
+
+
 def _expert_ffn(p, xs: torch.Tensor, counts: list[int], cfg) -> torch.Tensor:
     """Rows ``xs`` [N, d], sorted by expert with ``counts[e]`` rows of
-    expert e, each through its expert's FFN; [N, d]."""
-    out = torch.empty_like(xs)
+    expert e, each through its expert's FFN; [N, d].  On a mesh rank
+    (``ColShard`` stacks) the rank's F columns of each row's hidden are
+    gathered whole once, and its d columns of each row's down product
+    once: the gathers sit outside the loops over experts, so the layer's
+    collectives do not depend on ``counts``."""
+    (gate, _), (up, up_axis), (down, down_axis) = (
+        _cols(p[k]) for k in ("we_gate", "we_up", "we_down"))
+    h = xs.new_empty((xs.shape[0], up.shape[-1]))
     start = 0
     for e, n in enumerate(counts):
-        if n == 0:
-            continue
-        x_e = xs[start:start + n]
-        if cfg.glu:
-            h = activation(cfg.act, torch.matmul(x_e, p["we_gate"][e])) \
-                * torch.matmul(x_e, p["we_up"][e])
-        else:
-            h = activation(cfg.act, torch.matmul(x_e, p["we_up"][e]))
-        out[start:start + n] = torch.matmul(h, p["we_down"][e])
+        if n:
+            x_e = xs[start:start + n]
+            if cfg.glu:
+                h[start:start + n] = activation(
+                    cfg.act, torch.matmul(x_e, gate[e])) \
+                    * torch.matmul(x_e, up[e])
+            else:
+                h[start:start + n] = activation(cfg.act,
+                                                torch.matmul(x_e, up[e]))
         start += n
-    return out
+    if up_axis is not None:
+        h = up_axis.gather(h, dim=-1)
+    out = xs.new_empty((xs.shape[0], down.shape[-1]))
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            out[start:start + n] = torch.matmul(h[start:start + n], down[e])
+        start += n
+    return out if down_axis is None else down_axis.gather(out, dim=-1)
 
 
 def _moe_local(p, x2: torch.Tensor, cfg) -> torch.Tensor:

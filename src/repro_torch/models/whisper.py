@@ -26,6 +26,11 @@ as the dense family does) and attends over the lane's context rows masked
 to their true length (``layers.attend_kv_length``, not causal, so chunked
 prefill and fused decode see the same context).  ``prefill`` and
 ``decode_lockstep`` are the model zoo's lock-step contract.
+
+On a serving mesh (``heads``: the decoder arenas and the context rows hold
+the rank's KV heads) the decoder's self-attention and cross-attention run
+the rank's heads and gather the output over heads before ``wo``/``c_wo``;
+the encoder runs whole on every rank (its projections come back gathered).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve
 from . import transformer as tfm
 from .layers import (activation, apply_rope, attend_kv_length, dense_init,
-                     linear, rms_norm, sdpa)
+                     embed, linear, rms_norm, sdpa)
 
 
 def _attn_params(cfg, generator, device, prefix="") -> dict:
@@ -152,7 +157,7 @@ def decode_full(params, tokens, enc_out, cfg, collect_kv: bool = False):
     ``enc_out`` [B, S_enc, d].  Returns (logits [B, S, V], (k, v, ck, cv)
     stacked [L, B, ., KV, hd] with ``collect_kv``, else None)."""
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     pos = _positions(B, S, x.device)
     qc = tfm._auto_q_chunks(S)
 
@@ -215,16 +220,18 @@ def encode_ctx(params, embeds, cfg):
     return ck, cv
 
 
-def unified_step(params, view, batch, cfg):
+def unified_step(params, view, batch, cfg, heads=None):
     """One serving step over an ``EncDecPoolView``: each decoder layer
     scatters its fresh self-attention KV into the slot arena at the cursor
     and attends in place, then attends over the lane's encoder context
-    (``ctx_len`` masks the rows past its true length).  Returns (logits
-    [B, S, V], (k, v)): the view's self-attention arenas, updated in place
-    (the context rows are only read)."""
+    (``ctx_len`` masks the rows past its true length).  With ``heads`` (a
+    ``HeadShard``) both attentions run the rank's heads over arenas and
+    context rows that hold its KV heads.  Returns (logits [B, S, V],
+    (k, v)): the view's self-attention arenas, updated in place (the
+    context rows are only read)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     positions = tfm._pool_positions(view.cursor, S, cfg)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     for i, lp in enumerate(params["dec"]):
@@ -235,14 +242,22 @@ def unified_step(params, view, batch, cfg):
         k = apply_rope(linear(lp["wk"], hn).reshape(B, S, KV, hd), positions,
                        cfg.rope_theta)
         v = linear(lp["wv"], hn).reshape(B, S, KV, hd)
+        if heads is not None:
+            q, k, v = heads.local(q, k, v)
         view.write_layer(k_l, v_l, k, v)
         attn = tfm.attend_over_pool(q, dataclasses.replace(view, k=k_l,
                                                            v=v_l))
+        if heads is not None:
+            attn = heads.gather(attn)
         x = x + linear(lp["wo"], attn.reshape(B, S, -1))
         cn = rms_norm(x, lp["cross_norm"], cfg.norm_eps)
         cq = linear(lp["c_wq"], cn).reshape(B, S, H, hd)
+        if heads is not None:
+            cq = heads.local_q(cq)
         ckr, cvr = view.lane_ctx(view.ck[i], view.cv[i])
         c = attend_kv_length(cq, ckr, cvr, view.ctx_len)
+        if heads is not None:
+            c = heads.gather(c)
         x = x + linear(lp["c_wo"], c.reshape(B, S, -1))
         x = _mlp(lp, x, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -20,6 +20,13 @@ as the reference's stacked tree does (an mLSTM layer carries unused
 ``r_gates``/``w_slstm``, an sLSTM layer unused ``w_q``/``w_k``/``w_v``/
 ``w_gates``).  Serving state per layer: mLSTM (C [B, H, dk, dv], n
 [B, H, dk]); sLSTM (c, n, h, m), each [B, H, dh], m starting at -1e30.
+
+On a serving mesh a layer's ``StateShard`` (``ServingPlacement.
+state_shard``) says which block of its state the rank holds: its heads
+(the rank runs the recurrence on its heads of q, k, v and the gates, or
+of ``zifo`` and ``r_gates``), or (mLSTM) its columns of ``v`` with the
+normalizer whole on every rank; the output is gathered whole before
+``silu(xg)`` and ``w_down``.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
-from .layers import dense_init, linear, rms_norm
+from .layers import dense_init, embed, linear, rms_norm
 from .linear_attn import chunked_gla, masked_gates
 
 NEG = -1e30
@@ -111,30 +118,41 @@ def _mlstm_qkvgates(lp, xc, cfg):
     return q, k, v, log_f, log_i
 
 
-def mlstm_block(lp, x, cfg, state=None, chunk: int = 64, valid=None):
+def mlstm_block(lp, x, cfg, state=None, chunk: int = 64, valid=None,
+                shard=None):
     """Full-sequence mLSTM block; returns (y, new_state).  ``valid`` [B, S]
     marks the real tokens of a right-padded batch: padded positions get
     neutral gates, so the carried state is bit-identical to running the
-    real prefix alone."""
+    real prefix alone.  With a ``shard`` (a mesh rank's ``StateShard``)
+    ``state`` is the rank's block and so is the returned state: the rank
+    runs its heads (heads mode) or its columns of ``v`` (dv mode; the
+    normalizer reads only q, k and the gates, so every column it divides
+    is exact) and gathers ``y`` whole."""
     B, S, _ = x.shape
     xc, xg = _up(lp, x, cfg)
     q, k, v, log_f, log_i = _mlstm_qkvgates(lp, xc, cfg)
     if valid is not None:
         log_f, log_i = masked_gates(log_f, log_i, valid)
+    if shard is not None:
+        q, k, v, log_f, log_i = (shard.heads(t) for t in
+                                 (q, k, v, log_f, log_i))
+        v = shard.cols(v)
     y, new_state = chunked_gla(q, k, v, log_f, log_i, chunk=chunk,
                                normalizer=True, initial_state=state)
+    if shard is not None:
+        y = shard.gather(y)
     y = y.reshape(B, S, -1) * F.silu(xg)
     return x + linear(lp["w_down"], y), new_state
 
 
 # ---------------------------------------------------------------- sLSTM ----
 
-def _slstm_step(lp, cfg, carry, zifo_t):
+def _slstm_step(r_gates, carry, zifo_t):
     """carry: (c, n, h, m) each [B, H, dh]; zifo_t [B, 4, H, dh]
-    pre-activations.  Returns (new carry, h)."""
+    pre-activations; ``r_gates`` [4, H, dh, dh] the per-head recurrent
+    mixing.  Returns (new carry, h)."""
     c, n, h, m = carry
-    rec = torch.einsum("bhd,ghde->bghe", h,
-                       lp["r_gates"].to(torch.float32))
+    rec = torch.einsum("bhd,ghde->bghe", h, r_gates.to(torch.float32))
     z_t, i_t, f_t, o_t = [zifo_t[:, g].to(torch.float32) + rec[:, g]
                           for g in range(4)]
     # stabilized exponential gating (xLSTM eq. 15-17)
@@ -156,26 +174,35 @@ def _slstm_init(B, H, dh, device):
         torch.full((B, H, dh), NEG, dtype=torch.float32, device=device),)
 
 
-def slstm_block(lp, x, cfg, state=None, valid=None):
+def slstm_block(lp, x, cfg, state=None, valid=None, shard=None):
     """Full-sequence sLSTM block, a step per position; returns (y, carry).
     With ``valid`` the step still runs at a padded position, and each lane
     whose position is not real gets its carry back unchanged (a select,
-    bit for bit)."""
+    bit for bit).  With a heads-mode ``shard`` the rank steps its heads of
+    ``zifo`` with its heads of ``r_gates`` on its carries and gathers the
+    outputs over heads."""
     B, S, _ = x.shape
     di, H, dh = _dims(cfg)
     xc, xg = _up(lp, x, cfg)
     zifo = linear(lp["w_slstm"], xc).reshape(B, S, 4, H, dh)
+    r_gates = lp["r_gates"]
+    if shard is not None:
+        zifo, r_gates = shard.heads(zifo, 3), shard.heads(r_gates, 1)
+        H = shard.n_heads(H)
     carry = _slstm_init(B, H, dh, x.device) if state is None else tuple(state)
     hs = []
     for t in range(S):
-        new_carry, h = _slstm_step(lp, cfg, carry, zifo[:, t])
+        new_carry, h = _slstm_step(r_gates, carry, zifo[:, t])
         if valid is not None:
             vm = valid[:, t][:, None, None]
             new_carry = tuple(torch.where(vm, nc, oc)
                               for nc, oc in zip(new_carry, carry))
         carry = new_carry
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, di).to(x.dtype) * F.silu(xg)
+    y = torch.stack(hs, dim=1)
+    if shard is not None:
+        y = shard.gather(y)
+    y = y.reshape(B, S, di).to(x.dtype) * F.silu(xg)
     return x + linear(lp["w_down"], y), carry
 
 
@@ -190,7 +217,7 @@ def forward(params, batch, cfg, states=None, return_states: bool = False):
     or None).  With ``cfg.remat`` and grad enabled each block runs under
     ``torch.utils.checkpoint``, as the reference wraps it in
     ``jax.checkpoint``."""
-    x = params["embed"][batch["tokens"]]
+    x = embed(params["embed"], batch["tokens"])
     remat = cfg.remat and torch.is_grad_enabled()
     new_states = []
     for i, lp in enumerate(params["layers"]):
@@ -217,14 +244,18 @@ def loss_fn(params, batch, cfg):
     return torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0), {}
 
 
-def lane_init(cfg, i: int, batch_size: int, device="cuda"):
+def lane_init(cfg, i: int, batch_size: int, device="cuda", shard=None):
     """Layer ``i``'s fresh state for ``batch_size`` lanes: the per-layer
     unit of ``init_state``, which ``unified_step`` selects for fresh
-    lanes (``RecurrentStateView.select_fresh``)."""
+    lanes (``RecurrentStateView.select_fresh``); with a ``shard``, the
+    rank's block of it."""
     di, H, dh = _dims(cfg)
+    dv = dh
+    if shard is not None:
+        H, dv = shard.n_heads(H), shard.n_cols(dh)
     if _is_slstm(cfg, i):
         return _slstm_init(batch_size, H, dh, device)
-    return (torch.zeros((batch_size, H, dh, dh), dtype=torch.float32,
+    return (torch.zeros((batch_size, H, dh, dv), dtype=torch.float32,
                         device=device),
             torch.zeros((batch_size, H, dh), dtype=torch.float32,
                         device=device))
@@ -255,18 +286,22 @@ def unified_step(params, view, batch, cfg):
     to S; ``view.n_new`` masks the padding (neutral gates, carry selects),
     so a lane's state after the step is bit-identical to running its real
     tokens alone.  Lanes at cursor 0 take their family init state inside
-    the step; lanes with n_new 0 leave their slot's state untouched.
-    Returns (logits [B, S, V], the new state arenas) for the pool to
-    adopt."""
+    the step; lanes with n_new 0 leave their slot's state untouched.  On a
+    mesh the view's arenas are the rank's blocks and ``view.shard(i)``
+    says how layer ``i`` splits.  Returns (logits [B, S, V], the new state
+    arenas) for the pool to adopt."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     valid = torch.arange(S, device=x.device)[None] < view.n_new[:, None]
     new_arenas = []
     for i, lp in enumerate(params["layers"]):
+        shard = view.shard(i)
         lane_st = view.gather_layer(i)
-        st = view.select_fresh(lane_st, lane_init(cfg, i, B, x.device))
-        x, s = _block(cfg, i)(lp, x, cfg, state=st, valid=valid)
+        st = view.select_fresh(lane_st,
+                               lane_init(cfg, i, B, x.device, shard))
+        x, s = _block(cfg, i)(lp, x, cfg, state=st, valid=valid,
+                              shard=shard)
         new_arenas.append(view.scatter_layer(i,
                                              view.keep_inactive(s, lane_st)))
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

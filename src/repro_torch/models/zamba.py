@@ -19,6 +19,12 @@ Parameters: ``{"embed", "mamba", "final_norm", "lm_head",
 ``in_proj``, ``out_proj``, and ``A_log``/``D``/``dt_bias`` in f32),
 ``shared_attn`` one unstacked transformer layer.  Serving state per mamba
 layer: (S [B, H, N, P] f32, None).
+
+On a serving mesh a mamba layer's ``StateShard`` says which block of S
+the rank holds: its heads (the rank runs its heads of ``v``, ``log_f``,
+``xh`` and ``D``) or its P columns (every head, its columns of ``v`` and
+``xh``); ``y`` is gathered whole before ``silu(z)`` and ``out_proj``.
+The shared block attends over the rank's KV heads (``heads``).
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from . import transformer as tfm
-from .layers import dense_init, linear, rms_norm
+from .layers import dense_init, embed, linear, rms_norm
 from .linear_attn import chunked_gla, masked_gates
 
 
@@ -108,9 +114,13 @@ def _ssm_inputs(lp, x, cfg):
     return z, q, k, v, log_f, xh
 
 
-def mamba_block(lp, x, cfg, state=None, chunk: int = 128, valid=None):
+def mamba_block(lp, x, cfg, state=None, chunk: int = 128, valid=None,
+                shard=None):
     """Full-sequence Mamba2 block; returns (y, (S, None)).  ``valid`` masks
-    a right-padded batch's padding with neutral gates."""
+    a right-padded batch's padding with neutral gates.  With a ``shard``
+    (a mesh rank's ``StateShard``) ``state`` and the returned state are
+    the rank's block: its heads, or its P columns, of the recurrence and
+    of the D skip; ``y`` is gathered whole."""
     B_, S, _ = x.shape
     di = _dims(cfg)[0]
     h = rms_norm(x, lp["norm"], cfg.norm_eps)
@@ -118,9 +128,17 @@ def mamba_block(lp, x, cfg, state=None, chunk: int = 128, valid=None):
     log_i = None
     if valid is not None:
         log_f, log_i = masked_gates(log_f, log_i, valid)
+    D = lp["D"]
+    if shard is not None:
+        q, k, v, log_f, xh = (shard.heads(t) for t in
+                              (q, k, v, log_f, xh))
+        log_i = None if log_i is None else shard.heads(log_i)
+        v, xh, D = shard.cols(v), shard.cols(xh), shard.heads(D, 0)
     y, new_state = chunked_gla(q, k, v, log_f, log_i, chunk=chunk,
                                normalizer=False, initial_state=state)
-    y = y + xh * lp["D"][None, None, :, None].to(y.dtype)
+    y = y + xh * D[None, None, :, None].to(y.dtype)
+    if shard is not None:
+        y = shard.gather(y)
     y = y.reshape(B_, S, di) * F.silu(z)
     return x + linear(lp["out_proj"], y), new_state
 
@@ -134,7 +152,7 @@ def forward(params, batch, cfg, states=None, return_states: bool = False):
     ``torch.utils.checkpoint``."""
     tokens = batch["tokens"]
     B_, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     scfg = _shared_block_cfg(cfg)
     q_chunks = tfm._auto_q_chunks(S)
@@ -189,11 +207,15 @@ def prefill(params, batch, cfg, max_len: int | None = None):
                                                device=logits.device)}
 
 
-def lane_init(cfg, i: int, batch_size: int, device="cuda"):
-    """Layer ``i``'s fresh SSM state for ``batch_size`` lanes."""
+def lane_init(cfg, i: int, batch_size: int, device="cuda", shard=None):
+    """Layer ``i``'s fresh SSM state for ``batch_size`` lanes; with a
+    ``shard``, the rank's block of it."""
     di, H, N = _dims(cfg)
-    return (torch.zeros((batch_size, H, N, cfg.ssm_head_dim),
-                        dtype=torch.float32, device=device), None)
+    P = cfg.ssm_head_dim
+    if shard is not None:
+        H, P = shard.n_heads(H), shard.n_cols(P)
+    return (torch.zeros((batch_size, H, N, P), dtype=torch.float32,
+                        device=device), None)
 
 
 def init_cache(cfg, batch_size: int, max_len: int, device="cuda") -> dict:
@@ -209,16 +231,18 @@ def init_cache(cfg, batch_size: int, max_len: int, device="cuda") -> dict:
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def unified_step(params, view, batch, cfg):
+def unified_step(params, view, batch, cfg, heads=None):
     """One serving step over a ``HybridPoolView``: the mamba layers on the
     recurrent-state view (``view.state``: gate masking, fresh-state select),
     the shared-attention applications on the KV view (``view.kv``, slot or
     paged) through the transformer's in-place block; the two views carry
-    their own ``n_new``.  Returns (logits [B, S, V], (k, v) arenas or None,
-    the new state arenas)."""
+    their own ``n_new``.  On a mesh the state view's arenas are the rank's
+    blocks (``view.state.shard(i)``) and ``heads`` the shared block's
+    head split when its KV arenas hold the rank's heads.  Returns (logits
+    [B, S, V], (k, v) arenas or None, the new state arenas)."""
     tokens = batch["tokens"]
     B_, S = tokens.shape
-    x = params["embed"][tokens]
+    x = embed(params["embed"], tokens)
     sview, kview = view.state, view.kv
     valid = torch.arange(S, device=x.device)[None] < sview.n_new[:, None]
     scfg = _shared_block_cfg(cfg)
@@ -227,14 +251,17 @@ def unified_step(params, view, batch, cfg):
     new_states = []
     ai = 0
     for i, lp in enumerate(params["mamba"]):
+        shard = sview.shard(i)
         lane_st = sview.gather_layer(i)
-        st = sview.select_fresh(lane_st, lane_init(cfg, i, B_, x.device))
-        x, s = mamba_block(lp, x, cfg, state=st, valid=valid)
+        st = sview.select_fresh(lane_st,
+                                lane_init(cfg, i, B_, x.device, shard))
+        x, s = mamba_block(lp, x, cfg, state=st, valid=valid, shard=shard)
         new_states.append(sview.scatter_layer(
             i, sview.keep_inactive(s, lane_st)))
         if _is_application(cfg, i):
             x = tfm._block_step(params["shared_attn"], x, kview.k[ai],
-                                kview.v[ai], kview, positions, scfg)
+                                kview.v[ai], kview, positions, scfg,
+                                heads=heads)
             ai += 1
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     kv = (kview.k, kview.v) if ai else None

@@ -4,4 +4,5 @@ A12c)."""
 from .sharding import (axis_sizes, batch_spec, cache_spec, fsdp_axes,
                        local_shard, param_shardings, param_spec,
                        sparse_weight_specs, tree_paths)
-from .tensor_parallel import HeadShard, ModelAxis, RowShard
+from .tensor_parallel import (ColShard, HeadShard, ModelAxis, RowShard,
+                              StateShard)

@@ -72,8 +72,9 @@ embedding and the head, KV heads split across the ranks' arenas, explicit
 gathers in the layers.  One process a rank, every rank running this
 engine on the same requests; every clock read is rank 0's, broadcast, so
 every rank evicts, admits and plans the same work and its collectives
-meet the others'.  The dense family is served so (ROADMAP A12a); the other
-families, moe and ``draft=`` under a mesh raise (ROADMAP A12b).
+meet the others'.  Every family is served so (ROADMAP A12a and A12b's
+first part: recurrent-state blocks, expert columns, context rows);
+``draft=`` under a mesh raises (ROADMAP A12b).
 
 Every registered config of the five families is served (mixtral-8x7b and
 llama4-maverick-400b-a17b for moe, whisper-medium for encdec); the vlm
@@ -88,7 +89,7 @@ import torch
 
 from ..device import resolve
 from .cache_pool import CachePoolError
-from .families import build_adapter, require_placeable
+from .families import build_adapter
 from .observe import NULL_TRACER
 from .paged import OutOfBlocks
 from .placement import ServingPlacement
@@ -136,7 +137,6 @@ class ServingEngine:
                              f"not {kv_layout!r}")
         self.placement = ServingPlacement(mesh, cfg)
         if self.placement.active:
-            require_placeable(cfg, self.placement)
             if draft is not None:
                 raise _not_ported("speculative decoding on a mesh", "A12b")
             params = self.placement.place_params(params)

@@ -52,6 +52,11 @@ Per family:
           both through ``EncDecPoolView``.  Swap preemption (context rows,
           KV and position); no paged layout.
 
+On a mesh (``placement``, its params already the rank's) every adapter
+allocates its pools through the placement (KV heads, recurrent-state
+blocks, context rows) and hands its steps the head split (``heads``);
+the recurrent steps read each layer's split from the state view.
+
 Host arrays (lanes, cursors, tokens) go to the device here, once per step.
 ``n_model_calls`` counts ``unified_step`` calls (and the enc-dec
 adapter's ``n_encode_calls`` its encoder calls).  Each call runs through
@@ -228,13 +233,16 @@ def _active_mask(n: int, active: list[int]) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 class RecurrentAdapter(FamilyAdapter):
-    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device):
+    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
+                 placement=None):
         self._setup(cfg, params, device)
         self.pool = RecurrentStatePool(
-            cfg, n_slots, max_len, lambda c, n: xls.init_state(c, n, device))
+            cfg, n_slots, max_len, lambda c, n: xls.init_state(c, n, device),
+            placement=placement)
 
     def _run(self, rows, cur, n_new, tokens) -> torch.Tensor:
-        view = RecurrentStateView.build(self.pool.states, rows, cur, n_new)
+        view = RecurrentStateView.build(self.pool.states, rows, cur, n_new,
+                                        self.pool.shards)
         with torch.no_grad():
             logits, states = xls.unified_step(
                 self.params, view, {"tokens": self._tokens(tokens)},
@@ -314,7 +322,8 @@ class HybridStatePool:
 class HybridAdapter(FamilyAdapter):
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
                  kv_layout: str = "slot", block_size: int = 16,
-                 n_blocks: int | None = None, prefix_caching: bool = True):
+                 n_blocks: int | None = None, prefix_caching: bool = True,
+                 placement=None):
         n_attn = zam.n_applications(cfg)
         if n_attn == 0:
             raise ValueError(
@@ -327,24 +336,28 @@ class HybridAdapter(FamilyAdapter):
         state = RecurrentStatePool(
             cfg, n_slots, max_len,
             lambda c, n: [zam.lane_init(c, i, n, device)
-                          for i in range(c.n_layers)])
+                          for i in range(c.n_layers)], placement=placement)
         if kv_layout == "paged":
             # prefix caching is off whatever was asked: a cached KV block
             # cannot reconstruct the SSM state that absorbed its tokens
             kv = PagedKVPool(kv_cfg, n_slots, max_len, device=device,
                              block_size=block_size, n_blocks=n_blocks,
-                             prefix_caching=False)
+                             prefix_caching=False, placement=placement)
         else:
-            kv = SlotKVPool(kv_cfg, n_slots, max_len, device)
+            kv = SlotKVPool(kv_cfg, n_slots, max_len, device,
+                            placement=placement)
         self.pool = HybridStatePool(kv, state, paged=(kv_layout == "paged"))
+        self.heads = None if placement is None else placement.heads
 
     def _run(self, kview, srows, cur, n_new, tokens) -> torch.Tensor:
         kv, st = self.pool.kv, self.pool.state
-        sview = RecurrentStateView.build(st.states, srows, cur, n_new)
+        sview = RecurrentStateView.build(st.states, srows, cur, n_new,
+                                         st.shards)
         with torch.no_grad():
             logits, _, states = zam.unified_step(
                 self.params, HybridPoolView(kview, sview),
-                {"tokens": self._tokens(tokens)}, self.cfg)
+                {"tokens": self._tokens(tokens)}, self.cfg,
+                heads=self.heads)
         st.adopt(states)
         return logits
 
@@ -411,10 +424,13 @@ class HybridAdapter(FamilyAdapter):
 
 class EncDecAdapter(FamilyAdapter):
     def __init__(self, cfg, params, *, n_slots: int, max_len: int,
-                 max_ctx: int, device):
+                 max_ctx: int, device, placement=None):
         self._setup(cfg, params, device)
-        self.pool = SlotKVPool(cfg, n_slots, max_len, device)
-        self.ctx = EncoderContextPool(cfg, n_slots, max_ctx, device)
+        self.pool = SlotKVPool(cfg, n_slots, max_len, device,
+                               placement=placement)
+        self.ctx = EncoderContextPool(cfg, n_slots, max_ctx, device,
+                                      placement=placement)
+        self.heads = None if placement is None else placement.heads
         self.n_encode_calls = 0
         self._enc_weights = None              # encode_cost's weight totals
 
@@ -426,7 +442,7 @@ class EncDecAdapter(FamilyAdapter):
         with torch.no_grad():
             logits, _ = whi.unified_step(self.params, view,
                                          {"tokens": self._tokens(tokens)},
-                                         self.cfg)
+                                         self.cfg, heads=self.heads)
         return logits
 
     def _encode(self, embeds) -> tuple:
@@ -502,19 +518,6 @@ class EncDecAdapter(FamilyAdapter):
 
 # --------------------------------------------------------------------------
 
-def require_placeable(cfg, placement) -> None:
-    """Raise unless ``cfg`` can be served on ``placement``'s mesh: only the
-    dense family without experts is (ROADMAP A12a); the other families and
-    moe under a mesh are ROADMAP A12b."""
-    if placement is None or not placement.active:
-        return
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"serving the {cfg.family} family"
-            f"{' (moe FFN)' if cfg.moe is not None else ''} on a mesh is "
-            f"not ported yet (ROADMAP A12b)")
-
-
 def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
                   max_len: int, block_size: int = 16,
                   n_blocks: int | None = None, prefix_caching: bool = True,
@@ -526,8 +529,7 @@ def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
     context arena holds ``max_ctx`` encoder frames a slot (``max_len`` when
     None).  Quantized KV (``kv_dtype="int8"``) exists only for the pure
     KV-transformer families, as in the reference.  A mesh ``placement``
-    (its params already placed) serves the dense family only."""
-    require_placeable(cfg, placement)
+    (its params already placed) goes to every family's pools and steps."""
     fam = cfg.family
     if kv_dtype != "bf16" and fam not in ("dense", "moe"):
         raise ValueError(
@@ -541,12 +543,13 @@ def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
             placement=placement)
     if fam == "ssm":
         return RecurrentAdapter(cfg, params, n_slots=n_slots,
-                                max_len=max_len, device=device)
+                                max_len=max_len, device=device,
+                                placement=placement)
     if fam == "hybrid":
         return HybridAdapter(
             cfg, params, n_slots=n_slots, max_len=max_len, device=device,
             kv_layout=kv_layout, block_size=block_size, n_blocks=n_blocks,
-            prefix_caching=prefix_caching)
+            prefix_caching=prefix_caching, placement=placement)
     if fam == "encdec":
         if kv_layout == "paged":
             raise ValueError(
@@ -554,6 +557,6 @@ def build_adapter(cfg, params, *, device, kv_layout: str, n_slots: int,
                 "slot-resident and the encoder context rows are read-only")
         return EncDecAdapter(cfg, params, n_slots=n_slots, max_len=max_len,
                              max_ctx=max_len if max_ctx is None else max_ctx,
-                             device=device)
+                             device=device, placement=placement)
     raise ValueError(f"no serving adapter for family {fam!r}")
 

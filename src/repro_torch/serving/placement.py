@@ -24,12 +24,18 @@ Policy, the reference's:
     The embedding and the head split on vocab rows.
   * **KV arenas split the KV-head dim over "model"** when the KV heads
     divide it: the slot pool's [L, slots, max_len, KV, hd] and the paged
-    [L, n_blocks, block_size, KV, hd] arenas alike, so attention is
-    head-local on every rank and its output is gathered over heads before
-    ``wo``.  A GQA model with fewer KV heads than ranks replicates the
-    arena and attends whole on every rank.  Block tables, the prefix
-    cache, free lists and refcounts stay on the host, identical on every
-    rank.
+    [L, n_blocks, block_size, KV, hd] arenas alike (a hybrid model's
+    shared-attention arenas, an enc-dec model's decoder arenas and its
+    encoder context rows too), so attention is head-local on every rank
+    and its output is gathered over heads before ``wo``.  A GQA model with
+    fewer KV heads than ranks replicates the arena and attends whole on
+    every rank.  Block tables, the prefix cache, free lists and refcounts
+    stay on the host, identical on every rank.
+  * **Expert stacks [E, in, out] split their last dim**: a rank computes
+    its columns of every routed row (``ColShard``, ``models/moe.py``).
+  * **Recurrent-state leaves split by ``state_spec``**: heads, else a
+    matrix state's value columns, else whole (``StateShard``: the
+    families' steps take the rank's heads or columns).
 
 The torch counterpart of the reference's jit shardings is the SPMD idiom:
 one process a rank, every rank running the same engine on the same
@@ -51,7 +57,8 @@ from ..models.sparse_serving import SparseWeight
 from ..core.pipeline import map_leaves
 from ..parallel.sharding import (axis_sizes, local_shard, sparse_weight_specs,
                                  splits)
-from ..parallel.tensor_parallel import HeadShard, ModelAxis, RowShard
+from ..parallel.tensor_parallel import (ColShard, HeadShard, ModelAxis,
+                                        RowShard, StateShard)
 
 # out-dim-split projections ([*, out, in] layout) and embeddings/head
 _PROJ = re.compile(r"wq|wk|wv|wo|w_gate|w_up|w_down|ws_gate|ws_up|ws_down|"
@@ -150,8 +157,7 @@ class ServingPlacement:
         (heads) over "model" when divisible; else, for a matrix state
         [slots, H, dk, dv], its last (output) dim; else replicated.  Only
         dims that are pure outputs of the recurrence split, so no dot
-        product is ever split into partial sums.  (Serving the recurrent
-        families on a mesh is ROADMAP A12b.)"""
+        product is ever split into partial sums."""
         model_n = self.model_size
         nd = len(shape)
         axes = [None] * nd
@@ -228,7 +234,8 @@ class ServingPlacement:
     def place_params(self, params):
         """This rank's params: every out-dim-split leaf sliced to its rows
         and wrapped in a ``RowShard`` (a ``SparseWeight``'s five buffers
-        sliced together), everything else as it is."""
+        sliced together), every last-dim-split expert stack sliced to its
+        columns and wrapped in a ``ColShard``, everything else as it is."""
         if not self.active:
             return params
 
@@ -244,11 +251,31 @@ class ServingPlacement:
             if not splits(spec):
                 return leaf
             if spec[0] is None:
-                raise NotImplementedError(
-                    f"{path}: only first-dim (out row) splits are placed; "
-                    f"expert weights under a mesh are ROADMAP A12b")
+                return ColShard(self._local(leaf, spec), self.axis)
             return RowShard(self._local(leaf, spec), self.axis)
         return map_leaves(params, one)
+
+    def place_states(self, states):
+        """A recurrent-state arenas list (per-layer tuples of [slots, ...]
+        tensors, None for a carry the family does not keep) with every
+        leaf cut to this rank's block by ``state_spec``."""
+        if not self.active:
+            return states
+        from .state_pool import map_state
+        return map_state(lambda a: self._local(a, self.state_spec(a.shape)),
+                         states)
+
+    def state_shard(self, shape) -> StateShard | None:
+        """How a recurrent layer whose first state leaf is ``shape`` (the
+        whole [slots, H, ...] leaf: the matrix memory, the first sLSTM
+        carry, the SSM state) splits: ``state_spec``'s decision as a
+        ``StateShard``; None with no mesh."""
+        if not self.active:
+            return None
+        spec = self.state_spec(shape)
+        mode = ("heads" if spec[1] is not None
+                else "dv" if spec[-1] is not None else "whole")
+        return StateShard(mode, self.axis)
 
     @property
     def heads(self) -> HeadShard | None:
@@ -257,6 +284,12 @@ class ServingPlacement:
         if not self.kv_sharded:
             return None
         return HeadShard(self.axis, self.cfg.n_heads, self.cfg.n_kv_heads)
+
+    def kv_heads_of(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's KV heads (along ``dim``) of a whole tensor when the
+        arenas split them (an enc-dec model's context rows as the encoder
+        call returns them), else ``t``."""
+        return self.heads.local_kv(t, dim) if self.kv_sharded else t
 
     def place_kv(self, arr: torch.Tensor) -> torch.Tensor:
         """A KV arena or pool buffer's block on this rank (its KV heads)."""

@@ -9,11 +9,14 @@ rows (port of ``repro/serving/state_pool.py``).
     stands for a carry the family does not keep, as Mamba2's normalizer).
     ``alloc``/``release`` manage the free list, ``adopt`` takes the state
     a step returns, ``advance_prefill``/``advance_decode`` track each
-    slot's position on the host.  ``save_slot``/``restore_slot`` serve
-    swap preemption: a recurrent state recomputed under other chunk
-    boundaries differs in float summation order, so the engine swaps it
-    out and back instead of recomputing, and a preempted-and-resumed
-    stream stays exactly the uninterrupted one.
+    slot's position on the host.  On a mesh (``placement``) each leaf is
+    the rank's block by ``ServingPlacement.state_spec`` and ``shards``
+    says, a layer, how the family's step splits its recurrence.
+    ``save_slot``/``restore_slot`` serve swap preemption: a recurrent
+    state recomputed under other chunk boundaries differs in float
+    summation order, so the engine swaps it out and back instead of
+    recomputing, and a preempted-and-resumed stream stays exactly the
+    uninterrupted one.
 
 ``RecurrentStateView``
     What a family's ``unified_step`` sees of the pool: per-layer gather
@@ -33,7 +36,8 @@ rows (port of ``repro/serving/state_pool.py``).
     The enc-dec family's read-only cross-attention context: per decoder
     layer the projected encoder K/V of each slot's request,
     [L, n_slots, max_ctx, KV, hd], and its true length on the host.  Rows
-    are written once at admission and only read afterwards.
+    are written once at admission and only read afterwards.  On a mesh the
+    arenas hold the rank's KV heads, as a KV pool's.
 
 ``EncDecPoolView``
     A ``SlotPoolView`` of the decoder's self-attention arenas with the
@@ -88,16 +92,20 @@ class RecurrentStateView:
     state is selected in the step); ``n_new`` [B] is how many of the step's
     S positions are real per lane (families mask their gates past it).
     ``write_src``/``write_dst`` are the lanes whose slot lies inside the
-    arena and those slots: the pairs ``scatter_layer`` writes."""
+    arena and those slots: the pairs ``scatter_layer`` writes.  ``shards``
+    are the pool's per-layer ``StateShard``s on a mesh (None: every layer
+    whole)."""
     states: Any
     rows: torch.Tensor | None
     cursor: torch.Tensor
     n_new: torch.Tensor
     write_src: torch.Tensor | None = None
     write_dst: torch.Tensor | None = None
+    shards: Any = None
 
     @classmethod
-    def build(cls, states, rows, cursor, n_new) -> "RecurrentStateView":
+    def build(cls, states, rows, cursor, n_new,
+              shards=None) -> "RecurrentStateView":
         """A view from host arrays ``rows`` (or None), ``cursor`` and
         ``n_new``, on the arenas' device."""
         first = state_leaves(states)[0]
@@ -106,12 +114,16 @@ class RecurrentStateView:
             return torch.as_tensor(np.asarray(a, np.int64),
                                    device=first.device)
         if rows is None:
-            return cls(states, None, up(cursor), up(n_new))
+            return cls(states, None, up(cursor), up(n_new), shards=shards)
         rows = np.asarray(rows, np.int64)
         n_slots = first.shape[0]
         src = np.flatnonzero(rows < n_slots)
         return cls(states, up(np.minimum(rows, n_slots - 1)), up(cursor),
-                   up(n_new), up(src), up(rows[src]))
+                   up(n_new), up(src), up(rows[src]), shards)
+
+    def shard(self, i: int):
+        """Layer ``i``'s ``StateShard`` (None off a mesh)."""
+        return None if self.shards is None else self.shards[i]
 
     def gather_layer(self, i: int):
         """Per-lane state tuple of layer ``i`` ([B, ...] tensors)."""
@@ -161,10 +173,19 @@ class RecurrentStatePool:
     allocates the arenas on their device.  State is O(1) per request, so
     positions bound nothing physical, but ``max_len`` still caps a
     request's prompt plus generation, so the engine's capacity checks stay
-    uniform across families."""
+    uniform across families.  A mesh ``placement`` cuts every leaf of the
+    whole arenas to the rank's block (``place_states``) and reads each
+    layer's split from its first leaf (``state_shard``)."""
 
-    def __init__(self, cfg, n_slots: int, max_len: int, init_states):
-        self.states = init_states(cfg, n_slots)
+    def __init__(self, cfg, n_slots: int, max_len: int, init_states,
+                 placement=None):
+        states = init_states(cfg, n_slots)
+        self.shards = None
+        if placement is not None and placement.active:
+            self.shards = [placement.state_shard(state_leaves(st)[0].shape)
+                           for st in states]
+            states = placement.place_states(states)
+        self.states = states
         self.pos = np.zeros((n_slots,), np.int64)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -256,21 +277,30 @@ class EncoderContextPool:
     on the host.  A slot's rows are written once, at admission, and only
     read afterwards, so the pool has no advance/adopt lifecycle."""
 
-    def __init__(self, cfg, n_slots: int, max_ctx: int, device):
+    def __init__(self, cfg, n_slots: int, max_ctx: int, device,
+                 placement=None):
         shape = (cfg.n_layers, n_slots, max_ctx, cfg.n_kv_heads, cfg.hd)
         self.ck = torch.zeros(shape, dtype=cfg.dtype, device=device)
         self.cv = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        self.placement = placement
+        if placement is not None:
+            self.ck = placement.place_kv(self.ck)
+            self.cv = placement.place_kv(self.cv)
         self.lens = np.zeros((n_slots,), np.int64)
         self.n_slots = n_slots
         self.max_ctx = max_ctx
 
     def write(self, slot: int, ck, cv) -> None:
-        """Install one request's projected context ([L, S_enc, KV, hd]) at
-        its true encoder length."""
+        """Install one request's projected context ([L, S_enc, KV, hd],
+        every KV head) at its true encoder length; on a mesh only the
+        rank's heads are kept."""
         n = ck.shape[1]
         if n > self.max_ctx:
             raise CapacityError(
                 f"encoder context of {n} exceeds max_ctx {self.max_ctx}")
+        if self.placement is not None:
+            ck = self.placement.kv_heads_of(ck, 2)
+            cv = self.placement.kv_heads_of(cv, 2)
         self.ck[:, slot, :n] = ck.to(self.ck.dtype)
         self.cv[:, slot, :n] = cv.to(self.cv.dtype)
         self.lens[slot] = n

@@ -133,11 +133,13 @@ def test_default_device_raises_without_cuda(param_pairs):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    pytest.param(dict(mesh={"data": 1, "model": 1}), "A12b",
+    pytest.param(dict(mesh={"data": 1, "model": 1},
+                      draft=SpeculativeConfig(method="ngram")), "A12b",
                  id="kwargs0-A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item):
-    """``mesh=`` serves the dense family (ROADMAP A12a); a mesh with an ssm
-    config raises naming A12b, before any tensor is placed."""
+    """``mesh=`` serves every family (ROADMAP A12a and A12b's first part:
+    an ssm config on a mesh is served); speculative decoding on a mesh
+    still raises naming A12b, before any tensor is placed."""
     from repro_torch.models import xlstm
     cfg = dataclasses.replace(configs.get_smoke("xlstm-350m"),
                               dtype=torch.float32)

@@ -211,8 +211,10 @@ def test_serve_cli_on_the_mesh(mesh_run):
 
 
 def test_parse_mesh_spec_and_refusals():
-    """The reference's ``test_parse_mesh_spec``, and what waits: replica
-    meshes and the one-shot loop (A12b), the production mesh (A12c)."""
+    """The reference's ``test_parse_mesh_spec``; what waits: replica meshes
+    (A12b), the production mesh (A12c); and what is refused by design:
+    ``--mesh`` with the one-shot loop (``--legacy``, the vlm family),
+    which takes no mesh in the reference either."""
     assert tmesh.parse_mesh_spec(None) is None
     assert tmesh.parse_mesh_spec("") is None
     assert tmesh.parse_mesh_spec("1x8") == (1, 8)
@@ -233,23 +235,25 @@ def test_parse_mesh_spec_and_refusals():
         tmesh.make_production_mesh()
     base = ["--arch", "llama-paper", "--smoke-arch", "--device", "cpu",
             "--mesh", "1x2"]
-    for extra in (["--replicas", "2"], ["--legacy"]):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            serve.main(base + extra)
     with pytest.raises(NotImplementedError, match="A12b"):
+        serve.main(base + ["--replicas", "2"])
+    with pytest.raises(ValueError, match="one-shot loop .* takes no mesh"):
+        serve.main(base + ["--legacy"])
+    with pytest.raises(ValueError, match="one-shot loop .* takes no mesh"):
         serve.main(["--arch", "qwen2-vl-72b", "--smoke-arch", "--device",
                     "cpu", "--mesh", "1x2"])
 
 
 def test_engine_without_mesh_and_mesh_refusals(models):
     """``mesh=None`` is the single-device engine and says so in
-    ``stats()["placement"]``; on a mesh, moe and ``draft=`` raise naming
-    A12b before any tensor is placed, and a mapping of axis sizes gives
+    ``stats()["placement"]``; on a mesh, ``draft=`` raises naming A12b
+    before any tensor is placed, a moe fleet of replica meshes
+    (``meshes=``) raises naming A12b, and a mapping of axis sizes gives
     specs but places nothing."""
     from repro_torch import configs
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving import (SamplingParams, ServingEngine,
-                                     SpeculativeConfig)
+    from repro_torch.serving import (ReplicaSet, SamplingParams,
+                                     ServingEngine, SpeculativeConfig)
     cfg, params = models["dense"][2:]
     engine = ServingEngine(cfg, params, device="cpu", n_slots=2, max_len=32)
     req = engine.submit(list(range(10)), SamplingParams(max_new_tokens=3))
@@ -264,6 +268,7 @@ def test_engine_without_mesh_and_mesh_refusals(models):
                               dtype=torch.float32)
     moe_params = tfm.init_params(moe, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="A12b"):
-        ServingEngine(moe, moe_params, device="cpu", mesh=sizes)
+        ReplicaSet(moe, moe_params, n_replicas=2, meshes=[sizes, sizes],
+                   device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):
         ServingEngine(cfg, params, device="cpu", mesh=sizes)

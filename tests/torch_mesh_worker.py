@@ -1,5 +1,7 @@
 """One rank of the gloo meshes that ``tests/test_torch_mesh_serving.py``
-spawns, and the serving cases both sides share.  Imports only numpy, torch
+(the dense family) and ``tests/test_torch_mesh_families.py`` with its
+1x4 twin (ssm, hybrid, moe, encdec) spawn, and the serving cases both
+sides share.  Imports only numpy, torch
 and the port (``repro_torch``): the JAX side of the comparison runs in the
 test's own process.
 
@@ -207,3 +209,186 @@ def port_cfg(key: str):
     return dataclasses.replace(configs.get_smoke("llama-paper"),
                                name="mesh-serving-test", dtype=torch.float32,
                                n_kv_heads=KV_HEADS[key], **SHAPE)
+
+
+# --------------------------------------------------------------------------
+# the other families (ssm, hybrid, moe, encdec)
+# --------------------------------------------------------------------------
+
+# name -> (arch, config overrides): the smoke twins, and zamba2's with a
+# 64-wide SSM head (2 heads), whose state splits its P columns on 1x4
+FAMILY_MODELS = {"xlstm": ("xlstm-350m", {}),
+                 "zamba2": ("zamba2-2.7b", {}),
+                 "zamba2-p": ("zamba2-2.7b", {"ssm_head_dim": 64}),
+                 "mixtral": ("mixtral-8x7b", {}),
+                 "maverick": ("llama4-maverick-400b-a17b", {}),
+                 "whisper": ("whisper-medium", {})}
+F_GEN, F_PLEN, F_CTX = 5, 12, 7
+F_ENGINE = dict(n_slots=4, max_len=F_PLEN + F_GEN, token_budget=8)
+
+
+def family_cases() -> dict:
+    """name -> (model, weights ("dense" or "sparse"), engine kwargs, whether
+    to preempt, the requests' encoder features or None): the reference's
+    family engine cases (``tests/test_family_engines.py``) on a mesh: the
+    ssm family on the slot layout and with a swap preemption, the hybrid
+    on both layouts and its P-mode twin, moe on the paged layout and
+    llama4's shared expert, and whisper with its encoder features and a
+    swap preemption."""
+    paged = dict(kv_layout="paged", block_size=4)
+    rng = np.random.default_rng(7)
+    frames = [rng.standard_normal((F_CTX - i, 64)).astype(np.float32)
+              for i in range(3)]
+    return {"xlstm-slot": ("xlstm", "sparse", {}, False, None),
+            "xlstm-swap": ("xlstm", "dense", {}, True, None),
+            "zamba2-slot": ("zamba2", "dense", {}, False, None),
+            "zamba2-paged": ("zamba2", "sparse", paged, False, None),
+            "zamba2-p-slot": ("zamba2-p", "dense", {}, True, None),
+            "mixtral-paged": ("mixtral", "dense", paged, False, None),
+            "maverick-slot": ("maverick", "sparse", {}, False, None),
+            "whisper-swap": ("whisper", "dense", dict(max_ctx=F_CTX), True,
+                             frames)}
+
+
+def family_prompts(vocab: int) -> list:
+    """The three prompts every family case serves."""
+    return np.random.default_rng(11).integers(0, vocab,
+                                              (3, F_PLEN)).tolist()
+
+
+def serve_family(engine, prompts, sampling_cls, preempt: bool, embeds=None,
+                 on_step=None, max_steps: int = 200):
+    """Submit every prompt, step to the end, and with ``preempt`` preempt
+    one request (``engine._preempt_one``) after the first step that leaves
+    a running request with a token, as the reference's
+    ``test_preempt_resume_exact`` does; returns (streams, plans)."""
+    embeds = embeds or [None] * len(prompts)
+    reqs = [engine.submit(p, sampling_cls(max_new_tokens=F_GEN), embeds=e)
+            for p, e in zip(prompts, embeds)]
+    plans = []
+    while engine.has_work and len(plans) < max_steps:
+        plans.append(engine.step())
+        if on_step is not None:
+            on_step()
+        if preempt and any(r.tokens for r in engine.running.values()):
+            engine._preempt_one({"preempted": 0})
+            preempt = False
+    return [list(r.tokens) for r in reqs], plans
+
+
+def kv_arena(pool):
+    """The K arena of a KV pool (slot or paged), or of a hybrid pool's."""
+    pool = getattr(pool, "kv", pool)
+    return pool.blocks.k if hasattr(pool, "blocks") else pool.k
+
+
+def state_pool(engine):
+    """The recurrent-state pool of an ssm or hybrid engine, else None."""
+    pool = engine.pool
+    pool = getattr(pool, "state", pool)
+    return pool if hasattr(pool, "shards") else None
+
+
+def _experts(placed, whole, rank: int, world: int) -> list:
+    """(name, local shape, whether it is this rank's last-dim block of the
+    whole stack) of every expert stack, and each shared-expert leaf's
+    (name, local rows, whether its rows are the rank's)."""
+    import torch
+    from repro_torch.parallel import ColShard, RowShard
+    out = []
+    for plp, wlp in zip(placed["layers"], whole["layers"]):
+        pm, wm = plp["moe"], wlp["moe"]
+        for k in sorted(wm):
+            p, w = pm[k], wm[k]
+            if isinstance(p, ColShard):
+                n = w.shape[-1] // world
+                out.append((k, tuple(p.local.shape), bool(torch.equal(
+                    p.local, w.narrow(-1, rank * n, n)))))
+            elif isinstance(p, RowShard):
+                out.append((k, "rows", True))
+            else:
+                out.append((k, None, p is w))
+    return out
+
+
+def family_rank_main(rank: int, world: int, store: str, models: dict,
+                     out_dir: str) -> None:
+    """One rank: join the group, serve every family case on the 1 x world
+    mesh counting its collectives, save what it saw to
+    ``<out_dir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=90))
+    try:
+        from repro_torch.launch.mesh import make_serving_mesh
+        from repro_torch.models import moe
+        from repro_torch.parallel import ModelAxis
+        from repro_torch.serving import SamplingParams, ServingEngine
+        calls = [0]
+        gather, total = ModelAxis.gather, ModelAxis.sum
+
+        def counted(fn):
+            def wrapper(self, *a, **kw):
+                calls[0] += 1
+                return fn(self, *a, **kw)
+            return wrapper
+        ModelAxis.gather, ModelAxis.sum = counted(gather), counted(total)
+        moe_calls, local = [], moe._moe_local
+
+        def moe_local(*a, **kw):
+            before = calls[0]
+            out = local(*a, **kw)
+            moe_calls.append(calls[0] - before)
+            return out
+        moe._moe_local = moe_local
+        mesh = make_serving_mesh(f"1x{world}", "cpu")
+        res = {}
+        for name, (key, which, kw, preempt, embeds) in \
+                family_cases().items():
+            cfg, weights = models[key]
+            params = weights[which]
+            engine = ServingEngine(cfg, params, device="cpu", mesh=mesh,
+                                   **F_ENGINE, **kw)
+            per_step = []
+            mark = [calls[0]]
+
+            def on_step():
+                per_step.append(calls[0] - mark[0])
+                mark[0] = calls[0]
+            del moe_calls[:]
+            streams, plans = serve_family(
+                engine, family_prompts(cfg.vocab), SamplingParams, preempt,
+                embeds, on_step)
+            st, sp = engine.stats(), state_pool(engine)
+            out = {"streams": streams, "plans": plans, "pool": st["pool"],
+                   "placement": st["placement"],
+                   "n_preemptions": engine.n_preemptions,
+                   "collectives_per_step": per_step,
+                   "moe_collectives": list(moe_calls)}
+            if sp is not None:
+                out["states"] = [[None if a is None else a.clone()
+                                  for a in layer] for layer in sp.states]
+                out["modes"] = [s.mode for s in sp.shards]
+            if cfg.family != "ssm":
+                out["arena_heads"] = kv_arena(engine.pool).shape[-2]
+            if cfg.family == "encdec":
+                ctx = engine.adapter.ctx
+                out["ctx_heads"] = (ctx.ck.shape[-2], ctx.cv.shape[-2])
+            if cfg.family == "moe":
+                out["experts"] = _experts(engine.params, params, rank, world)
+            res[name] = out
+        torch.save(res, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def family_cfg(key: str):
+    """The port's f32 config of a family model."""
+    import torch
+    from repro_torch import configs
+    arch, over = FAMILY_MODELS[key]
+    return dataclasses.replace(configs.get_smoke(arch), dtype=torch.float32,
+                               remat=False, **over)
