@@ -117,7 +117,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            its 96 layers: 4 requests of 64..256 tokens, 16 new tokens each,
            paged; the log line gives embed and head, compressed layers and
            one dense layer in transit, in GB.
- 14. the recurrent families at full size (run right after phase 13), each
+ 14. the recurrent families at full width (run right after phase 13), each
      8:16+16:256 by magnitude from seed 0, built one layer at a time; each
      new projection shape through phase 2's gate at M 8 and 512 (xLSTM's
      8,192-row ``w_slstm``, Zamba2's 10,448-row ``in_proj``), phase 4's
@@ -125,7 +125,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      kernel: an mLSTM layer's 5 projections, an sLSTM layer's 3, a mamba
      layer's 2 and the shared block's 7 an application; paged attention:
      one an application, by body):
-       (a) xlstm-350m (ssm), 24 layers (sLSTM every 8th): the slot layout
+       (a) xlstm-350m (ssm), 12 of its 24 layers (``RECURRENT_LAYERS``,
+           a cut for the script's wall; sLSTM every 8th): the slot layout
            with a decode and a prefill profile and one decode step whose
            every kernel launch is held against its plain version on the
            same inputs (``decode_in_context``), then 4 slots with the
@@ -273,8 +274,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            kernel's prefill body 7 x 32 times each;
        (c) the CLI: ``launch/serve.run_engine`` with ``--draft sparse
            --kv-layout paged`` on llama3-8b cut to 4 layers (a dense target
-           drafted by its own magnitude compression): gates every request
-           finished; acceptance reported;
+           drafted by its own magnitude compression, ``spec_cli``): gates
+           every request finished; acceptance, each step's wall (to a
+           synchronize; the decode step's p50) and the collectives a
+           model call issues by kind reported (phase 19(a)'s reference);
        and the stream gate on (a) and (b): each speculative stream equals
        the plain one up to its first divergence, where one ``forward`` of
        the common prefix puts both tokens within ``near_tie_bound`` of the
@@ -422,6 +425,27 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            engine's through ``near_tie_bound``; zamba2 and mixtral
            (ill-conditioned at random init) hold every kernel launch of
            the ranks' serves in context and report their streams.
+  19. speculation and the fleet on meshes (A12b part 2):
+       (a) right after phase 17(a) (bf16): phase 11(c)'s serve again with
+           ``--mesh 1x1`` on the world-size-1 NCCL group (the drafter on
+           the target's placement): gates the streams bit-identical to
+           11(c)'s, the drafted and accepted counts equal, the placement,
+           the launches per model call of target and draft, and a fixed
+           count of collectives a call for the draft's chunk and decode
+           calls and the target's verify calls; reports those counts
+           and the decode step's p50 against 11(c)'s;
+       (b) after phase 18(c): a fleet of 2 replicas of 1x1 as two
+           processes on the one card (a ``cpu:gloo,cuda:nccl`` world, each
+           replica its own NCCL group of one, ``make_replica_meshes``),
+           llama3-8b at ``MESH_FLEET_LAYERS`` layers, phase 12(c)'s
+           prefix-routed trace (``chiprun_out/phase19_requests.json``) at
+           time scale 0 on the fleet's clock, beside a one-process
+           ``ReplicaSet`` on the same trace here: gates both processes'
+           homes, steals, drains, routing decisions and streams equal,
+           each one's launches per its replica's model calls, and the
+           streams against the one-process fleet's through
+           ``near_tie_bound``; reports ``busy_s`` and ``critical_path_s``
+           (one card shared: not a speed-up).
 Each phase's own wall is under ``phase_seconds`` in the JSON.
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
@@ -552,10 +576,13 @@ FAMILY_ARCHS = ("qwen3-8b", "gemma-7b", "nemotron-4-340b")
 NEMOTRON_LAYERS = 2
 NEMOTRON_PROMPT_LENS = [64, 128, 192, 256]
 NEMOTRON_GEN = 16
-# phase 14: the recurrent families at full size, 8:16+16:256, phase 4's
+# phase 14: the recurrent families at full width, 8:16+16:256, phase 4's
 # traffic; xlstm-350m served again on half the slots with a forced
 # preemption every PREEMPT_EVERY steps while a request waits
 RECURRENT_ARCHS = ("xlstm-350m", "zamba2-2.7b")
+# depth cuts for the script's wall: xlstm-350m at 12 of 24 layers (one
+# sLSTM layer of three; it paid for phase 19), zamba2-2.7b whole
+RECURRENT_LAYERS = {"xlstm-350m": 12}
 XLSTM_PRESSURE_SLOTS = 4
 PREEMPT_EVERY = 4
 # each new projection shape through phase 2's gate at a decode and a
@@ -629,6 +656,7 @@ MESH_SHARDS = (2, 4, 8)
 MESH_MS = (8, 512)
 MESH_TWO_RANK_LAYERS = 4
 MESH_TWO_RANK_DEADLINE_S = 300
+MESH_FLEET_LAYERS = 4           # phase 19(b)'s fleet of two processes
 # phase 18: every family on the serving mesh.  (b) the compressed
 # projections' [out, in] shapes of these models (xlstm-350m's w_gates and
 # r_gates stay dense, as the reference keeps them), sliced to a rank's
@@ -2651,8 +2679,9 @@ def mesh_family_serve(torch, log, cfg, params, build, label, prompts, gen,
 
 
 def recurrent_phase(torch, log, smi, mesh=None):
-    """Phase 14: xlstm-350m (ssm, 24 layers) and zamba2-2.7b (hybrid, 54
-    mamba layers and 9 shared-attention applications) at full size,
+    """Phase 14: xlstm-350m (ssm, 12 of 24 layers: ``RECURRENT_LAYERS``)
+    and zamba2-2.7b (hybrid, 54 mamba layers and 9 shared-attention
+    applications) at full width,
     8:16+16:256 by magnitude from seed 0, each served with phase 4's
     traffic; with ``mesh`` (the 1x1 serving mesh) phase 18(a)'s serves of
     each beside the unplaced one; returns (results, launches summed over
@@ -2663,7 +2692,8 @@ def recurrent_phase(torch, log, smi, mesh=None):
     bs = ATTN_SHAPE["bs"]
     for arch in RECURRENT_ARCHS:
         torch.cuda.reset_peak_memory_stats()
-        cfg, params, build = build_model(torch, log, arch=arch)
+        cfg, params, build = build_model(torch, log, arch=arch,
+                                         n_layers=RECURRENT_LAYERS.get(arch))
         res = {"weight_cases": family_weight_gate(torch, log, cfg, params),
                "peak_build_gb": torch.cuda.max_memory_allocated() / 1e9}
         prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
@@ -3449,6 +3479,7 @@ def spec_launch_check(engine, launches, label):
     want = {}
     for params, cfg, calls in models:
         wq = params["layers"][0]["wq"]
+        wq = getattr(wq, "local", wq)              # a mesh's RowShard
         if isinstance(wq, SparseWeight):
             key = ("fused_sparse_linear" if wq.o_values is not None
                    else "nm_spmm") + ("" if wq.v_scale is None else "_int8")
@@ -3546,9 +3577,8 @@ def spec_phase(torch, log, cfg, params):
     target, (c) the CLI's --draft sparse on a 4-layer dense target; each
     speculative serve against the same target served plain in this run.
     Returns (numbers, the launches of every phase-11 serve summed)."""
-    from repro_torch.launch import serve
     from repro_torch.models.sparse_serving import densify_params
-    from repro_torch.serving import SpeculativeConfig, Status
+    from repro_torch.serving import SpeculativeConfig
 
     out, runs = {}, []
     spec = dict(k=SPEC_K, max_k=SPEC_MAX_K)
@@ -3620,41 +3650,98 @@ def spec_phase(torch, log, cfg, params):
 
     # (c) the CLI: a dense 4-layer target and its own magnitude-compressed
     # draft (--draft sparse), through run_engine on the paged layout
+    out["c_cli"], launches = spec_cli(torch, log, cfg, "(c)")
+    runs.append(launches)
+    return out, add_launches(*runs)
+
+
+def spec_cli(torch, log, cfg, label, mesh=None):
+    """Phase 11(c)'s serve: ``serve --draft sparse`` on a
+    ``SPEC_CLI["n_layers"]``-layer dense target and its own magnitude
+    compression, through ``run_engine`` on the paged layout; with ``mesh``
+    (the 1x1 serving mesh) ``--mesh 1x1`` (phase 19(a)).  Every launch
+    count is set to 0 just before and read just after; each engine step's
+    wall is timed to a synchronize, and the collectives each model call
+    issues are counted by kind (the drafter's ``draft_step`` and
+    ``draft_decode``, the target's ``step``: its prefill chunks and verify
+    calls).  Returns (numbers with the streams, launches)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine, Status
+    from repro_torch.serving.families import TransformerAdapter
+
     cfg_c = dataclasses.replace(cfg, n_layers=SPEC_CLI["n_layers"])
-    args = serve.parse_args([
-        "--arch", "llama3-8b", "--batch", str(SPEC_CLI["batch"]),
-        "--prompt-len", str(SPEC_CLI["prompt_len"]),
-        "--gen", str(SPEC_CLI["gen"]), "--slots", "8",
-        "--token-budget", "512", "--kv-layout", "paged",
-        "--block-size", str(ATTN_SHAPE["bs"]), "--draft", "sparse",
-        "--spec-k", str(SPEC_K)])
+    argv = ["--arch", "llama3-8b", "--batch", str(SPEC_CLI["batch"]),
+            "--prompt-len", str(SPEC_CLI["prompt_len"]),
+            "--gen", str(SPEC_CLI["gen"]), "--slots", "8",
+            "--token-budget", "512", "--kv-layout", "paged",
+            "--block-size", str(ATTN_SHAPE["bs"]), "--draft", "sparse",
+            "--spec-k", str(SPEC_K)]
+    args = serve.parse_args(argv + (["--mesh", "1x1"] if mesh else []))
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     dense, _ = serve.build_params(cfg_c, args, "cuda", g)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    reqs, engine = serve.run_engine(cfg_c, dense, args, "cuda", g)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
-    runs.append(launches)
+    steps, per_call = [], {}
+    saved = (ServingEngine.step, TransformerAdapter.step_chunk,
+             TransformerAdapter.step_decode)
+
+    def timed_step(engine):
+        s0 = time.perf_counter()
+        st = saved[0](engine)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - s0, st))
+        return st
+
+    def by_kind(fn, kind):
+        def call(adapter, *a, **kw):
+            n0 = coll.n
+            res = fn(adapter, *a, **kw)
+            per_call.setdefault(adapter.trace_kind_prefix + kind,
+                                set()).add(coll.n - n0)
+            return res
+        return call
+    ServingEngine.step = timed_step
+    TransformerAdapter.step_chunk = by_kind(saved[1], "step")
+    TransformerAdapter.step_decode = by_kind(saved[2], "decode")
+    try:
+        with counted_collectives() as coll:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            reqs, engine = serve.run_engine(cfg_c, dense, args, "cuda", g,
+                                            mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+    finally:
+        (ServingEngine.step, TransformerAdapter.step_chunk,
+         TransformerAdapter.step_decode) = saved
     for r in reqs:
         check(r.status is Status.FINISHED and len(r.tokens) == args.gen,
-              f"(c) request {r.request_id}: {r.status}, {len(r.tokens)} "
-              f"tokens")
-    spec_launch_check(engine, launches, "(c)")
+              f"{label} request {r.request_id}: {r.status}, "
+              f"{len(r.tokens)} tokens")
+    spec_launch_check(engine, launches, label)
     st = engine.stats()
-    out["c_cli"] = {"argv": "--draft sparse --kv-layout paged, 4 layers",
-                    "requests": len(reqs), "wall_s": wall,
-                    "speculative": st["speculative"], "steps": st["n_steps"],
-                    "model_calls": st["n_model_calls"],
-                    "draft_model_calls":
-                        engine.spec.drafter.adapter.n_model_calls,
-                    "launches": {k: n for k, n in launches.items() if n}}
-    log(f"  (c) {json.dumps(out['c_cli'])}")
+    decode = sorted(w for w, s in steps
+                    if s["prefill_tokens"] == 0 and s["decoded"] > 0)
+    check(len(decode) > 0, f"{label}: no decode-only step")
+    out = {"argv": " ".join(argv[argv.index("--kv-layout"):]
+                            + (["--mesh", "1x1"] if mesh else []))
+           + f", {cfg_c.n_layers} layers",
+           "requests": len(reqs), "wall_s": wall,
+           "speculative": st["speculative"], "steps": st["n_steps"],
+           "model_calls": st["n_model_calls"],
+           "draft_model_calls": engine.spec.drafter.adapter.n_model_calls,
+           "placement": st["placement"],
+           "decode_step_ms_p50": 1e3 * decode[len(decode) // 2],
+           "decode_steps": len(decode),
+           "collectives": coll.n,
+           "collectives_per_call": {k: sorted(v)
+                                    for k, v in sorted(per_call.items())},
+           "launches": {k: n for k, n in launches.items() if n}}
+    log(f"  {label} {json.dumps(out)}")
+    out["streams"] = [r.tokens for r in reqs]
     del engine, dense
     torch.cuda.empty_cache()
-    return out, add_launches(*runs)
+    return out, launches
 
 
 # ------------------------------------------------------ phase 12: the fleet
@@ -5541,6 +5628,209 @@ def family_two_rank_phase(torch, log):
     return out
 
 
+# ------------------------- phase 19: speculation and the fleet on meshes
+def mesh_spec_phase(torch, log, cfg, mesh, ref):
+    """Phase 19(a): phase 11(c)'s serve (``ref``: its numbers and streams)
+    again with ``--mesh 1x1`` on the world-size-1 NCCL group: the drafter
+    rides the target's placement.  Gates the streams bit-identical to
+    11(c)'s (a 1x1 placement runs the same kernels at the same shapes),
+    the drafted and accepted counts equal, the placement, and each run's
+    launches per model call (``spec_launch_check``); reports the
+    collectives of a draft and of a verify call and the decode step's p50
+    against 11(c)'s.  Returns (numbers, launches)."""
+    out, launches = spec_cli(torch, log, cfg, "19(a)", mesh=mesh)
+    streams = out.pop("streams")
+    same = sum(a == b for a, b in zip(ref["streams"], streams))
+    check(same == len(ref["streams"]),
+          f"19(a) speculation on the 1x1 mesh: {same} of "
+          f"{len(ref['streams'])} streams bit-identical to 11(c)'s")
+    counts = [(r["speculative"]["drafted"], r["speculative"]["accepted"])
+              for r in (ref, out)]
+    check(counts[0] == counts[1],
+          f"19(a) drafted and accepted {counts[1]} on the mesh, {counts[0]} "
+          f"unplaced")
+    check(out["placement"] == {"devices": 1, "mesh": {"data": 1, "model": 1}},
+          f"19(a) placement {out['placement']}")
+    per_call = out["collectives_per_call"]
+    check(all(len(per_call.get(k, [])) == 1 and per_call[k][0] > 0
+              for k in ("draft_step", "draft_decode", "step")),
+          f"19(a) collectives a call by kind: {per_call}")
+    res = {"streams_identical": f"{same}/{same}",
+           "drafted_accepted": counts[1],
+           "collectives_per_draft_call": {
+               k: per_call[k][0] for k in ("draft_step", "draft_decode")},
+           "collectives_per_verify_call": per_call["step"][0],
+           "decode_step_ms_p50": [ref["decode_step_ms_p50"],
+                                  out["decode_step_ms_p50"]],
+           "run": out}
+    log(f"  19(a) unplaced vs 1x1 mesh: decode step "
+        f"{res['decode_step_ms_p50'][0]:.2f} vs "
+        f"{res['decode_step_ms_p50'][1]:.2f} ms; collectives a draft call "
+        f"{res['collectives_per_draft_call']}, a verify call "
+        f"{res['collectives_per_verify_call']}")
+    return res, launches
+
+
+def _fleet_rank_worker(rank, world, store, out_dir, trace_path):
+    """One of phase 19(b)'s processes: a world of ``world`` over a
+    ``file://`` store (gloo for host tensors, NCCL for the card's), the
+    card for all, ``make_replica_meshes("1x1", world)`` (each replica its
+    own NCCL group of one), llama3-8b at ``MESH_FLEET_LAYERS`` layers from
+    seed 0 and a prefix-routed ``ReplicaSet(meshes=)`` replaying the
+    trace at time scale 0 on the fleet's clock; writes its decisions,
+    streams, launches and times to ``<out_dir>/rank<r>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serving import ReplicaSet, load_trace, replay
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        meshes = make_replica_meshes("1x1", world, "cuda")
+        cfg, params, _ = build_model(torch, lambda msg: None,
+                                     n_layers=MESH_FLEET_LAYERS)
+        fleet = ReplicaSet(cfg, params, n_replicas=world, routing="prefix",
+                           meshes=meshes, **fleet_kwargs(FLEET_BLOCKS))
+        del params
+        own = fleet.replicas[fleet.own_replica]
+        trace = load_trace(trace_path)
+        torch.cuda.synchronize()
+        reset_launches()
+        res = replay(fleet, trace, time_scale=0.0, clock=fleet.shared_clock)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        st = fleet.stats()
+        out = {"replica": fleet.own_replica,
+               "slices": [m.mesh.flatten().tolist() for m in meshes],
+               "placement": own.stats()["placement"],
+               "streams": [r.tokens for r in res["finished"]],
+               "status": [r.status.value for r in res["finished"]],
+               "rejected": res["rejected"], "wall_s": res["wall_s"],
+               "home": {str(k): v for k, v in sorted(fleet.home.items())},
+               "n_steals": st["n_steals"], "n_drains": st["n_drains"],
+               "decisions_by": st["router"]["decisions_by"],
+               "finished_by_replica": [p["n_finished"]
+                                       for p in st["replicas"]],
+               "busy_s": st["busy_s"], "router_busy_s": st["router_busy_s"],
+               "critical_path_s": st["critical_path_s"],
+               "model_calls": own.adapter.n_model_calls,
+               "n_layers": cfg.n_layers, "launches": launches}
+        (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_fleet_phase(torch, log):
+    """Phase 19(b): a fleet of 2 replicas of 1x1 as two processes on the
+    one card (``_fleet_rank_worker``), phase 12(c)'s prefix-routed trace at
+    ``MESH_FLEET_LAYERS`` layers, against a one-process ``ReplicaSet`` on
+    the same trace here.  Gates both processes' homes, steals, drains,
+    routing decisions and finished streams equal, each process's launches
+    per its replica's model calls, and the streams against the
+    one-process fleet's through ``near_tie_bound`` (as phase 12); reports
+    ``busy_s`` and ``critical_path_s`` (both processes share the card: no
+    speed-up figure)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.serving import (ReplicaSet, Status, fleet_trace,
+                                     replay, save_trace)
+
+    cfg, params, _ = build_model(torch, log, n_layers=MESH_FLEET_LAYERS)
+    trace = fleet_trace(vocab=cfg.vocab, **FLEET_TRACE)
+    trace_path = ROOT / "chiprun_out" / "phase19_requests.json"
+    trace_path.parent.mkdir(exist_ok=True)
+    save_trace(str(trace_path), trace)
+    prompts = [t.prompt for t in sorted(trace, key=lambda t: t.arrival_s)]
+    fleet = ReplicaSet(cfg, params, n_replicas=FLEET_REPLICAS,
+                       routing="prefix", **fleet_kwargs(FLEET_BLOCKS))
+    torch.cuda.synchronize()
+    reset_launches()
+    res = replay(fleet, trace, time_scale=0.0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    calls = [e.adapter.n_model_calls for e in fleet.replicas]
+    check_launch_counts(launches, {
+        "fused_sparse_linear": 7 * cfg.n_layers * sum(calls),
+        "paged_attention": cfg.n_layers * sum(calls)}, "19(b) one process")
+    st = fleet.stats()
+    base = {"streams": [r.tokens for r in res["finished"]],
+            "home": {str(k): v for k, v in sorted(fleet.home.items())},
+            "n_steals": st["n_steals"], "n_drains": st["n_drains"],
+            "busy_s": st["busy_s"], "critical_path_s": st["critical_path_s"],
+            "wall_s": res["wall_s"], "model_calls": calls}
+    del fleet
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(
+            _fleet_rank_worker,
+            args=(FLEET_REPLICAS, f"{d}/store", d, str(trace_path)),
+            nprocs=FLEET_REPLICAS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TWO_RANK_DEADLINE_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"19(b): the fleet's processes still running after "
+                      f"{MESH_TWO_RANK_DEADLINE_S}s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        ranks = [json.loads((pathlib.Path(d) / f"rank{r}.json").read_text())
+                 for r in range(FLEET_REPLICAS)]
+    n_req = len(trace)
+    for r, got in enumerate(ranks):
+        check(got["replica"] == r and got["slices"] == [[0], [1]]
+              and got["placement"] == {"devices": 1,
+                                       "mesh": {"data": 1, "model": 1}},
+              f"19(b) process {r}: replica {got['replica']}, slices "
+              f"{got['slices']}, placement {got['placement']}")
+        check(len(got["streams"]) == n_req and got["rejected"] == 0
+              and set(got["status"]) == {Status.FINISHED.value},
+              f"19(b) process {r}: {len(got['streams'])} of {n_req} "
+              f"finished, {got['rejected']} rejected")
+        check_launch_counts(got["launches"], {
+            "fused_sparse_linear": 7 * got["n_layers"] * got["model_calls"],
+            "paged_attention": got["n_layers"] * got["model_calls"]},
+            f"19(b) process {r}")
+    keys = ("home", "n_steals", "n_drains", "decisions_by",
+            "finished_by_replica", "streams")
+    for k in keys:
+        check(ranks[0][k] == ranks[1][k],
+              f"19(b) the processes' {k} differ")
+    gate = stream_gate(torch, "19(b) fleet on replica meshes vs one "
+                       "process", cfg, params, prompts, base["streams"],
+                       ranks[0]["streams"])
+    del params
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.n_layers, "requests": n_req,
+           "one_process": {k: v for k, v in base.items() if k != "streams"},
+           "processes": [dict({k: v for k, v in got.items()
+                               if k not in ("streams", "status", "home")},
+                              launches={k: n for k, n in
+                                        got["launches"].items() if n})
+                         for got in ranks],
+           "home_equal_to_one_process": ranks[0]["home"] == base["home"],
+           "divergences": [dict(g, request=i) for i, g in enumerate(gate)
+                           if g is not None],
+           "streams_identical": sum(g is None for g in gate)}
+    log(f"  19(b) 2 replicas of 1x1 in two processes: steals "
+        f"{ranks[0]['n_steals']}, drains {ranks[0]['n_drains']} (one "
+        f"process: {base['n_steals']}, {base['n_drains']}); streams equal "
+        f"to the one-process fleet's {out['streams_identical']}/{n_req}; "
+        f"busy {[p['busy_s'] for p in ranks]} s, critical path "
+        f"{[round(p['critical_path_s'], 3) for p in ranks]} s against "
+        f"{round(base['critical_path_s'], 3)} in one process (one card "
+        f"shared: not a speed-up)")
+    return out
+
+
 def mesh_entries(cases) -> dict:
     """Phase 17(b)'s shard cases of one kernel for its kernels-line entry:
     their sums for each mesh, as ``case_sums`` gives them."""
@@ -5657,6 +5947,11 @@ def main() -> int:
     mesh = make_serving_mesh("1x1", "cuda")
     mesh_a, mesh_launches = timed("17a_bf16", mesh_serve_phase, torch, log,
                                   cfg, params, mesh)
+    log("phase 19(a) speculation on the 1x1 mesh: phase 11(c)'s serve "
+        "--draft sparse (llama3-8b, 4 layers) with --mesh 1x1")
+    mesh_spec, mesh_spec_launches = timed(
+        "19a", mesh_spec_phase, torch, log, cfg, mesh,
+        speculative["c_cli"])
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -5678,8 +5973,8 @@ def main() -> int:
         "(36 layers, paged then slot), gemma-7b (28 layers, hd 256, bf16 "
         "then int8 paged KV), nemotron-4-340b (2 of 96 layers, hd 192)")
     dense_family, family_launches = timed("13", family_phase, torch, log)
-    log("phase 14 the recurrent families at full size, 8:16+16:256: "
-        "xlstm-350m (24 layers; slot, then half the slots with swap "
+    log("phase 14 the recurrent families at full width, 8:16+16:256: "
+        "xlstm-350m (12 of 24 layers; slot, then half the slots with swap "
         "preemptions), zamba2-2.7b (54 mamba layers, 9 shared-attention "
         "applications at hd 80; paged, then slot); with phase 18(a): "
         "xlstm's slot and zamba2's paged serve again on the 1x1 mesh")
@@ -5735,6 +6030,9 @@ def main() -> int:
         "gloo: xlstm-350m, zamba2-2.7b, mixtral-8x7b and whisper-medium, "
         "each cut to a layer of each kind")
     family_ranks = timed("18c", family_two_rank_phase, torch, log)
+    log("phase 19(b) a fleet of 2 replicas of 1x1 as two processes on the "
+        "one card: llama3-8b, 4 layers, phase 12(c)'s prefix-routed trace")
+    mesh_fleet = timed("19b", mesh_fleet_phase, torch, log)
     import torch.distributed as dist
     dist.destroy_process_group()
     mesh_seconds = {k: walls[k] for k in ("17a_bf16", "17a_int8", "17b",
@@ -5750,6 +6048,11 @@ def main() -> int:
                   ("whisper-medium", moe_encdec["whisper-medium"]))},
               "b_shards": family_shards, "c_two_ranks": family_ranks,
               "seconds": {k: walls[k] for k in ("18a", "18b", "18c")}}
+    mesh19 = {"device": smi, "a_speculation_1x1": mesh_spec,
+              "b_fleet_two_processes": mesh_fleet,
+              "seconds": {k: walls[k] for k in ("19a", "19b")}}
+    log(f"  phase 19: {sum(mesh19['seconds'].values()):.1f}s "
+        f"{json.dumps(mesh19['seconds'])} ({smi})")
     log(f"  phase 17: {sum(mesh_seconds.values()):.1f}s "
         f"{json.dumps(mesh_seconds)}; phase 18: "
         f"{sum(mesh18['seconds'].values()):.1f}s "
@@ -5767,11 +6070,11 @@ def main() -> int:
     main_launches = add_launches(main_launches, spec_launches, fleet_launches,
                                  family_launches, recurrent_launches,
                                  moe_encdec_launches, slice_launches,
-                                 mesh_launches)
+                                 mesh_launches, mesh_spec_launches)
     paged_launches = add_launches(paged_launches, spec_launches,
                                   fleet_launches, family_launches,
                                   recurrent_launches, moe_encdec_launches,
-                                  mesh_launches)
+                                  mesh_launches, mesh_spec_launches)
     # phase 13's int8 KV serve (gemma-7b) and phase 17(a)'s int8 pair join
     # the int8 variants'
     int8_launches = add_launches(int8_launches, family_launches,
@@ -5817,7 +6120,7 @@ def main() -> int:
               "dense_family": dense_family, "recurrent": recurrent,
               "moe_encdec": moe_encdec,
               "training": training, "slice": slice_16, "mesh": mesh17,
-              "mesh_families": mesh18}
+              "mesh_families": mesh18, "mesh_spec_fleet": mesh19}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "phase_seconds": walls,

@@ -11,8 +11,12 @@ group (``parallel/tensor_parallel.py``).
   torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
       --arch llama3-8b --sparse --mesh 1x8
 
-Only the serving mesh is ported: the production training mesh and the
-fleet's per-replica meshes wait for ROADMAP A12c and A12b.
+The serving mesh and the fleet's per-replica meshes (disjoint rank
+slices, ``make_replica_meshes``) are ported; the production training mesh
+waits for ROADMAP A12c.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch llama3-8b --sparse --replicas 2 --mesh 1x2
 """
 from __future__ import annotations
 
@@ -100,14 +104,34 @@ def make_host_mesh(device="cuda"):
     return make_serving_mesh("1x1", device)
 
 
-def make_replica_meshes(spec: str | None, n_replicas: int) -> list:
-    """Per-replica serving meshes for the fleet: ``[None] * n_replicas``
-    (every replica on the single-device path) when no spec is given; a
-    spec waits for ROADMAP A12b."""
+def make_replica_meshes(spec: str | None, n_replicas: int, device="cuda"):
+    """Per-replica serving meshes over disjoint rank slices, for the
+    fleet's scale-out: replica i's ``spec``-shaped ("data", "model") mesh
+    holds ranks [i*d*m, (i+1)*d*m) of the process group (joined or
+    started here, ``_start_process_group``), so N replicas serve side by
+    side with no rank shared.  ``spec`` is the per-replica mesh; None
+    gives ``[None] * n_replicas`` (every replica on the single-device
+    path).  Every rank builds every slice's mesh, because creating a
+    group is a collective call; a rank is a member of one of them at
+    most (``DeviceMesh.get_coordinate`` is None on the others)."""
     if n_replicas < 1:
         raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-    if parse_mesh_spec(spec) is None:
+    dm = parse_mesh_spec(spec)
+    if dm is None:
         return [None] * n_replicas
-    raise NotImplementedError(
-        "replica meshes (--mesh with --replicas) are not ported yet "
-        "(ROADMAP A12b)")
+    from torch.distributed.device_mesh import DeviceMesh
+    d, m = dm
+    per = d * m
+    device = torch.device(device)
+    _start_process_group(per * n_replicas, device)
+    world = dist.get_world_size()
+    if per * n_replicas > world:
+        raise ValueError(
+            f"{n_replicas} replicas of a {d}x{m} mesh need "
+            f"{per * n_replicas} ranks but the process group has world "
+            f"size {world} (start one process per rank: torchrun "
+            f"--nproc-per-node {per * n_replicas})")
+    return [DeviceMesh(device.type,
+                       torch.arange(i * per, (i + 1) * per).view(d, m),
+                       mesh_dim_names=("data", "model"))
+            for i in range(n_replicas)]

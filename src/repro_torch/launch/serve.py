@@ -84,7 +84,10 @@ snapshot in ``out.json.counters.txt``:
 ``--replicas N`` serves with N engines behind the fleet router
 (``serving/fleet/``), each with its own ``--slots``/``--n-blocks`` pool,
 all on one card with one copy of the weights; ``--routing`` picks the
-policy.  With ``--trace`` each request's session reaches the router, and
+policy.  With ``--mesh`` the spec is per replica: N x DATA x MODEL ranks
+under ``torchrun``, replica i on ranks [i*DATA*MODEL, (i+1)*DATA*MODEL)
+(``make_replica_meshes``), each rank serving its own replica and the
+router's numbers gathered across the world.  With ``--trace`` each request's session reaches the router, and
 with ``--trace-out`` the replicas' tracks (``r0``..) and the router's
 share one file:
 
@@ -97,12 +100,15 @@ started by ``torchrun`` (``launch/mesh.py``, ``serving/placement.py``):
 every rank draws the same params from the run's seed, keeps its out-dim
 rows and KV heads, and serves the same requests in lockstep; only rank 0
 prints and writes ``--trace-out``.  Every engine-served family is served
-so (dense, moe, ssm, hybrid, encdec); ``--replicas > 1`` raises (ROADMAP
-A12b), and the one-shot loop (``--legacy``, the vlm family) is refused:
-the reference's ``run_oneshot`` takes no mesh either.
+so (dense, moe, ssm, hybrid, encdec), ``--draft`` speculates on the
+mesh (the drafter on the target's placement), and the one-shot loop
+(``--legacy``, the vlm family) is refused: the reference's
+``run_oneshot`` takes no mesh either.
 
   torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
       --arch llama3-8b --sparse --kv-layout paged --mesh 1x8
+  torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
+      --arch llama3-8b --sparse --kv-layout paged --replicas 2 --mesh 1x4
 """
 from __future__ import annotations
 
@@ -214,11 +220,12 @@ def _make_fleet_tracers(args, n: int):
 
 
 def _build_target(cfg, params, args, device, *, max_len: int, mesh=None):
-    """The serving target of ``args``: one engine (on ``mesh`` when given),
-    or ``--replicas N`` of them behind the router (``ReplicaSet`` takes the
-    engine's surface, so ``run_engine`` and ``replay`` drive either).
-    Returns (target, the tracer whose buffer to write, None without
-    --trace-out)."""
+    """The serving target of ``args``: one engine (on ``mesh``, a
+    ``DeviceMesh``, when given), or ``--replicas N`` of them behind the
+    router (``mesh`` then the list of replica meshes, or None;
+    ``ReplicaSet`` takes the engine's surface, so ``run_engine`` and
+    ``replay`` drive either).  Returns (target, the tracer whose buffer
+    to write, None without --trace-out)."""
     kw = dict(device=device, n_slots=args.slots, max_len=max_len,
               max_queue=args.max_queue, token_budget=args.token_budget,
               max_prefill_per_step=args.max_prefill_per_step,
@@ -234,9 +241,13 @@ def _build_target(cfg, params, args, device, *, max_len: int, mesh=None):
                   f" ({mesh.size()} ranks, {dist.get_backend()})")
         return ServingEngine(cfg, params, tracer=tracer, mesh=mesh,
                              **kw), tracer
+    if mesh is not None:
+        print(f"fleet meshes: {args.replicas} x "
+              f"{dict(zip(mesh[0].mesh_dim_names, mesh[0].shape))} "
+              f"(disjoint slices, {dist.get_backend()})")
     tracers, router_tracer = _make_fleet_tracers(args, args.replicas)
     fleet = ReplicaSet(cfg, params, n_replicas=args.replicas,
-                       routing=args.routing, tracers=tracers,
+                       routing=args.routing, meshes=mesh, tracers=tracers,
                        router_tracer=router_tracer, **kw)
     return fleet, (tracers[0] if tracers else None)
 
@@ -385,13 +396,13 @@ def run_engine(cfg, params, args, device, generator: torch.Generator,
 def run_trace(cfg, params, args, device, mesh=None):
     """Replay the --trace file through the engine (or the --replicas
     fleet); returns replay's result dict with the target and its tracer
-    (None without --trace-out).  On a mesh, arrivals fall due by rank 0's
-    clock (the engine's ``shared_clock``)."""
+    (None without --trace-out).  Arrivals fall due by the target's
+    ``shared_clock``: on a mesh or a fleet of replica meshes, rank 0's."""
     engine, tracer = _build_target(cfg, params, args, device,
                                    max_len=args.max_len, mesh=mesh)
     trace = load_trace(args.trace)
-    kw = {} if mesh is None else {"clock": engine.shared_clock}
-    res = replay(engine, trace, time_scale=args.time_scale, **kw)
+    res = replay(engine, trace, time_scale=args.time_scale,
+                 clock=engine.shared_clock)
     summary = summarize([r.metrics for r in res["finished"]], res["wall_s"])
     print(format_summary("trace", summary))
     _print_fleet_stats(engine)
@@ -521,14 +532,11 @@ def parse_args(argv=None):
 
 
 def check_mesh_args(cfg, args) -> None:
-    """Raise for what ``--mesh`` does not serve: a fleet of replica meshes
-    (not ported yet, ROADMAP A12b) and the one-shot loop, which takes no
-    mesh in the reference either (its ``run_oneshot`` has no mesh
+    """Raise for what ``--mesh`` does not serve: the one-shot loop, which
+    takes no mesh in the reference either (its ``run_oneshot`` has no mesh
     argument), so ``--mesh`` serves through the engine only."""
     if parse_mesh_spec(args.mesh) is None:
         return
-    if args.replicas > 1:
-        make_replica_meshes(args.mesh, args.replicas)
     if args.legacy or cfg.family not in SUPPORTED_FAMILIES:
         raise ValueError(
             "--mesh serves through the engine; the one-shot loop (--legacy, "
@@ -540,9 +548,13 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke_arch else get(args.arch)
     check_mesh_args(cfg, args)
-    mesh = make_serving_mesh(args.mesh, args.device)
+    if args.replicas > 1:
+        mesh = make_replica_meshes(args.mesh, args.replicas, args.device)
+        mesh = None if mesh[0] is None else mesh
+    else:
+        mesh = make_serving_mesh(args.mesh, args.device)
     if mesh is not None and dist.get_rank() != 0:
-        # every rank serves; rank 0 alone prints and writes the trace
+        # every rank serves; world rank 0 alone prints and writes the trace
         args = argparse.Namespace(**dict(vars(args), trace_out=None))
         with contextlib.redirect_stdout(io.StringIO()):
             return _serve(cfg, args, mesh)

@@ -72,9 +72,11 @@ embedding and the head, KV heads split across the ranks' arenas, explicit
 gathers in the layers.  One process a rank, every rank running this
 engine on the same requests; every clock read is rank 0's, broadcast, so
 every rank evicts, admits and plans the same work and its collectives
-meet the others'.  Every family is served so (ROADMAP A12a and A12b's
-first part: recurrent-state blocks, expert columns, context rows);
-``draft=`` under a mesh raises (ROADMAP A12b).
+meet the others'.  Every family is served so (ROADMAP A12a and A12b:
+recurrent-state blocks, expert columns, context rows), and so is
+``draft=``: the drafter rides the target's placement, and every
+speculative decision (k, the adaptive ``draft_k``, acceptance) reads the
+gathered logits and the shared clock alone.
 
 Every registered config of the five families is served (mixtral-8x7b and
 llama4-maverick-400b-a17b for moe, whisper-medium for encdec); the vlm
@@ -112,10 +114,6 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class ServingEngine:
     def __init__(self, cfg, params, *, device="cuda", n_slots: int = 8,
                  max_len: int = 256, max_queue: int = 64,
@@ -136,10 +134,18 @@ class ServingEngine:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, "
                              f"not {kv_layout!r}")
         self.placement = ServingPlacement(mesh, cfg)
-        if self.placement.active:
-            if draft is not None:
-                raise _not_ported("speculative decoding on a mesh", "A12b")
-            params = self.placement.place_params(params)
+        if draft is not None:
+            # refusals of the draft come before any tensor is placed
+            if cfg.family not in ("dense", "moe"):
+                raise ValueError(
+                    "speculative decoding needs a KV-transformer target "
+                    f"(dense/moe), not family {cfg.family!r}: rollback "
+                    "relies on the cursor hiding rejected positions, which "
+                    "recurrent state cannot do")
+            if draft.method == "model":
+                # a draft whose KV heads cannot follow the target's split
+                self.placement.for_draft(draft.cfg or cfg)
+        params = self.placement.place_params(params)
         self.device = resolve(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -175,15 +181,9 @@ class ServingEngine:
         # every row's k+1 candidates in one chunk-shaped model call
         self.spec = None
         if draft is not None:
-            if cfg.family not in ("dense", "moe"):
-                raise ValueError(
-                    "speculative decoding needs a KV-transformer target "
-                    f"(dense/moe), not family {cfg.family!r}: rollback "
-                    "relies on the cursor hiding rejected positions, which "
-                    "recurrent state cannot do")
-            self.spec = Speculator(draft, cfg, n_slots=n_slots,
-                                   max_len=max_len, device=self.device,
-                                   kv_dtype=kv_dtype)
+            self.spec = Speculator(draft, cfg, self.placement,
+                                   n_slots=n_slots, max_len=max_len,
+                                   device=self.device, kv_dtype=kv_dtype)
         self.n_spec_steps = 0
         self.n_drafted = 0
         self.n_accepted = 0
@@ -228,6 +228,25 @@ class ServingEngine:
         family refuses it (``adapter.validate_submit``).  ``embeds`` is the
         enc-dec family's encoder input ([S_enc, d] frontend features, run
         once at admission); every other family refuses it."""
+        prompt, sampling = self.check_request(prompt, sampling, embeds)
+        rid = self._next_id if request_id is None else int(request_id)
+        req = Request(rid, prompt, sampling, on_token=on_token,
+                      on_finish=on_finish, embeds=embeds)
+        req.metrics.family = self.cfg.family
+        self._next_id = max(self._next_id + 1, rid + 1)
+        req.metrics.arrival = self.shared_clock()
+        if not self.queue.try_push(req):
+            raise QueueFull(f"queue at capacity ({self.queue.max_size})")
+        if self.tracer.enabled:
+            self.tracer.on_submit(req)
+        return req
+
+    def check_request(self, prompt, sampling: SamplingParams | None = None,
+                      embeds=None) -> tuple[list[int], SamplingParams]:
+        """``submit``'s admission checks without enqueueing: the prompt as
+        a list of ints and the sampling, or the ValueError ``submit``
+        would raise (a fleet on replica meshes asks its own replica for
+        a request routed to another slice)."""
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
@@ -244,17 +263,7 @@ class ServingEngine:
                 f"({sampling.max_new_tokens}) exceeds KV capacity "
                 f"{capacity}")
         self.adapter.validate_submit(prompt, sampling, embeds)
-        rid = self._next_id if request_id is None else int(request_id)
-        req = Request(rid, prompt, sampling, on_token=on_token,
-                      on_finish=on_finish, embeds=embeds)
-        req.metrics.family = self.cfg.family
-        self._next_id = max(self._next_id + 1, rid + 1)
-        req.metrics.arrival = self.shared_clock()
-        if not self.queue.try_push(req):
-            raise QueueFull(f"queue at capacity ({self.queue.max_size})")
-        if self.tracer.enabled:
-            self.tracer.on_submit(req)
-        return req
+        return prompt, sampling
 
     def ingest(self, req: Request) -> None:
         """Adopt a request from another engine (fleet work-stealing or

@@ -36,6 +36,10 @@ Policy, the reference's:
   * **Recurrent-state leaves split by ``state_spec``**: heads, else a
     matrix state's value columns, else whole (``StateShard``: the
     families' steps take the rank's heads or columns).
+  * **Draft params ride the same placement** (``for_draft``): a
+    speculative drafter's params split by the same rules, and its slot
+    arena by the target's KV-split decision, so draft and target share
+    one mesh and every rank reads the same gathered draft logits.
 
 The torch counterpart of the reference's jit shardings is the SPMD idiom:
 one process a rank, every rank running the same engine on the same
@@ -46,6 +50,7 @@ scheduling decision is a function of the requests and the clock, and
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import re
@@ -97,14 +102,21 @@ class ServingPlacement:
         self.mesh = mesh
         self.cfg = cfg
         self.sizes = sizes
+        # whether the KV arenas split their heads over "model": decided by
+        # the target's KV heads, and kept by a drafter's placement
+        self.kv_sharded = (mesh is not None
+                           and cfg.n_kv_heads % sizes["model"] == 0)
         self._axis = None
         self._control = None
         if self.active and hasattr(mesh, "get_group") and self.n_ranks > 1:
             # scheduling state (the clock) crosses ranks on the host: a
-            # gloo group beside an NCCL one, made by every rank in step
+            # gloo group beside an NCCL one over this mesh's ranks, made by
+            # those ranks alone (a fleet's other replicas build theirs)
             group = mesh.get_group("model")
             self._control = group if dist.get_backend(group) == "gloo" \
-                else dist.new_group(backend="gloo")
+                else dist.new_group(dist.get_process_group_ranks(group),
+                                    backend="gloo",
+                                    use_local_synchronization=True)
 
     @property
     def active(self) -> bool:
@@ -124,11 +136,6 @@ class ServingPlacement:
         """For host-shipped vectors (tokens, positions, block tables,
         sampling logits): every rank holds the whole array."""
         return () if self.active else None
-
-    @property
-    def kv_sharded(self) -> bool:
-        """Whether the KV arenas split their heads over "model"."""
-        return self.active and self.cfg.n_kv_heads % self.model_size == 0
 
     @property
     def kv(self) -> tuple | None:
@@ -197,6 +204,25 @@ class ServingPlacement:
         if not self.active:
             return None
         return map_leaves(params, self._leaf_spec)
+
+    def for_draft(self, dcfg) -> "ServingPlacement":
+        """A speculative drafter's placement: the target's mesh, model axis
+        and clock, the draft's head counts, and the target's decision on
+        the KV split (the reference drafts on the target's placement,
+        whose KV spec reads the target's KV heads).  Raises, before any
+        tensor is placed, when the target's split cannot be laid out for
+        the draft: its KV heads divide the model axis and the draft's do
+        not."""
+        if not self.active:
+            return self
+        if self.kv_sharded and dcfg.n_kv_heads % self.model_size:
+            raise ValueError(
+                f"the draft's {dcfg.n_kv_heads} KV heads cannot follow the "
+                f"target's split of its {self.cfg.n_kv_heads} KV heads over "
+                f"{self.model_size} ranks")
+        draft = copy.copy(self)
+        draft.cfg = dcfg
+        return draft
 
     # --------------------------------------------------------- placement
     def _device_mesh(self):

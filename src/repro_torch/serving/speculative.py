@@ -33,7 +33,8 @@ in blocks the row still owns (paged) until the next step overwrites it.
 Two proposers:
 
   ``ModelDrafter``  a second model (the 8:16-compressed counterpart of the
-      target) with its own slot-layout KV arena on the engine's device.
+      target) with its own slot-layout KV arena on the engine's device,
+      on a mesh placed as the target is (``ServingPlacement.for_draft``).
       It keeps a per-slot draft cursor ``dpos`` and catches up lazily:
       before drafting it absorbs ``seq[dpos:]`` in one bucketed chunk,
       which covers fresh requests (the drafter prefills the prompt),
@@ -146,19 +147,25 @@ class NGramProposer:
 class ModelDrafter:
     """A second model proposing tokens over its own slot-layout KV arena.
 
-    Shares slot identity with the target engine: slot i of the draft arena
-    belongs to whichever request holds target slot i.  Proposals are
+    Shares slot identity with the target engine (slot i of the draft arena
+    belongs to whichever request holds target slot i) and its placement:
+    on a mesh the draft params are each rank's out rows by the target's
+    rules, the draft arena holds the rank's KV heads where the target's
+    does, and the draft logits are read after the head's gather, so every
+    rank takes the same argmax (``ServingPlacement.for_draft``).  Proposals are
     greedy (argmax): for a deterministic proposer the leave-one-in rule of
     ``sampling.verify_draft`` preserves the target distribution anyway,
     and greedy maximizes acceptance on the low-temperature traffic
     speculation serves."""
 
-    def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
-                 kv_dtype: str = "bf16"):
+    def __init__(self, cfg, params, placement, *, n_slots: int,
+                 max_len: int, device, kv_dtype: str = "bf16"):
+        placement = placement.for_draft(cfg)
         self.cfg = cfg
         self.adapter = TransformerAdapter(
-            cfg, params, n_slots=n_slots, max_len=max_len, device=device,
-            kv_layout="slot", kv_dtype=kv_dtype)
+            cfg, placement.place_params(params), n_slots=n_slots,
+            max_len=max_len, device=device, kv_layout="slot",
+            kv_dtype=kv_dtype, placement=placement)
         self.adapter.trace_kind_prefix = "draft_"
         self.max_len = max_len
         # dpos[slot]: draft-arena positions holding the slot's true
@@ -241,8 +248,8 @@ class ModelDrafter:
 class Speculator:
     """The engine's handle on speculation: one proposer and the config."""
 
-    def __init__(self, spec: SpeculativeConfig, target_cfg, *, n_slots: int,
-                 max_len: int, device, kv_dtype: str = "bf16"):
+    def __init__(self, spec: SpeculativeConfig, target_cfg, placement, *,
+                 n_slots: int, max_len: int, device, kv_dtype: str = "bf16"):
         self.cfg = spec
         self.drafter = None
         self.ngram = None
@@ -257,9 +264,9 @@ class Speculator:
                 raise ValueError(
                     f"draft params live on {spec.params['embed'].device}, "
                     f"the engine runs on {device}")
-            self.drafter = ModelDrafter(dcfg, spec.params, n_slots=n_slots,
-                                        max_len=max_len, device=device,
-                                        kv_dtype=kv_dtype)
+            self.drafter = ModelDrafter(dcfg, spec.params, placement,
+                                        n_slots=n_slots, max_len=max_len,
+                                        device=device, kv_dtype=kv_dtype)
         else:
             self.ngram = NGramProposer(spec.ngram)
 

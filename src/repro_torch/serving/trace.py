@@ -172,9 +172,15 @@ def replay(engine, trace: list[TraceRequest], *, time_scale: float = 1.0,
     i = 0
     while i < len(pending) or engine.has_work:
         now = clock() - t0
+        due = []
         while i < len(pending) and pending[i].arrival_s * time_scale <= now:
-            tr = pending[i]
+            due.append(pending[i])
             i += 1
+        if len(due) > 1 and hasattr(engine, "probe_prefixes"):
+            # a fleet on replica meshes gathers every replica's prefix
+            # match of the arrivals at once, not one gather a request
+            engine.probe_prefixes([tr.prompt for tr in due])
+        for n, tr in enumerate(due, start=i - len(due)):
             try:
                 # fleets take a session id for routing affinity; plain
                 # engines don't — feature-detect so one replay drives both
@@ -189,7 +195,7 @@ def replay(engine, trace: list[TraceRequest], *, time_scale: float = 1.0,
                 # open-loop workload: count it rejected, keep replaying
                 rejected += 1
                 if verbose:
-                    print(f"rejected request {i - 1}: {e}")
+                    print(f"rejected request {n}: {e}")
         if engine.has_work:
             engine.step()
         elif i < len(pending):

@@ -134,17 +134,18 @@ def test_default_device_raises_without_cuda(param_pairs):
 
 @pytest.mark.parametrize("kwargs,item", [
     pytest.param(dict(mesh={"data": 1, "model": 1},
-                      draft=SpeculativeConfig(method="ngram")), "A12b",
-                 id="kwargs0-A12")])
+                      draft=SpeculativeConfig(method="ngram")),
+                 "KV-transformer target", id="kwargs0-A12")])
 def test_left_out_options_raise_naming_roadmap(kwargs, item):
-    """``mesh=`` serves every family (ROADMAP A12a and A12b's first part:
-    an ssm config on a mesh is served); speculative decoding on a mesh
-    still raises naming A12b, before any tensor is placed."""
+    """``mesh=`` serves every family and speculates on a mesh (ROADMAP A12a
+    and A12b): what a mesh engine still refuses is what a single-device
+    one refuses, here a draft for an ssm target, whose recurrent state
+    cannot roll back."""
     from repro_torch.models import xlstm
     cfg = dataclasses.replace(configs.get_smoke("xlstm-350m"),
                               dtype=torch.float32)
     params = xlstm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         ServingEngine(cfg, params, device="cpu", **kwargs)
 
 

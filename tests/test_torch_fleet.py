@@ -13,7 +13,7 @@ by ``interchange``, that file's ``TRACE_KW`` and ``ENGINE_KW``.
   equal one port engine's holding the fleet's total KV; the drain case;
 - ``RequestQueue.pop_back``/``remove`` and ``ServingEngine.ingest``/
   ``withdraw``/``steal_youngest``, their errors equal to JAX's;
-- validation (``meshes=`` names ROADMAP A12), ``stats()`` keys equal to
+- validation (``meshes=`` of the wrong length), ``stats()`` keys equal to
   JAX's, ``reset_stats``, replicas sharing the params' tensors and owning
   their pools, an n-gram speculative fleet, the ``RouterTracer``'s events
   and counters against JAX's, and the CLI.
@@ -397,7 +397,10 @@ def test_ingest_counts_generated_tokens_against_capacity(params):
 @pytest.mark.parametrize("kw, exc, match", [
     ({"n_replicas": 0}, ValueError, "n_replicas must be >= 1"),
     ({"tracers": [None]}, ValueError, "1 tracers for 2 replicas"),
-    ({"meshes": [None, None]}, NotImplementedError, "ROADMAP A12"),
+    # the reference's len(meshes) != n_replicas check (the id is the one
+    # this case had while replica meshes were not ported)
+    pytest.param({"meshes": [None]}, ValueError, "1 meshes for 2 replicas",
+                 id="kw2-NotImplementedError-ROADMAP A12"),
     ({"routing": "random"}, ValueError, "unknown routing policy")])
 def test_replica_set_validation(kw, exc, match, params):
     with pytest.raises(exc, match=match):

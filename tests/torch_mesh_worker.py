@@ -8,11 +8,15 @@ test's own process.
 Each rank joins a gloo process group through a ``file://`` store, builds
 the 1 x world ``DeviceMesh`` with ``launch/mesh.make_serving_mesh``, and
 serves every case of ``cases()`` on ``ServingEngine(mesh=)`` in lockstep
-with the other ranks; it saves what it saw (streams, the plan of every
-step, the pool's stats, its arenas' heads, whether its ``SparseWeight``
-rows are the co-sliced rows of the whole container) to
+with the other ranks, then every case of ``spec_cases()`` with a drafter
+on the same mesh, a fleet of two replicas of 1 x world/2 over
+``make_replica_meshes`` on the fleet trace, and ``serve --mesh`` and
+``serve --replicas 2 --mesh`` replaying a trace; it saves what it saw
+(streams, the plan of every step, the pool's stats, its arenas' heads,
+whether its ``SparseWeight`` rows are the co-sliced rows of the whole
+container, drafted and accepted counts, the fleet's decisions) to
 ``<out_dir>/rank<r>.pt`` for the test to hold against the JAX
-single-device engine and the other ranks.
+single-device engines, the JAX fleet and the other ranks.
 """
 from __future__ import annotations
 
@@ -27,7 +31,20 @@ import numpy as np
 BS, GEN, VOCAB = 8, 5, 512
 SHAPE = dict(n_layers=2, d_model=128, n_heads=8, head_dim=16, d_ff=256,
              vocab=VOCAB)
-KV_HEADS = {"dense": 8, "sparse": 8, "gqa": 2}      # gqa: KV divides no mesh
+KV_HEADS = {"dense": 8, "sparse": 8, "gqa": 2,      # gqa: KV divides no mesh
+            "other": 8}                             # a drafter's other weights
+SPEC_K = 3
+# the fleet's trace and engines (``tests/test_torch_fleet.py``'s, at
+# steal threshold 1: steals, preemptions and a drain)
+FLEET_TRACE = dict(n_requests=16, n_tenants=4, vocab=VOCAB, sys_len=16,
+                   rate_per_s=200.0, burst_mean=3.0, prompt_median=6,
+                   prompt_sigma=0.5, prompt_max=16, gen_median=5,
+                   gen_sigma=0.8, gen_max=12, seed=11)
+FLEET_KW = dict(n_replicas=2, routing="prefix", steal_threshold=1,
+                n_slots=4, n_blocks=16, kv_layout="paged", block_size=4,
+                max_len=48, prefix_caching=True, max_queue=64,
+                token_budget=32)
+FLEET_DT = 0.005                # virtual seconds between fleet steps
 
 
 def _prompts(n, length, seed):
@@ -81,6 +98,52 @@ def sampled_case():
               for p, (t, k, s) in zip(_prompts(3, 12, 1),
                                       [(0.0, 0, 0), (0.0, 0, 0),
                                        (1.0, 8, 5)])]])
+
+
+def spec_cases() -> dict:
+    """name -> (target key, draft key, engine kwargs, waves): the
+    reference's ``test_mesh_parity`` (``tests/test_speculative.py``) on the
+    mesh, on the greedy wave of ``cases()`` (whose plain streams its
+    "dense-slot-bf16" case holds): a dense target drafted by a model of
+    other weights on the slot layout (rejections, k shrinking), and by
+    itself on the paged layout (every draft accepted, k growing)."""
+    greedy = cases()["dense-slot-bf16"][2]
+    return {"spec-other-slot": ("dense", "other",
+                                dict(n_slots=4, max_len=32), greedy),
+            "spec-self-paged": ("dense", "dense",
+                                dict(n_slots=4, max_len=32,
+                                     kv_layout="paged", block_size=BS),
+                                greedy)}
+
+
+def drive_fleet(target, trace, clock):
+    """``tests/test_torch_fleet.py``'s ``_drive``: submit ``trace`` in
+    arrival order under the virtual ``clock`` (a one-element list),
+    stepping the target and advancing the clock by FLEET_DT between
+    submissions, then ``run()`` to the end; the finished streams by
+    request id."""
+    pending = sorted(trace, key=lambda t: t.arrival_s)
+    i = 0
+    while i < len(pending):
+        while i < len(pending) and pending[i].arrival_s <= clock[0]:
+            tr = pending[i]
+            i += 1
+            target.submit(tr.prompt, tr.sampling(), session=tr.session)
+        if target.has_work:
+            target.step()
+        clock[0] += FLEET_DT
+    target.run()
+    return {r.request_id: list(r.tokens) for r in target.finished}
+
+
+def fleet_summary(rs, streams) -> dict:
+    """What the fleet decided: streams, homes, moves, routing terms."""
+    st = rs.stats()
+    return {"streams": streams, "home": dict(rs.home),
+            "n_steals": rs.n_steals, "n_drains": rs.n_drains,
+            "decisions_by": st["router"]["decisions_by"],
+            "n_finished": [p["n_finished"] for p in st["replicas"]],
+            "preemptions": [p["n_preemptions"] for p in st["replicas"]]}
 
 
 def serve(engine, waves, sampling_cls, max_steps: int = 400):
@@ -149,27 +212,68 @@ def _run_case(cfg, params, mesh, kw, waves, rank, world):
             "host": host}
 
 
-def _cli(world: int, trace: str, trace_out: str) -> dict:
-    """``launch/serve --mesh 1x<world>`` replaying ``trace`` on this rank,
-    as under ``torchrun``: (what it printed, the finished streams, the
-    world-size error of a mesh twice as large)."""
+def _cli(mesh_args: list, trace: str, trace_out: str, too_large) -> dict:
+    """``launch/serve`` with ``mesh_args`` replaying ``trace`` on this
+    rank, as under ``torchrun``: (what it printed, the finished streams,
+    the world-size error ``too_large()`` raises)."""
     from repro_torch.launch import serve
-    from repro_torch.launch.mesh import make_serving_mesh
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res = serve.main(["--arch", "llama-paper", "--smoke-arch", "--device",
                           "cpu", "--kv-layout", "paged",
                           "--block-size", "8", "--trace", trace, "--max-len",
-                          "32", "--time-scale", "0.05", "--mesh",
-                          f"1x{world}", "--trace-out", trace_out])
+                          "32", "--time-scale", "0.05", "--trace-out",
+                          trace_out] + mesh_args)
     try:
-        make_serving_mesh(f"1x{2 * world}", "cpu")
+        too_large()
         error = None
     except ValueError as e:
         error = str(e)
     return {"stdout": buf.getvalue(), "error": error,
             "streams": sorted((r.request_id, list(r.tokens))
                               for r in res["finished"])}
+
+
+def _spec_case(cfgs, params, mesh, tkey, dkey, kw, waves, rank, world):
+    """A speculative engine on the mesh: its streams, drafted and accepted
+    counts, the drafter's placed params and arena heads."""
+    from repro_torch.serving import (SamplingParams, ServingEngine,
+                                     SpeculativeConfig)
+    draft = SpeculativeConfig(k=SPEC_K, method="model", params=params[dkey],
+                              cfg=cfgs[dkey])
+    engine = ServingEngine(cfgs[tkey], params[tkey], device="cpu", mesh=mesh,
+                           draft=draft, **kw)
+    streams, plans = serve(engine, waves, SamplingParams)
+    drafter = engine.spec.drafter.adapter
+    return {"streams": streams, "plans": plans,
+            "drafted": engine.n_drafted, "accepted": engine.n_accepted,
+            "draft_coslice": _coslice(drafter.params, params[dkey], rank,
+                                      world),
+            "draft_arena_heads": drafter.pool.k.shape[-2]}
+
+
+def _fleet(cfgs, params, world: int) -> dict:
+    """Two replicas of 1 x world/2 over disjoint slices, driven by the
+    fleet trace under a virtual clock; the slices and every decision."""
+    from repro_torch.launch.mesh import make_replica_meshes
+    from repro_torch.serving import ReplicaSet, fleet_trace
+    meshes = make_replica_meshes(f"1x{world // 2}", 2, "cpu")
+    clock = [0.0]
+    rs = ReplicaSet(cfgs["dense"], params["dense"], meshes=meshes,
+                    clock=lambda: clock[0], device="cpu", **FLEET_KW)
+    out = fleet_summary(rs, drive_fleet(rs, fleet_trace(**FLEET_TRACE),
+                                        clock))
+    out["slices"] = [m.mesh.flatten().tolist() for m in meshes]
+    out["own"] = rs.own_replica
+    st = rs.stats()
+    out["critical_path_s"] = (st["critical_path_s"], max(st["busy_s"])
+                              + st["router_busy_s"])
+    try:
+        make_replica_meshes("1x1", world + 1, "cpu")
+        out["too_large"] = None
+    except ValueError as e:
+        out["too_large"] = str(e)
+    return out
 
 
 def rank_main(rank: int, world: int, store: str, cfgs: dict, params: dict,
@@ -183,7 +287,8 @@ def rank_main(rank: int, world: int, store: str, cfgs: dict, params: dict,
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=90))
     try:
-        from repro_torch.launch.mesh import make_serving_mesh
+        from repro_torch.launch.mesh import (make_replica_meshes,
+                                             make_serving_mesh)
         from repro_torch.serving import SamplingParams, ServingEngine
         out = pathlib.Path(out_dir)
         mesh = make_serving_mesh(f"1x{world}", "cpu")
@@ -196,8 +301,17 @@ def rank_main(rank: int, world: int, store: str, cfgs: dict, params: dict,
         if rank == 0:
             solo = ServingEngine(cfgs[key], params[key], device="cpu", **kw)
             res["sampled_solo"] = serve(solo, waves, SamplingParams)[0]
-        res["cli"] = _cli(world, str(out / "trace.json"),
-                          str(out / "trace_out.json"))
+        for name, (tkey, dkey, kw, waves) in spec_cases().items():
+            res[name] = _spec_case(cfgs, params, mesh, tkey, dkey, kw, waves,
+                                   rank, world)
+        res["fleet"] = _fleet(cfgs, params, world)
+        res["cli"] = _cli(["--mesh", f"1x{world}"], str(out / "trace.json"),
+                          str(out / "trace_out.json"),
+                          lambda: make_serving_mesh(f"1x{2 * world}", "cpu"))
+        res["cli_fleet"] = _cli(
+            ["--replicas", "2", "--mesh", f"1x{world // 2}"],
+            str(out / "trace.json"), str(out / "fleet_trace_out.json"),
+            lambda: make_replica_meshes(f"1x{world}", 2, "cpu"))
         torch.save(res, out / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
