@@ -136,9 +136,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            preemption: no recompute) and every stream equal to the
            unpressured run's up to a divergence at a near-tie
            (``near_tie_bound`` over ``residual_roundings``);
-       (b) zamba2-2.7b (hybrid), 54 mamba layers and 9 applications of
-           the shared attention (hd 80, H 32, KV 32): one 512-token chunk
-           call with every kernel launch (171 weight, 9 attention) held
+       (b) zamba2-2.7b (hybrid), 27 of its 54 mamba layers and 4
+           applications of the shared attention (hd 80, H 32, KV 32): one
+           512-token chunk call with every kernel launch (82 weight, 4
+           attention) held
            against its plain version on the same inputs; at the
            reference's random init the model is ill-conditioned (one bf16
            ulp on one embedding element moves its logits by much of their
@@ -166,7 +167,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
      body), and reporting decode step p50, tok/s, TTFT p50/p99 and the
      ``"families"`` block of ``summarize``, peak memory and a decode and
      a prefill profile:
-       (a) mixtral-8x7b at full width cut to 16 of 32 layers (45.1 GB of
+       (a) mixtral-8x7b at full width cut to 8 of 32 layers (22.5 GB of
            dense experts): one MoE layer against its per-token f32
            computation (``moe_layer_gate``: the choices against the f64
            router, differing only at near-ties; the outputs within
@@ -346,13 +347,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            perplexity of the dense, sparsified and tuned models reported.
  16. the training driver and the one-shot serve loop (run after phase
      10), with the card's name and power limit beside the numbers:
-       (a) qwen2-vl-72b at full width cut to 24 of 80 layers (8:16+16:256
+       (a) qwen2-vl-72b at full width cut to 12 of 80 layers (8:16+16:256
            by magnitude, built one layer at a time; the down projection's
            in-dim 29,568 is no multiple of 256, so it is plain 8:16 on
            ``nm_spmm``): its new shapes through phase 2's gate at M 8 and
            4,096; one prefill call of 8 x 512 random ``embeds`` at M-RoPE
            positions ``arange(512)`` and one decode step with every launch
-           held in context (6 x 24 fused, 24 ``nm_spmm``), the prefill
+           held in context (6 x 12 fused, 12 ``nm_spmm``), the prefill
            call also end to end within ``MODEL_TOL_REL`` of the plain
            versions; then ``launch/serve.run_oneshot``, 32 greedy tokens,
            its launches gated per model call and by body; reports prefill
@@ -373,8 +374,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            steps; reports save and restore seconds and GB/s and ms a
            step;
        (d) ``make_train_step``, 8 steps on one random batch of 4 x 512 at
-           phase 10's lr (xlstm-350m's of 4 x 128): xlstm-350m,
-           zamba2-2.7b and whisper-medium at full size, mixtral-8x7b cut
+           phase 10's lr (xlstm-350m's of 4 x 128): xlstm-350m at 12
+           of 24 layers, zamba2-2.7b at 27 of 54 (phase 14's depths),
+           whisper-medium at full size, mixtral-8x7b cut
            to 2 of 32 layers; gates finite
            losses and gradient norms and the last loss below the first;
            reports ms a step and peak memory.
@@ -446,6 +448,37 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            streams against the one-process fleet's through
            ``near_tie_bound``; reports ``busy_s`` and ``critical_path_s``
            (one card shared: not a speed-up).
+  20. the training mesh (A12c; no kernel of its own: the sharded step's
+      products are plain ``torch.matmul``/``bmm``, as the reference's are
+      outside any Pallas kernel), after phase 19(b):
+       (a) on the 1x1 mesh (phase 17(a)'s world-size-1 NCCL group):
+           ``launch/train.build(mesh=)``'s step against ``make_train_step``
+           on llama3-8b at full width, 2 layers, batch 8 x 128, 3 steps:
+           gates losses, norms and parameters bit-identical and the peak
+           device memory equal; mixtral-8x7b at 1 layer: the MoE layer on
+           the capacity path, on tokens leaning to expert 0 so that its
+           queue overflows, against the exact per-token computation with
+           the dropped pairs zeroed (within bf16 rounding of the output
+           and of each expert term), the dropped pairs against the
+           queue rule counted on the host; one sharded step (loss
+           finite);
+       (b) a 2x1 mesh as two processes on the one card over gloo: a
+           probe of every collective the step issues on CUDA tensors
+           (gated: all taken); llama3-8b, 1 step: both ranks' losses
+           equal, the loss and gradient norm within rtol 2^-10 of (a)'s
+           unplaced step 0 (same params, same global batch), the
+           parameters after it within bf16 rounding of (a)'s unplaced
+           ones but for at most 2^-8 of them moved by a sign flip of
+           Adam's first update; mixtral's MoE layer through the
+           all-to-all within 2 bf16 ulps of the plain EP version over 2
+           virtual shards with the same dropped pairs, and against the
+           exact computation as in (a); the params saved from 2x1
+           restored here on the 1x1 mesh, each rank's 2x1 blocks of
+           them gated bit-equal to the blocks the rank held (exact
+           fingerprints).
+      Reports each run's step wall p50, the collectives a step by kind,
+      the peak device memory a rank and a save's and a restore's seconds
+      under ``train_mesh`` in ``chiprun_out/chip_smoke.json``.
 Each phase's own wall is under ``phase_seconds`` in the JSON.
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
@@ -581,21 +614,24 @@ NEMOTRON_GEN = 16
 # preemption every PREEMPT_EVERY steps while a request waits
 RECURRENT_ARCHS = ("xlstm-350m", "zamba2-2.7b")
 # depth cuts for the script's wall: xlstm-350m at 12 of 24 layers (one
-# sLSTM layer of three; it paid for phase 19), zamba2-2.7b whole
-RECURRENT_LAYERS = {"xlstm-350m": 12}
+# sLSTM layer of three; it paid for phase 19), zamba2-2.7b at 27 of 54
+# (4 of its 9 shared-attention applications; with mixtral's cut below it
+# paid for phase 20)
+RECURRENT_LAYERS = {"xlstm-350m": 12, "zamba2-2.7b": 27}
 XLSTM_PRESSURE_SLOTS = 4
 PREEMPT_EVERY = 4
 # each new projection shape through phase 2's gate at a decode and a
 # prefill row count before it serves
 FAMILY_MS = (8, 512)
-# phase 15: the moe and encdec families.  mixtral-8x7b cut to 16 of 32
-# layers (its dense bf16 experts are 2.82 GB a layer: 32 would need ~92 GB),
+# phase 15: the moe and encdec families.  mixtral-8x7b cut to 8 of 32
+# layers (its dense bf16 experts are 2.82 GB a layer: 32 would need ~92 GB;
+# 16 until phase 20 needed the wall),
 # phase 4's traffic paged then slot; llama4-maverick-400b-a17b cut to 1 of
 # 48 layers (one layer's 128 experts are 32.2 GB), 4 requests paged;
 # whisper-medium at full size on the slot layout: 8 slots of whisper's
 # 448-token text context, 1,500 encoder frames a request (its 30-s window
 # after the stride-2 convolution), decoder prompts of 4..224 tokens
-MOE_ARCHS = (("mixtral-8x7b", 16), ("llama4-maverick-400b-a17b", 1))
+MOE_ARCHS = (("mixtral-8x7b", 8), ("llama4-maverick-400b-a17b", 1))
 MAVERICK_PROMPT_LENS = [64, 128, 192, 256]
 MAVERICK_GEN = 16
 WHISPER_FRAMES = 1500
@@ -619,8 +655,9 @@ MOE_TOL_REL = 2.0 ** -6
 ROUTE_TIE = 2.0 ** -20
 MOE_DECODE_ROWS = 8
 # phase 16: the training driver and the one-shot serve slice.  (a)
-# qwen2-vl-72b at full width cut to 24 of 80 layers (~1.18 GB of compressed
-# weights a layer; 80 would need ~100 GB), 8 lanes of a 512-token prompt of
+# qwen2-vl-72b at full width cut to 12 of 80 layers (~1.18 GB of compressed
+# weights a layer; 80 would need ~100 GB; 24 until phase 20 needed the
+# wall), 8 lanes of a 512-token prompt of
 # random embeds, 32 greedy tokens through the one-shot loop, its new
 # projection shapes gated at a decode step's rows and a prefill call's
 # (8 x 512); (b) --legacy on llama3-8b at phase 10's depth; (c) the training
@@ -635,7 +672,7 @@ MOE_DECODE_ROWS = 8
 # backward accumulates with atomics, so a step's update may round one bf16
 # ulp apart; the loss averages 2,048 token losses and stays within one bf16
 # ulp of its own value
-VLM_LAYERS = 24
+VLM_LAYERS = 12
 VLM_LOOP = dict(batch=8, prompt_len=512, gen=32)
 VLM_MS = (8, 4096)
 LEGACY_LOOP = dict(n_layers=4, batch=8, prompt_len=512, gen=32)
@@ -644,10 +681,33 @@ DRIVER = dict(steps=4, save_every=2, fail_at_step=2, keep_last_k=1)
 # head whole), a checkpoint of 12.7 GB against 19.2 at phase 10's 4 layers
 DRIVER_LAYERS = 1
 DRIVER_LOSS_TOL_REL = 2.0 ** -7
-FAMILY_TRAIN = (("xlstm-350m", None, 128), ("zamba2-2.7b", None, 512),
+# xlstm-350m and zamba2-2.7b at phase 14's depths (12 of 24, 27 of 54;
+# whole until phase 20 needed the wall)
+FAMILY_TRAIN = (("xlstm-350m", 12, 128), ("zamba2-2.7b", 27, 512),
                 ("whisper-medium", None, 512), ("mixtral-8x7b", 2, 512))
 FAMILY_TRAIN_STEPS = 8
 FAMILY_TRAIN_BATCH = 4
+# phase 20: the training mesh.  (a) llama3-8b at full width and 2 layers,
+# batch 8 x 128, 3 steps, unplaced and on the 1x1 mesh; mixtral-8x7b at 1
+# layer for the capacity path, its tokens leaning to expert 0 by
+# ``moe_lean`` (in units of the router row's norm); (b) the same on a 2x1
+# mesh as two processes over gloo, 1 step, its params saved from 2x1
+TRAIN_MESH = dict(layers=2, batch=8, seq_len=128, steps=3, rank_steps=1,
+                  lr=3e-4, moe_layers=1, state_dtype="bfloat16",
+                  moe_lean=1.5)
+# 20(b)'s gates against 20(a)'s unplaced step: the loss and norm of the
+# same global batch summed in another order over the two shards; and the
+# share of parameters Adam's sign-like first update may move by a flip
+# (a bf16 gradient element is known to about 2^-8 of its size, so a share
+# of that order lies within rounding of zero)
+TRAIN_MESH_RTOL = 2.0 ** -10
+TRAIN_MESH_FLIP_SHARE = 2.0 ** -8
+TRAIN_MESH_DEADLINE_S = 300
+# the probe's collectives on CUDA tensors over gloo, as the step issues
+# them (tensor_parallel.gather_blocks and all_to_all, policy.global_sum,
+# the clip's norm, the checkpoint's barrier and broadcast)
+GLOO_PROBES = ("all_gather", "reduce_scatter", "all_reduce",
+               "all_to_all_single", "barrier", "broadcast_object_list")
 # phase 8: the paper's pipeline
 # phase 17: the serving mesh.  (b) the shard shapes of one rank of a 1x2,
 # 1x4 and 1x8 llama3-8b mesh at these M; (c) a 1x2 mesh as two processes
@@ -2680,7 +2740,7 @@ def mesh_family_serve(torch, log, cfg, params, build, label, prompts, gen,
 
 def recurrent_phase(torch, log, smi, mesh=None):
     """Phase 14: xlstm-350m (ssm, 12 of 24 layers: ``RECURRENT_LAYERS``)
-    and zamba2-2.7b (hybrid, 54 mamba layers and 9 shared-attention
+    and zamba2-2.7b (hybrid, 27 of 54 mamba layers and 4 shared-attention
     applications) at full width,
     8:16+16:256 by magnitude from seed 0, each served with phase 4's
     traffic; with ``mesh`` (the 1x1 serving mesh) phase 18(a)'s serves of
@@ -2968,7 +3028,7 @@ def encdec_call_gate(torch, log, cfg, params, prompt, frames) -> dict:
 
 
 def moe_encdec_phase(torch, log, smi, mesh=None):
-    """Phase 15: mixtral-8x7b (16 of 32 layers) and llama4-maverick-400b-
+    """Phase 15: mixtral-8x7b (8 of 32 layers) and llama4-maverick-400b-
     a17b (1 of 48) at full width, whisper-medium at full size, each
     8:16+16:256 by magnitude from seed 0 built one layer at a time (the
     routed experts stay dense, drawn an expert at a time); new projection
@@ -5039,7 +5099,7 @@ def driver_phase(torch, log):
           f"keep_last_k 1 left {steps_on_disk}")
     # the uninterrupted run: the same init, batches and step, no checkpoint
     ocfg = AdamWConfig(lr=TRAIN["lr"])
-    step = train.build(cfg, ocfg, TrainOptions())
+    step, _, _ = train.build(cfg, ocfg, TrainOptions())
     data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
                        batch=TRAIN["batch"], seed=0)
     params = get_model(cfg, "cuda").init(
@@ -5086,8 +5146,9 @@ def driver_phase(torch, log):
 
 
 def family_train_phase(torch, log):
-    """16(d): ``make_train_step`` on xlstm-350m, zamba2-2.7b and
-    whisper-medium at full size and mixtral-8x7b at 2 of 32 layers, fresh
+    """16(d): ``make_train_step`` on xlstm-350m (12 of 24 layers),
+    zamba2-2.7b (27 of 54), whisper-medium at full size and mixtral-8x7b
+    at 2 of 32 layers, fresh
     from seed 0, ``FAMILY_TRAIN_STEPS`` steps on one random batch of
     ``model_zoo.input_specs``' shapes (``FAMILY_TRAIN``'s sequence length)
     at phase 10's learning rate; gates finite losses and gradient norms
@@ -5831,6 +5892,577 @@ def mesh_fleet_phase(torch, log):
     return out
 
 
+# ------------------------------------------- phase 20: the training mesh
+def bf16_ulps(a, b) -> float:
+    """The largest |a - b| over the bf16 ulp of max(|a|, |b|), elementwise
+    (an ulp of a value below bf16's normal range counts as the smallest
+    normal's)."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def fingerprint(torch, t) -> list:
+    """Two exact integer checksums of a tensor's bits: the sum of its
+    words and their position-weighted sum (equal bits give equal
+    fingerprints; a changed word changes both unless its change is a
+    multiple of 2^64)."""
+    t = t.detach().contiguous()
+    w = t.view(torch.int16 if t.element_size() == 2 else torch.int32) \
+        if t.dim() else t.reshape(1).view(torch.int32)
+    w = w.reshape(-1).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) % 65521
+    return [int(w.sum()), int((w * (pos + 1)).sum())]
+
+
+def run_steps(torch, step, params, opt, data, n):
+    """``n`` steps from ``params``/``opt`` on ``data``'s batches: (params,
+    opt, losses, grad norms, each step's wall in ms, ended by a
+    synchronise)."""
+    losses, norms, walls = [], [], []
+    for i in range(n):
+        batch = {k: torch.as_tensor(v, device="cuda").long()
+                 for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return params, opt, losses, norms, walls
+
+
+def p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def train_mesh_opt(torch):
+    """Phase 20's AdamW: bf16 moments (the reference's ``state_dtype``
+    option), which keep a rank's state and the 2x1 checkpoint 40% under
+    f32 moments'; phase 16(c)'s driver saves f32 ones."""
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=TRAIN_MESH["lr"],
+                       state_dtype=getattr(torch, TRAIN_MESH["state_dtype"]))
+
+
+def train_mesh_cfgs():
+    from repro_torch.configs import get
+    return (dataclasses.replace(get("llama3-8b"),
+                                n_layers=TRAIN_MESH["layers"]),
+            dataclasses.replace(get("mixtral-8x7b"),
+                                n_layers=TRAIN_MESH["moe_layers"]))
+
+
+def moe_tokens(torch, cfg, router):
+    """The MoE layer's tokens: [B S, d] N(0, 1) from seed 0 (the scale of
+    the RMS-normed hidden states it takes) plus ``moe_lean`` times expert
+    0's router row over its squared norm, which raises every token's
+    expert-0 logit by ``moe_lean``: expert 0's queue overflows its
+    capacity, so pairs are dropped.  In the model's dtype."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((TRAIN_MESH["batch"] * TRAIN_MESH["seq_len"],
+                     cfg.d_model), generator=g, device="cuda")
+    r0 = router[0].float()
+    return (x + TRAIN_MESH["moe_lean"] * r0 / r0.square().sum()).to(cfg.dtype)
+
+
+def moe_vs_exact(torch, moe, p, x2, cfg, out, drops) -> dict:
+    """The capacity path's output ``out`` and dropped pairs ``drops``
+    (flat ``t * k + choice`` indices) on tokens ``x2`` against
+    computations that share nothing with its dispatch: the pairs the
+    queue rule drops, counted on the host (a pair's place is the running
+    count of its expert in flat (token, choice) order; places at or past
+    the capacity are dropped), and the exact per-token path
+    (``_expert_ffn``'s grouped products) with the dropped pairs' weights
+    zeroed.  Gates each output element within its rounding bound: one
+    bf16 ulp of the element, two of each weighted expert term summed into
+    it (the term's products take another accumulation order in the
+    capacity path's batched products, and the term rounds again when
+    weighted), and 2^-8 of the output's rms (a flipped rounding of a
+    hidden element moves the down product by at most that).  A wrong
+    expert, weight or dropped pair moves an element by the size of a
+    whole term."""
+    k, E = cfg.moe.top_k, cfg.moe.num_experts
+    T = x2.shape[0]
+    C = moe.capacity(T, cfg)
+    top_w, top_e = moe.route(p, x2, cfg)
+    flat_e = top_e.reshape(-1)
+    seen, expect = [0] * E, []
+    for i, e in enumerate(flat_e.tolist()):
+        if seen[e] >= C:
+            expect.append(i)
+        seen[e] += 1
+    got = sorted(int(i) for d in drops for i in d.tolist())
+    w = top_w.reshape(-1).clone()
+    w[torch.tensor(expect, dtype=torch.long, device=w.device)] = 0.0
+    flat_t = torch.arange(T, device=x2.device).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.bincount(flat_e, minlength=E).tolist()
+    ys = moe._expert_ffn(p, x2[flat_t[order]], counts, cfg)
+    ys = ys * w[order][:, None].to(ys.dtype)
+    ref = torch.zeros_like(x2).index_add_(0, flat_t[order], ys)
+
+    def ulp(v):
+        return torch.exp2(torch.floor(torch.log2(
+            v.abs().float().clamp_min(2.0 ** -126))) - 7)
+    terms = torch.zeros(ref.shape, dtype=torch.float32, device=ref.device)
+    terms.index_add_(0, flat_t[order], ulp(ys))
+    a, b = out.float(), ref.float()
+    tol = ulp(torch.maximum(a.abs(), b.abs())) + 2 * terms \
+        + 2.0 ** -8 * b.square().mean().sqrt()
+    return {"capacity": C, "dropped_pairs": len(got),
+            "drops_match_rule": got == expect,
+            "worst_over_tol": float(((a - b).abs() / tol).max()),
+            "bf16_ulps": bf16_ulps(out, ref)}
+
+
+def train_mesh_1x1_phase(torch, log, mesh):
+    """20(a): on the 1x1 mesh (phase 17(a)'s world-size-1 NCCL group),
+    ``launch/train.build(mesh=)``'s step against ``make_train_step``'s on
+    llama3-8b (full width, 2 layers, batch 8 x 128, 3 steps from seed 0):
+    gates the losses, gradient norms and parameters bit-identical and the
+    peak device memory of the steps equal (a world of one gathers,
+    copies and reduces nothing).  Then mixtral-8x7b (full width, 1
+    layer): the MoE layer under the policy (the capacity path the sharded
+    step takes) on tokens that overflow expert 0's queue, through
+    ``moe_vs_exact``; and one sharded step, its loss finite.  Returns
+    (results, llama's unplaced step 0 and its parameters after it, on the
+    host, for 20(b))."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainOptions, make_train_step
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.policy import activation_sharding
+    from repro_torch.tree import flatten
+
+    cfg, mcfg = train_mesh_cfgs()
+    ocfg = train_mesh_opt(torch)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_MESH["seq_len"],
+                       batch=TRAIN_MESH["batch"], seed=0)
+    zoo = get_model(cfg, "cuda")
+    n = TRAIN_MESH["steps"]
+    res = {"layers": cfg.n_layers, "batch": TRAIN_MESH["batch"],
+           "seq_len": TRAIN_MESH["seq_len"], "steps": n}
+    runs = {}
+    step_m, p_sh, _ = train.build(cfg, ocfg, TrainOptions(), mesh)
+    for label, step in (("unplaced", make_train_step(cfg, ocfg)),
+                        ("mesh_1x1", step_m)):
+        params = zoo.init(torch.Generator(device="cuda").manual_seed(0))
+        if label == "mesh_1x1":
+            params = fsdp.shard_tree(params, p_sh)
+        opt = adamw_init(params, ocfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, losses, norms, walls = run_steps(
+            torch, step, params, opt, data, 1)
+        if label == "unplaced":
+            step1 = {"loss": losses[0], "grad_norm": norms[0],
+                     "params": [t.cpu() for t in flatten(params)]}
+        params, opt, l2, n2, w2 = run_steps(
+            torch, step, params, opt, _Offset(data, 1), n - 1)
+        runs[label] = {"losses": losses + l2, "grad_norms": norms + n2,
+                       "step_ms": walls + w2,
+                       "step_ms_p50": p50((walls + w2)[1:]),
+                       "peak_mem_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}
+        # the final params' exact fingerprints: keeping the params would
+        # hold a copy on the card through the next run's peak
+        runs[label]["params"] = [fingerprint(torch, t)
+                                 for t in flatten(params)]
+        del params, opt
+    a, b = runs["unplaced"], runs["mesh_1x1"]
+    check(a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"],
+          f"20(a): the 1x1 mesh's losses {b['losses']} / norms "
+          f"{b['grad_norms']} are not the unplaced step's {a['losses']} / "
+          f"{a['grad_norms']}")
+    same = sum(x == y for x, y in zip(a.pop("params"), b.pop("params")))
+    check(same == len(flatten(p_sh.specs)),
+          f"20(a): {same} of {len(flatten(p_sh.specs))} parameters "
+          f"bit-identical after {n} steps on the 1x1 mesh")
+    check(a["peak_mem_gb"] == b["peak_mem_gb"],
+          f"20(a): peak device memory {b['peak_mem_gb']} GB on the 1x1 "
+          f"mesh against {a['peak_mem_gb']} GB unplaced")
+    res.update(runs, params_bit_identical=same)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mixtral: the capacity path on one shard, and one sharded step
+    mzoo = get_model(mcfg, "cuda")
+    mparams = mzoo.init(torch.Generator(device="cuda").manual_seed(0))
+    mdata = SyntheticLM(vocab=mcfg.vocab, seq_len=TRAIN_MESH["seq_len"],
+                        batch=TRAIN_MESH["batch"], seed=0)
+    lp = mparams["layers"][0]["moe"]
+    x2 = moe_tokens(torch, mcfg, lp["router"])
+    with torch.no_grad():
+        with activation_sharding(mesh), moe.record_drops() as drops:
+            ep = moe.moe_apply(lp, x2, mcfg)
+        exact = moe_vs_exact(torch, moe, lp, x2, mcfg, ep, drops)
+    check(exact["drops_match_rule"] and exact["worst_over_tol"] <= 1.0
+          and exact["dropped_pairs"] > 0,
+          f"20(a): the capacity path on 1x1 against the exact one: {exact}")
+    mstep, _, _ = train.build(mcfg, ocfg, TrainOptions(), mesh)
+    mopt = adamw_init(mparams, ocfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with moe.record_drops() as step_drops:
+        out = run_steps(torch, mstep, mparams, mopt, mdata, 1)
+    ml, mn, mw = out[2:]
+    del out
+    check(all(math.isfinite(x) for x in ml + mn),
+          f"20(a): mixtral's sharded step: loss {ml}, norm {mn}")
+    res["mixtral"] = {
+        "layers": mcfg.n_layers, "tokens": x2.shape[0],
+        "pairs": x2.shape[0] * mcfg.moe.top_k, "vs_exact": exact,
+        "step_loss": ml[0], "step_grad_norm": mn[0], "step_ms": mw[0],
+        "step_dropped_pairs": int(sum(len(d) for d in step_drops)),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del mparams, mopt, lp, x2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) 1x1: llama3-8b {cfg.n_layers} layers, {n} steps bit-"
+        f"identical; step p50 {a['step_ms_p50']:.1f} ms unplaced, "
+        f"{b['step_ms_p50']:.1f} ms on 1x1; peak {a['peak_mem_gb']:.2f} / "
+        f"{b['peak_mem_gb']:.2f} GB; mixtral's capacity path vs exact "
+        f"{exact['worst_over_tol']:.3f} of the bound "
+        f"({exact['bf16_ulps']:.1f} ulps), {exact['dropped_pairs']} of "
+        f"{res['mixtral']['pairs']} pairs dropped as the rule says")
+    return res, step1
+
+
+class _Offset:
+    """``data`` with its steps shifted by ``k`` (``batch_at(i)`` is
+    ``data.batch_at(i + k)``)."""
+
+    def __init__(self, data, k):
+        self.data, self.k = data, k
+
+    def batch_at(self, i):
+        return self.data.batch_at(i + self.k)
+
+
+class CountedCollectives:
+    """Within the block, the calls to each collective the training step
+    issues, counted on the host by kind."""
+
+    KINDS = ("all_gather", "reduce_scatter", "all_reduce",
+             "all_to_all_single", "barrier", "broadcast_object_list")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = dict.fromkeys(self.KINDS, 0)
+        self.saved = {k: getattr(dist, k) for k in self.KINDS}
+
+        def counted(kind, fn):
+            def call(*a, **k):
+                self.counts[kind] += 1
+                return fn(*a, **k)
+            return call
+        for k, fn in self.saved.items():
+            setattr(dist, k, counted(k, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self.saved.items():
+            setattr(dist, k, fn)
+        return False
+
+
+def _gloo_probe(torch, dist, rank, world) -> dict:
+    """Each collective the training step issues, once on CUDA tensors over
+    the gloo group: "ok" or the error's first line."""
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+    calls = {
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(2, device="cuda"), list(x.chunk(world))),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "barrier": lambda: dist.barrier(),
+        "broadcast_object_list": lambda: dist.broadcast_object_list(
+            [rank], src=0)}
+    out = {}
+    for kind in GLOO_PROBES:
+        try:
+            calls[kind]()
+            torch.cuda.synchronize()
+            out[kind] = "ok"
+        except Exception as e:      # recorded: the phase gates on it
+            out[kind] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    return out
+
+
+def _train_mesh_rank_worker(rank, world, store, out_dir):
+    """One of 20(b)'s ranks: a gloo group through a ``file://`` store, the
+    card for both, the 2x1 mesh.  Probes the collectives; llama3-8b (full
+    width, 2 layers) one sharded step from seed 0, the params saved from
+    2x1 (rank 0 writes) and their blocks' fingerprints; mixtral's MoE
+    layer on the rank's rows through the all-to-all against the plain EP
+    version over 2 virtual shards and against the exact computation.
+    Writes ``<out_dir>/rank<r>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainOptions
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.policy import activation_sharding
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.tree import flatten
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    out_dir = pathlib.Path(out_dir)
+    res = {"rank": rank, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        res["part_s"][name] = now - t_part
+        t_part = now
+    try:
+        res["probe"] = _gloo_probe(torch, dist, rank, world)
+        mesh = DeviceMesh("cuda", torch.arange(world).view(world, 1),
+                          mesh_dim_names=("data", "model"))
+        cfg, mcfg = train_mesh_cfgs()
+        ocfg = train_mesh_opt(torch)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_MESH["seq_len"],
+                           batch=TRAIN_MESH["batch"], seed=0)
+        step, p_sh, _ = train.build(cfg, ocfg, TrainOptions(), mesh)
+        tm = p_sh.tm
+        params = fsdp.shard_tree(get_model(cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0)), p_sh)
+        opt = adamw_init(params, ocfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        part("start")
+        with CountedCollectives() as coll:
+            params, opt, losses, norms, walls = run_steps(
+                torch, step, params, opt, data, TRAIN_MESH["rank_steps"])
+        part("steps")
+        res.update(losses=losses, grad_norms=norms, step_ms=walls,
+                   collectives_per_step={
+                       k: v / TRAIN_MESH["rank_steps"]
+                       for k, v in coll.counts.items()},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   block_gb=sum(t.numel() * t.element_size()
+                                for t in flatten(params) + flatten(opt))
+                   / 1e9)
+        del opt
+        sh = fsdp.StateSharding(tm, {"params": p_sh.specs},
+                                {"params": p_sh.shapes})
+        cm = CheckpointManager(out_dir / "ckpt", shardings=sh)
+        t0 = time.perf_counter()
+        cm.save(TRAIN_MESH["rank_steps"], {"params": params},
+                blocking=False)
+        res["save_caller_s"] = time.perf_counter() - t0
+        cm.wait()
+        res["save_s"] = time.perf_counter() - t0
+        res["fingerprints"] = [fingerprint(torch, t)
+                               for t in flatten({"params": params})]
+        part("save")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # mixtral's MoE layer through the all-to-all
+        lp = moe.init_moe(mcfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+        x2 = moe_tokens(torch, mcfg, lp["router"])
+        rows = x2.chunk(tm.n_fsdp)[tm.fsdp_index]
+        with torch.no_grad():
+            with activation_sharding(tm), moe.record_drops() as drops, \
+                    CountedCollectives() as coll:
+                ep = moe.moe_apply(lp, rows, mcfg)
+            with moe.record_drops() as plain_drops:
+                plain = moe._moe_ep_plain(lp, x2, mcfg, tm.n_fsdp)
+            exact = moe_vs_exact(torch, moe, lp, rows, mcfg, ep, drops)
+        mine = plain.chunk(tm.n_fsdp)[tm.fsdp_index]
+        res["moe"] = {
+            "ep_vs_plain_bf16_ulps": bf16_ulps(ep, mine),
+            "drops_equal": [d.tolist() for d in drops]
+            == [plain_drops[tm.fsdp_index].tolist()],
+            "pairs": rows.shape[0] * mcfg.moe.top_k,
+            "vs_exact": exact, "collectives": coll.counts}
+        part("moe")
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh_two_rank_phase(torch, log, mesh, d, step1):
+    """20(b): a 2x1 mesh as two processes on the one card over gloo
+    (``_train_mesh_rank_worker``): gates every probed collective taken;
+    both ranks' loss and norm equal, and within ``TRAIN_MESH_RTOL`` of
+    ``step1``'s (20(a)'s unplaced step 0 on the same params and global
+    batch); mixtral's MoE rows through the all-to-all within 2 bf16 ulps
+    of the plain EP version over 2 virtual shards (the owner's products
+    take both shards' rows in one product) with the same dropped pairs,
+    and through ``moe_vs_exact``.  Then restores the params the ranks
+    saved from 2x1 here, on the 1x1 mesh, gates each rank's 2x1 blocks of
+    them bit-equal to the blocks the rank held (exact fingerprints), and
+    holds them against ``step1``'s params: within one bf16 ulp plus 2^-6
+    of the learning rate (the update's bf16 moments) of each other,
+    except at most ``TRAIN_MESH_FLIP_SHARE`` of them moved by a sign
+    flip of Adam's first update (at most 2 lr more), and none further."""
+    import torch.multiprocessing as mp
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import TrainOptions
+    from repro_torch.models.model_zoo import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import local_shard, param_shardings
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.tree import flatten, unflatten
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_train_mesh_rank_worker,
+                             args=(2, f"{d}/store", str(d)), nprocs=2,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + TRAIN_MESH_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"20(b): two ranks still running after "
+                  f"{TRAIN_MESH_DEADLINE_S}s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((d / f"rank{r}.json").read_text()) for r in range(2)]
+    refused = {k: v for k, v in ranks[0]["probe"].items() if v != "ok"}
+    check(not refused, f"20(b): gloo refused on CUDA tensors: {refused}")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and ranks[0]["grad_norms"] == ranks[1]["grad_norms"],
+          f"20(b): the ranks' losses {ranks[0]['losses']} / "
+          f"{ranks[1]['losses']} or norms differ")
+    vs_1x1 = {k: abs(ranks[0][many][0] - step1[k]) / abs(step1[k])
+              for k, many in (("loss", "losses"),
+                              ("grad_norm", "grad_norms"))}
+    check(max(vs_1x1.values()) <= TRAIN_MESH_RTOL,
+          f"20(b): step 0 on 2x1 against 20(a)'s unplaced step 0, "
+          f"relative differences {vs_1x1} (bound {TRAIN_MESH_RTOL})")
+    for r, res in enumerate(ranks):
+        m = res["moe"]
+        check(m["ep_vs_plain_bf16_ulps"] <= 2 and m["drops_equal"]
+              and m["collectives"]["all_to_all_single"] == 2
+              and m["vs_exact"]["drops_match_rule"]
+              and m["vs_exact"]["worst_over_tol"] <= 1.0
+              and m["vs_exact"]["dropped_pairs"] > 0,
+              f"20(b) rank {r}: EP vs plain and exact {m}")
+    # the params saved from 2x1, restored on the 1x1 mesh
+    cfg, _ = train_mesh_cfgs()
+    ocfg = train_mesh_opt(torch)
+    _, p_sh, _ = train.build(cfg, ocfg, TrainOptions(), mesh)
+    sh = fsdp.StateSharding(p_sh.tm, {"params": p_sh.specs},
+                            {"params": p_sh.shapes})
+    fake, _ = fsdp.shapes_of(get_model(cfg, "cuda"),
+                             lambda p: adamw_init(p, ocfg))
+    shapes = {"params": fake}
+    like = unflatten(shapes, [
+        torch.empty_strided(t.shape, (0,) * t.dim(), dtype=t.dtype,
+                            device="cuda") for t in flatten(shapes)])
+    t0 = time.perf_counter()
+    state, manifest = CheckpointManager(d / "ckpt").restore(like,
+                                                            shardings=sh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    # every rank's blocks of the restored params, by the 2x1 specs,
+    # against the blocks the rank held: equal bits block by block are
+    # equal bits of the whole
+    mesh21 = {"data": 2, "model": 1}
+    specs21 = flatten({"params": param_shardings(mesh21, state["params"])})
+    equal = 0
+    for r, res in enumerate(ranks):
+        got = [fingerprint(torch, local_shard(t, spec, mesh21,
+                                              {"data": r, "model": 0}))
+               for t, spec in zip(flatten(state), specs21)]
+        equal += sum(a == b for a, b in zip(got, res["fingerprints"]))
+    n_blocks = 2 * len(specs21)
+    check(manifest["step"] == TRAIN_MESH["rank_steps"] and equal == n_blocks,
+          f"20(b): the params restored on 1x1 are not the ranks' params "
+          f"({equal} of {n_blocks} blocks bit-equal)")
+    # the 2x1 params after step 0 (the restored ones, bit-equal to the
+    # ranks') against (a)'s unplaced ones
+    lr = TRAIN_MESH["lr"]
+    flips, beyond, moved, total = 0, 0, 0, 0
+    for a, b in zip(flatten(state["params"]), step1["params"]):
+        a, b = a.float(), b.to(a.device).float()
+        diff = (a - b).abs()
+        mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        close = diff <= ulp + 2.0 ** -6 * lr
+        flip = ~close & (diff <= ulp + 2.02 * lr)
+        flips += int(flip.sum())
+        beyond += int((~close & ~flip).sum())
+        moved += int((diff > 0).sum())
+        total += diff.numel()
+    pv = {"flips": flips, "flip_share": flips / total, "beyond": beyond,
+          "elements_differing": moved, "elements": total}
+    check(beyond == 0 and flips <= TRAIN_MESH_FLIP_SHARE * total,
+          f"20(b): the 2x1 params vs 20(a)'s: {pv}")
+    nbytes = sum(t.numel() * t.element_size() for t in flatten(state))
+    del state, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"ranks": [{k: v for k, v in r.items() if k != "fingerprints"}
+                     for r in ranks],
+           "restore_1x1_s": restore_s, "checkpoint_gb": nbytes / 1e9,
+           "blocks_bit_equal": equal, "step0_vs_1x1_rel": vs_1x1,
+           "params_vs_1x1": pv, "ranks_s": ranks_s}
+    log(f"  (b) 2x1 over gloo: loss {ranks[0]['losses']} (vs 1x1 "
+        f"{vs_1x1}); step {[p50(r['step_ms']) for r in ranks]} ms a rank; "
+        f"collectives a step {ranks[0]['collectives_per_step']}; peak "
+        f"{[round(r['peak_mem_gb'], 2) for r in ranks]} GB; params "
+        f"{pv['flip_share']:.2e} flipped; save {ranks[0]['save_s']:.1f}s, "
+        f"restore on 1x1 {restore_s:.1f}s of {nbytes / 1e9:.2f} GB; EP vs "
+        f"plain {[r['moe']['ep_vs_plain_bf16_ulps'] for r in ranks]} ulps, "
+        f"vs exact "
+        f"{[round(r['moe']['vs_exact']['worst_over_tol'], 3) for r in ranks]}"
+        f" of the bound; the ranks {ranks_s:.1f}s "
+        f"{json.dumps(ranks[0]['part_s'])}")
+    return out
+
+
+def train_mesh_phase(torch, log, mesh):
+    """Phase 20: (a) then (b), in a temporary directory removed
+    afterwards."""
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        d = pathlib.Path(d)
+        t0 = time.perf_counter()
+        a, step1 = train_mesh_1x1_phase(torch, log, mesh)
+        ta = time.perf_counter() - t0
+        b = train_mesh_two_rank_phase(torch, log, mesh, d, step1)
+        del step1
+    return {"a_1x1": a, "b_2x1": b,
+            "seconds": {"20a": ta, "20b": time.perf_counter() - t0 - ta}}
+
+
 def mesh_entries(cases) -> dict:
     """Phase 17(b)'s shard cases of one kernel for its kernels-line entry:
     their sums for each mesh, as ``case_sums`` gives them."""
@@ -5975,15 +6607,15 @@ def main() -> int:
     dense_family, family_launches = timed("13", family_phase, torch, log)
     log("phase 14 the recurrent families at full width, 8:16+16:256: "
         "xlstm-350m (12 of 24 layers; slot, then half the slots with swap "
-        "preemptions), zamba2-2.7b (54 mamba layers, 9 shared-attention "
-        "applications at hd 80; paged, then slot); with phase 18(a): "
-        "xlstm's slot and zamba2's paged serve again on the 1x1 mesh")
+        "preemptions), zamba2-2.7b (27 of 54 mamba layers, 4 shared-"
+        "attention applications at hd 80; paged, then slot); with phase "
+        "18(a): xlstm's slot and zamba2's paged serve again on the 1x1 mesh")
     recurrent, recurrent_launches = timed("14", recurrent_phase, torch, log,
                                           smi, mesh)
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 15 the moe and encdec families, 8:16+16:256: mixtral-8x7b "
-        "(16 of 32 layers; paged, then slot), llama4-maverick-400b-a17b (1 "
+        "(8 of 32 layers; paged, then slot), llama4-maverick-400b-a17b (1 "
         "of 48 layers, paged), whisper-medium (24 + 24 layers, 1,500 "
         "encoder frames a request; slot, then half the slots with swap "
         "preemptions); with phase 18(a): mixtral's paged and whisper's "
@@ -6005,7 +6637,7 @@ def main() -> int:
     training, train_launches = timed("10", training_phase, torch, log)
     gc.collect()
     log("phase 16 the training driver and the one-shot loop: (a) "
-        "qwen2-vl-72b (24 of 80 layers) served by run_oneshot, (b) "
+        "qwen2-vl-72b (12 of 80 layers) served by run_oneshot, (b) "
         f"--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
         f"and a resume (llama3-8b, {DRIVER_LAYERS} layer), (d) a train step "
         f"a family")
@@ -6033,6 +6665,14 @@ def main() -> int:
     log("phase 19(b) a fleet of 2 replicas of 1x1 as two processes on the "
         "one card: llama3-8b, 4 layers, phase 12(c)'s prefix-routed trace")
     mesh_fleet = timed("19b", mesh_fleet_phase, torch, log)
+    log("phase 20 the training mesh: (a) llama3-8b (2 layers, batch 8 x "
+        "128) 3 steps unplaced and on the 1x1 mesh, mixtral-8x7b (1 layer) "
+        "on the capacity path; (b) a 2x1 mesh as two processes on the one "
+        "card over gloo, its params' checkpoint restored here on 1x1")
+    train_mesh = timed("20", train_mesh_phase, torch, log, mesh)
+    walls.update(train_mesh["seconds"])
+    log(f"  phase 20: {walls['20']:.1f}s "
+        f"{json.dumps(train_mesh['seconds'])} ({smi})")
     import torch.distributed as dist
     dist.destroy_process_group()
     mesh_seconds = {k: walls[k] for k in ("17a_bf16", "17a_int8", "17b",
@@ -6120,7 +6760,8 @@ def main() -> int:
               "dense_family": dense_family, "recurrent": recurrent,
               "moe_encdec": moe_encdec,
               "training": training, "slice": slice_16, "mesh": mesh17,
-              "mesh_families": mesh18, "mesh_spec_fleet": mesh19}
+              "mesh_families": mesh18, "mesh_spec_fleet": mesh19,
+              "train_mesh": {"device": smi, **train_mesh}}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "phase_seconds": walls,

@@ -2,7 +2,8 @@
 """Seconds of some of ``chip_smoke.py``'s phases of one checkout, on one
 card: phase 14 (the recurrent families, with phase 18(a)'s 1x1-mesh
 serves inside it) and phase 19 (speculation and the fleet on meshes) by
-default, or phase 12 (the fleet) and 16(c) (the training driver).
+default, or phase 15 (the moe and encdec families), 12 (the fleet),
+16(c) (the training driver) and 20 (the training mesh).
 
     python3 scripts/phase_walls.py ROOT LABEL [PHASES]
 
@@ -10,7 +11,7 @@ default, or phase 12 (the fleet) and 16(c) (the training driver).
 archive`` into a gitignored directory); its ``chip_smoke.py`` and
 ``src/`` are imported, its kernels built into this checkout's
 ``build/kernels/`` (shared between checkouts whose sources agree).
-``PHASES`` is a comma-separated subset of ``14,19,12,16c`` (default
+``PHASES`` is a comma-separated subset of ``14,15,19,12,16c,20`` (default
 ``14,19``); a phase the checkout does not have is skipped.  The phase
 functions run as the script runs them (phase 12 on phase 4's params,
 phase 19(a) after phase 11(c)'s serve, which it is held against), and
@@ -67,6 +68,12 @@ def main():
         cs.mesh_fleet_phase(torch, quiet)
         out["19b"] = time.perf_counter() - t0
         _free(torch)
+    if "15" in phases:
+        t0 = time.perf_counter()
+        cs.moe_encdec_phase(torch, quiet, smi, mesh)
+        out["15"] = time.perf_counter() - t0
+        out["15_layers"] = dict(cs.MOE_ARCHS)
+        _free(torch)
     if "12" in phases:
         cfg, params, _ = cs.build_model(torch, quiet)
         t0 = time.perf_counter()
@@ -80,6 +87,12 @@ def main():
         out["16c"] = time.perf_counter() - t0
         out["16c_layers"] = res["layers"]
         out["16c_checkpoint_gb"] = res["checkpoint_gb"]
+    if "20" in phases and hasattr(cs, "train_mesh_phase"):
+        t0 = time.perf_counter()
+        res = cs.train_mesh_phase(torch, quiet, mesh)
+        out["20"] = time.perf_counter() - t0
+        out["20_parts"] = res["seconds"]
+        _free(torch)
     import torch.distributed as dist
     dist.destroy_process_group()
     print("CUTS " + json.dumps(out), flush=True)

@@ -11,24 +11,48 @@ group (``parallel/tensor_parallel.py``).
   torchrun --nproc-per-node 8 -m repro_torch.launch.serve \\
       --arch llama3-8b --sparse --mesh 1x8
 
-The serving mesh and the fleet's per-replica meshes (disjoint rank
-slices, ``make_replica_meshes``) are ported; the production training mesh
-waits for ROADMAP A12c.
+The fleet's per-replica meshes are disjoint rank slices
+(``make_replica_meshes``):
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
       --arch llama3-8b --sparse --replicas 2 --mesh 1x2
+
+Training runs on ``make_host_mesh()``: 1x1 in a process of its own, and
+one data shard a rank, (W, 1), under ``torchrun`` with W ranks; or, with
+``--production-mesh``, on ``make_production_mesh()`` over 256 ranks (512
+with ``multi_pod``):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch mixtral-8x7b --smoke-arch --device cpu
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 import torch.distributed as dist
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production training mesh is not ported yet (ROADMAP A12c)")
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production training mesh over the process group: (16, 16)
+    ``("data", "model")``, or (2, 16, 16) ``("pod", "data", "model")``
+    with ``multi_pod``.  The group must have exactly that many ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    size = math.prod(shape)
+    device = torch.device(device)
+    _start_process_group(size, device)
+    world = dist.get_world_size()
+    if world != size:
+        raise ValueError(
+            f"the production mesh {'x'.join(map(str, shape))} needs {size} "
+            f"ranks but the process group has world size {world} (start "
+            f"one process per rank: torchrun --nproc-per-node {size}, or "
+            f"over several hosts with --nnodes)")
+    return DeviceMesh(device.type, torch.arange(world).view(*shape),
+                      mesh_dim_names=names)
 
 
 def parse_mesh_spec(spec: str | None) -> tuple[int, int] | None:
@@ -100,8 +124,14 @@ def make_serving_mesh(spec: str | None, device="cuda"):
 
 
 def make_host_mesh(device="cuda"):
-    """The 1x1 mesh (same axis names), on a world of one process."""
-    return make_serving_mesh("1x1", device)
+    """The (W, 1) ("data", "model") mesh over the process group's W ranks
+    (joined or started here): the 1x1 mesh on a world of one process."""
+    from torch.distributed.device_mesh import DeviceMesh
+    device = torch.device(device)
+    _start_process_group(1, device)
+    world = dist.get_world_size()
+    return DeviceMesh(device.type, torch.arange(world).view(world, 1),
+                      mesh_dim_names=("data", "model"))
 
 
 def make_replica_meshes(spec: str | None, n_replicas: int, device="cuda"):

@@ -26,18 +26,46 @@ hidden rows once, computes its d columns of every row's down product and
 gathers the whole [N, d] once: two collectives a MoE layer whatever the
 routing, and every output element the same full-length product the
 single-device path computes.  The router stays whole on every rank, so
-every rank routes alike and reads the same group sizes.  The reference's
-expert-parallel path under a mesh (``_moe_ep``: capacity dispatch and
-all-to-all) is ROADMAP A12c's; serving never takes it.
+every rank routes alike and reads the same group sizes.
+
+Under an active training policy (``parallel/policy.py``) ``moe_apply``
+takes ``_moe_ep``, the reference's GShard-style path: each data shard
+routes its own tokens, and a (token, choice) pair's place in its
+expert's queue is the running count in flat (token, choice) order; pairs
+at or past the capacity ``C = max(8, ceil(T_l k 1.25 / E))`` of the
+shard's ``T_l`` tokens are dropped.  The kept pairs fill [E, C, d]
+buffers.  When ``E`` and the global token count divide over the data
+shards (expert parallelism), one all-to-all sends each shard's buffers
+to the experts' owners (shard j owns experts [j E/D, (j+1) E/D)) and one
+sends the results back; otherwise every shard runs every expert on its
+own buffers.  The products are ``torch.bmm``, as the reference's are
+einsums outside any Pallas kernel, and the weights arrive whole
+(``parallel/fsdp.py``): the reference's ``psum`` over ``model`` of
+hidden-dim partial products has no counterpart.  An owner stacks the
+buffers it receives expert by expert ([E/D, D C, d]); the reference
+reshapes the [D, E/D, C, d] it receives without that transpose, which
+hands expert i's rows from shard j to the wrong expert whenever E/D > 1
+(``tests/test_torch_train_mesh.py`` shows it).
+``_moe_ep_plain`` is the same function in one process over ``n_fsdp``
+virtual shards, with no collective.  Serving never takes either: the
+adapters suspend any policy.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 
-from ..parallel.tensor_parallel import ColShard
+from ..parallel import policy as pol
+from ..parallel.tensor_parallel import ColShard, all_to_all
 from .layers import activation, dense_init, linear
+
+CAPACITY_FACTOR = 1.25
+# a list while ``record_drops`` is active: each EP call appends its data
+# shard's dropped (token, choice) pairs, as flat indices t * k + choice
+_DROPS: list | None = None
 
 
 def init_moe(cfg, generator: torch.Generator, device) -> dict:
@@ -130,11 +158,13 @@ def _moe_local(p, x2: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x [..., d] -> [..., d]: the routed experts plus, with
+    """x [..., d] -> [..., d]: the routed experts (the capacity path under
+    an active policy, the exact one otherwise) plus, with
     ``shared_expert``, the always-on expert."""
     lead, d = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, d)
-    out = _moe_local(p, x2, cfg)
+    out = _moe_ep(p, x2, cfg) if pol._current() is not None \
+        else _moe_local(p, x2, cfg)
     if cfg.moe.shared_expert:
         hidden = activation(cfg.act, linear(p["ws_gate"], x2)) \
             * linear(p["ws_up"], x2)
@@ -142,14 +172,131 @@ def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     return out.reshape(*lead, d)
 
 
+# --------------------------------------------------------------------------
+# the expert-parallel path (an active training policy)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def record_drops():
+    """Collect the dropped (token, choice) pairs of every EP call run
+    within: a list of int64 tensors of flat indices ``t * k + choice``
+    over the shard's tokens, one per call (a virtual shard's own in
+    ``_moe_ep_plain``)."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
+
+def capacity(T_l: int, cfg) -> int:
+    m = cfg.moe
+    return max(8, int(math.ceil(T_l * m.top_k * CAPACITY_FACTOR
+                                / m.num_experts)))
+
+
+def _dispatch_local(x2, top_e, E: int, k: int, C: int):
+    """The [E, C, d] capacity buffers of tokens ``x2`` [T, d] and the
+    combine metadata (flat experts, tokens, queue places, kept)."""
+    T = x2.shape[0]
+    flat_e = top_e.reshape(-1)
+    flat_t = torch.arange(T, device=x2.device).repeat_interleave(k)
+    onehot = torch.nn.functional.one_hot(flat_e, E)
+    pos = torch.cumsum(onehot, 0).gather(1, flat_e[:, None])[:, 0] - 1
+    keep = pos < C
+    slot = pos.clamp(0, C - 1)
+    zero = torch.zeros((), dtype=x2.dtype, device=x2.device)
+    rows = torch.where(keep[:, None], x2[flat_t], zero)
+    buf = x2.new_zeros((E, C, x2.shape[1])).index_put(
+        (flat_e, slot), rows, accumulate=True)
+    if _DROPS is not None:
+        _DROPS.append((~keep).nonzero()[:, 0].cpu())
+    return buf, (flat_e, flat_t, slot, keep)
+
+
+def _combine_local(y_buf, meta, top_w, T: int):
+    flat_e, flat_t, slot, keep = meta
+    gathered = y_buf[flat_e, slot]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=gathered.dtype,
+                                       device=gathered.device))
+    w = top_w.reshape(-1)[:, None].to(gathered.dtype)
+    out = gathered.new_zeros((T, y_buf.shape[-1]))
+    return out.index_add(0, flat_t, gathered * w)
+
+
+def _expert_ffn_bmm(p, xs, first: int, cfg):
+    """Buffers ``xs`` [n, rows, d] through experts first .. first+n-1."""
+    n = xs.shape[0]
+    gate, up, down = (p[k][first:first + n]
+                      for k in ("we_gate", "we_up", "we_down"))
+    if cfg.glu:
+        h = activation(cfg.act, torch.bmm(xs, gate)) * torch.bmm(xs, up)
+    else:
+        h = activation(cfg.act, torch.bmm(xs, up))
+    return torch.bmm(h, down)
+
+
+def _moe_ep_body(p, x2, cfg, ep: bool, group=None, n_shards: int = 1,
+                 shard: int = 0):
+    """One data shard's tokens ``x2`` [T_l, d] through the capacity path:
+    route, dispatch, the experts (this shard's E/D after an all-to-all
+    over ``group`` when ``ep``, all of them otherwise), combine."""
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    T_l, d = x2.shape
+    top_w, top_e = route(p, x2, cfg)
+    C = capacity(T_l, cfg)
+    buf, meta = _dispatch_local(x2, top_e, E, k, C)          # [E, C, d]
+    if ep and n_shards > 1:
+        D, E_l = n_shards, E // n_shards
+        recv = all_to_all(buf, group).reshape(D, E_l, C, d)  # [D, E_l, C, d]
+        xs = recv.transpose(0, 1).reshape(E_l, D * C, d)     # my experts
+        y = _expert_ffn_bmm(p, xs, shard * E_l, cfg)
+        back = y.reshape(E_l, D, C, d).transpose(0, 1).reshape(E, C, d)
+        y_buf = all_to_all(back, group)
+    else:
+        y_buf = _expert_ffn_bmm(p, buf, 0, cfg)
+    return _combine_local(y_buf, meta, top_w, T_l).to(x2.dtype)
+
+
+def _moe_ep(p, x2, cfg):
+    """The active policy's data shard: ``x2`` [T_l, d] is this rank's rows
+    of the global batch (the sharded step splits the batch's rows evenly
+    over fsdp, so the reference's test that the global token count
+    divides always passes, and EP is ``E % n_fsdp == 0``)."""
+    n = pol.n_fsdp()
+    if n == 1:
+        return _moe_ep_body(p, x2, cfg, True)
+    group = pol.fsdp_group()
+    return _moe_ep_body(p, x2, cfg, cfg.moe.num_experts % n == 0, group, n,
+                        dist.get_rank(group=group))
+
+
+def _moe_ep_plain(p, x2, cfg, n_fsdp: int):
+    """``_moe_ep`` over ``n_fsdp`` data shards in one process: the rows
+    split into ``n_fsdp`` contiguous blocks, each dispatched, computed
+    and combined with its own capacity.  The all-to-all only moves
+    buffers, so this is the same function."""
+    return torch.cat([_moe_ep_body(p, xs, cfg, False)
+                      for xs in x2.chunk(n_fsdp)])
+
+
 def aux_load_balance_loss(p, x: torch.Tensor, cfg) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss: E x the sum over experts
     of the fraction of tokens whose top choice it is times its mean router
-    probability."""
+    probability, both over the global batch."""
     E = cfg.moe.num_experts
     x2 = x.reshape(-1, x.shape[-1])
     probs = torch.softmax(x2.to(torch.float32) @ p["router"].T, dim=-1)
     top_e = torch.argmax(probs, dim=-1)
-    frac_tokens = torch.nn.functional.one_hot(top_e, E).to(
-        torch.float32).mean(0)
-    return E * torch.sum(frac_tokens * probs.mean(0))
+    onehot = torch.nn.functional.one_hot(top_e, E).to(torch.float32)
+    if pol.n_fsdp() == 1:
+        return E * torch.sum(onehot.mean(0) * probs.mean(0))
+    # under a data split both fractions are global means, each reduced
+    # over the data shards before their product
+    n = x2.shape[0] * pol.n_fsdp()
+    frac_tokens = pol.global_sum(onehot.sum(0)) / n
+    frac_probs = pol.global_sum(probs.sum(0)) / n
+    return E * torch.sum(frac_tokens * frac_probs)

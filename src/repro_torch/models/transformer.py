@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..parallel import policy as pol
 from . import moe as moe_lib
 from .layers import (activation, apply_rope, attend_length_masked,
                      dense_init, embed, linear, rms_norm, sdpa)
@@ -320,7 +321,8 @@ def forward(params, batch, cfg, collect_kv: bool = False):
     for lp in params["layers"]:
         if remat:
             x, kv = checkpoint(block_forward, lp, x, positions, cfg,
-                               q_chunks, use_reentrant=False)
+                               q_chunks, use_reentrant=False,
+                               context_fn=pol.checkpoint_contexts)
         else:
             x, kv = block_forward(lp, x, positions, cfg, q_chunks)
         if collect_kv:
@@ -344,7 +346,7 @@ def loss_fn(params, batch, cfg):
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    loss = torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0)
+    loss = pol.global_mean(lse - gold, mask)
     aux = {}
     if cfg.moe is not None:
         x, _ = _embed_inputs(params, batch, cfg)

@@ -41,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..parallel import policy as pol
 from . import transformer as tfm
 from .layers import (activation, apply_rope, attend_kv_length, dense_init,
                      embed, linear, rms_norm, sdpa)
@@ -189,7 +190,7 @@ def loss_fn(params, batch, cfg):
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0), {}
+    return pol.global_mean(lse - gold, mask), {}
 
 
 def prefill(params, batch, cfg):

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..parallel import policy as pol
 from . import transformer as tfm
 from .layers import dense_init, embed, linear, rms_norm
 from .linear_attn import chunked_gla, masked_gates
@@ -190,7 +191,7 @@ def loss_fn(params, batch, cfg):
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return torch.sum((lse - gold) * mask) / torch.sum(mask).clamp_min(1.0), {}
+    return pol.global_mean(lse - gold, mask), {}
 
 
 def prefill(params, batch, cfg, max_len: int | None = None):

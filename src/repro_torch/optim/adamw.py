@@ -45,9 +45,23 @@ def init(params, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, sharding=None) -> torch.Tensor:
+    """The norm of every leaf together.  With ``sharding``
+    (``parallel.fsdp.StateSharding``) ``tree`` holds this rank's blocks:
+    each distinct block's sum of squares is counted once (by one rank of
+    those holding it, ``fsdp.owns``) and the sum is all-reduced over the
+    mesh, so a leaf or axis that is replicated is not counted twice."""
     leaves = [torch.sum(torch.square(leaf.to(torch.float32)))
               for leaf in flatten(tree)]
+    if sharding is not None:
+        from ..parallel.fsdp import owns
+        tm = sharding.tm
+        leaves = [sq if owns(tm, spec) else torch.zeros_like(sq)
+                  for sq, spec in zip(leaves, flatten(sharding.specs))]
+        total = torch.sum(torch.stack(leaves))
+        if tm.world_group is not None:
+            torch.distributed.all_reduce(total, group=tm.world_group)
+        return torch.sqrt(total)
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
@@ -56,9 +70,13 @@ def _is_projection(mk) -> bool:
 
 
 @torch.no_grad()
-def step(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, mask=None):
-    """Returns (new_params, new_state, {"grad_norm"})."""
-    gnorm = global_norm(grads)
+def step(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, mask=None,
+         sharding=None):
+    """Returns (new_params, new_state, {"grad_norm"}).  With ``sharding``
+    the params, grads and moments are this rank's blocks: the clip reads
+    the whole gradient's norm, and every other operation is elementwise,
+    so each block is updated where it lies."""
+    gnorm = global_norm(grads, sharding)
     clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             if cfg.grad_clip else 1.0)
     t = state["step"] + 1

@@ -18,6 +18,14 @@ layer's state arenas split (``models/xlstm.py``, ``models/zamba.py``
 take the rank's heads or value columns and gather the recurrence's
 output).  The step is plain tensors and explicit collectives: the
 hand-written kernels have no DTensor rules.
+
+Training differentiates through three collectives, each a
+``torch.autograd.Function``: ``gather_blocks`` (a leaf's blocks all-gathered
+whole; its backward reduce-scatters the gradient over the data shards),
+``all_to_all`` (dim 0 in equal parts; its backward is the same exchange,
+its own inverse) and ``all_sum`` (its backward sums the cotangents).  The
+serving ``ModelAxis.gather`` stays a plain collective: nothing
+differentiates through serving.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from .sharding import local_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +168,104 @@ class StateShard:
         if self.mode == "dv":
             return self.axis.gather(y, dim=-1)
         return y
+
+
+# --------------------------------------------------------------------------
+# differentiable collectives (training)
+# --------------------------------------------------------------------------
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s ranks; the backward sums the
+    cotangents over the same ranks (the sum's adjoint)."""
+    return _AllSum.apply(t, group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Part j of ``t``'s dim 0 (in equal parts, one a rank) sent to rank
+    j of ``group``; part i of the result came from rank i.  Its own
+    inverse, so the backward is the same exchange."""
+    return _AllToAll.apply(t, group)
+
+
+def all_gather_leaf(block: torch.Tensor, tm, spec: tuple,
+                    shape) -> torch.Tensor:
+    """The whole leaf of global ``shape`` from every rank's ``block`` under
+    ``spec`` on the training mesh ``tm``; ``block`` itself when the spec
+    splits nothing.  Not differentiable."""
+    group, members = tm.group_for(spec)
+    if group is None:
+        return block
+    parts = [torch.empty_like(block) for _ in members]
+    dist.all_gather(parts, block.contiguous(), group=group)
+    full = block.new_empty(shape)
+    for coords, part in zip(members, parts):
+        local_shard(full, spec, tm.sizes, coords).copy_(part)
+    return full
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, tm, spec, shape):
+        ctx.tm, ctx.spec = tm, spec
+        full = all_gather_leaf(block, tm, spec, shape)
+        return full.clone() if full is block else full
+
+    @staticmethod
+    def backward(ctx, g):
+        tm, spec = ctx.tm, ctx.spec
+        if tm.n_fsdp == 1:
+            return (local_shard(g, spec, tm.sizes, tm.coords).contiguous(),
+                    None, None, None)
+        if tm.splits_fsdp(spec):
+            pieces = [local_shard(g, spec, tm.sizes, c).contiguous()
+                      for c in tm.fsdp_members]
+            out = torch.empty_like(pieces[0])
+            dist.reduce_scatter(out, pieces, group=tm.fsdp_group)
+        else:
+            out = local_shard(g, spec, tm.sizes, tm.coords).clone()
+            dist.all_reduce(out, group=tm.fsdp_group)
+        return out.div_(tm.n_fsdp), None, None, None
+
+
+def gather_blocks(block: torch.Tensor, tm, spec: tuple,
+                  shape) -> torch.Tensor:
+    """The whole leaf of global ``shape`` from every rank's ``block``
+    under ``spec`` on the training mesh ``tm`` (``fsdp.TrainMesh``).
+
+    The ranks of one data row compute the same rows with the whole leaf,
+    so the backward keeps the rank's block of the gradient summed over the
+    data shards (a reduce-scatter over them when the spec splits a dim
+    over fsdp, else an all-reduce) and divided by their number: the
+    gradient of the global loss, which every data shard takes whole
+    (``policy.global_sum``).  Nothing is summed over ``model``."""
+    return _GatherBlocks.apply(block, tm, spec, tuple(shape))

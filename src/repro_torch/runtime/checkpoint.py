@@ -25,9 +25,23 @@ updating its state), then writes, blocking or in a background thread that
 only a ``.tmp`` directory that ``gc_stale_tmp`` removes.  ``restore(like)``
 reads the leaves ``like``'s structure names, checks each global shape
 against the manifest and ``like``'s, and returns the port's per-layer lists on the
-device of ``like``'s leaves.  One process writes shard 0; restoring onto
-a mesh (``shardings=``) waits for the training half of placement
-(ROADMAP A12c).
+device of ``like``'s leaves.
+
+On a training mesh (the manager's ``shardings``: a
+``parallel.fsdp.StateSharding``; ``restore`` also takes one a call) the
+tree holds each rank's blocks.
+``save`` gathers each leaf to its global shape in turn, with every rank
+taking part, on the caller's thread (collectives go in one order on
+every rank); the mesh's first rank alone copies it to the host, and
+writes, so the file is the one an unplaced save of the same values
+writes.  ``wait``
+joins the write and then holds every rank at a barrier, and
+``latest_step`` is the first rank's answer, broadcast: no rank restores
+a step the writer has not committed.  ``restore`` reads the global
+arrays on every rank, checks them against the manifest's and the specs'
+global shapes, and keeps the rank's block of each by its spec.  So a
+checkpoint crosses between meshes of any shape, the unplaced port and
+the JAX package.
 """
 from __future__ import annotations
 
@@ -41,8 +55,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..interchange import STACKED, from_jax_layout, to_jax_layout
+from ..parallel.sharding import local_shard
+from ..tree import flatten, unflatten
 
 def _jax_items(tree, prefix=()):
     """(path, leaf) of ``tree`` in the JAX package's stacked layout and
@@ -57,6 +74,21 @@ def _jax_items(tree, prefix=()):
             yield from _jax_items(v, prefix + (str(k),))
     else:
         yield prefix, tree
+
+
+def _gathered(items, sh):
+    """``items`` (``_jax_items`` of a tree of this rank's blocks) with each
+    leaf gathered to its global shape, one leaf at a time: every rank
+    takes part, and only one leaf's whole layers are alive at once."""
+    from ..parallel.tensor_parallel import all_gather_leaf
+    tm = sh.tm
+    for (path, leaf), (_, spec), (_, shape) in zip(
+            items, _jax_items(sh.specs), _jax_items(sh.shapes)):
+        if isinstance(leaf, list):
+            yield path, [all_gather_leaf(t, tm, sp, sz)
+                         for t, sp, sz in zip(leaf, spec, shape)]
+        else:
+            yield path, all_gather_leaf(leaf, tm, spec, shape)
 
 
 def _leaf_names(tree) -> list[str]:
@@ -139,24 +171,48 @@ def _place(like, tree):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str | os.PathLike, keep_last_k: int = 3):
+    def __init__(self, directory: str | os.PathLike, keep_last_k: int = 3,
+                 shardings=None):
         self.dir = pathlib.Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.shardings = shardings
         self.keep = keep_last_k
         self._thread: threading.Thread | None = None
-        self.gc_stale_tmp()
+        if self._writer():
+            self.dir.mkdir(parents=True, exist_ok=True)
+            self.gc_stale_tmp()
+
+    def _group(self):
+        """The mesh's group when the state is sharded over more than one
+        rank, else None."""
+        return None if self.shardings is None \
+            else self.shardings.tm.world_group
+
+    def _writer(self) -> bool:
+        sh = self.shardings
+        return sh is None or not any(sh.tm.coords.values())
 
     # ------------------------------------------------------------- save ---
     def save(self, step: int, tree, cfg=None, blocking: bool = True):
         """Write ``tree`` (nested dicts and per-layer lists of tensors) as
         step ``step``.  The host copy is made here; the write runs in the
-        background when ``blocking`` is False."""
+        background when ``blocking`` is False.  With the manager's
+        ``shardings`` ``tree`` holds this rank's blocks, gathered whole
+        here by every rank together."""
         self.wait()
+        sh = self.shardings
+        writer = self._writer()
         host, leaves = {}, {}
-        for path, leaf in _jax_items(tree):
+        items = _jax_items(tree)
+        if sh is not None:
+            items = _gathered(items, sh)
+        for path, leaf in items:
+            if not writer:
+                continue
             name = "/".join(path)
             host[name], dtype = _host_leaf(leaf)
             leaves[name] = {"shape": list(host[name].shape), "dtype": dtype}
+        if not writer:
+            return
         manifest = {
             "step": step,
             "time": time.time(),
@@ -181,23 +237,40 @@ class CheckpointManager:
             self._thread.start()
 
     def wait(self):
+        """Join the background write; on a mesh, then a barrier of every
+        rank, so the write is committed for all of them."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._group() is not None:
+            dist.barrier(group=self._group())
 
     # ---------------------------------------------------------- restore ---
     def latest_step(self) -> int | None:
+        """The newest committed step (on a mesh, the writer's answer on
+        every rank)."""
         steps = sorted(int(p.name.split("_")[1]) for p in self.dir.glob("step_*")
                        if not p.name.endswith(".tmp"))
-        return steps[-1] if steps else None
+        latest = [steps[-1] if steps else None]
+        group = self._group()
+        if group is not None:
+            dist.broadcast_object_list(
+                latest, src=dist.get_process_group_ranks(group)[0],
+                group=group)
+        return latest[0]
 
     def restore(self, like, step: int | None = None, shardings=None):
         """(tree shaped like ``like``, manifest) of step ``step`` (the
-        latest by default), each leaf on the device of ``like``'s."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) re-shards onto a training mesh, "
-                "which is not ported yet (ROADMAP A12c)")
+        latest by default), each leaf on the device of ``like``'s.  With
+        ``shardings`` (or the manager's) ``like`` holds this rank's
+        blocks: each leaf is checked at its global shape and cut to the
+        rank's block by its spec."""
+        sh = shardings if shardings is not None else self.shardings
+        if sh is not None:
+            blocks = like
+            like = unflatten(like, [
+                torch.empty(shape, device="meta")
+                for shape in flatten(sh.shapes)])
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -217,7 +290,19 @@ class CheckpointManager:
                                      f"{arr.shape} vs {expect}")
             flat[path] = _to_tensor(arr, meta["dtype"])
         # split the [L, ...] leaves on the host, then move each piece
-        return _place(like, from_jax_layout(_nest(flat))), manifest
+        whole = from_jax_layout(_nest(flat))
+        if sh is None:
+            return _place(like, whole), manifest
+        tm = sh.tm
+        out = []
+        for t, spec, block in zip(flatten(whole),
+                                  flatten(sh.specs), flatten(blocks)):
+            t = local_shard(t, spec, tm.sizes, tm.coords)
+            if tuple(t.shape) != tuple(block.shape):
+                raise ValueError(f"block shape mismatch: {tuple(t.shape)} "
+                                 f"vs {tuple(block.shape)}")
+            out.append(t.contiguous().to(block.device))
+        return unflatten(blocks, out), manifest
 
     # --------------------------------------------------------------- gc ---
     def _gc(self):

@@ -10,6 +10,11 @@
                      last committed checkpoint and go on from its step
                      (batches are a pure function of the step, so the
                      stream resumes exactly).
+
+On a training mesh every rank runs the loop: a failure is taken on every
+rank at the same step, and the manager's ``wait`` (a barrier after the
+commit) and ``latest_step`` (the writer's answer, broadcast) make every
+rank restore the same committed step.
 """
 from __future__ import annotations
 

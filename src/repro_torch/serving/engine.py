@@ -21,7 +21,10 @@ engine serves the slot layout whatever was asked, and its token budget
 needs no chunk quantum (any budget; chunks as wide as the budget).  Chunks
 at the same cursor are padded to power-of-two length buckets (``_bucket``)
 and batched; padding lanes write nothing and their outputs are never
-read.
+read.  MoE's routing is the exact, capacity-free one there, so padding
+cannot evict a real token: every model call runs under
+``policy.suspended()`` (in the adapters), since an active training policy
+would put it on the capacity path.
 
 Two KV layouts behind one API (``kv_layout=``):
 

@@ -63,7 +63,10 @@ adapter's ``n_encode_calls`` its encoder calls).  Each call runs through
 ``_traced``: a direct call under the default ``NULL_TRACER``, else the
 engine's ``ServingTracer.jit_call`` with kinds "step" (chunk groups),
 "decode" and "encode", keyed by the host arrays' shapes and costed by
-``step_cost`` (an encoder call by ``encode_cost``).
+``step_cost`` (an encoder call by ``encode_cost``), and under
+``policy.suspended()``: a training policy left active in the process must
+never put serving onto the capacity path of ``models/moe.py``, where pad
+tokens would evict real ones.
 """
 from __future__ import annotations
 
@@ -77,6 +80,7 @@ from ..models import transformer as tfm
 from ..models import whisper as whi
 from ..models import xlstm as xls
 from ..models import zamba as zam
+from ..parallel import policy
 from .cache_pool import CachePoolError, SlotKVPool, SlotPoolView
 from .observe import NULL_TRACER
 from .paged import PagedKVPool, PagedPoolView
@@ -109,10 +113,11 @@ class FamilyAdapter:
         time, new-variant detection and its work per shape variant
         (``ServingTracer.jit_call``, costed by ``cost``, ``step_cost`` by
         default)."""
-        if not self.tracer.enabled:
-            return fn(*args)
-        return self.tracer.jit_call(self.trace_kind_prefix + kind, fn, args,
-                                    cost=cost or self.step_cost)
+        with policy.suspended():
+            if not self.tracer.enabled:
+                return fn(*args)
+            return self.tracer.jit_call(self.trace_kind_prefix + kind, fn,
+                                        args, cost=cost or self.step_cost)
 
     def step_cost(self, lanes, cur, n_new, tokens) -> dict:
         """The call's FLOPs and bytes (``launch/step_cost.py``), from the

@@ -328,7 +328,7 @@ def test_parse_mesh_spec_and_refusals():
     """The reference's ``test_parse_mesh_spec`` and replica-mesh bounds
     (``tests/test_fleet.py``: ``n_replicas`` below 1; without a launcher,
     a fleet of replica meshes needs one process a rank, as ``--replicas 2
-    --mesh 1x2`` does); what waits: the production mesh (A12c); and what
+    --mesh 1x2`` does, and the production mesh's 256); and what
     is refused by design: ``--mesh`` with the one-shot loop (``--legacy``,
     the vlm family), which takes no mesh in the reference either."""
     assert tmesh.parse_mesh_spec(None) is None
@@ -349,8 +349,9 @@ def test_parse_mesh_spec_and_refusals():
         tmesh.make_replica_meshes("1x2", 0)
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         tmesh.make_replica_meshes("1x2", 2, "cpu")
-    with pytest.raises(NotImplementedError, match="A12c"):
-        tmesh.make_production_mesh()
+    with pytest.raises(ValueError, match="256 ranks.*torchrun"):
+        tmesh.make_production_mesh(device="cpu")    # no group, no launcher
+    assert not tmesh.dist.is_initialized()
     base = ["--arch", "llama-paper", "--smoke-arch", "--device", "cpu",
             "--mesh", "1x2"]
     with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):

@@ -344,10 +344,35 @@ def test_config_hash_is_the_sha1_of_repr(tmp_path):
 
 
 def test_restore_onto_a_mesh_raises_naming_a12(tmp_path):
-    cm = CheckpointManager(tmp_path)
-    cm.save(1, {"w": torch.ones(2)})
-    with pytest.raises(NotImplementedError, match="A12"):
-        cm.restore({"w": torch.ones(2)}, shardings={"w": object()})
+    """``restore(shardings=)`` returns this rank's blocks by the specs: on
+    a stand-in 2x2 mesh at coordinates (1, 0), rows [4, 8) of a [8, 6]
+    leaf split over data, columns [3, 6) of one split over model, and a
+    replicated leaf whole; the global shapes are checked against the
+    manifest's."""
+    from repro_torch.parallel.fsdp import StateSharding, TrainMesh
+
+    class _Coords(TrainMesh):
+        def __init__(self):
+            self.sizes, self.coords = {"data": 2, "model": 2}, \
+                {"data": 1, "model": 0}
+
+    w = torch.arange(48.0).reshape(8, 6)
+    tree = {"a": w, "b": w + 100, "c": torch.ones(3)}
+    CheckpointManager(tmp_path).save(1, tree)
+    sh = StateSharding(_Coords(), {"a": ("data", None),
+                                   "b": (None, "model"), "c": (None,)},
+                       {"a": (8, 6), "b": (8, 6), "c": (3,)})
+    like = {"a": torch.zeros(4, 6), "b": torch.zeros(8, 3),
+            "c": torch.zeros(3)}
+    got, manifest = CheckpointManager(tmp_path).restore(like, shardings=sh)
+    assert manifest["step"] == 1
+    assert torch.equal(got["a"], w[4:8])
+    assert torch.equal(got["b"], w[:, 0:3] + 100)
+    assert torch.equal(got["c"], torch.ones(3))
+    bad = StateSharding(sh.tm, sh.specs,
+                        {"a": (8, 7), "b": (8, 6), "c": (3,)})
+    with pytest.raises(ValueError, match="shape mismatch"):
+        CheckpointManager(tmp_path).restore(like, shardings=bad)
 
 
 def test_restore_checks_shapes_and_finds_nothing(tmp_path):

@@ -181,7 +181,13 @@ def test_remat_wraps_blocks_only_under_grad(model, monkeypatch, mode):
     cfg = dataclasses.replace(CFG, remat=True)
     if mode == "grad":
         value_and_grad(_loss(cfg), params, model["tbatch"])
-        assert calls == [{"use_reentrant": False}] * CFG.n_layers
+        # the recompute re-enters the forward's activation policy
+        # (``policy.checkpoint_contexts``: on the card it runs in
+        # autograd's own thread)
+        from repro_torch.parallel import policy
+        assert calls == [{"use_reentrant": False,
+                          "context_fn": policy.checkpoint_contexts}
+                         ] * CFG.n_layers
     elif mode == "no_grad":
         with torch.no_grad():
             tfm.loss_fn(params, model["tbatch"], cfg)

@@ -16,10 +16,13 @@ twins.
   quantization step), at most ``MAX_FLIP_SHARE`` of them
   (``tests/test_torch_train.py`` sets out why).
 - ``launch/train.run`` with a simulated failure against a JAX loop of
-  plainly jitted ``make_train_step`` + ``TrainSupervisor`` +
-  ``CheckpointManager`` on the same f32 config, initial params (the port's
+  jitted ``make_train_step`` + ``TrainSupervisor`` + ``CheckpointManager``
+  run under ``activation_sharding`` on a 1x1 mesh, as the reference's
+  ``main`` runs it, on the same f32 config, initial params (the port's
   draw, carried to JAX), data and schedule: losses within ``LOSS_RTOL``
-  step by step (measured ~1e-7), the same restarts and restored steps.
+  step by step (measured ~1e-7), the same restarts and restored steps,
+  for llama-paper and for mixtral-8x7b, whose MoE takes the capacity path
+  under the policy on both sides.
 """
 import pytest
 
@@ -227,11 +230,15 @@ def _f32_smoke(monkeypatch):
         real(a), dtype=torch.float32))
 
 
-def _jax_loop(tmp_path, init_params):
-    """The reference's driver loop without ``policy.shard``: a plainly
-    jitted ``make_train_step``, JAX's ``TrainSupervisor`` and
+def _jax_loop(tmp_path, init_params, argv=DRIVER):
+    """The reference's driver loop as its ``main`` runs it: every step
+    under ``activation_sharding`` on a 1x1 mesh of Auto axes (so a moe
+    model takes the capacity path, ``_moe_ep``), a jitted
+    ``make_train_step``, JAX's ``TrainSupervisor`` and
     ``CheckpointManager``, starting from ``init_params``."""
-    args = train.parse_args(DRIVER)
+    from jax.sharding import AxisType
+    from repro.parallel.policy import activation_sharding
+    args = train.parse_args(argv)
     jcfg = dataclasses.replace(jax_configs.get_smoke(args.arch),
                                dtype=jnp.float32)
     ocfg = JaxAdamWConfig(lr=args.lr)
@@ -258,7 +265,10 @@ def _jax_loop(tmp_path, init_params):
         return ({"params": params, "opt": opt},
                 {k: float(v) for k, v in metrics.items()})
 
-    return sup.run(make_state, step_fn, args.steps)
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    with activation_sharding(mesh):
+        return sup.run(make_state, step_fn, args.steps)
 
 
 def test_driver_with_failure_matches_the_jax_loop(tmp_path, monkeypatch,
@@ -293,6 +303,29 @@ def test_driver_with_failure_matches_the_jax_loop(tmp_path, monkeypatch,
                                                  flatten(state)))
 
 
+def test_driver_trains_moe_on_the_capacity_path(tmp_path, monkeypatch):
+    """The reference's driver always trains under a mesh's policy, so a
+    moe model takes ``_moe_ep`` (capacity 1.25, overflowing tokens
+    dropped); the port's ``train.run`` does too, on its 1x1 host mesh:
+    mixtral-8x7b's smoke twin at f32 gives the reference's losses step by
+    step, restarts included, and leaves no process group behind."""
+    import torch.distributed as dist
+    _f32_smoke(monkeypatch)
+    argv = ["--arch", "mixtral-8x7b"] + DRIVER[2:]
+    report, _ = train.run(train.parse_args(
+        argv + ["--ckpt-dir", str(tmp_path / "port")]))
+    assert not dist.is_initialized()
+    cfg = dataclasses.replace(configs.get_smoke("mixtral-8x7b"),
+                              dtype=torch.float32)
+    init = model_zoo.get_model(cfg, "cpu").init(
+        torch.Generator().manual_seed(0))
+    init = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                        to_jax_layout(init))
+    ref = _jax_loop(tmp_path / "jax", init, argv)
+    assert ref.restored_steps == report.restored_steps == [3]
+    np.testing.assert_allclose(report.losses, ref.losses, rtol=LOSS_RTOL)
+
+
 def test_driver_resumes_from_a_committed_checkpoint(tmp_path, monkeypatch):
     """A run whose directory holds a checkpoint starts from it: 3 steps,
     then the same command with 5 runs steps 3 and 4 only, with the losses
@@ -312,12 +345,26 @@ def test_driver_resumes_from_a_committed_checkpoint(tmp_path, monkeypatch):
 
 
 def test_production_mesh_raises_naming_a12(tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
+    """``--production-mesh`` on a world of one raises the mesh's
+    ValueError (256 ranks, start them with torchrun) and leaves no
+    process group; ``build`` on a 1x1 mesh returns a step and the specs
+    of the params and the optimizer state."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(ValueError, match="256 ranks.*torchrun"):
         train.main(DRIVER + ["--production-mesh", "--ckpt-dir",
                              str(tmp_path)])
+    assert not dist.is_initialized()
     _, cfg = _cfgs("llama-paper")
-    with pytest.raises(NotImplementedError, match="A12"):
-        train.build(cfg, AdamWConfig(), steps.TrainOptions(), mesh=object())
+    mesh = make_host_mesh("cpu")
+    try:
+        step, p_sh, o_sh = train.build(cfg, AdamWConfig(),
+                                       steps.TrainOptions(), mesh=mesh)
+        assert callable(step)
+        assert p_sh.specs["embed"] == ("model", "data")
+        assert o_sh.specs["step"] == ()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_driver_default_device_raises_without_cuda(tmp_path):
