@@ -347,7 +347,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            perplexity of the dense, sparsified and tuned models reported.
  16. the training driver and the one-shot serve loop (run after phase
      10), with the card's name and power limit beside the numbers:
-       (a) qwen2-vl-72b at full width cut to 12 of 80 layers (8:16+16:256
+       (a) qwen2-vl-72b at full width cut to 6 of 80 layers (8:16+16:256
            by magnitude, built one layer at a time; the down projection's
            in-dim 29,568 is no multiple of 256, so it is plain 8:16 on
            ``nm_spmm``): its new shapes through phase 2's gate at M 8 and
@@ -363,8 +363,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            loop then the slot engine on the same 8 prompts of 512 tokens,
            32 new, each run's launches gated per model call, every
            diverging stream within ``near_tie_bound``;
-       (c) ``launch/train.run`` on llama3-8b, ``DRIVER_LAYERS`` (1)
-           layer, phase 10's batch and lr, 4 steps, saves at 2 and 4, a failure at step 2 (right
+       (c) ``launch/train.run`` on internlm2-1.8b (``DRIVER_ARCH``, full
+           width), ``DRIVER_LAYERS`` (1) layer, phase 10's batch and lr, 4 steps, saves at 2 and 4, a failure at step 2 (right
            after the first save), one checkpoint kept, in a temporary
            directory it removes (the disk's free space checked against
            the checkpoint's bytes first): gates 1 restart from step 2, the
@@ -373,7 +373,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            ``DRIVER_LOSS_TOL_REL`` of an uninterrupted run's at the same
            steps; reports save and restore seconds and GB/s and ms a
            step;
-       (d) ``make_train_step``, 8 steps on one random batch of 4 x 512 at
+       (d) ``make_train_step``, 3 steps on one random batch of 4 x 512 at
            phase 10's lr (xlstm-350m's of 4 x 128): xlstm-350m at 12
            of 24 layers, zamba2-2.7b at 27 of 54 (phase 14's depths),
            whisper-medium at full size, mixtral-8x7b cut
@@ -479,6 +479,26 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
       Reports each run's step wall p50, the collectives a step by kind,
       the peak device memory a rank and a save's and a restore's seconds
       under ``train_mesh`` in ``chiprun_out/chip_smoke.json``.
+ 21. the dry run (``launch/dryrun.py``; run after phase 19(a), on phase
+     4's params):
+       (a) a prefill step of 8 x 512 tokens and a decode step of 8 lanes
+           over a 4,096-position cache, on the card and dry on fake CUDA
+           tensors built by ``dryrun.build_step``: gates the dry run's
+           FLOPs (``FlopCounterMode`` plus the kernels' recorded FLOPs),
+           kernel launches by plan (against the wrappers' counters) and
+           argument bytes equal to the card's, its argument + temp within
+           ``DRYRUN_PEAK_BAND`` of the real inputs' bytes plus the rise
+           of ``max_memory_allocated``, and ``H100_SM_COUNT`` equal to
+           the card's SMs;
+       (b) ``python -m repro_torch.launch.dryrun --no-probe`` on
+           ``DRYRUN_CELLS`` (256 fake ranks, fake CUDA tensors), as
+           subprocesses on the host beside (a) and (c): gates ``status
+           == "ok"``, reports a rank's argument and temp GiB, FLOPs,
+           collective MiB by kind and whether it fits 80 GB;
+       (c) ``examples/torch/quickstart.py`` (the fused kernel's error
+           gated at ``KERNEL_TOL_REL``) and ``serve_sparse.py --arch
+           llama-paper`` on the card, side by side.
+      Records under ``dryrun``; the cells' JSON in ``chiprun_out/dryrun``.
 Each phase's own wall is under ``phase_seconds`` in the JSON.
 
 Every serve with a decode profile (4, 5, 6(a), 7(a), 8(c), 14, 15) also
@@ -506,6 +526,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -655,16 +676,16 @@ MOE_TOL_REL = 2.0 ** -6
 ROUTE_TIE = 2.0 ** -20
 MOE_DECODE_ROWS = 8
 # phase 16: the training driver and the one-shot serve slice.  (a)
-# qwen2-vl-72b at full width cut to 12 of 80 layers (~1.18 GB of compressed
-# weights a layer; 80 would need ~100 GB; 24 until phase 20 needed the
-# wall), 8 lanes of a 512-token prompt of
+# qwen2-vl-72b at full width cut to 6 of 80 layers (~1.18 GB of compressed
+# weights a layer; 80 would need ~100 GB; 24 until phase 20 and 12 until
+# phase 21 needed the wall), 8 lanes of a 512-token prompt of
 # random embeds, 32 greedy tokens through the one-shot loop, its new
 # projection shapes gated at a decode step's rows and a prefill call's
 # (8 x 512); (b) --legacy on llama3-8b at phase 10's depth; (c) the training
-# driver at phase 10's width: 4 steps, saves at 2 and 4, a failure at step
+# driver on internlm2-1.8b at full width: 4 steps, saves at 2 and 4, a failure at step
 # 2, the first after the first save (the restored state is then the one
 # the driver saved, held against it bit for bit), one checkpoint kept;
-# (d) 8 train steps a family of 4 sequences, mixtral-8x7b cut to 2 of 32
+# (d) 3 train steps a family of 4 sequences, mixtral-8x7b cut to 2 of 32
 # layers (its params, grads and f32 moments ~38 GB), xlstm-350m's of 128
 # tokens (its sLSTM layers step over time in Python, forward twice under
 # remat: several seconds a step at 512).  The resumed losses
@@ -672,20 +693,27 @@ MOE_DECODE_ROWS = 8
 # backward accumulates with atomics, so a step's update may round one bf16
 # ulp apart; the loss averages 2,048 token losses and stays within one bf16
 # ulp of its own value
-VLM_LAYERS = 12
+# qwen2-vl-72b's depth in 16(a): 6 of 80 layers (12 until phase 21 needed
+# the wall)
+VLM_LAYERS = 6
 VLM_LOOP = dict(batch=8, prompt_len=512, gen=32)
 VLM_MS = (8, 4096)
 LEGACY_LOOP = dict(n_layers=4, batch=8, prompt_len=512, gen=32)
 DRIVER = dict(steps=4, save_every=2, fail_at_step=2, keep_last_k=1)
-# the training driver's depth: one of phase 10's layers (embedding and
-# head whole), a checkpoint of 12.7 GB against 19.2 at phase 10's 4 layers
+# the training driver's model: internlm2-1.8b at full width (vocab 92,544,
+# d 2,048), one of its 24 layers (embedding and head whole), a checkpoint
+# of ~4.4 GB; llama3-8b's one layer (12.7 GB, two saves and a restore: ~80
+# s of the driver's ~82) until phase 21 needed the wall
+DRIVER_ARCH = "internlm2-1.8b"
 DRIVER_LAYERS = 1
 DRIVER_LOSS_TOL_REL = 2.0 ** -7
 # xlstm-350m and zamba2-2.7b at phase 14's depths (12 of 24, 27 of 54;
 # whole until phase 20 needed the wall)
 FAMILY_TRAIN = (("xlstm-350m", 12, 128), ("zamba2-2.7b", 27, 512),
                 ("whisper-medium", None, 512), ("mixtral-8x7b", 2, 512))
-FAMILY_TRAIN_STEPS = 8
+# steps a family trains in 16(d): 3 (8 until phase 21 needed the wall;
+# every family's loss falls by its third step)
+FAMILY_TRAIN_STEPS = 3
 FAMILY_TRAIN_BATCH = 4
 # phase 20: the training mesh.  (a) llama3-8b at full width and 2 layers,
 # batch 8 x 128, 3 steps, unplaced and on the 1x1 mesh; mixtral-8x7b at 1
@@ -700,6 +728,23 @@ TRAIN_MESH = dict(layers=2, batch=8, seq_len=128, steps=3, rank_steps=1,
 # share of parameters Adam's sign-like first update may move by a flip
 # (a bf16 gradient element is known to about 2^-8 of its size, so a share
 # of that order lies within rounding of zero)
+# phase 21: the dry run (``launch/dryrun.py``).  (a) phase 4's llama3-8b
+# (32 layers, 8:16+16:256, bf16, unplaced): a prefill step of 8 x 512
+# tokens and a decode step of 8 lanes over a 4,096-position cache, run on
+# the card and dry on fake CUDA tensors from the dry run's own builder;
+# (b) the CLI on two production cells as subprocesses of 256 fake ranks,
+# run beside (a) and (c) (they use the host only); (c) the examples.
+DRYRUN_STEPS = (("prefill", 8, 512), ("decode", 8, 4096))
+DRYRUN_CELLS = (("qwen3-8b", "train_4k", ()),
+                ("qwen3-8b", "decode_32k", ("--sparse",)))
+# the dry run's argument + temp against the card's arguments + the rise of
+# max_memory_allocated over the step: the same ops free the same storages,
+# so they differ by the caching allocator's rounding (512 B a block) and
+# what it allocates beside the ops' outputs (cuBLAS's workspace, warmed
+# before the measured step)
+DRYRUN_PEAK_BAND = dict(rel=0.01, abs_bytes=64 * 2 ** 20)
+DRYRUN_CELL_TIMEOUT_S = 300
+DEVICE_GB = 80
 TRAIN_MESH_RTOL = 2.0 ** -10
 TRAIN_MESH_FLIP_SHARE = 2.0 ** -8
 TRAIN_MESH_DEADLINE_S = 300
@@ -5032,7 +5077,7 @@ class TimedCheckpoints:
 
 
 def driver_phase(torch, log):
-    """16(c): ``launch/train.run`` on llama3-8b at full width,
+    """16(c): ``launch/train.run`` on ``DRIVER_ARCH`` at full width,
     ``DRIVER_LAYERS`` deep, phase 10's batch and learning rate, with a
     failure right after the first
     of its two saves (``DRIVER``), in a temporary directory removed
@@ -5049,7 +5094,7 @@ def driver_phase(torch, log):
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.tree import flatten
 
-    cfg = dataclasses.replace(get("llama3-8b"), n_layers=DRIVER_LAYERS)
+    cfg = dataclasses.replace(get(DRIVER_ARCH), n_layers=DRIVER_LAYERS)
     # bf16 params, f32 m and v: 10 bytes a parameter (norms aside)
     state_gb = 10 * cfg.param_count() / 1e9
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -5064,7 +5109,7 @@ def driver_phase(torch, log):
         check(disk.free > 2.2 * state_gb * 1e9,
               f"{disk.free / 1e9:.1f} GB free under {tmp}: two checkpoints "
               f"of {state_gb:.1f} GB do not fit")
-        argv = ["--arch", "llama3-8b", "--n-layers", str(DRIVER_LAYERS),
+        argv = ["--arch", DRIVER_ARCH, "--n-layers", str(DRIVER_LAYERS),
                 "--batch", str(TRAIN["batch"]), "--seq",
                 str(TRAIN["seq_len"]), "--lr", str(TRAIN["lr"]),
                 "--ckpt-dir", tmp, "--seed", "0", "--device", "cuda"] + [
@@ -5215,14 +5260,21 @@ def slice_phase(torch, log, smi):
     training driver, (d) a train step per family.  Returns (results,
     launches of (a) and (b))."""
     t0 = time.perf_counter()
-    vlm, vlm_launches = vlm_oneshot_phase(torch, log, smi)
-    legacy, legacy_launches = legacy_phase(torch, log)
-    driver = driver_phase(torch, log)
-    families = family_train_phase(torch, log)
+    parts = {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        got = fn(*args)
+        parts[key] = time.perf_counter() - t
+        return got
+    vlm, vlm_launches = part("16a", vlm_oneshot_phase, torch, log, smi)
+    legacy, legacy_launches = part("16b", legacy_phase, torch, log)
+    driver = part("16c", driver_phase, torch, log)
+    families = part("16d", family_train_phase, torch, log)
     out = {"device": smi, "vlm_oneshot": vlm, "legacy": legacy,
            "driver": driver, "family_train": families,
-           "seconds": time.perf_counter() - t0}
-    log(f"  phase 16: {out['seconds']:.1f}s ({smi})")
+           "seconds": time.perf_counter() - t0, "seconds_by_part": parts}
+    log(f"  phase 16: {out['seconds']:.1f}s {json.dumps(parts)} ({smi})")
     return out, add_launches(vlm_launches, legacy_launches)
 
 
@@ -6472,6 +6524,221 @@ def mesh_entries(cases) -> dict:
                          if f"1x{m}" in str(c.get("mesh"))])}
 
 
+# ------------------------------------------------ phase 21: the dry run
+def dryrun_cli_start(out_dir) -> list:
+    """21(b): ``python -m repro_torch.launch.dryrun --no-probe`` on each of
+    ``DRYRUN_CELLS``, started together as subprocesses (fake tensors on
+    the host: they run beside (a) and (c)); returns (cell, process, start
+    time, log path)."""
+    # fake tensors compute nothing: one intra-op thread a process
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, extra in DRYRUN_CELLS:
+        log_path = out_dir / f"{arch}__{shape}{''.join(extra)}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--no-probe", "--out", str(out_dir),
+               *extra]
+        fh = open(log_path, "w")
+        procs.append(((arch, shape, extra), subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT),
+            time.perf_counter(), log_path, fh))
+    return procs
+
+
+def dryrun_cli_finish(procs, out_dir, log, smi) -> dict:
+    """21(b): wait for the cells, gate their exit codes and ``status ==
+    "ok"``, and report a rank's argument and temp GiB, FLOPs, collective
+    MiB by kind and whether argument + temp fits the card (a finding, not
+    a gate)."""
+    res = {}
+    for (arch, shape, extra), proc, t0, log_path, fh in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_CELL_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+        tail = log_path.read_text()[-2000:]
+        tag = "pod16x16" + ("_sparse" if "--sparse" in extra else "")
+        check(rc == 0, f"dryrun {arch} x {shape} x {tag}: rc {rc}\n{tail}")
+        rec = json.loads((out_dir / f"{arch}__{shape}__{tag}.json"
+                          ).read_text())
+        check(rec["status"] == "ok",
+              f"dryrun {arch} x {shape} x {tag}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')}")
+        full, mem = rec["full"], rec["full"]["memory"]
+        need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        cell = {"wall_s": time.perf_counter() - t0,
+                "argument_gib": mem["argument_size_in_bytes"] / 2 ** 30,
+                "temp_gib": mem["temp_size_in_bytes"] / 2 ** 30,
+                "flops": full["flops"],
+                "bytes_accessed": full["bytes_accessed"],
+                "collective_mib": {k: v / 2 ** 20 for k, v in
+                                   full["collective_bytes"].items()},
+                "collective_counts": full["collective_counts"],
+                "kernel_launches": full["kernel_launches"],
+                "run_s": full["compile_s"],
+                "placement": rec.get("placement"),
+                "fits_80gb": need <= DEVICE_GB * 1e9}
+        res[f"{arch}__{shape}__{tag}"] = cell
+        log(f"  (b) {arch} x {shape} x {tag}, rank 0 of 256: args "
+            f"{cell['argument_gib']:.2f} GiB, temp {cell['temp_gib']:.2f} "
+            f"GiB ({'fits' if cell['fits_80gb'] else 'does not fit'} "
+            f"{DEVICE_GB} GB), {cell['flops']:.4g} FLOPs, collectives "
+            f"{json.dumps({k: round(v, 2) for k, v in cell['collective_mib'].items()})}"
+            f" MiB, {cell['wall_s']:.1f}s ({smi})")
+    return res
+
+
+def dryrun_step_gate(torch, log, cfg, params, kind, B, S) -> dict:
+    """21(a) for one step: the dry run's record of the step (its inputs
+    from ``dryrun.build_step``, fake CUDA tensors) against the step run on
+    the card on ``params``: FLOPs (``FlopCounterMode`` plus the kernels'
+    recorded FLOPs), kernel launches by plan against the wrappers'
+    counters, argument bytes against the real inputs', all exact; the
+    peak (argument + temp) against the real inputs' bytes plus the rise of
+    ``max_memory_allocated`` over the step, within ``DRYRUN_PEAK_BAND``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.hlo_analysis import nbytes, record_step
+
+    shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
+    t0 = time.perf_counter()
+    built = dryrun.build_step(cfg, shape, None, sparse=True, device="cuda")
+    build_s = time.perf_counter() - t0
+    with built.mode:
+        rec = record_step(built.step, built.args, donated=built.donated)
+    dry_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(21)
+    if kind == "prefill":
+        step = steps.make_prefill_step(cfg)
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=g,
+                               dtype=torch.int32, device="cuda")
+        args = (params, {"tokens": tokens})
+    else:
+        step = steps.make_decode_step(cfg)
+        kv = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+        caches = {"k": torch.zeros(kv, dtype=cfg.dtype, device="cuda"),
+                  "v": torch.zeros(kv, dtype=cfg.dtype, device="cuda"),
+                  "pos": S - 1}
+        tokens = torch.randint(0, cfg.vocab, (B, 1), generator=g,
+                               dtype=torch.int32, device="cuda")
+        args = (params, caches, {"tokens": tokens})
+    real_arg = nbytes(args)
+    out = step(*args)                  # warm: first-call workspaces
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    launches = read_launches()
+    rise = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(out[0].float()).all()),
+          f"21(a) {kind}: non-finite logits")
+    del out, args
+    real_by_plan = {k: v for k, v in launches.items()
+                    if v and re.search(r"_(decode|prefill)(_int8)?$", k)}
+    dry_by_plan = rec.launches_by_plan()
+    kernel_flops = sum(k.flops for k in rec.kernel_launches)
+    aten_real = int(counter.get_total_flops())
+    check(rec.flops == aten_real + kernel_flops,
+          f"21(a) {kind}: dry FLOPs {rec.flops} != FlopCounterMode "
+          f"{aten_real} + kernels {kernel_flops}")
+    check(dry_by_plan == real_by_plan,
+          f"21(a) {kind}: launches by plan, dry {dry_by_plan} != card "
+          f"{real_by_plan}")
+    check(built.argument_bytes == real_arg,
+          f"21(a) {kind}: dry argument bytes {built.argument_bytes} != "
+          f"the real inputs' {real_arg}")
+    dry_peak = built.argument_bytes + rec.temp_bytes
+    real_peak = real_arg + rise
+    band = DRYRUN_PEAK_BAND["abs_bytes"] + DRYRUN_PEAK_BAND["rel"] * real_peak
+    check(abs(dry_peak - real_peak) <= band,
+          f"21(a) {kind}: dry argument + temp {dry_peak} vs the card's "
+          f"{real_peak}: {abs(dry_peak - real_peak)} apart > {band:.0f}")
+    res = {"batch": B, "seq": S, "flops": rec.flops, "aten_flops": aten_real,
+           "kernel_flops": kernel_flops, "launches_by_plan": dry_by_plan,
+           "argument_bytes": real_arg, "temp_bytes": rec.temp_bytes,
+           "real_rise_bytes": rise, "peak_dry_bytes": dry_peak,
+           "peak_real_bytes": real_peak,
+           "peak_rel_diff": (dry_peak - real_peak) / real_peak,
+           "bytes_accessed": rec.bytes_accessed, "dry_build_s": build_s,
+           "dry_s": dry_s, "real_s": real_s}
+    log(f"  (a) {kind} {B}x{S}: FLOPs {rec.flops:.6g} (aten {aten_real:.6g} "
+        f"+ kernels {kernel_flops:.6g}) equal; launches {dry_by_plan} "
+        f"equal; args {real_arg / 1e9:.3f} GB equal; peak dry "
+        f"{dry_peak / 1e9:.3f} GB vs card {real_peak / 1e9:.3f} GB "
+        f"({res['peak_rel_diff']:+.4%}); dry {dry_s:.1f}s (build "
+        f"{build_s:.1f}s), card {real_s:.2f}s")
+    return res
+
+
+def dryrun_real_phase(torch, log, cfg, params, smi) -> dict:
+    """21(a): both steps of ``DRYRUN_STEPS`` on phase 4's params, and the
+    plans' SM count against the card's."""
+    from repro_torch.kernels.common import H100_SM_COUNT
+    check(H100_SM_COUNT == sm_count(torch),
+          f"kernels.common.H100_SM_COUNT {H100_SM_COUNT} != the card's "
+          f"{sm_count(torch)} SMs")
+    out = {"device": smi, "sm_count": H100_SM_COUNT}
+    for kind, B, S in DRYRUN_STEPS:
+        out[kind] = dryrun_step_gate(torch, log, cfg, params, kind, B, S)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase(torch, log, smi) -> dict:
+    """21(c): ``examples/torch/quickstart.py`` on the card, its fused
+    kernel's error gated at phase 2's bound (``KERNEL_TOL_REL`` of the
+    largest output), and ``examples/torch/serve_sparse.py --arch
+    llama-paper``, which must finish; the two run side by side."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+         *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, argv in (("quickstart", []),
+                           ("serve_sparse", ["--arch", "llama-paper"]))}
+    res = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        check(p.returncode == 0, f"examples/torch/{name}.py: rc "
+              f"{p.returncode}\n{out[-1500:]}\n{err[-1500:]}")
+        res[name] = {"wall_s": time.perf_counter() - t0,
+                     "stdout": out.strip().splitlines()}
+    text = "\n".join(res["quickstart"]["stdout"])
+    m = re.search(r"fused kernel error: (\S+) of max\|y\| (\S+) .*cuda", text)
+    check(m is not None, f"quickstart: no kernel line on the card\n{text}")
+    err, scale = float(m.group(1)), float(m.group(2))
+    check(err <= KERNEL_TOL_REL * scale,
+          f"quickstart: fused kernel error {err:.3e} > {KERNEL_TOL_REL} x "
+          f"{scale:.3e}")
+    res["quickstart"].update(kernel_err=err, kernel_scale=scale,
+                             tol=KERNEL_TOL_REL * scale)
+    check(any(ln.startswith("sample:") for ln in res["serve_sparse"]["stdout"]),
+          "serve_sparse: no sample line")
+    log(f"  (c) quickstart: kernel error {err:.3e} of {scale:.3e} (tol "
+        f"{KERNEL_TOL_REL * scale:.3e}); serve_sparse --arch llama-paper "
+        f"finished; both in {time.perf_counter() - t0:.1f}s ({smi})")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -6584,6 +6851,26 @@ def main() -> int:
     mesh_spec, mesh_spec_launches = timed(
         "19a", mesh_spec_phase, torch, log, cfg, mesh,
         speculative["c_cli"])
+    log("phase 21 the dry run: (a) phase 4's llama3-8b, a prefill step of "
+        "8 x 512 and a decode step of 8 lanes over 4,096 positions, on the "
+        "card and dry on fake CUDA tensors; (b) python -m "
+        "repro_torch.launch.dryrun on qwen3-8b x train_4k and x decode_32k "
+        "--sparse over 256 fake ranks, beside (a) and (c); (c) "
+        "examples/torch/quickstart.py and serve_sparse.py on the card")
+    t21 = time.perf_counter()
+    dry_dir = ROOT / "chiprun_out" / "dryrun"
+    dry_procs = dryrun_cli_start(dry_dir)
+    dry_real = timed("21a", dryrun_real_phase, torch, log, cfg, params, smi)
+    dry_examples = timed("21c", examples_phase, torch, log, smi)
+    dry_cells = timed("21b_wait", dryrun_cli_finish, dry_procs, dry_dir, log,
+                      smi)
+    walls["21"] = time.perf_counter() - t21
+    dryrun_21 = {"device": smi, "a_steps": dry_real, "b_cells": dry_cells,
+                 "c_examples": dry_examples,
+                 "seconds": {k: walls[k] for k in ("21", "21a", "21c",
+                                                   "21b_wait")}}
+    log(f"  phase 21: {walls['21']:.1f}s "
+        f"{json.dumps(dryrun_21['seconds'])} ({smi})")
     del params
     torch.cuda.empty_cache()
     log("phase 7 serve llama3-8b, 32 layers, int8 8:16 + bf16 16:256, int8 "
@@ -6637,11 +6924,12 @@ def main() -> int:
     training, train_launches = timed("10", training_phase, torch, log)
     gc.collect()
     log("phase 16 the training driver and the one-shot loop: (a) "
-        "qwen2-vl-72b (12 of 80 layers) served by run_oneshot, (b) "
+        f"qwen2-vl-72b ({VLM_LAYERS} of 80 layers) served by run_oneshot, (b) "
         f"--legacy on llama3-8b (4 layers), (c) launch/train with a failure "
-        f"and a resume (llama3-8b, {DRIVER_LAYERS} layer), (d) a train step "
+        f"and a resume ({DRIVER_ARCH}, {DRIVER_LAYERS} layer), (d) a train step "
         f"a family")
     slice_16, slice_launches = timed("16", slice_phase, torch, log, smi)
+    walls.update(slice_16["seconds_by_part"])
     gc.collect()
     torch.cuda.empty_cache()
     log("phase 17(b) the shard shapes of one rank of a 1x2, 1x4 and 1x8 "
@@ -6761,7 +7049,8 @@ def main() -> int:
               "moe_encdec": moe_encdec,
               "training": training, "slice": slice_16, "mesh": mesh17,
               "mesh_families": mesh18, "mesh_spec_fleet": mesh19,
-              "train_mesh": {"device": smi, **train_mesh}}
+              "train_mesh": {"device": smi, **train_mesh},
+              "dryrun": dryrun_21}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "seconds": time.perf_counter() - t_start,
          "phase_seconds": walls,

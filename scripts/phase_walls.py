@@ -3,7 +3,10 @@
 card: phase 14 (the recurrent families, with phase 18(a)'s 1x1-mesh
 serves inside it) and phase 19 (speculation and the fleet on meshes) by
 default, or phase 15 (the moe and encdec families), 12 (the fleet),
-16(c) (the training driver) and 20 (the training mesh).
+16(c) (the training driver), 16 (all of it, with its parts where the
+checkout times them), 20 (the training mesh) and 9 (the traced trace
+replay on phase 4's params, with the steady mean issue and wall ms of a
+decode call: ``9_decode``).
 
     python3 scripts/phase_walls.py ROOT LABEL [PHASES]
 
@@ -11,8 +14,8 @@ default, or phase 15 (the moe and encdec families), 12 (the fleet),
 archive`` into a gitignored directory); its ``chip_smoke.py`` and
 ``src/`` are imported, its kernels built into this checkout's
 ``build/kernels/`` (shared between checkouts whose sources agree).
-``PHASES`` is a comma-separated subset of ``14,15,19,12,16c,20`` (default
-``14,19``); a phase the checkout does not have is skipped.  The phase
+``PHASES`` is a comma-separated subset of ``14,15,19,12,16c,16,20,9``
+(default ``14,19``); a phase the checkout does not have is skipped.  The phase
 functions run as the script runs them (phase 12 on phase 4's params,
 phase 19(a) after phase 11(c)'s serve, which it is held against), and
 the line ``CUTS {...}`` gives their seconds (and phase 14's depths, the
@@ -80,6 +83,20 @@ def main():
         cs.fleet_phase(torch, quiet, cfg, params)
         out["12"] = time.perf_counter() - t0
         del params
+        _free(torch)
+    if "9" in phases:
+        cfg, params, _ = cs.build_model(torch, quiet)
+        t0 = time.perf_counter()
+        res = cs.trace_phase(torch, quiet, cfg, params)
+        out["9"] = time.perf_counter() - t0
+        out["9_decode"] = res["timed"]["by_kind"]["decode"]
+        del params
+        _free(torch)
+    if "16" in phases:
+        t0 = time.perf_counter()
+        res, _ = cs.slice_phase(torch, quiet, smi)
+        out["16"] = time.perf_counter() - t0
+        out["16_parts"] = res.get("seconds_by_part")
         _free(torch)
     if "16c" in phases:
         t0 = time.perf_counter()

@@ -11,11 +11,16 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
 
     ``cuda`` (the default everywhere) raises when CUDA is absent: the port
     never carries on on the CPU in silence.  The CPU is used only when the
-    caller asks for it, as the parity tests do."""
+    caller asks for it, as the parity tests do.  Under an active
+    ``FakeTensorMode`` (a dry run, ``launch/dryrun.py``) ``cuda`` names
+    fake CUDA tensors, which need no card."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return dev
     if not torch.cuda.is_available():
+        from torch._guards import detect_fake_mode
+        if detect_fake_mode() is not None:
+            return torch.device("cuda", dev.index or 0)
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")

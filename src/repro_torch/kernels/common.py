@@ -1,12 +1,75 @@
 """What the kernels' wrappers (``nm_spmm``, ``fused_sparse_linear``,
 ``outlier_spmm``) share on the card: the operand checks of the N:M stream,
 the prefill bodies' split rule, the split kernels' workspace and counters,
-and the SM count their plans are sized for."""
+the SM count their plans are sized for, and what they do on a fake CUDA
+tensor (a dry run, ``launch/dryrun.py``): build and launch nothing, record
+the launch (``recording_fake_launches``) and return an empty output of the
+kernel's shape and dtype."""
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 
 import torch
+
+H100_SM_COUNT = 132
+"""SMs of an H100 SXM: the count a plan is sized for on a fake CUDA tensor,
+which has no card to ask (``chip_smoke.py`` checks it against
+``sm_count`` on the card)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeLaunch:
+    """One launch a wrapper would have made on the card: the kernel's name
+    as its launch counters name it (``fused_sparse_linear_int8`` for int8
+    values), the plan, and the work of the kernel's bound: the multiply-adds
+    of the stored entries (x2) and every input byte read once and the
+    output written once."""
+    kernel: str
+    plan: object
+    M: int
+    K: int
+    N: int
+    flops: int
+    bytes: int
+
+
+_fake_recorders: list[list[FakeLaunch]] = []
+
+
+@contextlib.contextmanager
+def recording_fake_launches():
+    """Within the block, every launch a wrapper takes on a fake CUDA
+    tensor is appended to the yielded list."""
+    launches: list[FakeLaunch] = []
+    _fake_recorders.append(launches)
+    try:
+        yield launches
+    finally:
+        _fake_recorders.remove(launches)
+
+
+def fake_launch(kernel: str, x: torch.Tensor, operands, N: int, make_plan,
+                stored_per_row: int) -> torch.Tensor:
+    """A wrapper's call on fake tensors: nothing built or launched; unless
+    x has no rows (the card launches nothing then either), the launch of
+    ``make_plan()``'s plan recorded with its FLOPs (2 M N
+    ``stored_per_row``) and bytes (x, every weight buffer in ``operands``
+    and y once); returns the empty [M, N] output in x's dtype, a fake
+    tensor of x's mode."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [M, in], got shape {tuple(x.shape)}")
+    M, K = x.shape
+    if M:
+        nbytes = (x.numel() * x.element_size() + M * N * x.element_size()
+                  + sum(t.numel() * t.element_size() for t in operands
+                        if t is not None))
+        rec = FakeLaunch(kernel, make_plan(), M, K, N,
+                         2 * M * N * stored_per_row, nbytes)
+        for launches in _fake_recorders:
+            launches.append(rec)
+    return x.new_empty((M, N))
 
 
 def check_cuda_operands(x: torch.Tensor, values: torch.Tensor,

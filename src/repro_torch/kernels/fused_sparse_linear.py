@@ -23,7 +23,8 @@ their row's scale, rounded once to bf16, and add the exact outliers
 unscaled.  ``csrc/sparse_linear.cu``'s tile kernel (OUTLIERS=true), which
 served M > T before, stays reachable through ``force_plan=tile_plan(...)``
 to be timed beside them; ``plan`` never picks it.  On a CPU tensor the
-wrapper runs ``plain``.  ``plan`` also drives ``nm_spmm``, which runs the
+wrapper runs ``plain``; on a fake CUDA tensor (a dry run) it launches
+nothing and records the launch (``common.fake_launch``).  ``plan`` also drives ``nm_spmm``, which runs the
 same two bodies without an outlier stream (``o_n = 0``).
 
 Layout: nm_values [out, in*n/m] bf16 (16-byte aligned), or int8 (8-byte
@@ -37,12 +38,13 @@ import dataclasses
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from ..core.packing import unpack_metadata
 from . import build
-from .common import (check_cuda_operands, prefill_splits, scratch_for,
-                     sm_count)
+from .common import (H100_SM_COUNT, check_cuda_operands, fake_launch,
+                     prefill_splits, scratch_for, sm_count)
 from .ref import fused_sparse_linear_ref
 
 launches = 0
@@ -196,6 +198,14 @@ def fused_sparse_linear(x: torch.Tensor, nm_values: torch.Tensor,
     if not x.is_cuda:
         return plain(x, nm_values, nm_meta, o_values, o_meta, n=n, m=m,
                      o_n=o_n, scale=scale)
+    if isinstance(x, FakeTensor):
+        K, N = x.shape[-1], nm_values.shape[0]
+        return fake_launch(
+            "fused_sparse_linear" + ("" if scale is None else "_int8"), x,
+            (nm_values, nm_meta, o_values, o_meta, scale), N,
+            lambda: force_plan or plan(x.shape[0], K, N, n, m, o_n,
+                                       H100_SM_COUNT),
+            K * n // m + K // OUTLIER_M * o_n)
     M, K, N = check_cuda_operands(x, nm_values, nm_meta, n, m, scale)
     if K % OUTLIER_M or o_n % 4 or not 0 < o_n <= OUTLIER_M:
         raise ValueError(f"fused kernel needs in % 256 == 0 and o_n a "

@@ -21,7 +21,9 @@ columns but for a ragged last one.  Both dequantize int8 values by their
 row's scale, rounded once to bf16.  ``csrc/sparse_linear.cu``'s tile kernel
 (OUTLIERS=false), which served every M before, stays reachable through
 ``force_plan=fused_sparse_linear.tile_plan(...)`` to be timed beside them;
-the plan never picks it.  On a CPU tensor the wrapper runs ``plain``.
+the plan never picks it.  On a CPU tensor the wrapper runs ``plain``; on
+a fake CUDA tensor (a dry run) it launches nothing and records the launch
+(``common.fake_launch``).
 
 Layout (``core/packing.py``): values [out, in*n/m] bf16, or int8 (8-byte
 aligned) with ``scale`` [out] f32; meta [out, in/m] int32 with n 4-bit
@@ -31,10 +33,12 @@ instances.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.packing import unpack_metadata
 from . import build
-from .common import check_cuda_operands, scratch_for, sm_count
+from .common import (H100_SM_COUNT, check_cuda_operands, fake_launch,
+                     scratch_for, sm_count)
 from .fused_sparse_linear import Plan, plan
 from .ref import nm_spmm_ref
 
@@ -71,6 +75,13 @@ def nm_spmm(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor, *,
     global launches_prefill, launches_prefill_int8
     if not x.is_cuda:
         return plain(x, values, meta, n=n, m=m, scale=scale)
+    if isinstance(x, FakeTensor):
+        K, N = x.shape[-1], values.shape[0]
+        return fake_launch(
+            "nm_spmm" + ("" if scale is None else "_int8"), x,
+            (values, meta, scale), N,
+            lambda: force_plan or plan(x.shape[0], K, N, n, m, 0,
+                                       H100_SM_COUNT), K * n // m)
     M, K, N = check_cuda_operands(x, values, meta, n, m, scale)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:

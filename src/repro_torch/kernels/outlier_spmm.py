@@ -24,7 +24,8 @@ output tile, through a workspace cached per device (``common.scratch_for``).
 The first kernel, ``csrc/outlier_spmm_gather8.cu`` (16 output rows by 8 x
 rows a block), stays reachable through ``force_plan=gather8_plan(...)`` to
 be timed beside them; ``plan`` never picks it.  On a CPU tensor the
-wrapper runs ``plain``.
+wrapper runs ``plain``; on a fake CUDA tensor (a dry run) it launches
+nothing and records the launch (``common.fake_launch``).
 
 Layout (``core/outliers.py``): values [out, in/256, n] bf16 with n a
 multiple of 4 (4, 8, 16 in the paper); meta [out, in/256, n/4] int32, four
@@ -36,10 +37,12 @@ import dataclasses
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from . import build
-from .common import prefill_splits, scratch_for, sm_count
+from .common import (H100_SM_COUNT, fake_launch, prefill_splits, scratch_for,
+                     sm_count)
 from .ref import outlier_spmm_ref
 
 launches = 0
@@ -226,6 +229,12 @@ def outlier_spmm(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor,
     global launches, launches_decode, launches_prefill
     if not x.is_cuda:
         return plain(x, values, meta, n=n)
+    if isinstance(x, FakeTensor):
+        K, N = x.shape[-1], values.shape[0]
+        return fake_launch(
+            "outlier_spmm", x, (values, meta), N,
+            lambda: force_plan or plan(x.shape[0], K, N, n, H100_SM_COUNT),
+            K // OUTLIER_M * n)
     M, K, N = check_cuda_operands(x, values, meta, n)
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:

@@ -161,22 +161,28 @@ def make_train_step(cfg, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg, unroll: bool = False):
-    """``prefill_step(params, batch) -> (last logits [B, V], caches)``."""
+def make_prefill_step(cfg, unroll: bool = False, heads=None):
+    """``prefill_step(params, batch) -> (last logits [B, V], caches)``.
+    On a mesh, ``heads`` (``ServingPlacement.heads``, the transformer
+    families) makes a rank attend its heads and keep its KV heads."""
     zoo = get_model(cfg)
+    kw = {} if heads is None else {"heads": heads}
 
     def prefill_step(params, batch):
-        return zoo.prefill(params, batch)
+        return zoo.prefill(params, batch, **kw)
 
     return prefill_step
 
 
-def make_decode_step(cfg, unroll: bool = False):
+def make_decode_step(cfg, unroll: bool = False, heads=None):
     """``decode_step(params, caches, {"tokens": [B, 1]}) -> (logits
-    [B, V], caches)``, one lock-step token for every row."""
+    [B, V], caches)``, one lock-step token for every row; ``heads`` as
+    for ``make_prefill_step`` (the caches then hold the rank's KV
+    heads)."""
     zoo = get_model(cfg)
+    kw = {} if heads is None else {"heads": heads}
 
     def decode_step(params, caches, batch):
-        return zoo.decode(params, caches, batch)
+        return zoo.decode(params, caches, batch, **kw)
 
     return decode_step

@@ -47,16 +47,19 @@ from .mesh import make_host_mesh, make_production_mesh
 from .steps import TrainOptions, make_train_step
 
 
-def build(cfg, opt_cfg, opts: TrainOptions, mesh=None):
+def build(cfg, opt_cfg, opts: TrainOptions, mesh=None, state=None):
     """(the train step of ``cfg``, the params' ``StateSharding``, the
     optimizer state's), as the reference returns (jitted, p_sh, o_sh).
     With a ``mesh`` the step takes and returns this rank's blocks (cut by
     ``fsdp.shard_tree`` from the specs) and the global batch; without
-    one it is the unplaced step and the shardings are None."""
+    one it is the unplaced step and the shardings are None.  The specs
+    are read off ``state`` (params, optimizer state: whole or fake
+    tensors, as a dry run holds them) or, by default, off the zoo's fake
+    init."""
     if mesh is None:
         return make_train_step(cfg, opt_cfg, opts), None, None
-    params, opt = fsdp.shapes_of(get_model(cfg, "cpu"),
-                                 lambda p: adamw_init(p, opt_cfg))
+    params, opt = state or fsdp.shapes_of(get_model(cfg, "cpu"),
+                                          lambda p: adamw_init(p, opt_cfg))
     tm = fsdp.TrainMesh(mesh)           # every rank builds its groups here
     p_sh = fsdp.state_sharding(tm, params)
     o_sh = fsdp.state_sharding(tm, opt)

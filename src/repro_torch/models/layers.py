@@ -10,6 +10,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._guards import detect_fake_mode
 
 from ..parallel.tensor_parallel import RowShard
 from .sparse_serving import SparseWeight, sparse_apply
@@ -46,7 +47,10 @@ def embed(table, tokens: torch.Tensor) -> torch.Tensor:
 
 def dense_init(out_dim: int, in_dim: int, dtype, generator, device):
     """A [out, in] weight drawn N(0, 1/in) in f32 from ``generator``, then
-    rounded to ``dtype``."""
+    rounded to ``dtype``; under a fake mode (a dry run's shapes) an empty
+    one, since a fake tensor holds no values to draw."""
+    if detect_fake_mode() is not None:
+        return torch.empty((out_dim, in_dim), dtype=dtype, device=device)
     w = torch.randn((out_dim, in_dim), generator=generator, device=device,
                     dtype=torch.float32)
     return w.div_(math.sqrt(in_dim)).to(dtype)       # in place: one f32 copy

@@ -8,13 +8,15 @@
   logits, caches = zoo.decode(params, caches, batch)
 
 The dense and moe families and the vlm backbone run
-``models/transformer.py``, ssm ``models/xlstm.py``, hybrid
+``models/transformer.py`` (whose ``prefill`` and ``decode`` take a
+mesh rank's ``heads``), ssm ``models/xlstm.py``, hybrid
 ``models/zamba.py`` and encdec ``models/whisper.py`` (whose batches carry
 the encoder's ``embeds`` beside the decoder's ``tokens``).
 ``input_specs`` and ``cache_specs`` give the
 (shape, dtype) of every input of a step and of the decode cache, as the
-reference's ``ShapeDtypeStruct`` stand-ins do, without allocating.  The
-reference's ``param_specs`` waits for the dry-run tools (ROADMAP A14b).
+reference's ``ShapeDtypeStruct`` stand-ins do, without allocating, and
+``param_specs`` the params themselves as fake tensors (the dry run's,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -83,15 +85,25 @@ def get_model(cfg, device="cuda") -> ModelZoo:
         cfg=cfg,
         init=lambda generator: tfm.init_params(cfg, generator, device),
         loss=lambda p, b: tfm.loss_fn(p, b, cfg),
-        prefill=lambda p, b: tfm.prefill(p, b, cfg),
-        decode=lambda p, c, b: tfm.decode_lockstep(p, c, b, cfg),
+        prefill=lambda p, b, heads=None: tfm.prefill(p, b, cfg, heads),
+        decode=lambda p, c, b, heads=None: tfm.decode_lockstep(p, c, b, cfg,
+                                                               heads),
         init_cache=lambda bs, ml: tfm.init_cache(cfg, bs, ml, device),
     )
 
 
 # --------------------------------------------------------------------------
-# input and cache specs: (shape, dtype) stand-ins, no allocation
+# input, cache and param specs: stand-ins, no allocation
 # --------------------------------------------------------------------------
+
+def param_specs(cfg, device="cuda"):
+    """The params of ``cfg`` as fake tensors on ``device`` (of the active
+    fake mode, if one is on; ``parallel/fsdp.shapes_of``): every leaf's
+    shape and dtype, nothing allocated (the reference's ``param_specs``,
+    a ``jax.eval_shape`` of the init)."""
+    from ..parallel.fsdp import shapes_of
+    return shapes_of(get_model(cfg, device), lambda p: None)[0]
+
 
 def input_specs(cfg, shape) -> dict:
     """(shape, dtype) of each input of the step ``shape.kind`` names.

@@ -57,6 +57,7 @@ import math
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..parallel import policy as pol
 from ..parallel.tensor_parallel import ColShard, all_to_all
@@ -80,6 +81,8 @@ def init_moe(cfg, generator: torch.Generator, device) -> dict:
 
     def experts(n_in, n_out):
         out = torch.empty((E, n_in, n_out), dtype=cfg.dtype, device=device)
+        if isinstance(out, FakeTensor):
+            return out           # a dry run's shapes: no values to draw
         for e in range(E):
             w = torch.randn((n_in, n_out), generator=generator,
                             device=device, dtype=torch.float32)
@@ -143,6 +146,17 @@ def _expert_ffn(p, xs: torch.Tensor, counts: list[int], cfg) -> torch.Tensor:
     return out if down_axis is None else down_axis.gather(out, dim=-1)
 
 
+def _group_sizes(flat_e: torch.Tensor, E: int) -> list[int]:
+    """Rows routed to each expert.  Fake tensors (a dry run,
+    ``launch/dryrun.py``) hold no routing: they get the T k pairs split
+    evenly, which gives the experts' products the same FLOPs as any
+    routing."""
+    if isinstance(flat_e, FakeTensor):
+        n = flat_e.shape[0]
+        return [n // E + (e < n % E) for e in range(E)]
+    return torch.bincount(flat_e, minlength=E).tolist()
+
+
 def _moe_local(p, x2: torch.Tensor, cfg) -> torch.Tensor:
     T, k = x2.shape[0], cfg.moe.top_k
     top_w, top_e = route(p, x2, cfg)
@@ -151,7 +165,7 @@ def _moe_local(p, x2: torch.Tensor, cfg) -> torch.Tensor:
     order = torch.argsort(flat_e, stable=True)
     tok = flat_t[order]
     # the group sizes on the host: the layer's one synchronisation
-    counts = torch.bincount(flat_e, minlength=cfg.moe.num_experts).tolist()
+    counts = _group_sizes(flat_e, cfg.moe.num_experts)
     ys = _expert_ffn(p, x2[tok], counts, cfg)
     ys = ys * top_w.reshape(-1)[order][:, None].to(ys.dtype)
     return torch.zeros_like(x2).index_add_(0, tok, ys)

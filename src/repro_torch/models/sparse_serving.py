@@ -11,6 +11,11 @@ set; on a CPU tensor their plain versions.  The JAX engine's own ``sparse_apply`
 einsum in ``x.dtype`` instead; the kernels accumulate in f32, so the two
 agree at f32 up to summation order.
 
+``sparsify_specs`` gives the containers' shapes alone, as empty buffers
+(fake tensors in a dry run, the reference's ``jax.eval_shape`` of
+``sparsify_for_serving``): the masks' top-k selections are data-dependent
+work a fake tensor cannot follow, and the shapes do not depend on them.
+
 ``densify``/``densify_params`` rebuild the dense weights a container
 stands for (speculative decoding's dense target of an 8:16 draft).  The
 served pytree then runs ``F.linear`` as the reference's dense path runs a
@@ -25,6 +30,7 @@ import torch
 
 from ..core.outliers import pack_outlier_meta, unpack_outlier_meta
 from ..core.packing import unpack_metadata
+from ..core.patterns import parse_pattern
 from ..core.pipeline import (SparsifyConfig, fit_config, map_leaves,
                              sparsify_linear)
 from ..kernels.fused_sparse_linear import fused_sparse_linear
@@ -172,6 +178,52 @@ def sparsify_for_serving(params, scfg: SparsifyConfig, stats_by_name=None,
             return leaf
         sw = to_sparse_weight(leaf, cfg, (stats_by_name or {}).get(name),
                               quantize=quantize)
+        report["n_layers_sparsified"] += 1
+        report["dense_bytes"] += leaf.numel() * leaf.element_size()
+        report["compressed_bytes"] += sw.deployed_bytes()
+        return sw
+
+    new_params = map_leaves(params, convert)
+    report["ratio"] = report["compressed_bytes"] / max(report["dense_bytes"], 1)
+    return new_params, report
+
+
+def sparse_weight_like(w2d: torch.Tensor, scfg: SparsifyConfig,
+                       quantize: bool = False) -> SparseWeight:
+    """The ``SparseWeight`` ``to_sparse_weight(w2d, scfg, quantize=)``
+    returns, with every buffer empty (``w2d.new_empty``: fake when
+    ``w2d`` is): the same shapes, dtypes and fields, no mask computed."""
+    out, in_dim = w2d.shape
+    wp = parse_pattern(scfg.weight_pattern)
+    values = w2d.new_empty((out, in_dim // wp.m * wp.n),
+                           dtype=torch.int8 if quantize else w2d.dtype)
+    meta = w2d.new_empty((out, in_dim // wp.m), dtype=torch.int32)
+    o_values = o_meta = None
+    o_n = 0
+    if scfg.outlier_pattern is not None and not scfg.unstructured_outliers:
+        op = parse_pattern(scfg.outlier_pattern)
+        o_n = op.n
+        o_values = w2d.new_empty((out, in_dim // op.m, o_n))
+        o_meta = w2d.new_empty((out, in_dim // op.m, o_n // 4),
+                               dtype=torch.int32)
+    return SparseWeight(
+        nm_values=values, nm_meta=meta, o_values=o_values, o_meta=o_meta,
+        v_scale=(w2d.new_empty((out,), dtype=torch.float32) if quantize
+                 else None),
+        n=wp.n, m=wp.m, o_n=o_n, in_dim=in_dim)
+
+
+def sparsify_specs(params, scfg: SparsifyConfig, quantize: bool = False):
+    """``sparsify_for_serving``'s (params, report) by shape alone: the same
+    leaves replaced (``leaf_cfg``) by ``sparse_weight_like`` containers."""
+    report = {"n_layers_sparsified": 0, "dense_bytes": 0,
+              "compressed_bytes": 0}
+
+    def convert(name, leaf):
+        cfg = leaf_cfg(name, leaf, scfg)
+        if cfg is None:
+            return leaf
+        sw = sparse_weight_like(leaf, cfg, quantize=quantize)
         report["n_layers_sparsified"] += 1
         report["dense_bytes"] += leaf.numel() * leaf.element_size()
         report["compressed_bytes"] += sw.deployed_bytes()

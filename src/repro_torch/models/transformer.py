@@ -254,19 +254,22 @@ def block_decode(lp, x, k_cache, v_cache, pos, cfg):
     return y, k_cache, v_cache
 
 
-def decode_lockstep(params, caches, batch, cfg):
+def decode_lockstep(params, caches, batch, cfg, heads=None):
     """One new token for every row through ``unified_step``: batch
     ``{"tokens": [B, 1]}``, caches from ``init_cache`` or ``prefill`` (grown
     by ``model_zoo.grow_caches`` to hold the new position).  ``pos`` is a
     scalar or a [B] vector.  Writes the fresh KV into ``caches`` in place and
-    returns (logits [B, V], {"k", "v", "pos": pos + 1})."""
+    returns (logits [B, V], {"k", "v", "pos": pos + 1}).  On a mesh,
+    ``heads`` is the rank's share of the heads when the caches hold only
+    its KV heads (``ServingPlacement.heads``)."""
     from ..serving.cache_pool import SlotPoolView
     tokens = batch["tokens"]
     B = tokens.shape[0]
     pos = caches["pos"]
     view = SlotPoolView.build(caches["k"], caches["v"], None,
                               _cursor_vec(pos, B), np.ones(B, np.int64), 1)
-    logits, (k, v) = unified_step(params, view, {"tokens": tokens}, cfg)
+    logits, (k, v) = unified_step(params, view, {"tokens": tokens}, cfg,
+                                  heads=heads)
     return logits[:, -1], {"k": k, "v": v, "pos": pos + 1}
 
 
@@ -291,11 +294,17 @@ def _embed_inputs(params, batch, cfg):
     return x, positions
 
 
-def block_forward(lp, x, positions, cfg, q_chunks: int = 1):
-    """One causal block over a full sequence.  Returns (y, (k, v))."""
+def block_forward(lp, x, positions, cfg, q_chunks: int = 1, heads=None):
+    """One causal block over a full sequence.  Returns (y, (k, v)); with
+    ``heads`` (a ``HeadShard``) the rank attends its own heads, gathers
+    the output over heads, and returns its KV heads."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(lp, h, cfg, positions)
+    if heads is not None:
+        q, k, v = heads.local(q, k, v)
     attn = sdpa(q, k, v, causal=True, window=cfg.window, q_chunks=q_chunks)
+    if heads is not None:
+        attn = heads.gather(attn)
     x = x + linear(lp["wo"], attn.reshape(*attn.shape[:2], -1))
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + _mlp(lp, h, cfg), (k, v)
@@ -305,7 +314,7 @@ def _auto_q_chunks(S: int) -> int:
     return max(1, S // 4096) if S > 8192 else 1
 
 
-def forward(params, batch, cfg, collect_kv: bool = False):
+def forward(params, batch, cfg, collect_kv: bool = False, heads=None):
     """Full-sequence forward.  Returns (logits [B, S, V], caches): caches
     are the stacked (k, v) [L, B, S, KV, hd] with ``collect_kv``, else
     None.
@@ -324,7 +333,7 @@ def forward(params, batch, cfg, collect_kv: bool = False):
                                q_chunks, use_reentrant=False,
                                context_fn=pol.checkpoint_contexts)
         else:
-            x, kv = block_forward(lp, x, positions, cfg, q_chunks)
+            x, kv = block_forward(lp, x, positions, cfg, q_chunks, heads)
         if collect_kv:
             kvs.append(kv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -356,10 +365,12 @@ def loss_fn(params, batch, cfg):
     return loss, aux
 
 
-def prefill(params, batch, cfg):
+def prefill(params, batch, cfg, heads=None):
     """Run the full prompt; returns (last position's logits [B, V], caches
-    {"k", "v": [L, B, S, KV, hd], "pos": S})."""
-    logits, (k, v) = forward(params, batch, cfg, collect_kv=True)
+    {"k", "v": [L, B, S, KV, hd], "pos": S}); with ``heads`` the caches
+    hold the rank's KV heads."""
+    logits, (k, v) = forward(params, batch, cfg, collect_kv=True,
+                             heads=heads)
     caches = {"k": k, "v": v,
               "pos": torch.tensor(k.shape[2], dtype=torch.int32,
                                   device=k.device)}

@@ -124,11 +124,20 @@ class TrainMesh:
 # the state's specs and blocks
 # --------------------------------------------------------------------------
 
-def shapes_of(zoo, opt_init):
-    """(params, ``opt_init(params)``) of ``zoo`` as fake tensors: the
-    shapes and dtypes of the whole state, with nothing allocated."""
+def fake_mode():
+    """The ``FakeTensorMode`` to make fake tensors in: the active one (a
+    dry run's, ``launch/dryrun.py``, whose steps take them), else a new
+    one."""
+    from torch._guards import detect_fake_mode
     from torch._subclasses.fake_tensor import FakeTensorMode
-    with FakeTensorMode():
+    return detect_fake_mode() or FakeTensorMode()
+
+
+def shapes_of(zoo, opt_init):
+    """(params, ``opt_init(params)``) of ``zoo`` as fake tensors (of the
+    active fake mode, if one is on): the shapes and dtypes of the whole
+    state, with nothing allocated."""
+    with fake_mode():
         params = zoo.init(torch.Generator())
         return params, opt_init(params)
 
@@ -156,7 +165,8 @@ def shard_tree(tree, sh: StateSharding):
     tensor."""
     tm = sh.tm
     return unflatten(tree, [
-        local_shard(t, spec, tm.sizes, tm.coords).contiguous().clone()
+        local_shard(t, spec, tm.sizes, tm.coords).clone(
+            memory_format=torch.contiguous_format)
         if splits(spec) else t
         for t, spec in zip(flatten(tree), flatten(sh.specs))])
 

@@ -182,7 +182,8 @@ def sparse_weight_specs(mesh, sw: SparseWeight, *, serving: bool = False):
         single-device engine), so in-dims replicate unconditionally.
     """
     fs = fsdp_axes(mesh)
-    F = axis_size(mesh, fs)
+    # serving splits out rows only: a serving mesh may name "model" alone
+    F = 1 if serving else axis_size(mesh, fs)
     model_n = axis_size(mesh, ("model",))
     nd = sw.nm_values.ndim
     lead = (None,) * (nd - 2)
@@ -305,6 +306,17 @@ def local_shard(t: torch.Tensor, spec: tuple, sizes: Mapping[str, int],
         n = t.shape[dim] // parts
         t = t.narrow(dim, index * n, n)
     return t
+
+
+def block_shape(shape, spec: tuple, sizes: Mapping[str, int]) -> tuple:
+    """The shape of one rank's block of a ``shape`` leaf under ``spec``
+    (``local_shard``'s, whatever the rank)."""
+    out = []
+    for dim, axes in zip(shape, spec):
+        axes = () if axes is None else (axes,) if isinstance(axes, str) \
+            else axes
+        out.append(dim // math.prod(sizes[a] for a in axes))
+    return tuple(out)
 
 
 def splits(spec) -> bool:

@@ -30,6 +30,8 @@ differentiates through serving.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Any
 
 import torch
@@ -225,12 +227,80 @@ def all_gather_leaf(block: torch.Tensor, tm, spec: tuple,
     group, members = tm.group_for(spec)
     if group is None:
         return block
-    parts = [torch.empty_like(block) for _ in members]
-    dist.all_gather(parts, block.contiguous(), group=group)
-    full = block.new_empty(shape)
-    for coords, part in zip(members, parts):
-        local_shard(full, spec, tm.sizes, coords).copy_(part)
-    return full
+    G = len(members)
+    flat = block.new_empty((G * block.shape[0], *block.shape[1:]))
+    gather_single = (getattr(dist, "all_gather_single", None)
+                     or dist.all_gather_into_tensor)
+    gather_single(flat, block.contiguous(), group=group)
+    return _assemble(flat.view(G, *block.shape), members, spec, tm.sizes,
+                     shape)
+
+
+def _split_dims(spec: tuple, sizes) -> list:
+    """(dim, its axes, their product) of every dim ``spec`` splits."""
+    out = []
+    for d, axes in enumerate(spec):
+        if axes is not None:
+            axes = (axes,) if isinstance(axes, str) else axes
+            out.append((d, axes, math.prod(sizes[a] for a in axes)))
+    return out
+
+
+def _cell(coords, split, sizes) -> tuple:
+    """The block index along each split dim of the rank at ``coords``
+    (the first axis of a tuple major, as ``local_shard`` cuts)."""
+    out = []
+    for _, axes, _ in split:
+        index = 0
+        for a in axes:
+            index = index * sizes[a] + coords[a]
+        out.append(index)
+    return tuple(out)
+
+
+def _blocks_of(full: torch.Tensor, members: list, spec: tuple,
+               sizes) -> torch.Tensor:
+    """[G, *block]: member g's block of ``full`` under ``spec``
+    (``local_shard``'s at ``members[g]``), gathered in one copy."""
+    split = _split_dims(spec, sizes)
+    by_dim = {d: n for d, _, n in split}
+    shape, grid, block = [], [], []
+    for d, size in enumerate(full.shape):
+        if d in by_dim:
+            shape.append(by_dim[d])
+            grid.append(len(shape) - 1)
+            size //= by_dim[d]
+        shape.append(size)
+        block.append(len(shape) - 1)
+    view = full.reshape(shape).permute(grid + block)
+    cells = torch.tensor([_cell(c, split, sizes) for c in members],
+                         device=full.device).T
+    return view[tuple(cells)]
+
+
+def _assemble(parts: torch.Tensor, members: list, spec: tuple, sizes,
+              shape) -> torch.Tensor:
+    """The whole leaf of ``shape`` from ``parts`` [G, *block] (member g's
+    block at ``members[g]``'s coordinates under ``spec``): the blocks laid
+    out on a grid of the split dims (the first member holding each block;
+    members that differ only on axes the spec does not split hold equal
+    blocks), then interleaved with the block dims in one copy."""
+    split = _split_dims(spec, sizes)
+    counts = [n for _, _, n in split]
+    first = {}
+    for g, coords in enumerate(members):
+        first.setdefault(_cell(coords, split, sizes), g)
+    order = [first[c] for c in itertools.product(*map(range, counts))]
+    if order != list(range(len(members))):
+        parts = parts[order]
+    block = parts.shape[1:]
+    grid = parts.reshape(*counts, *block)
+    k = len(split)
+    dims = []
+    for d in range(len(block)):
+        at = [i for i, (sd, _, _) in enumerate(split) if sd == d]
+        dims += at + [k + d]
+    return grid.permute(dims).reshape(shape)
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -247,10 +317,10 @@ class _GatherBlocks(torch.autograd.Function):
             return (local_shard(g, spec, tm.sizes, tm.coords).contiguous(),
                     None, None, None)
         if tm.splits_fsdp(spec):
-            pieces = [local_shard(g, spec, tm.sizes, c).contiguous()
-                      for c in tm.fsdp_members]
+            pieces = _blocks_of(g, tm.fsdp_members, spec, tm.sizes)
             out = torch.empty_like(pieces[0])
-            dist.reduce_scatter(out, pieces, group=tm.fsdp_group)
+            dist.reduce_scatter(out, list(pieces.unbind(0)),
+                                group=tm.fsdp_group)
         else:
             out = local_shard(g, spec, tm.sizes, tm.coords).clone()
             dist.all_reduce(out, group=tm.fsdp_group)

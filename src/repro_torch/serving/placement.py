@@ -107,13 +107,16 @@ class ServingPlacement:
         self.kv_sharded = (mesh is not None
                            and cfg.n_kv_heads % sizes["model"] == 0)
         self._axis = None
+        self._coords = None
         self._control = None
         if self.active and hasattr(mesh, "get_group") and self.n_ranks > 1:
             # scheduling state (the clock) crosses ranks on the host: a
             # gloo group beside an NCCL one over this mesh's ranks, made by
-            # those ranks alone (a fleet's other replicas build theirs)
+            # those ranks alone (a fleet's other replicas build theirs); a
+            # fake group (a dry run, ``launch/dryrun.py``) serves itself
             group = mesh.get_group("model")
-            self._control = group if dist.get_backend(group) == "gloo" \
+            self._control = group if dist.get_backend(group) in (
+                "gloo", "fake") \
                 else dist.new_group(dist.get_process_group_ranks(group),
                                     backend="gloo",
                                     use_local_synchronization=True)
@@ -244,9 +247,11 @@ class ServingPlacement:
 
     @property
     def coords(self) -> dict[str, int]:
-        """This rank's index on every mesh axis."""
-        mesh = self._device_mesh()
-        return {a: mesh.get_local_rank(a) for a in self.sizes}
+        """This rank's index on every mesh axis (read once)."""
+        if self._coords is None:
+            mesh = self._device_mesh()
+            self._coords = {a: mesh.get_local_rank(a) for a in self.sizes}
+        return self._coords
 
     def _local(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
         """This rank's block of ``t``: a copy of its own where ``spec``

@@ -1,7 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every config module
 of ``repro_torch.configs`` and ``models/model_zoo.py`` included) pulls in
-neither ``jax`` nor the JAX package, and no file of the port or
-``chip_smoke.py`` imports either."""
+neither ``jax`` nor the JAX package, and no file of the port, of its
+examples (``examples/torch/``) or ``chip_smoke.py`` imports either."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(
+        (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_import_leaves_jax_and_repro_out_of_sys_modules():
@@ -30,7 +31,8 @@ def test_import_leaves_jax_and_repro_out_of_sys_modules():
             "repro_torch.optim, repro_torch.launch.steps, "
             "repro_torch.core.ebft, repro_torch.tree, "
             "repro_torch.serving.speculative, repro_torch.serving.fleet, "
-            "repro_torch.configs, repro_torch.models.model_zoo\n"
+            "repro_torch.configs, repro_torch.models.model_zoo, "
+            "repro_torch.launch.dryrun, repro_torch.launch.hlo_analysis\n"
             "repro_torch.configs.all_archs()\n"
             "[repro_torch.configs.get_smoke(n) for n in "
             "repro_torch.configs.SMOKE_MODULES]\n"

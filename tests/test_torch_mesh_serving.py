@@ -1,5 +1,7 @@
 """Mesh-native serving of the port: ``ServingEngine(mesh=)`` on gloo meshes
-of 1x4 and 1x8 ranks against the JAX package's single-device engine.
+of 1x4 ranks (here) and 1x8 ranks (``test_torch_mesh_serving_1x8.py``,
+the same tests in a file of its own so ``--dist loadfile`` runs the two
+worlds side by side) against the JAX package's single-device engine.
 
 The property is the reference's (``tests/test_mesh_serving.py``): the
 sharded engine's greedy token streams are identical to the single-device
@@ -58,7 +60,6 @@ from repro_torch.serving import poisson_trace, save_trace  # noqa: E402
 
 CASES = worker.cases()
 SPEC_CASES = worker.spec_cases()
-WORLDS = (4, 8)
 # a spawn also serves speculation, a fleet and two CLI replays: the 1x8
 # one took 76 s inside a whole six-worker run
 SPAWN_DEADLINE_S = 240
@@ -168,10 +169,17 @@ def _spawn(world, models, tmp_path_factory):
                for r in range(world)]
 
 
-@pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"1x{w}")
-def mesh_run(request, models, tmp_path_factory):
-    d, ranks = _spawn(request.param, models, tmp_path_factory)
-    return request.param, ranks, d
+@pytest.fixture(scope="module")
+def world():
+    """Four ranks on the model axis (``test_torch_mesh_serving_1x8.py``
+    runs the same tests on eight)."""
+    return 4
+
+
+@pytest.fixture(scope="module")
+def mesh_run(world, models, tmp_path_factory):
+    d, ranks = _spawn(world, models, tmp_path_factory)
+    return world, ranks, d
 
 
 @pytest.mark.parametrize("case", list(CASES))
