@@ -85,6 +85,18 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            hits, hit tokens >= 4 x 512 and a copy-on-write;
        (c) block pressure: (a)'s traffic with half the blocks it needs at
            once; gates preemptions;
+       (d) the decode call replayed as a CUDA graph
+           (``serving/families.CapturedStep``, which every dense serve
+           without a mesh replays) against ``eager()``: on (a)'s engine
+           with all 8 lanes decoding, ``GRAPH_AB_CALLS`` decode calls each
+           way in turns on the same inputs, gated on the active lanes'
+           logits bit-equal (and the same bits every call); (a)'s traffic
+           served again under ``eager()`` on a fresh engine, gated on
+           streams identical to (a)'s and on its launches; reports each
+           way's decode call wall and issue (host until the call returned)
+           p50, the serves' decode step p50, (a)'s engine's kernels a
+           decode step by class (profiler) each way, and the graph's
+           capture seconds and pool bytes;
   7. int8: llama3-8b at full width and depth with int8 8:16 values and
      bf16 16:256 outliers, served by ``ServingEngine(kv_layout="paged",
      kv_dtype="int8", block_size=16)``, with the int8 weight kernel
@@ -522,6 +534,7 @@ without CUDA it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -594,6 +607,8 @@ ATTN_SWEEP_SHORT = ([64, 60, 70, 64, 50, 64, 80, 63], 64)   # cursors, nb
 PREFIX_LEN = 512
 PREFIX_SUFFIX_LENS = [[32, 96, 160, 256], [64, 128, 200]]
 PREFIX_REPEAT = (1, 48)          # wave-1 suffix 1, its first 48 tokens
+# phase 6(d): decode calls each way (eager, replayed) on one engine state
+GRAPH_AB_CALLS = 20
 # phase 9: the replayed trace (serving/trace.poisson_trace's arguments)
 TRACE = dict(n_requests=16, rate_per_s=4.0, prompt_len=(64, 768),
              max_new_tokens=32, temperature=0.0, seed=0)
@@ -2201,6 +2216,10 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
     add_profile(torch, engine, out, seed=11)
     results["a_phase4_traffic"] = out
     log("  (a) " + json.dumps(out))
+
+    # (d) the replayed decode call against eager(), on (a)'s engine
+    results["d_decode_graph"] = decode_graph_phase(
+        torch, log, engine, base, prompts, reqs_a, out)
     del engine
     torch.cuda.empty_cache()
 
@@ -2250,6 +2269,96 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
     del engine
     torch.cuda.empty_cache()
     return results, launches_a, [r.tokens for r in reqs_a]
+
+
+def decode_graph_phase(torch, log, engine, base, prompts, reqs_a, out_a):
+    """Phase 6(d) on 6(a)'s engine (``base`` its keywords, ``reqs_a`` and
+    ``out_a`` its serve): the decode call under ``eager()`` and replayed
+    in turns on one engine state, then (a)'s traffic served under
+    ``eager()`` on a fresh engine; see the module docstring."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams, ServingEngine, Status
+    from repro_torch.serving.families import eager
+
+    ad = engine.adapter
+    check(ad.graphed and ad.captured_decode.stats()["replays"] > 0,
+          f"6(d): (a)'s decode calls were not replayed: "
+          f"{ad.captured_decode.stats()}")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
+                                        generator=g, device="cuda").tolist(),
+                          SamplingParams(max_new_tokens=4))
+            for _ in range(engine.pool.n_slots)]
+    while not all(r.status is Status.RUNNING for r in reqs):
+        engine.step()
+    active = engine._decode_rows()
+    engine.pool.prepare_decode(active)
+    tokens = engine._last_token[:, None].copy()
+    rows = torch.as_tensor(active, device="cuda")
+    walls = {"eager": [], "replayed": []}
+    issue = {"eager": [], "replayed": []}
+    first = {}
+    for i in range(2 * GRAPH_AB_CALLS):
+        label = ("eager", "replayed")[i % 2]
+        with eager() if label == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = ad.step_decode(tokens, active)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        walls[label].append(t2 - t0)
+        issue[label].append(t1 - t0)
+        got = logits[rows, 0].clone()
+        first.setdefault(label, got)
+        check(torch.equal(got, first[label]),
+              f"6(d): {label} decode call {i // 2} changed its bits")
+    err = float((first["eager"].float() - first["replayed"].float())
+                .abs().max())
+    check(torch.equal(first["eager"], first["replayed"]),
+          f"6(d): replayed decode logits differ from eager() on the active "
+          f"lanes (max |diff| {err})")
+    engine.run()
+    with eager():
+        prof_e = profile_decode(torch, engine,
+                                torch.Generator(device="cuda").manual_seed(11))
+
+    fresh = ServingEngine(engine.cfg, engine.params, **base)
+    with eager():
+        reqs_e, wall, decode_only, launches = drive(torch, fresh, [prompts],
+                                                    SERVE_GEN)
+    out_e = serve_numbers(torch, fresh, reqs_e, wall, decode_only, launches)
+    check(fresh.adapter.captured_decode.stats()["captures"] == 0,
+          "6(d): the eager() serve captured a graph")
+    same = sum(r.tokens == a.tokens for r, a in zip(reqs_e, reqs_a))
+    check(same == len(prompts), f"6(d): {same} of {len(prompts)} streams "
+                                f"served under eager() equal (a)'s replayed")
+    del fresh
+    torch.cuda.empty_cache()
+
+    def p50(xs):
+        return float(np.percentile(xs, 50)) * 1e3
+    profs = {"eager": prof_e, "replayed": out_a.get("decode_profile")}
+    res = {"active_lanes": len(active),
+           "logits_bit_equal_active_lanes": True,
+           "streams_identical": f"{same}/{len(prompts)}",
+           "decode_call_ms_p50": {k: p50(v) for k, v in walls.items()},
+           "decode_call_issue_ms_p50": {k: p50(v) for k, v in issue.items()},
+           "decode_calls_each_way": GRAPH_AB_CALLS,
+           "decode_step_ms_p50": {
+               "eager": out_e["decode_step_ms"]["p50"],
+               "replayed": out_a["decode_step_ms"]["p50"]},
+           "tok_per_s": {"eager": out_e["tok_per_s"],
+                         "replayed": out_a["tok_per_s"]},
+           "graphs": ad.captured_decode.stats(),
+           "eager_serve": out_e}
+    for key in ("device_busy_ms_per_step", "kernels_per_step",
+                "launches_per_step_by_class", "device_ms_per_step_by_class",
+                "profiled_step_ms"):
+        res[key] = {k: None if p is None else p[key]
+                    for k, p in profs.items()}
+    log("  (d) " + json.dumps(res))
+    return res
 
 
 def int8_serve_phase(torch, log, cfg, params, paged_streams, pressure):

@@ -4,12 +4,19 @@ the prefill bodies' split rule, the split kernels' workspace and counters,
 the SM count their plans are sized for, and what they do on a fake CUDA
 tensor (a dry run, ``launch/dryrun.py``): build and launch nothing, record
 the launch (``recording_fake_launches``) and return an empty output of the
-kernel's shape and dtype."""
+kernel's shape and dtype.
+
+Also what a captured step (``serving/families.CapturedStep``, a CUDA graph
+of a decode call) needs of every kernel wrapper, ``paged_attention``'s
+included: the wrappers' launch counters (``launch_counts``), which a
+capture reads and every replay adds again, and the scratch tensors its
+launches took (``holding_scratch``), which the graph keeps alive."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import sys
 
 import torch
 
@@ -132,6 +139,21 @@ def prefill_splits(tiles: int, groups: int, wave: int) -> int:
 
 
 _scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch_holders: list[list] = []
+
+
+@contextlib.contextmanager
+def holding_scratch():
+    """Within the block, the workspace and counters every launch takes from
+    ``scratch_for`` are appended to the yielded list.  A CUDA graph captured
+    there holds them: its kernels keep those addresses after a larger plan
+    has made ``scratch_for`` replace the tensors."""
+    held: list = []
+    _scratch_holders.append(held)
+    try:
+        yield held
+    finally:
+        _scratch_holders.remove(held)
 
 
 def scratch_for(device: torch.device, p):
@@ -139,16 +161,53 @@ def scratch_for(device: torch.device, p):
     grown when a plan needs more, so a call allocates nothing and launches
     no memset (the counters are zeroed once, when allocated, and each launch
     leaves them 0).  Launches on one device share them, so they must be
-    ordered, as on one stream."""
+    ordered, as on one stream.  Growing them while a CUDA graph is being
+    captured raises: the capture's eager first call sizes them."""
     ws, cnt = _scratch.get(device.index, (None, None))
-    if ws is None or ws.numel() * 4 < p.workspace_bytes:
+    grow_ws = ws is None or ws.numel() * 4 < p.workspace_bytes
+    grow_cnt = cnt is None or cnt.numel() < p.counters
+    if (grow_ws or grow_cnt) and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"plan {p} needs more scratch than the eager "
+                           f"call before this capture took")
+    if grow_ws:
         ws = torch.empty(max(p.workspace_bytes // 4, 1), dtype=torch.float32,
                          device=device)
-    if cnt is None or cnt.numel() < p.counters:
+    if grow_cnt:
         cnt = torch.zeros(max(p.counters, 1), dtype=torch.int32,
                           device=device)
     _scratch[device.index] = (ws, cnt)
+    for held in _scratch_holders:
+        held.append((ws, cnt))
     return ws, cnt
+
+
+_counter_modules: list[str] = []
+
+
+def register_launch_counters(module: str) -> None:
+    """Mark the module's ``launches*`` integers as launch counters: each
+    counts the launches its wrapper made of its kernel."""
+    _counter_modules.append(module)
+
+
+def launch_counts() -> dict[tuple[str, str], int]:
+    """Every registered launch counter, by (module, attribute)."""
+    return {(name, attr): value
+            for name in _counter_modules
+            for attr, value in vars(sys.modules[name]).items()
+            if attr.startswith("launches") and isinstance(value, int)}
+
+
+def set_launch_counts(counts: dict[tuple[str, str], int]) -> None:
+    for (name, attr), value in counts.items():
+        setattr(sys.modules[name], attr, value)
+
+
+def add_launch_counts(delta: dict[tuple[str, str], int]) -> None:
+    """Add ``delta`` to the counters: what a graph's replay launched."""
+    for (name, attr), n in delta.items():
+        mod = sys.modules[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
 
 
 @functools.lru_cache(maxsize=None)

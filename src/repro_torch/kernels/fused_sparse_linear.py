@@ -44,7 +44,8 @@ from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from ..core.packing import unpack_metadata
 from . import build
 from .common import (H100_SM_COUNT, check_cuda_operands, fake_launch,
-                     prefill_splits, scratch_for, sm_count)
+                     prefill_splits, register_launch_counters,
+                     scratch_for, sm_count)
 from .ref import fused_sparse_linear_ref
 
 launches = 0
@@ -60,6 +61,7 @@ launches_prefill = 0
 """Of ``launches``, those of the prefill kernel (M > T)."""
 launches_prefill_int8 = 0
 """Of ``launches_int8``, those of the prefill kernel (M > T)."""
+register_launch_counters(__name__)
 
 DECODE_MAX_M = 8
 """T: the largest M that takes the decode kernel: the largest M at which it

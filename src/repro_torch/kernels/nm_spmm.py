@@ -38,7 +38,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from ..core.packing import unpack_metadata
 from . import build
 from .common import (H100_SM_COUNT, check_cuda_operands, fake_launch,
-                     scratch_for, sm_count)
+                     register_launch_counters, scratch_for, sm_count)
 from .fused_sparse_linear import Plan, plan
 from .ref import nm_spmm_ref
 
@@ -55,6 +55,7 @@ launches_prefill = 0
 """Of ``launches``, those of the prefill kernel (M > T)."""
 launches_prefill_int8 = 0
 """Of ``launches_int8``, those of the prefill kernel (M > T)."""
+register_launch_counters(__name__)
 
 
 def plain(x: torch.Tensor, values: torch.Tensor, meta: torch.Tensor, *,

@@ -41,8 +41,8 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from ..core.outliers import OUTLIER_M, unpack_outlier_meta
 from . import build
-from .common import (H100_SM_COUNT, fake_launch, prefill_splits, scratch_for,
-                     sm_count)
+from .common import (H100_SM_COUNT, fake_launch, prefill_splits,
+                     register_launch_counters, scratch_for, sm_count)
 from .ref import outlier_spmm_ref
 
 launches = 0
@@ -52,6 +52,7 @@ launches_decode = 0
 """Of ``launches``, those of the decode body."""
 launches_prefill = 0
 """Of ``launches``, those of the prefill body."""
+register_launch_counters(__name__)
 
 DECODE_MAX_M = 8
 """T: the largest M that takes the decode body: the largest M at which it

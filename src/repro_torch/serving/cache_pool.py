@@ -23,9 +23,15 @@ is needed.
 
 The port updates the arenas in place (PyTorch has no donation to stand in
 for): ``unified_step`` returns the same tensors it was given.  Positions
-live on the host (numpy), and the view's scatter indices are worked out on
-the host once per step, so no layer waits on the device to learn which
-(lane, position) pairs are real.
+live on the host (numpy).  A chunk's view (``build``) works out its scatter
+indices on the host once per step, so no layer waits on the device to learn
+which (lane, position) pairs are real.  The fused decode's view
+(``decode``) computes them on the device at a fixed shape from [B] cursor
+and ``n_new`` tensors, as the reference's ``_flat_write_idx`` does, so the
+decode call can be captured once and replayed
+(``serving/families.CapturedStep``).  The reference drops an invalid
+pair's write past the arena; the port's arena has no row past it, so an
+invalid pair writes back what the arena holds inside its own lane's row.
 """
 from __future__ import annotations
 
@@ -72,19 +78,35 @@ def _scatter_rows(arena: torch.Tensor, dst: torch.Tensor,
 
 class ArenaWrites:
     """The KV writes of a pool view with ``write_src``/``write_dst``: the
-    flat indices of the step's real (lane, i < n_new) pairs in its [B*S]
-    fresh KV and in one layer's arena viewed as [n_positions, ...] (slot
-    rows or paged blocks alike).  Padding pairs are never written."""
+    flat indices of the step's written (lane, i) pairs in its [B*S] fresh
+    KV (None: every pair, in order) and in one layer's arena viewed as
+    [n_positions, ...] (slot rows or paged blocks alike).  A host-built
+    view lists only the real (lane, i < n_new) pairs.  A fixed-shape view
+    writes every pair, and marks the real ones in ``write_keep`` [B*S]:
+    every other pair writes back what the arena holds at its
+    ``write_dst`` (inside its lane's own slot row, or in the paged trash
+    block), so it changes no byte."""
+    write_keep = None
 
     def _real_pairs(self, fresh):
-        return fresh.reshape(-1, *fresh.shape[2:]).index_select(
-            0, self.write_src)
+        rows = fresh.reshape(-1, *fresh.shape[2:])
+        if self.write_src is None:
+            return rows
+        return rows.index_select(0, self.write_src)
+
+    def _scatter(self, arena, rows):
+        if self.write_keep is not None:
+            flat = arena.view(-1, *arena.shape[2:])
+            keep = self.write_keep.view(-1, *([1] * (rows.dim() - 1)))
+            rows = torch.where(keep, rows.to(arena.dtype),
+                               flat.index_select(0, self.write_dst))
+        _scatter_rows(arena, self.write_dst, rows)
 
     def write_layer(self, k_l, v_l, fresh_k, fresh_v):
         """Scatter fresh [B, S, KV, hd] KV into one layer's arena slice at
         each lane's cursor, in place."""
         for arena, fresh in ((k_l, fresh_k), (v_l, fresh_v)):
-            _scatter_rows(arena, self.write_dst, self._real_pairs(fresh))
+            self._scatter(arena, self._real_pairs(fresh))
         return k_l, v_l
 
     def write_layer_quantized(self, k_l, v_l, ks_l, vs_l, fresh_k, fresh_v):
@@ -96,8 +118,8 @@ class ArenaWrites:
         for arena, scales, fresh in ((k_l, ks_l, fresh_k),
                                      (v_l, vs_l, fresh_v)):
             q, s = quantize_kv(self._real_pairs(fresh))
-            _scatter_rows(arena, self.write_dst, q)
-            _scatter_rows(scales, self.write_dst, s)
+            self._scatter(arena, q)
+            self._scatter(scales, s)
         return k_l, v_l, ks_l, vs_l
 
 
@@ -135,15 +157,17 @@ class SlotPoolView(ArenaWrites):
     (padding, past the arena).  ``k_scale``/``v_scale``
     ([L, n_slots, max_len, KV] f32, or None for bf16 arenas) are an int8
     arena's scales, sliced per layer like ``k``/``v`` and written with the
-    same indices."""
+    same indices.  ``decode``'s view writes every lane (``write_src``
+    None) and keeps an invalid lane's bytes (``write_keep``)."""
     k: Any
     v: Any
     rows: torch.Tensor | None
     cursor: torch.Tensor
-    write_src: torch.Tensor
+    write_src: torch.Tensor | None
     write_dst: torch.Tensor
     k_scale: Any | None = None
     v_scale: Any | None = None
+    write_keep: torch.Tensor | None = None
 
     @classmethod
     def build(cls, k, v, rows, cursor, n_new, S: int, *, k_scale=None,
@@ -167,6 +191,23 @@ class SlotPoolView(ArenaWrites):
         return cls(k=k, v=v, rows=None if rows is None else up(lane_rows),
                    cursor=up(cursor), write_src=up(src),
                    write_dst=up(dst), k_scale=k_scale, v_scale=v_scale)
+
+    @classmethod
+    def decode(cls, k, v, cursor: torch.Tensor, n_new: torch.Tensor, *,
+               k_scale=None, v_scale=None) -> "SlotPoolView":
+        """The fused decode's view (lane i == slot i, one fresh position a
+        lane) from device tensors ``cursor`` and ``n_new`` [B], its write
+        indices computed on the device at a fixed shape by the reference's
+        ``_flat_write_idx`` rule: valid = 0 < n_new and cursor < max_len.
+        An invalid lane's index is clamped inside its own row and writes
+        back what is there, so the arena ends as ``build``'s view leaves
+        it."""
+        ml = k.shape[2]
+        lanes = torch.arange(cursor.shape[0], device=cursor.device)
+        dst = lanes * ml + cursor.clamp(0, ml - 1)
+        return cls(k=k, v=v, rows=None, cursor=cursor, write_src=None,
+                   write_dst=dst, k_scale=k_scale, v_scale=v_scale,
+                   write_keep=(n_new > 0) & (cursor < ml))
 
     @property
     def block_tables(self):

@@ -655,9 +655,11 @@ class ServingEngine:
         mid-prefill and free rows share the batch but are masked out of
         position updates and sampling.  On the slot layout their lanes write
         a garbage token at their position, which is overwritten before anyone
-        reads it; on the paged layout only the active rows write, into blocks
-        ``prepare_decode`` made private (it preempts under OutOfBlocks).
-        A speculating engine drafts and verifies instead."""
+        reads it; on the paged layout only the active rows write, into
+        blocks ``prepare_decode`` made private (it preempts under
+        OutOfBlocks).  On the card the step of a dense engine without a
+        mesh is a replayed CUDA graph (``families.CapturedStep``).  A
+        speculating engine drafts and verifies instead."""
         if self.spec is not None:
             return self._speculative_decode(stats)
         active = self._decode_rows()
@@ -670,7 +672,8 @@ class ServingEngine:
         if tr.enabled:
             tr.begin_phase("decode", n_active=len(active))
         logits = self.adapter.step_decode(self._last_token[:, None], active)
-        self._slot_logits = logits[:, 0].to(torch.float32)
+        # a copy: a replayed decode's logits are its graph's own output
+        self._slot_logits = logits[:, 0].to(torch.float32, copy=True)
         n_finished = self._emit_tokens(active)
         advanced = np.zeros((self.pool.n_slots,), bool)
         advanced[[s for s in active if s in self.running]] = True

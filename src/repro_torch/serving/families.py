@@ -58,6 +58,15 @@ blocks, context rows) and hands its steps the head split (``heads``);
 the recurrent steps read each layer's split from the state view.
 
 Host arrays (lanes, cursors, tokens) go to the device here, once per step.
+The dense family's S=1 decode call has the reference's ``_jit``
+(``repro/serving/families.py:91``) for a counterpart, ``CapturedStep``: on
+the card, an unplaced dense adapter's decode runs one fixed-shape step,
+captured once per key as a CUDA graph and replayed (``eager()`` turns
+capture and replay off, as ``jax.disable_jit()`` does).  By scope every
+other call runs eagerly: prefill chunks and verify calls, a moe model's
+(its layers read their group sizes to the host), a placed adapter's (its
+collectives), and the ssm, hybrid and enc-dec adapters'.
+
 ``n_model_calls`` counts ``unified_step`` calls (and the enc-dec
 adapter's ``n_encode_calls`` its encoder calls).  Each call runs through
 ``_traced``: a direct call under the default ``NULL_TRACER``, else the
@@ -70,22 +79,157 @@ tokens would evict real ones.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from .. import tree
+from ..kernels.common import (add_launch_counts, holding_scratch,
+                              launch_counts, set_launch_counts)
 from ..launch import step_cost as cost
 from ..models import transformer as tfm
 from ..models import whisper as whi
 from ..models import xlstm as xls
 from ..models import zamba as zam
+from ..models.sparse_serving import SparseWeight
 from ..parallel import policy
 from .cache_pool import CachePoolError, SlotKVPool, SlotPoolView
 from .observe import NULL_TRACER
 from .paged import PagedKVPool, PagedPoolView
 from .state_pool import (EncDecPoolView, EncoderContextPool, HybridPoolView,
                          RecurrentStatePool, RecurrentStateView)
+
+
+# how many ``eager()`` blocks are open: process-wide, as the reference's
+# ``jax.disable_jit()`` is
+_eager_depth = 0
+
+
+@contextlib.contextmanager
+def eager():
+    """The counterpart of ``jax.disable_jit()``: inside the block every
+    ``CapturedStep`` runs its step eagerly, neither capturing nor
+    replaying.  Graphs captured before stay, and replay after the block."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """One key's graph: its static input buffer and output, the launches
+    each replay makes (by counter), the scratch tensors its kernels use,
+    the seconds its capture took and the bytes of its memory pool."""
+    graph: torch.cuda.CUDAGraph
+    inputs: torch.Tensor
+    out: torch.Tensor
+    launches: dict
+    scratch: list
+    capture_s: float
+    pool_bytes: int
+
+
+class CapturedStep:
+    """The counterpart of ``jax.jit`` (the reference's ``_jit``) for one
+    fixed-shape model call ``fn(inputs)`` (``fn`` given at each call, so
+    the step holds no reference to its adapter): ``inputs`` an int64
+    tensor on the device, the call's every other operand (params, arenas,
+    tables) a tensor that keeps its address.  One CUDA graph per key, as
+    ``jax.jit`` keeps one executable per input signature; the caller's
+    key names the inputs' shape and every operand's storage, so new params
+    or arenas get a new capture, never a stale replay.
+
+    A call with key None, or inside ``eager()``, runs ``fn`` eagerly.  A
+    key's first call runs ``fn`` eagerly on a side stream (which builds
+    every kernel at first use: a capture never holds a kernel's first
+    launch) and returns that call's result, then captures ``fn`` on the
+    same stream.  The wrappers' launch counters move during the capture,
+    though nothing runs: the change is taken back and added again at
+    every replay, so they count what the card launched.  A later call
+    copies its host array into the graph's input buffer, replays, and
+    returns the graph's output, which the next replay overwrites: a caller
+    copies what it keeps.  A failed capture raises."""
+
+    def __init__(self):
+        self.graphs: dict[tuple, CapturedGraph] = {}
+        self.n_replays = 0
+
+    def captures(self, key) -> bool | None:
+        """Whether a call with ``key`` captures its graph (True) or replays
+        it (False); None when it runs eagerly."""
+        if key is None or _eager_depth:
+            return None
+        return key not in self.graphs
+
+    def __call__(self, fn, key, host: np.ndarray, device) -> torch.Tensor:
+        if key is None or _eager_depth:
+            return fn(torch.as_tensor(host, device=device))
+        g = self.graphs.get(key)
+        if g is None:
+            return self._capture(fn, key, host, device)
+        g.inputs.copy_(torch.from_numpy(host))
+        g.graph.replay()
+        add_launch_counts(g.launches)
+        self.n_replays += 1
+        return g.out
+
+    def _capture(self, fn, key, host, device) -> torch.Tensor:
+        inputs = torch.as_tensor(host, device=device)
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = fn(inputs)
+        out.record_stream(main)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        counts = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with holding_scratch() as scratch:
+            with torch.cuda.graph(graph, stream=side):
+                static = fn(inputs)
+        capture_s = time.perf_counter() - t0
+        launched = {k: n - counts[k] for k, n in launch_counts().items()
+                    if n != counts[k]}
+        set_launch_counts(counts)
+        main.wait_stream(side)
+        self.graphs[key] = CapturedGraph(
+            graph, inputs, static, launched, scratch, capture_s,
+            torch.cuda.memory_reserved(device) - reserved)
+        return out
+
+    def stats(self) -> dict:
+        """Captures and replays; each graph's capture seconds, pool bytes
+        and kernel launches a replay makes."""
+        gs = list(self.graphs.values())
+        return {"captures": len(gs), "replays": self.n_replays,
+                "capture_s": [g.capture_s for g in gs],
+                "pool_bytes": [g.pool_bytes for g in gs],
+                "launches_per_replay": [
+                    sum(n for (_, attr), n in g.launches.items()
+                        if attr in ("launches", "launches_int8"))
+                    for g in gs]}
+
+
+def storage_key(*trees) -> tuple:
+    """The addresses of every tensor in ``trees`` (a ``SparseWeight``'s
+    buffers included), in order: the storage part of a captured call's
+    key."""
+    out = []
+    for leaf in tree.flatten(list(trees)):
+        if isinstance(leaf, torch.Tensor):
+            out.append(leaf.data_ptr())
+        elif isinstance(leaf, SparseWeight):
+            out += [b.data_ptr() for b in leaf.buffers()]
+    return tuple(out)
 
 
 class FamilyAdapter:
@@ -108,16 +252,19 @@ class FamilyAdapter:
         self.n_model_calls = 0
         self._weights = None                   # step_cost's weight totals
 
-    def _traced(self, kind: str, fn, args: tuple, cost=None):
+    def _traced(self, kind: str, fn, args: tuple, cost=None,
+                captures: bool | None = None):
         """Run a model call, attributed when tracing is on: wall and issue
         time, new-variant detection and its work per shape variant
         (``ServingTracer.jit_call``, costed by ``cost``, ``step_cost`` by
-        default)."""
+        default); ``captures`` says whether a captured call captures its
+        graph now (None: the call is not captured)."""
         with policy.suspended():
             if not self.tracer.enabled:
                 return fn(*args)
             return self.tracer.jit_call(self.trace_kind_prefix + kind, fn,
-                                        args, cost=cost or self.step_cost)
+                                        args, cost=cost or self.step_cost,
+                                        captures=captures)
 
     def step_cost(self, lanes, cur, n_new, tokens) -> dict:
         """The call's FLOPs and bytes (``launch/step_cost.py``), from the
@@ -149,12 +296,18 @@ class FamilyAdapter:
 
 class TransformerAdapter(FamilyAdapter):
     """The dense and moe families on the slot and paged layouts.  On the
-    paged layout
-    only the ``active`` rows of a decode write their KV; the slot layout
-    writes every lane (a stray write lands where the next chunk or
-    occupant overwrites it before any read).  With ``kv_dtype="int8"``
-    the views carry the pool's scale arenas, so every layer quantizes its
-    fresh KV as it writes it and dequantizes inside attention."""
+    paged layout only the ``active`` rows of a decode write KV (the others
+    are routed into the trash block and leave it as it was); the slot
+    layout writes every lane (a stray write lands where the next chunk or
+    occupant overwrites it before any read).  With ``kv_dtype="int8"`` the
+    views carry the pool's scale arenas, so every layer quantizes its fresh
+    KV as it writes it and dequantizes inside attention.
+
+    The decode call is one fixed-shape step over every lane
+    (``_decode_step``: the views' ``decode``, write indices on the device)
+    through ``captured_decode``, a ``CapturedStep``: replayed as a CUDA
+    graph on the card for the dense family without a placement, eager
+    otherwise (``graphed``)."""
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
                  kv_layout: str = "slot", block_size: int = 16,
@@ -176,6 +329,10 @@ class TransformerAdapter(FamilyAdapter):
         # on a mesh: the rank's attention heads when its arenas hold only
         # those (``params`` are then the rank's, ``place_params``)
         self.heads = None if placement is None else placement.heads
+        self.graphed = (self.pool.k.device.type == "cuda"
+                        and cfg.moe is None
+                        and (placement is None or not placement.active))
+        self.captured_decode = CapturedStep()
 
     def _scales(self) -> dict:
         return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
@@ -197,17 +354,36 @@ class TransformerAdapter(FamilyAdapter):
                                       **self._scales())
         return self._run(view, tokens)
 
-    def _decode(self, lanes, cur, n_new, tokens) -> torch.Tensor:
+    def _decode_step(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The S=1 decode over every lane from ``inputs`` [3, B] int64 on
+        the device (each lane's token, cursor and ``n_new``), with no host
+        array and no host sync: what ``captured_decode`` captures."""
         p = self.pool
+        tokens, cur, n_new = inputs[0, :, None], inputs[1], inputs[2]
         if self.kv_layout == "paged":
-            view = PagedPoolView.build(p.k, p.v, lanes, cur, n_new, 1,
-                                       trash=p.trash_block,
-                                       device_tables=p.block_tables,
-                                       **self._scales())
+            view = PagedPoolView.decode(p.k, p.v, p.block_tables,
+                                        cur.to(torch.int32), n_new,
+                                        trash=p.trash_block,
+                                        **self._scales())
         else:
-            view = SlotPoolView.build(p.k, p.v, None, cur, n_new, 1,
-                                      **self._scales())
-        return self._run(view, tokens)
+            view = SlotPoolView.decode(p.k, p.v, cur, n_new,
+                                       **self._scales())
+        with torch.no_grad():
+            logits, _ = tfm.unified_step(self.params, view,
+                                         {"tokens": tokens}, self.cfg,
+                                         heads=self.heads)
+        return logits
+
+    def decode_key(self, host: np.ndarray):
+        """A decode call's ``CapturedStep`` key (None when the call runs
+        eagerly): the inputs' shape and the addresses of the arenas, the
+        device block table and every param."""
+        if not self.graphed:
+            return None
+        p = self.pool
+        tables = p.block_tables if self.kv_layout == "paged" else None
+        return (host.shape, storage_key(
+            [p.k, p.v, p.k_scale, p.v_scale, tables], self.params))
 
     def step_chunk(self, lanes, cur, n_new, tokens, rows=None
                    ) -> torch.Tensor:
@@ -215,6 +391,8 @@ class TransformerAdapter(FamilyAdapter):
         return self._traced("step", self._chunk, (lanes, cur, n_new, tokens))
 
     def step_decode(self, tokens, active: list[int]) -> torch.Tensor:
+        """Logits [n_slots, 1, V]; on the card a replay's are the graph's
+        own output, which the next decode call overwrites."""
         p = self.pool
         self.n_model_calls += 1
         if self.kv_layout == "paged":
@@ -223,8 +401,15 @@ class TransformerAdapter(FamilyAdapter):
             lanes = p.host_tables
         else:
             n_new, lanes = np.ones_like(p.pos), None
-        return self._traced("decode", self._decode,
-                            (lanes, p.pos, n_new, tokens))
+        host = np.stack([np.asarray(tokens, np.int64).reshape(-1),
+                         p.pos.astype(np.int64), n_new.astype(np.int64)])
+        # the key reads the device table, refreshed in place first
+        key = self.decode_key(host)
+        step = self.captured_decode
+        return self._traced(
+            "decode", lambda *_: step(self._decode_step, key, host,
+                                      self.device),
+            (lanes, p.pos, n_new, tokens), captures=step.captures(key))
 
 
 def _active_mask(n: int, active: list[int]) -> np.ndarray:

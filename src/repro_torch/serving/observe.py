@@ -45,16 +45,17 @@ and the same hooks populate three artifacts:
 3. **Step-time attribution** (``jit_call``): every model call is
    wall-clocked, blocking on the card before the second clock read, and
    keyed by its argument shapes as the reference keys its jitted calls.
-   The port compiles nothing, so a "compile" here is the first call of a
-   new shape variant; the hook keeps the reference's name, its
-   "jit:<kind>" span and its ``serving_jit_*`` counters.  Besides the
-   wall time each record keeps ``issue_s``, the host time until the call
-   returned (enqueuing its launches), and the call's work from
-   ``launch/step_cost.py`` (FLOPs and bytes counted from the shapes, not
-   XLA's figure), so a tok/s regression decomposes into compute
-   (flops/bytes grew), host issue (issue_s grew), scheduling (more steps,
-   lower budget utilization) or new variants.  The wall time of a call
-   spans the card's idle gaps too: it is not busy device time, which
+   A captured call's "compile" is its capture (``families.CapturedStep``,
+   one CUDA graph per key, the counterpart of the reference's jit); an
+   eager call's is the first call of a new shape variant.  The hook keeps
+   the reference's name, its "jit:<kind>" span and its ``serving_jit_*``
+   counters.  Besides the wall time each record keeps ``issue_s``, the
+   host time until the call returned (enqueuing its launches), and the
+   call's work from ``launch/step_cost.py`` (FLOPs and bytes counted from
+   the shapes, not XLA's figure), so a tok/s regression decomposes into
+   compute (flops/bytes grew), host issue (issue_s grew), scheduling (more
+   steps, lower budget utilization) or new variants.  The wall time of a
+   call spans the card's idle gaps too: it is not busy device time, which
    only the profiler reads.
 
 Multiple engines can share one ``TraceBuffer`` and one
@@ -145,7 +146,7 @@ class NullTracer:
     def on_withdraw(self, req):
         pass
 
-    def jit_call(self, kind, fn, args, cost=None):
+    def jit_call(self, kind, fn, args, cost=None, captures=None):
         return fn(*args)
 
 
@@ -189,6 +190,7 @@ class ServingTracer:
         # model-call variants: shape key -> attribution record
         self._variants: dict[tuple, dict] = {}
         self._kind_counts: dict[str, int] = {}
+        self._kinds_compiled: set[str] = set()
         # the card to block on (None on the CPU)
         self._device: torch.device | None = None
 
@@ -456,17 +458,22 @@ class ServingTracer:
                             cat="request")
 
     # ---------------------------------------------- model-call attribution
-    def jit_call(self, kind: str, fn, args, cost=None):
+    def jit_call(self, kind: str, fn, args, cost=None, captures=None):
         """Run ``fn(*args)`` timed and attributed.
 
         The variant key is the tuple of top-level array argument shapes
-        and dtypes, as the reference keys its jitted calls.  The port has
-        no jit: a new variant's first call is what the reference's compile
-        was, and is counted as a compile (the kind's first variant) or a
-        retrace (a later one).  The call's work comes from ``cost``, the
-        calling adapter's ``step_cost`` (``launch/step_cost.py``, so a
-        draft model's calls count its own weights), taken before the clock
-        starts; without one the work is not counted.  ``issue_s`` is the
+        and dtypes, as the reference keys its jitted calls.  What the
+        reference's compile was is, for a captured call (``captures`` True
+        or False), the call that captures its graph (``captures`` True:
+        ``families.CapturedStep``, one graph per key, so new params or
+        arenas capture again under a known variant), and for an eager call
+        (``captures`` None) a new variant's first call; either is counted
+        as a compile (the kind's first) or a retrace (a later one), and
+        the variant's ``captures`` counts its captures.  The call's work
+        comes from ``cost``, the calling adapter's ``step_cost``
+        (``launch/step_cost.py``, so a draft model's calls count its own
+        weights), taken before the clock starts; without one the work is
+        not counted.  ``issue_s`` is the
         host time until ``fn`` returned; the wall time blocks on the card
         (``torch.cuda.synchronize``) before the second clock read, as the
         reference blocks on its outputs.
@@ -476,7 +483,8 @@ class ServingTracer:
         key = (kind, shapes)
         cost = cost(*args) if cost is not None else {}
         rec = self._variants.get(key)
-        if rec is None:
+        new = rec is None
+        if new:
             n = self._kind_counts.get(kind, 0)
             self._kind_counts[kind] = n + 1
             rec = self._variants[key] = {
@@ -484,8 +492,13 @@ class ServingTracer:
                 "shapes": [list(s) for s, _ in shapes],
                 "calls": 0, "total_s": 0.0, "first_call_s": None,
                 "issue_s": 0.0, "first_issue_s": None,
-                "flops": 0, "bytes_accessed": 0, "costed": bool(cost)}
-            is_retrace = n > 0
+                "flops": 0, "bytes_accessed": 0, "costed": bool(cost),
+                "captures": 0}
+        compiles = new if captures is None else captures
+        if compiles:
+            is_retrace = kind in self._kinds_compiled
+            self._kinds_compiled.add(kind)
+            rec["captures"] += captures is not None
             (self.c_retraces if is_retrace else self.c_compiles).inc(
                 fn=kind, engine=self.name)
             self.instant("retrace" if is_retrace else "compile",
@@ -529,7 +542,8 @@ class ServingTracer:
             steady_issue = rec["issue_s"] - (rec["first_issue_s"] or 0.0)
             out[rec["variant"]] = {
                 "kind": rec["kind"], "shapes": rec["shapes"],
-                "calls": calls, "total_s": rec["total_s"],
+                "calls": calls, "captures": rec["captures"],
+                "total_s": rec["total_s"],
                 "first_call_s": rec["first_call_s"],
                 "steady_mean_s": (steady_s / steady_calls
                                   if steady_calls else None),

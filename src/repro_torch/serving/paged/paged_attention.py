@@ -53,7 +53,8 @@ import functools
 import torch
 
 from ...kernels import build
-from ...kernels.common import scratch_for, sm_count
+from ...kernels.common import (register_launch_counters, scratch_for,
+                               sm_count)
 from ...models.layers import attend_length_masked
 
 launches = 0
@@ -73,6 +74,7 @@ launches_tile = 0
 """Of ``launches``, those of the old kernel, forced by ``Plan("tile")``."""
 launches_tile_int8 = 0
 """Of ``launches_int8``, those of the old kernel, forced."""
+register_launch_counters(__name__)
 
 HEAD_DIMS = (64, 80, 128, 192, 256)
 """Head dims the two bodies are built for; another hd raises on a CUDA

@@ -21,16 +21,26 @@ engine preempts a running request back to the queue.
 
 One block is the *trash block*: table entries past a row's allocated
 blocks, free rows and batch-padding lanes point at it, so every gather
-stays inside the arena.  Unlike the JAX package, which routes padding
-writes there, the port drops them on the host (``PagedPoolView.build``):
-only real (lane, position) pairs whose block is allocated are written, and
-the batch-wide decode writes only the lanes that decode.  So a write never
-lands in the trash block, nor in a block shared through the prefix cache or
-``fork`` (``prepare_decode`` copies those on write first).
+stays inside the arena.  A chunk's view (``PagedPoolView.build``) drops
+padding writes on the host: only real (lane, position) pairs whose block
+is allocated are written.  The fused decode's view
+(``PagedPoolView.decode``) computes its write indices on the device at a
+fixed shape by the reference's ``_write_slots`` rule, so the decode call
+can be captured and replayed: a lane's pair is valid when it decodes
+(``n_new`` is the active mask) and its position lies inside the table, and
+every other pair is routed into the trash block, as the reference routes
+its padding.  There it writes back the bytes the trash block holds: many
+lanes share that one position, and the card's scatter picks one of
+duplicate writes in no fixed order, so only equal bytes keep every run's
+bits (a moe batch couples its lanes through the routing: a free lane
+attends over the trash block).  So the trash block keeps its zeros, and a
+write never lands in a block shared through the prefix cache or ``fork``
+(``prepare_decode`` copies those on write first).
 
-Positions and tables live on the host (numpy); the device copy of the
-whole table is uploaded at most once per step, and only when a table
-changed.
+Positions and tables live on the host (numpy).  The device copy of the
+whole table is one persistent tensor, refreshed in place at most once per
+step and only when a table changed, so a captured decode reads it at one
+address.
 """
 from __future__ import annotations
 
@@ -61,15 +71,18 @@ class PagedPoolView(ArenaWrites):
     the [n_blocks*block_size] arena.  ``k_scale``/``v_scale``
     ([L, n_blocks, block_size, KV] f32, or None for bf16 arenas) are an
     int8 arena's scales, addressed through the same tables and written with
-    the same indices."""
+    the same indices.  ``decode``'s view writes every lane (``write_src``
+    None), an invalid one into the trash block, where it writes back what
+    is there (``write_keep``)."""
     k: Any
     v: Any
     block_tables: torch.Tensor
     cursor: torch.Tensor
-    write_src: torch.Tensor
+    write_src: torch.Tensor | None
     write_dst: torch.Tensor
     k_scale: Any | None = None
     v_scale: Any | None = None
+    write_keep: torch.Tensor | None = None
 
     @classmethod
     def build(cls, k, v, tables: np.ndarray, cursor, n_new, S: int, *,
@@ -106,6 +119,26 @@ class PagedPoolView(ArenaWrites):
                                              device=dev),
                    k_scale=k_scale, v_scale=v_scale)
 
+    @classmethod
+    def decode(cls, k, v, block_tables: torch.Tensor, cursor: torch.Tensor,
+               n_new: torch.Tensor, *, trash: int, k_scale=None,
+               v_scale=None) -> "PagedPoolView":
+        """The fused decode's view (one fresh position a lane) from device
+        tensors ``block_tables`` [B, nb] int32, ``cursor`` [B] int32 and
+        ``n_new`` [B], its write indices computed on the device at a fixed
+        shape by the reference's ``_write_slots`` rule
+        (``repro/serving/paged/pool.py:84``): valid = 0 < n_new and the
+        position's block index < nb, else the trash block's first
+        position, which an invalid pair writes back unchanged."""
+        bs, nb = k.shape[2], block_tables.shape[1]
+        p = cursor.long()
+        bi = p // bs
+        blk = block_tables.gather(1, bi.clamp(0, nb - 1)[:, None])[:, 0]
+        valid = (n_new > 0) & (bi < nb)
+        dst = torch.where(valid, blk.long() * bs + p % bs, trash * bs)
+        return cls(k=k, v=v, block_tables=block_tables, cursor=cursor,
+                   write_src=None, write_dst=dst, k_scale=k_scale,
+                   v_scale=v_scale, write_keep=valid)
 
 
 class PagedKVPool:
@@ -179,10 +212,12 @@ class PagedKVPool:
 
     @property
     def block_tables(self) -> torch.Tensor:
-        """The same tables on the device, uploaded again only when a table
-        changed since the last upload."""
+        """The same tables on the device: one tensor for the pool's life,
+        refreshed in place only when a table changed since the last
+        refresh (a copy on write, a release or a preemption changes its
+        contents, never its address)."""
         if self._bt_dirty:
-            self._bt_dev = torch.as_tensor(self._bt_np, device=self.device)
+            self._bt_dev.copy_(torch.from_numpy(self._bt_np))
             self._bt_dirty = False
         return self._bt_dev
 

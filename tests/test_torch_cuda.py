@@ -11,6 +11,7 @@ Needs a card and nvcc; skips elsewhere.  Run on the card with
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1232,6 +1233,226 @@ def test_paged_decode_replays_in_a_cuda_graph(cuda, quantize):
         torch.cuda.synchronize()
         assert torch.equal(out, want)
         _close_rows(out, pa.plain(q, k, v, tables, cur, **kw))
+
+
+# ------------------------------------------------ the captured decode step
+
+GRAPH_LAYOUTS = [("slot", "bf16"), ("paged", "bf16"), ("slot", "int8"),
+                 ("paged", "int8")]
+
+
+def _graph_params(cuda, seed, int8):
+    """The smoke model, bf16, 8:16+16:256 weights (int8 values with
+    ``int8``), drawn from ``seed``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_smoke("llama-paper"), dtype=torch.bfloat16)
+    args = serve.parse_args(["--arch", "llama-paper", "--smoke-arch",
+                             "--sparse"])
+    params, _ = serve.build_params(
+        cfg, args, cuda, torch.Generator(device=cuda).manual_seed(seed),
+        quantize=int8)
+    return cfg, params
+
+
+def _graph_engine(cfg, params, kv_layout, kv_dtype):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(cfg, params, device="cuda", n_slots=4, max_len=96,
+                         kv_layout=kv_layout, block_size=16,
+                         token_budget=32, kv_dtype=kv_dtype)
+
+
+def _all_decoding(engine, g, n=3):
+    """Submit ``n`` requests (one lane stays free) and step until every
+    one decodes; returns the decode call's tokens and active lanes, the
+    paged rows' next positions made writable."""
+    from repro_torch.serving import SamplingParams, Status
+    reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (20 + 7 * i,),
+                                        generator=g, device="cuda").tolist(),
+                          SamplingParams(max_new_tokens=40))
+            for i in range(n)]
+    while not all(r.status is Status.RUNNING for r in reqs):
+        engine.step()
+    active = engine._decode_rows()
+    if engine.kv_layout == "paged":
+        engine.pool.prepare_decode(active)
+    return engine._last_token[:, None].copy(), active
+
+
+def _decode_call(adapter, tokens, active):
+    """One decode call: its logits (copied) and the launch counters' moves."""
+    from repro_torch.kernels.common import launch_counts
+    before = launch_counts()
+    out = adapter.step_decode(tokens, active)[:, 0].clone()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {k: n - before[k] for k, n in after.items()
+                 if n != before[k]}
+
+
+@pytest.mark.parametrize("kv_layout,kv_dtype", GRAPH_LAYOUTS)
+def test_engine_decode_replays_equal_eager(cuda, kv_layout, kv_dtype):
+    """On an engine whose lanes decode (one lane free): the decode call
+    under ``eager()``, then graphed (its key's capture, or a replay if
+    the engine's steps captured it already), then replayed, on the same
+    inputs (the cursors do not move): the active lanes' logits are the
+    same bits, and every call moves the launch counters by the same
+    counts, the weight kernel's 7 x layers and (paged) paged attention's
+    layers on their decode bodies."""
+    from repro_torch.serving.families import eager
+    cfg, params = _graph_params(cuda, 0, kv_dtype == "int8")
+    engine = _graph_engine(cfg, params, kv_layout, kv_dtype)
+    ad = engine.adapter
+    assert ad.graphed
+    tokens, active = _all_decoding(engine,
+                                   torch.Generator(device=cuda).manual_seed(1))
+    with eager():
+        want, launched = _decode_call(ad, tokens, active)
+    calls = [_decode_call(ad, tokens, active) for _ in range(2)]
+    for got, moved in calls:
+        assert torch.equal(got[active], want[active])
+        assert moved == launched
+    st = ad.captured_decode.stats()
+    assert st["captures"] == 1 and st["replays"] >= 1
+    int8 = "_int8" if kv_dtype == "int8" else ""
+    weights = sum(launched.get((f"repro_torch.kernels.{m}",
+                                "launches_decode" + int8), 0)
+                  for m in ("fused_sparse_linear", "nm_spmm"))
+    assert weights == 7 * cfg.n_layers
+    pa = "repro_torch.serving.paged.paged_attention"
+    want_pa = cfg.n_layers if kv_layout == "paged" else None
+    assert launched.get((pa, "launches_decode" + int8)) == want_pa
+    assert st["launches_per_replay"] == [weights + (want_pa or 0)]
+    engine.run()
+
+
+@pytest.mark.parametrize("kv_layout", ["slot", "paged"])
+def test_eager_chunk_regrowing_scratch_keeps_the_graph(cuda, kv_layout):
+    """A prefill chunk run eagerly between two replays on free lanes (its
+    split plans need more workspace than any call before: the shared
+    workspace is replaced), then allocations that would reuse freed
+    memory: the next replay's active logits are the first's bits, and the
+    graph still holds the workspace its kernels were captured with."""
+    from repro_torch.kernels import common
+    # the workspace is per process: start from none, so that this engine's
+    # own calls size it (the graphs of earlier tests hold theirs)
+    common._scratch.clear()
+    cfg, params = _graph_params(cuda, 0, False)
+    engine = _graph_engine(cfg, params, kv_layout, "bf16")
+    ad = engine.adapter
+    tokens, active = _all_decoding(engine,
+                                   torch.Generator(device=cuda).manual_seed(2))
+    _decode_call(ad, tokens, active)                  # captured by now
+    first, _ = _decode_call(ad, tokens, active)
+    graph = next(iter(ad.captured_decode.graphs.values()))
+    held = {ws.data_ptr() for ws, _ in graph.scratch}
+    sizes = {n for ws, cnt in graph.scratch for n in (ws.numel(),
+                                                      cnt.numel())}
+    # two lanes of 96 rows: M = 192, above every chunk of the 32-token
+    # budget (at most 4 lanes x 32), so the split plans' workspace grows
+    S = 96
+    if kv_layout == "paged":                 # all-trash lanes: no write
+        lanes = engine.pool.lane_tables([], 2)
+    else:                    # a free slot, and a padding lane past them
+        free = [s for s in range(4) if s not in active]
+        lanes = engine.pool.lane_rows(free[:1], 2)
+    chunk = np.random.default_rng(3).integers(0, cfg.vocab, (2, S))
+    ad.step_chunk(lanes, np.zeros(2, np.int64), np.full(2, S), chunk)
+    ws, cnt = common._scratch[torch.cuda.current_device()]
+    assert ws.data_ptr() not in held
+    junk = [torch.full((n,), -1, dtype=torch.int32, device=cuda)
+            for n in sizes for _ in range(4)]
+    again, _ = _decode_call(ad, tokens, active)
+    assert torch.equal(again[active], first[active])
+    del junk
+    engine.run()
+
+
+def test_new_params_or_arenas_capture_anew(cuda):
+    """Other params under the same adapter capture a graph of their own,
+    whose logits are the eager call's on those params; the first params
+    replay their own graph again.  Arenas replaced by copies capture
+    again, and the replaced arena is never written by the new replays."""
+    from repro_torch.serving.families import eager
+    cfg, params = _graph_params(cuda, 0, False)
+    _, other = _graph_params(cuda, 5, False)
+    engine = _graph_engine(cfg, params, "slot", "bf16")
+    ad = engine.adapter
+    tokens, active = _all_decoding(engine,
+                                   torch.Generator(device=cuda).manual_seed(3))
+    first, _ = _decode_call(ad, tokens, active)
+    n = len(ad.captured_decode.graphs)
+    ad.params = other
+    with eager():
+        want, _ = _decode_call(ad, tokens, active)
+    for _ in range(2):                       # the capture, then a replay
+        got, _ = _decode_call(ad, tokens, active)
+        assert torch.equal(got[active], want[active])
+    assert len(ad.captured_decode.graphs) == n + 1
+    assert not torch.equal(got[active], first[active])
+    ad.params = params
+    back, _ = _decode_call(ad, tokens, active)
+    assert len(ad.captured_decode.graphs) == n + 1
+    assert torch.equal(back[active], first[active])
+    pool = engine.pool
+    old_k = pool.k
+    snapshot = old_k.clone()
+    pool.k, pool.v = pool.k.clone(), pool.v.clone()
+    tokens2 = (tokens + 1) % cfg.vocab
+    with eager():
+        want, _ = _decode_call(ad, tokens2, active)
+    for _ in range(2):
+        got, _ = _decode_call(ad, tokens2, active)
+        assert torch.equal(got[active], want[active])
+    assert len(ad.captured_decode.graphs) == n + 2
+    assert torch.equal(old_k, snapshot)
+
+
+@pytest.mark.parametrize("kv_layout,kv_dtype", GRAPH_LAYOUTS)
+def test_serve_captures_once_and_streams_equal_eager(cuda, kv_layout,
+                                                     kv_dtype):
+    """The same traffic served eagerly (``eager()``) and replayed, on two
+    engines over the same params: identical streams; the replayed serve
+    captures one graph over 64 and more decode calls, replays every other,
+    and moves every launch counter as the eager serve does."""
+    from repro_torch.kernels.common import launch_counts
+    from repro_torch.serving import SamplingParams, Status
+    from repro_torch.serving.families import eager
+    cfg, params = _graph_params(cuda, 0, kv_dtype == "int8")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab, (8 + 6 * i,), generator=g,
+                             device=cuda).tolist() for i in range(4)]
+    runs = []
+    for graphed in (False, True):
+        engine = _graph_engine(cfg, params, kv_layout, kv_dtype)
+        decodes = [0]
+        step_decode = engine.adapter.step_decode
+
+        def counted(*a, _fn=step_decode, _n=decodes):
+            _n[0] += 1
+            return _fn(*a)
+        engine.adapter.step_decode = counted
+        before = launch_counts()
+        reqs = [engine.submit(p, SamplingParams(max_new_tokens=70))
+                for p in prompts]
+        if graphed:
+            engine.run()
+        else:
+            with eager():
+                engine.run()
+        after = launch_counts()
+        assert all(r.status is Status.FINISHED and len(r.tokens) == 70
+                   for r in reqs)
+        runs.append(([r.tokens for r in reqs], decodes[0],
+                     {k: n - before[k] for k, n in after.items()},
+                     engine.adapter.captured_decode.stats()))
+    (eager_streams, eager_calls, eager_moved, eager_st), \
+        (streams, calls, moved, st) = runs
+    assert streams == eager_streams
+    assert calls == eager_calls >= 64
+    assert moved == eager_moved
+    assert eager_st["captures"] == 0 and st["captures"] == 1
+    assert st["replays"] == calls - 1
 
 
 def test_paged_engine_runs_the_kernel(cuda):
