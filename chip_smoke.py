@@ -89,10 +89,12 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            (``serving/families.CapturedStep``, which every dense serve
            without a mesh replays) against ``eager()``: on (a)'s engine
            with all 8 lanes decoding, ``GRAPH_AB_CALLS`` decode calls each
-           way in turns on the same inputs, gated on the active lanes'
-           logits bit-equal (and the same bits every call); (a)'s traffic
-           served again under ``eager()`` on a fresh engine, gated on
-           streams identical to (a)'s and on its launches; reports each
+           way (eager, replayed, and replayed with the operands' key
+           walked again every call, as before it was cached) in turns on
+           the same inputs, gated on the active lanes' logits bit-equal
+           (and the same bits every call); (a)'s traffic served again
+           under ``eager()`` on a fresh engine, gated on streams
+           identical to (a)'s and on the same launches; reports each
            way's decode call wall and issue (host until the call returned)
            p50, the serves' decode step p50, (a)'s engine's kernels a
            decode step by class (profiler) each way, and the graph's
@@ -191,7 +193,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            another expert: ill-conditioned, as zamba2); phase 4's traffic
            paged (a decode step held in context) then slot, the streams'
            divergences reported with their one-ulp sensitivity; the
-           distinct experts a decode call routes to;
+           distinct experts a decode call routes to (from the eager serve
+           below);
        (b) llama4-maverick-400b-a17b at full width cut to 1 of 48 layers
            (128 experts, 32.2 GB): the same layer and chunk checks, 4
            requests of 64..256 tokens, 16 new tokens each, paged;
@@ -205,6 +208,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
            preemptions, swap resumes (no recompute, no second encoder
            call) and streams equal to the unpressured run's up to a
            near-tie.
+     Every unplaced serve of the phase replays its decode call as a CUDA
+     graph (the moe decode through the grouped expert products on the
+     card); mixtral's paged, maverick's and whisper's slot serve each
+     also run 6(d)'s A/B on their engine (``decode_graph_phase``): eager,
+     replayed and replayed with the key walked every call, in turns on one
+     state, gated on bit-equal active-lane logits; the same traffic under
+     ``eager()`` on a fresh engine, gated on equal streams and launches.
 
   8. the paper's pipeline on llama3-8b, full width and depth, from seed 0
      (the same dense weights phase 4 compressed by magnitude):
@@ -607,7 +617,8 @@ ATTN_SWEEP_SHORT = ([64, 60, 70, 64, 50, 64, 80, 63], 64)   # cursors, nb
 PREFIX_LEN = 512
 PREFIX_SUFFIX_LENS = [[32, 96, 160, 256], [64, 128, 200]]
 PREFIX_REPEAT = (1, 48)          # wave-1 suffix 1, its first 48 tokens
-# phase 6(d): decode calls each way (eager, replayed) on one engine state
+# phase 6(d) and 15: decode calls each way (eager, replayed, replayed with
+# the key walked) on one engine state
 GRAPH_AB_CALLS = 20
 # phase 9: the replayed trace (serving/trace.poisson_trace's arguments)
 TRACE = dict(n_requests=16, rate_per_s=4.0, prompt_len=(64, 768),
@@ -2219,7 +2230,7 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
 
     # (d) the replayed decode call against eager(), on (a)'s engine
     results["d_decode_graph"] = decode_graph_phase(
-        torch, log, engine, base, prompts, reqs_a, out)
+        torch, log, engine, base, prompts, reqs_a, out, launches_a)
     del engine
     torch.cuda.empty_cache()
 
@@ -2271,68 +2282,93 @@ def paged_serve_phase(torch, log, cfg, params, slot_streams):
     return results, launches_a, [r.tokens for r in reqs_a]
 
 
-def decode_graph_phase(torch, log, engine, base, prompts, reqs_a, out_a):
-    """Phase 6(d) on 6(a)'s engine (``base`` its keywords, ``reqs_a`` and
-    ``out_a`` its serve): the decode call under ``eager()`` and replayed
-    in turns on one engine state, then (a)'s traffic served under
-    ``eager()`` on a fresh engine; see the module docstring."""
+def decode_graph_phase(torch, log, engine, base, prompts, reqs_a, out_a,
+                       launches_a, *, gen=SERVE_GEN, label="6(d)",
+                       embeds=None):
+    """Phase 6(d), and its counterpart in phase 15, on a served engine
+    (``base`` its keywords, ``reqs_a``, ``out_a`` and ``launches_a`` its
+    serve of ``prompts``, ``gen`` tokens each, with ``embeds`` for an
+    enc-dec model): the decode call under ``eager()``, replayed, and
+    replayed with the key walked again every call (``storage_key`` over
+    every operand, as each call walked it before the key was cached), in
+    turns on one engine state; then the same traffic served under
+    ``eager()`` on a fresh engine, gated on streams equal to the replayed
+    serve's and on the same launch counts.  A moe model's eager serve
+    records the experts its decode calls route to (``routed_experts``): a
+    replay calls no ``route``, and equal streams route alike.  See the
+    module docstring."""
     import numpy as np
     from repro_torch.serving import SamplingParams, ServingEngine, Status
     from repro_torch.serving.families import eager
 
     ad = engine.adapter
     check(ad.graphed and ad.captured_decode.stats()["replays"] > 0,
-          f"6(d): (a)'s decode calls were not replayed: "
+          f"{label}: the serve's decode calls were not replayed: "
           f"{ad.captured_decode.stats()}")
     g = torch.Generator(device="cuda").manual_seed(15)
     reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
                                         generator=g, device="cuda").tolist(),
-                          SamplingParams(max_new_tokens=4))
+                          SamplingParams(max_new_tokens=4),
+                          **family_kw(torch, engine, g))
             for _ in range(engine.pool.n_slots)]
     while not all(r.status is Status.RUNNING for r in reqs):
         engine.step()
     active = engine._decode_rows()
-    engine.pool.prepare_decode(active)
+    if engine.kv_layout == "paged":
+        engine.pool.prepare_decode(active)
     tokens = engine._last_token[:, None].copy()
     rows = torch.as_tensor(active, device="cuda")
-    walls = {"eager": [], "replayed": []}
-    issue = {"eager": [], "replayed": []}
+    ways = ("eager", "replayed", "replayed_walk")
+    walls = {k: [] for k in ways}
+    issue = {k: [] for k in ways}
     first = {}
-    for i in range(2 * GRAPH_AB_CALLS):
-        label = ("eager", "replayed")[i % 2]
-        with eager() if label == "eager" else contextlib.nullcontext():
+    for i in range(len(ways) * GRAPH_AB_CALLS):
+        way = ways[i % len(ways)]
+        if way == "replayed_walk":
+            ad._storage = None
+        with eager() if way == "eager" else contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits = ad.step_decode(tokens, active)
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-        walls[label].append(t2 - t0)
-        issue[label].append(t1 - t0)
+        walls[way].append(t2 - t0)
+        issue[way].append(t1 - t0)
         got = logits[rows, 0].clone()
-        first.setdefault(label, got)
-        check(torch.equal(got, first[label]),
-              f"6(d): {label} decode call {i // 2} changed its bits")
+        first.setdefault(way, got)
+        check(torch.equal(got, first[way]),
+              f"{label}: {way} decode call {i // len(ways)} changed its "
+              f"bits")
     err = float((first["eager"].float() - first["replayed"].float())
                 .abs().max())
-    check(torch.equal(first["eager"], first["replayed"]),
-          f"6(d): replayed decode logits differ from eager() on the active "
-          f"lanes (max |diff| {err})")
+    check(torch.equal(first["eager"], first["replayed"])
+          and torch.equal(first["replayed"], first["replayed_walk"]),
+          f"{label}: replayed decode logits differ from eager() on the "
+          f"active lanes (max |diff| {err})")
+    check(ad.captured_decode.stats()["captures"] == 1,
+          f"{label}: {ad.captured_decode.stats()['captures']} captures")
     engine.run()
     with eager():
         prof_e = profile_decode(torch, engine,
                                 torch.Generator(device="cuda").manual_seed(11))
 
     fresh = ServingEngine(engine.cfg, engine.params, **base)
-    with eager():
-        reqs_e, wall, decode_only, launches = drive(torch, fresh, [prompts],
-                                                    SERVE_GEN)
+    moe = engine.cfg.moe is not None
+    with eager(), (routed_experts(torch) if moe
+                   else contextlib.nullcontext()) as picks:
+        reqs_e, wall, decode_only, launches = drive(
+            torch, fresh, [prompts], gen, None if embeds is None
+            else [embeds])
     out_e = serve_numbers(torch, fresh, reqs_e, wall, decode_only, launches)
     check(fresh.adapter.captured_decode.stats()["captures"] == 0,
-          "6(d): the eager() serve captured a graph")
+          f"{label}: the eager() serve captured a graph")
     same = sum(r.tokens == a.tokens for r, a in zip(reqs_e, reqs_a))
-    check(same == len(prompts), f"6(d): {same} of {len(prompts)} streams "
-                                f"served under eager() equal (a)'s replayed")
+    check(same == len(prompts), f"{label}: {same} of {len(prompts)} streams "
+                                f"served under eager() equal the replayed")
+    check(launches == launches_a,
+          f"{label}: the eager() serve launched {launches}, the replayed "
+          f"{launches_a}")
     del fresh
     torch.cuda.empty_cache()
 
@@ -2342,6 +2378,7 @@ def decode_graph_phase(torch, log, engine, base, prompts, reqs_a, out_a):
     res = {"active_lanes": len(active),
            "logits_bit_equal_active_lanes": True,
            "streams_identical": f"{same}/{len(prompts)}",
+           "launches_equal": True,
            "decode_call_ms_p50": {k: p50(v) for k, v in walls.items()},
            "decode_call_issue_ms_p50": {k: p50(v) for k, v in issue.items()},
            "decode_calls_each_way": GRAPH_AB_CALLS,
@@ -2352,12 +2389,14 @@ def decode_graph_phase(torch, log, engine, base, prompts, reqs_a, out_a):
                          "replayed": out_a["tok_per_s"]},
            "graphs": ad.captured_decode.stats(),
            "eager_serve": out_e}
+    if moe:
+        res["decode_experts"] = picks.summary()
     for key in ("device_busy_ms_per_step", "kernels_per_step",
                 "launches_per_step_by_class", "device_ms_per_step_by_class",
                 "profiled_step_ms"):
         res[key] = {k: None if p is None else p[key]
                     for k, p in profs.items()}
-    log("  (d) " + json.dumps(res))
+    log(f"  ({label}) " + json.dumps(res))
     return res
 
 
@@ -2673,9 +2712,10 @@ def plain_call_gate(torch, log, cfg, params, prompt, kv_dtype):
 def decode_in_context(torch, engine, g) -> dict:
     """One fused decode step of all lanes (each lane fed a 64-token prompt
     first) with every kernel launch held against its plain version on the
-    same inputs (``in_context_checks``); returns launches and the worst
-    error over tolerance by kernel."""
+    same inputs (``in_context_checks``), run under ``eager()``; returns
+    launches and the worst error over tolerance by kernel."""
     from repro_torch.serving import SamplingParams, Status
+    from repro_torch.serving.families import eager
     reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (64,),
                                         generator=g, device="cuda").tolist(),
                           SamplingParams(max_new_tokens=3),
@@ -2683,7 +2723,8 @@ def decode_in_context(torch, engine, g) -> dict:
             for _ in range(engine.pool.n_slots)]
     while not all(r.status is Status.RUNNING for r in reqs):
         engine.step()
-    with in_context_checks(torch) as checks:
+    # eagerly: a replay calls no wrapper, so it would check nothing
+    with in_context_checks(torch) as checks, eager():
         st = engine.step()
     check(st["prefill_tokens"] == 0 and st["decoded"] == len(reqs),
           f"the checked step was not a pure decode step: {st}")
@@ -2699,24 +2740,25 @@ def decode_in_context(torch, engine, g) -> dict:
 
 def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
                  profile=False, preempt_every=None, decode_checks=False,
-                 embeds=None, **kw):
+                 graph_ab=False, embeds=None, **kw):
     """Serve ``prompts`` greedily through ``ServingEngine(**kw)`` (8 slots,
     token budget 512 unless ``kw`` says otherwise), launches gated per
     model call by ``serve_numbers``; with ``profile`` a decode and a
     prefill profile (``add_profile``); with ``preempt_every`` the youngest
     running request preempted every that many steps while another waits
     (``force_preemption``); with ``decode_checks`` one decode step held
-    kernel by kernel in context (``decode_in_context``); ``embeds`` are an
-    enc-dec model's requests' encoder features.  ``profile="decode"``
+    kernel by kernel in context (``decode_in_context``); with ``graph_ab``
+    the replayed decode against ``eager()`` (``decode_graph_phase``);
+    ``embeds`` are an enc-dec model's requests' encoder features.  ``profile="decode"``
     profiles the decode step alone; on a mesh (``kw["mesh"]``) the
     collectives the serve issued are counted (``counted_collectives``)
     and the placement described.  Returns (numbers, streams,
     launches)."""
     from repro_torch.serving import ServingEngine
 
-    engine = ServingEngine(cfg, params, **{
-        "device": "cuda", "n_slots": 8, "max_len": 1024,
-        "token_budget": 512, **kw})
+    engine_kw = {"device": "cuda", "n_slots": 8, "max_len": 1024,
+                 "token_budget": 512, **kw}
+    engine = ServingEngine(cfg, params, **engine_kw)
     if preempt_every:
         force_preemption(engine, preempt_every)
     torch.cuda.reset_peak_memory_stats()
@@ -2743,8 +2785,12 @@ def family_serve(torch, log, cfg, params, build, label, prompts, gen, *,
     if decode_checks:
         out["decode_in_context"] = decode_in_context(
             torch, engine, torch.Generator(device="cuda").manual_seed(12))
+    if graph_ab:
+        out["graph_ab"] = decode_graph_phase(
+            torch, log, engine, engine_kw, prompts, reqs, out, launches,
+            gen=gen, label=f"15 {cfg.name} {label}", embeds=embeds)
     log(f"  ({label}) " + json.dumps({k: v for k, v in out.items()
-                                      if k != "launches"}))
+                                      if k not in ("launches", "graph_ab")}))
     del engine
     torch.cuda.empty_cache()
     return out, [r.tokens for r in reqs], launches
@@ -3063,7 +3109,10 @@ class routed_experts:
     adapter routes to (every ``moe.route`` call with ``decode_only``
     False), a layer at a time (``moe.route`` and
     ``TransformerAdapter.step_decode`` wrapped; the chosen ids are kept on
-    the card and counted after the block, so no step waits on them)."""
+    the card and counted after the block, so no step waits on them).  A
+    replayed decode call calls no ``route``, and one being captured is not
+    recorded (its ids would be the graph's buffers): use it on eager
+    calls."""
 
     def __init__(self, torch, decode_only=True):
         self.torch, self.picks, self.decode_only = torch, [], decode_only
@@ -3077,7 +3126,8 @@ class routed_experts:
 
         def routed(p, x2, cfg):
             w, e = route(p, x2, cfg)
-            if decoding[0]:
+            if decoding[0] and not \
+                    self.torch.cuda.is_current_stream_capturing():
                 self.picks.append(e.detach())
             return w, e
 
@@ -3226,25 +3276,28 @@ def moe_encdec_phase(torch, log, smi, mesh=None):
         if arch == "mixtral-8x7b":
             prompts = prompts_for(torch, cfg, SERVE_PROMPT_LENS, seed=10)
             gen = SERVE_GEN
-            serves = [("a_paged", dict(paged, decode_checks=True)),
+            serves = [("a_paged", dict(paged, decode_checks=True,
+                                       graph_ab=True)),
                       ("a_slot", {})]
         else:
             prompts = prompts_for(torch, cfg, MAVERICK_PROMPT_LENS, seed=10)
             gen = MAVERICK_GEN
-            serves = [("b_paged", dict(paged, n_slots=4, max_len=512))]
+            serves = [("b_paged", dict(paged, n_slots=4, max_len=512,
+                                       graph_ab=True))]
         res["plain_call"] = plain_call_gate(torch, log, cfg, params,
                                             max(prompts, key=len), "bf16")
         streams = {}
         for label, kw in serves:
-            # the experts each decode step (the profile's included) routes
-            # its lanes to, free lanes too
-            with routed_experts(torch) as picks:
-                out, streams[label], launches = family_serve(
-                    torch, log, cfg, params, build, label, prompts, gen,
-                    profile=True, **kw)
-            out["decode_experts"] = picks.summary()
-            log(f"  ({label}) distinct experts a decode call routes to, a "
-                f"layer: {json.dumps(out['decode_experts'])}")
+            out, streams[label], launches = family_serve(
+                torch, log, cfg, params, build, label, prompts, gen,
+                profile=True, **kw)
+            if "graph_ab" in out:
+                # the experts the eager serve's decode calls (the same
+                # streams as the replayed serve's) route their lanes to,
+                # free lanes too
+                out["decode_experts"] = out["graph_ab"]["decode_experts"]
+                log(f"  ({label}) distinct experts a decode call routes to,"
+                    f" a layer: {json.dumps(out['decode_experts'])}")
             res[label] = out
             runs.append(launches)
             if mesh is not None and label == "a_paged":
@@ -3286,7 +3339,8 @@ def moe_encdec_phase(torch, log, smi, mesh=None):
                                    max(prompts, key=len), frames[0])
     out, base, launches = family_serve(
         torch, log, cfg, params, build, "c_slot", prompts, SERVE_GEN,
-        profile=True, decode_checks=True, embeds=frames, **WHISPER_ENGINE)
+        profile=True, decode_checks=True, graph_ab=True, embeds=frames,
+        **WHISPER_ENGINE)
     res["c_slot"] = out
     runs.append(launches)
     if mesh is not None:
@@ -6162,8 +6216,8 @@ def moe_vs_exact(torch, moe, p, x2, cfg, out, drops) -> dict:
     w[torch.tensor(expect, dtype=torch.long, device=w.device)] = 0.0
     flat_t = torch.arange(T, device=x2.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=E).tolist()
-    ys = moe._expert_ffn(p, x2[flat_t[order]], counts, cfg)
+    ys = moe._expert_ffn(p, x2[flat_t[order]],
+                         moe._group_offsets(flat_e, E), cfg)
     ys = ys * w[order][:, None].to(ys.dtype)
     ref = torch.zeros_like(x2).index_add_(0, flat_t[order], ys)
 

@@ -18,7 +18,9 @@ runs the step eagerly on fake tensors over a fake process group, and
   FLOPs and bytes of its bound;
 - the aten ops' FLOPs by ``torch.utils.flop_counter``'s formulas, the
   ones ``FlopCounterMode`` applies (read in the same mode: a second mode
-  would cost every fake op another dispatch);
+  would cost every fake op another dispatch), with ``grouped_mm_flop``
+  registered there for ``aten._grouped_mm`` (the MoE layers' grouped
+  products), which has none of its own;
 - the live bytes of the storages the step makes, to their peak.
 
 ``collective_bytes``, ``collective_counts`` and ``cost_summary`` return the
@@ -33,13 +35,14 @@ ops are recorded (the reference's scan caveat does not arise).
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
 from collections import defaultdict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import flop_registry, register_flop_formula
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
@@ -48,6 +51,22 @@ _DTYPE_BYTES = {
 }
 """The reference's table of HLO element types (the port reads
 ``element_size`` off each tensor; kept for a reader of both)."""
+
+def grouped_mm_flop(a_shape, b_shape, *args, out_shape=None, **kwargs
+                    ) -> int:
+    """FLOPs of ``aten._grouped_mm``: 2 x rows x K x N for the 2-D x 3-D
+    form (rows [M, K] by groups, each row times its group's [K, N], so
+    the count does not depend on the group sizes), 2 x G x M x K x N for
+    3-D x 3-D, and 2 x M x K x N for 2-D x 2-D (K split by groups)."""
+    K = a_shape[-1]
+    if len(a_shape) == len(b_shape) == 2:          # out [G, M, N]
+        return 2 * math.prod(out_shape[1:]) * K
+    return 2 * math.prod(out_shape) * K
+
+
+if torch.ops.aten._grouped_mm not in flop_registry:
+    register_flop_formula(torch.ops.aten._grouped_mm)(grouped_mm_flop)
+
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")

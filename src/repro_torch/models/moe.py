@@ -2,15 +2,20 @@
 
 ``moe_apply`` is the reference's exact, capacity-free path (``_moe_local``):
 the router's logits in f32, softmax, top-k, the chosen weights renormalised
-to sum to 1; the (token, choice) pairs sorted by expert (a stable sort), each
-expert's rows through its ``we_gate``/``we_up``/``we_down`` slice with
-``torch.matmul``, each result scaled by its routing weight (cast to the
-output's dtype first, as the reference casts it) and added back at its
-token.  No token is dropped.  The reference computes the grouped products
-with ``jax.lax.ragged_dot`` outside any Pallas kernel; here they are one
-product per expert that received rows, which needs the group sizes on the
-host: one synchronisation a MoE layer.  Only the experts a call routes to
-are read, and no [T x k, d, ff] gather of expert weights is ever formed.
+to sum to 1; the (token, choice) pairs sorted by expert (a stable sort); the
+experts' group ends counted and summed on the device; each expert's rows
+through its ``we_gate``/``we_up``/``we_down`` slice; each result scaled by
+its routing weight (cast to the output's dtype first, as the reference
+casts it) and added back at its token.  No token is dropped.  The
+reference computes the grouped products with ``jax.lax.ragged_dot`` on
+group sizes that stay on the device, outside any Pallas kernel; here they
+are ``_grouped``: ``torch._grouped_mm`` wherever it takes the operands
+(any float dtype on the CPU, bf16 on CUDA), so a layer reads nothing to
+the host and a decode step can be captured as a CUDA graph.  Elsewhere
+(f32 on CUDA, f32 fake tensors) ``_grouped`` runs its plain version, one
+``torch.matmul`` per expert that has rows, after reading the group sizes
+to the host.  Either way only the experts a call routes to are read, and
+no [T x k, d, ff] gather of expert weights is ever formed.
 
 A shared (always-on) expert (llama4) goes through ``layers.linear``, so
 its ``ws_*`` ``SparseWeight``s take the weight kernels on the card.  The
@@ -21,12 +26,12 @@ for its grouped products, and stay dense: ``sparsify_for_serving`` keeps
 On a serving mesh the expert stacks are ``ColShard``s, split on their
 last dim as the reference's serving placement splits them: a rank holds
 ``we_gate``/``we_up`` [E, d, F / m] and ``we_down`` [E, F, d / m].  It
-computes its F columns of every routed row, gathers the whole [N, F]
-hidden rows once, computes its d columns of every row's down product and
-gathers the whole [N, d] once: two collectives a MoE layer whatever the
-routing, and every output element the same full-length product the
-single-device path computes.  The router stays whole on every rank, so
-every rank routes alike and reads the same group sizes.
+runs the same grouped products on its columns: its F columns of every
+routed row, one gather of the whole [N, F] hidden rows, its d columns of
+every row's down product and one gather of the whole [N, d]: two
+collectives a MoE layer whatever the routing, and every output element
+the same full-length product the single-device path computes.  The router
+stays whole on every rank, so every rank routes alike.
 
 Under an active training policy (``parallel/policy.py``) ``moe_apply``
 takes ``_moe_ep``, the reference's GShard-style path: each data shard
@@ -107,66 +112,143 @@ def route(p, x2: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return top_w / top_w.sum(-1, keepdim=True), top_e
 
 
+# what ``torch._grouped_mm`` takes on the CPU: any of its float dtypes
+_CPU_GROUPED = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Strides and start as ``_grouped_mm``'s CUDA checks (and its meta
+    kernel) want them: row- or column-major in the last two dims, the
+    leading stride and the storage offset multiples of 16 bytes."""
+    a = 16 // t.element_size()
+    s0, s1 = t.stride()[-2:]
+    if s1 == 1 and s0 >= max(1, t.shape[-1]):
+        lead = s0
+    elif s0 == 1 and s1 >= max(1, t.shape[-2]):
+        lead = s1
+    else:
+        return False
+    return lead % a == 0 and t.storage_offset() % a == 0
+
+
+def takes_grouped(xs: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether ``torch._grouped_mm`` takes rows ``xs`` [N, K] and the
+    stack ``w`` [E, K, Nout] (both of one dtype): on the CPU any float
+    dtype it has (f32, bf16, f16); on CUDA, and for fake tensors (its
+    meta kernel mirrors the CUDA checks), bf16 with 16-byte-aligned
+    strides.  Decided from the operands alone, before any call."""
+    if xs.dtype != w.dtype:
+        return False
+    fake = isinstance(xs, FakeTensor) or isinstance(w, FakeTensor)
+    if xs.device.type == "cpu" and not fake:
+        return xs.dtype in _CPU_GROUPED
+    return xs.dtype == torch.bfloat16 and _aligned(xs) and _aligned(w)
+
+
+def _host_counts(offs: torch.Tensor, n_rows: int) -> list[int]:
+    """The group sizes on the host, for the per-expert loop.  Fake tensors
+    (a dry run, ``launch/dryrun.py``) hold no routing: they get the
+    ``n_rows`` rows split evenly, which gives the experts' products the
+    same FLOPs as any routing."""
+    E = offs.shape[0]
+    if isinstance(offs, FakeTensor):
+        return [n_rows // E + (e < n_rows % E) for e in range(E)]
+    return torch.diff(offs, prepend=offs.new_zeros(1)).tolist()
+
+
+def _grouped_plain(xs: torch.Tensor, w: torch.Tensor,
+                   offs: torch.Tensor) -> torch.Tensor:
+    """``_grouped``'s plain version: one ``torch.matmul`` per expert that
+    has rows, the group sizes read to the host first."""
+    out = xs.new_empty((xs.shape[0], w.shape[-1]))
+    start = 0
+    for e, n in enumerate(_host_counts(offs, xs.shape[0])):
+        if n:
+            out[start:start + n] = torch.matmul(xs[start:start + n], w[e])
+        start += n
+    return out
+
+
+def _grouped(xs: torch.Tensor, w: torch.Tensor,
+             offs: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.lax.ragged_dot``: rows ``xs`` [N, K], sorted
+    by expert, group e (rows ``offs[e-1]`` up to ``offs[e]``, int32
+    cumulative ends on the device) times ``w[e]`` [K, Nout]; [N, Nout].
+    ``torch._grouped_mm`` where it takes the operands
+    (``takes_grouped``: any float dtype on the CPU, bf16 on CUDA), which
+    reads the group sizes on the device and no empty group's weights;
+    the per-expert loop otherwise (``_grouped_plain``, which reads them to
+    the host).  ``ragged_dot`` is no Pallas kernel, so a library call
+    stands for it."""
+    if takes_grouped(xs, w):
+        return torch._grouped_mm(xs, w, offs=offs)
+    return _grouped_plain(xs, w, offs)
+
+
 def _cols(w):
     """(an expert stack, or a mesh rank's columns of it; its axis or None
     when the stack is whole)."""
     return (w.local, w.axis) if isinstance(w, ColShard) else (w, None)
 
 
-def _expert_ffn(p, xs: torch.Tensor, counts: list[int], cfg) -> torch.Tensor:
-    """Rows ``xs`` [N, d], sorted by expert with ``counts[e]`` rows of
-    expert e, each through its expert's FFN; [N, d].  On a mesh rank
-    (``ColShard`` stacks) the rank's F columns of each row's hidden are
-    gathered whole once, and its d columns of each row's down product
-    once: the gathers sit outside the loops over experts, so the layer's
-    collectives do not depend on ``counts``."""
+def _expert_ffn(p, xs: torch.Tensor, offs: torch.Tensor, cfg
+                ) -> torch.Tensor:
+    """Rows ``xs`` [N, d], sorted by expert with group ends ``offs`` [E],
+    each through its expert's FFN (the reference's
+    ``_expert_ffn_ragged``); [N, d].  On a mesh rank (``ColShard``
+    stacks) the products take the rank's columns: its F columns of each
+    row's hidden are gathered whole once, and its d columns of each row's
+    down product once, so the layer's collectives do not depend on the
+    routing."""
     (gate, _), (up, up_axis), (down, down_axis) = (
         _cols(p[k]) for k in ("we_gate", "we_up", "we_down"))
-    h = xs.new_empty((xs.shape[0], up.shape[-1]))
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            x_e = xs[start:start + n]
-            if cfg.glu:
-                h[start:start + n] = activation(
-                    cfg.act, torch.matmul(x_e, gate[e])) \
-                    * torch.matmul(x_e, up[e])
-            else:
-                h[start:start + n] = activation(cfg.act,
-                                                torch.matmul(x_e, up[e]))
-        start += n
+    if cfg.glu:
+        h = activation(cfg.act, _grouped(xs, gate, offs)) \
+            * _grouped(xs, up, offs)
+    else:
+        h = activation(cfg.act, _grouped(xs, up, offs))
     if up_axis is not None:
         h = up_axis.gather(h, dim=-1)
-    out = xs.new_empty((xs.shape[0], down.shape[-1]))
-    start = 0
-    for e, n in enumerate(counts):
-        if n:
-            out[start:start + n] = torch.matmul(h[start:start + n], down[e])
-        start += n
+    out = _grouped(h, down, offs)
     return out if down_axis is None else down_axis.gather(out, dim=-1)
 
 
-def _group_sizes(flat_e: torch.Tensor, E: int) -> list[int]:
-    """Rows routed to each expert.  Fake tensors (a dry run,
-    ``launch/dryrun.py``) hold no routing: they get the T k pairs split
-    evenly, which gives the experts' products the same FLOPs as any
-    routing."""
-    if isinstance(flat_e, FakeTensor):
-        n = flat_e.shape[0]
-        return [n // E + (e < n % E) for e in range(E)]
-    return torch.bincount(flat_e, minlength=E).tolist()
+def _group_offsets(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """int32 [E] cumulative ends of the experts' groups, on the device:
+    the counts by ``scatter_add_`` (``torch.bincount`` on CUDA reads its
+    maximum to the host), then their running sum."""
+    counts = torch.zeros((E,), dtype=torch.int32, device=flat_e.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e,
+                                                   dtype=torch.int32))
+    return torch.cumsum(counts, 0, dtype=torch.int32)
+
+
+def experts_grouped(params) -> bool:
+    """Whether every MoE layer's expert stacks in ``params`` take the
+    grouped product (``takes_grouped`` on rows of their dtype): then a
+    forward reads nothing to the host, and a decode step can be captured
+    (``serving/families.TransformerAdapter.graphed``)."""
+    for lp in params["layers"]:
+        for name in ("we_gate", "we_up", "we_down") if "moe" in lp else ():
+            w = _cols(lp["moe"][name])[0]
+            if not takes_grouped(w.new_empty((1, w.shape[-2])), w):
+                return False
+    return True
 
 
 def _moe_local(p, x2: torch.Tensor, cfg) -> torch.Tensor:
+    """The reference's ``_moe_local``: route, sort the (token, choice)
+    pairs by expert (stable), the grouped products over group ends kept
+    on the device, each row scaled by its weight and added back at its
+    token.  Every op keeps its shape whatever the routing."""
     T, k = x2.shape[0], cfg.moe.top_k
     top_w, top_e = route(p, x2, cfg)
     flat_e = top_e.reshape(-1)
     flat_t = torch.arange(T, device=x2.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     tok = flat_t[order]
-    # the group sizes on the host: the layer's one synchronisation
-    counts = _group_sizes(flat_e, cfg.moe.num_experts)
-    ys = _expert_ffn(p, x2[tok], counts, cfg)
+    offs = _group_offsets(flat_e, cfg.moe.num_experts)
+    ys = _expert_ffn(p, x2[tok], offs, cfg)
     ys = ys * top_w.reshape(-1)[order][:, None].to(ys.dtype)
     return torch.zeros_like(x2).index_add_(0, tok, ys)
 

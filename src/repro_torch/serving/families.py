@@ -58,14 +58,20 @@ blocks, context rows) and hands its steps the head split (``heads``);
 the recurrent steps read each layer's split from the state view.
 
 Host arrays (lanes, cursors, tokens) go to the device here, once per step.
-The dense family's S=1 decode call has the reference's ``_jit``
-(``repro/serving/families.py:91``) for a counterpart, ``CapturedStep``: on
-the card, an unplaced dense adapter's decode runs one fixed-shape step,
-captured once per key as a CUDA graph and replayed (``eager()`` turns
-capture and replay off, as ``jax.disable_jit()`` does).  By scope every
-other call runs eagerly: prefill chunks and verify calls, a moe model's
-(its layers read their group sizes to the host), a placed adapter's (its
-collectives), and the ssm, hybrid and enc-dec adapters'.
+The S=1 decode call of the dense, moe and enc-dec families has the
+reference's ``_jit`` (``repro/serving/families.py:91``) for a counterpart,
+``CapturedStep``: on the card, an unplaced adapter's decode runs one
+fixed-shape step from one [3, B] (enc-dec: [4, B]) int64 tensor, captured
+once per key as a CUDA graph and replayed (``eager()`` turns capture and
+replay off, as ``jax.disable_jit()`` does).  A moe model's decode is
+captured when its expert stacks take the grouped product on the card
+(``models/moe.experts_grouped``: bf16), so no layer reads its group sizes
+to the host.  The key is the inputs' shape and each operand's address,
+dtype, shape and strides (``storage_key``), walked once per (params,
+arenas) objects (``FamilyAdapter.storage``).  By scope every other call
+runs eagerly: prefill chunks, verify calls and encoder calls, a placed
+adapter's (its collectives), and the ssm and hybrid adapters' (their
+decode returns new state tensors, which the pool adopts).
 
 ``n_model_calls`` counts ``unified_step`` calls (and the enc-dec
 adapter's ``n_encode_calls`` its encoder calls).  Each call runs through
@@ -90,6 +96,7 @@ from .. import tree
 from ..kernels.common import (add_launch_counts, holding_scratch,
                               launch_counts, set_launch_counts)
 from ..launch import step_cost as cost
+from ..models import moe as moe_lib
 from ..models import transformer as tfm
 from ..models import whisper as whi
 from ..models import xlstm as xls
@@ -219,16 +226,23 @@ class CapturedStep:
                     for g in gs]}
 
 
+def _operand(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
+
+
 def storage_key(*trees) -> tuple:
-    """The addresses of every tensor in ``trees`` (a ``SparseWeight``'s
-    buffers included), in order: the storage part of a captured call's
-    key."""
+    """Each tensor of ``trees`` (a ``SparseWeight``'s buffers included), in
+    order, as its address, dtype, shape and strides: the storage part of
+    a captured call's key.  A graph reads its operands at their addresses
+    with the layout it was captured with, so a tensor of another dtype or
+    shape at a freed tensor's address gets a key, and a capture, of its
+    own."""
     out = []
     for leaf in tree.flatten(list(trees)):
         if isinstance(leaf, torch.Tensor):
-            out.append(leaf.data_ptr())
+            out.append(_operand(leaf))
         elif isinstance(leaf, SparseWeight):
-            out += [b.data_ptr() for b in leaf.buffers()]
+            out += [_operand(b) for b in leaf.buffers()]
     return tuple(out)
 
 
@@ -251,6 +265,23 @@ class FamilyAdapter:
         self.cfg, self.params, self.device = cfg, params, device
         self.n_model_calls = 0
         self._weights = None                   # step_cost's weight totals
+        self.captured_decode = CapturedStep()
+        self.graphed = False
+        # (the params and arena objects of the last walk, their key)
+        self._storage = None
+
+    def storage(self, arenas: list) -> tuple:
+        """``storage_key`` of ``arenas`` and the params, walked again only
+        when ``self.params`` or an arena is another object than at the last
+        walk: served params and arenas are replaced, never edited in place
+        (a pool refreshes its device tables in place, which keeps their
+        key)."""
+        objs = (self.params, *arenas)
+        got = self._storage
+        if got is None or len(got[0]) != len(objs) \
+                or any(a is not b for a, b in zip(got[0], objs)):
+            got = self._storage = (objs, storage_key(arenas, self.params))
+        return got[1]
 
     def _traced(self, kind: str, fn, args: tuple, cost=None,
                 captures: bool | None = None):
@@ -306,8 +337,10 @@ class TransformerAdapter(FamilyAdapter):
     The decode call is one fixed-shape step over every lane
     (``_decode_step``: the views' ``decode``, write indices on the device)
     through ``captured_decode``, a ``CapturedStep``: replayed as a CUDA
-    graph on the card for the dense family without a placement, eager
-    otherwise (``graphed``)."""
+    graph on the card without a placement, for a moe model when its expert
+    stacks take the grouped product, eager otherwise (``graphed``).  Every
+    lane routes through a moe layer, padding included, as in the
+    reference's fixed-shape jit."""
 
     def __init__(self, cfg, params, *, n_slots: int, max_len: int, device,
                  kv_layout: str = "slot", block_size: int = 16,
@@ -330,9 +363,9 @@ class TransformerAdapter(FamilyAdapter):
         # those (``params`` are then the rank's, ``place_params``)
         self.heads = None if placement is None else placement.heads
         self.graphed = (self.pool.k.device.type == "cuda"
-                        and cfg.moe is None
-                        and (placement is None or not placement.active))
-        self.captured_decode = CapturedStep()
+                        and (placement is None or not placement.active)
+                        and (cfg.moe is None
+                             or moe_lib.experts_grouped(params)))
 
     def _scales(self) -> dict:
         return {"k_scale": self.pool.k_scale, "v_scale": self.pool.v_scale}
@@ -376,14 +409,14 @@ class TransformerAdapter(FamilyAdapter):
 
     def decode_key(self, host: np.ndarray):
         """A decode call's ``CapturedStep`` key (None when the call runs
-        eagerly): the inputs' shape and the addresses of the arenas, the
-        device block table and every param."""
+        eagerly): the inputs' shape and the ``storage`` key of the arenas,
+        the device block table and every param."""
         if not self.graphed:
             return None
         p = self.pool
         tables = p.block_tables if self.kv_layout == "paged" else None
-        return (host.shape, storage_key(
-            [p.k, p.v, p.k_scale, p.v_scale, tables], self.params))
+        return (host.shape,
+                self.storage([p.k, p.v, p.k_scale, p.v_scale, tables]))
 
     def step_chunk(self, lanes, cur, n_new, tokens, rows=None
                    ) -> torch.Tensor:
@@ -623,6 +656,8 @@ class EncDecAdapter(FamilyAdapter):
         self.heads = None if placement is None else placement.heads
         self.n_encode_calls = 0
         self._enc_weights = None              # encode_cost's weight totals
+        self.graphed = (self.pool.k.device.type == "cuda"
+                        and (placement is None or not placement.active))
 
     def _run(self, rows, cur, n_new, tokens, ctx_len) -> torch.Tensor:
         p, c = self.pool, self.ctx
@@ -634,6 +669,29 @@ class EncDecAdapter(FamilyAdapter):
                                          {"tokens": self._tokens(tokens)},
                                          self.cfg, heads=self.heads)
         return logits
+
+    def _decode_step(self, inputs: torch.Tensor) -> torch.Tensor:
+        """The S=1 decode over every slot from ``inputs`` [4, B] int64 on
+        the device (each lane's token, cursor, ``n_new`` and context
+        length), with no host array and no host sync: what
+        ``captured_decode`` captures."""
+        p, c = self.pool, self.ctx
+        view = EncDecPoolView.decode(p.k, p.v, inputs[1], inputs[2],
+                                     ck=c.ck, cv=c.cv, ctx_len=inputs[3])
+        with torch.no_grad():
+            logits, _ = whi.unified_step(self.params, view,
+                                         {"tokens": inputs[0, :, None]},
+                                         self.cfg, heads=self.heads)
+        return logits
+
+    def decode_key(self, host: np.ndarray):
+        """A decode call's ``CapturedStep`` key (None when the call runs
+        eagerly): the inputs' shape and the ``storage`` key of the decoder
+        arenas, the context rows and every param."""
+        if not self.graphed:
+            return None
+        p, c = self.pool, self.ctx
+        return (host.shape, self.storage([p.k, p.v, c.ck, c.cv]))
 
     def _encode(self, embeds) -> tuple:
         with torch.no_grad():
@@ -663,11 +721,23 @@ class EncDecAdapter(FamilyAdapter):
                             (lanes, cur, n_new, tokens, ctx_len))
 
     def step_decode(self, tokens, active: list[int]) -> torch.Tensor:
+        """Logits [n_slots, 1, V] of every slot, as the reference's decode
+        writes every slot (``n_new`` 1; a slot past its arena writes back
+        what it holds); on the card a replay's are the graph's own
+        output, which the next decode call overwrites."""
         self.n_model_calls += 1
         p = self.pool
-        return self._traced("decode", self._run,
-                            (None, p.pos, np.ones_like(p.pos), tokens,
-                             self.ctx.lens.copy()))
+        n_new, ctx_len = np.ones_like(p.pos), self.ctx.lens.copy()
+        host = np.stack([np.asarray(tokens, np.int64).reshape(-1),
+                         p.pos.astype(np.int64), n_new.astype(np.int64),
+                         ctx_len.astype(np.int64)])
+        key = self.decode_key(host)
+        step = self.captured_decode
+        return self._traced(
+            "decode", lambda *_: step(self._decode_step, key, host,
+                                      self.device),
+            (None, p.pos, n_new, tokens, ctx_len),
+            captures=step.captures(key))
 
     def validate_submit(self, prompt, sampling, embeds) -> None:
         if embeds is None:

@@ -345,6 +345,16 @@ class EncDecPoolView(SlotPoolView):
             ctx_len=torch.as_tensor(np.asarray(ctx_len, np.int64),
                                     device=k.device))
 
+    @classmethod
+    def decode(cls, k, v, cursor: torch.Tensor, n_new: torch.Tensor, *,
+               ck, cv, ctx_len: torch.Tensor) -> "EncDecPoolView":
+        """The fused decode's view from device tensors ``cursor``,
+        ``n_new`` and ``ctx_len`` [B] (lane i == slot i): the write indices
+        of ``SlotPoolView.decode``, the context arenas and lengths beside
+        them; no host array, so a decode step over it can be captured."""
+        view = super().decode(k, v, cursor, n_new)
+        return dataclasses.replace(view, ck=ck, cv=cv, ctx_len=ctx_len)
+
     def lane_ctx(self, ck_l, cv_l):
         """Per-lane [B, max_ctx, KV, hd] context rows of one layer; padding
         lanes' rows are clamped into the arena, as ``lane_kv`` clamps."""

@@ -8,6 +8,7 @@ version.
 Needs a card and nvcc; skips elsewhere.  Run on the card with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 """
+import contextlib
 import dataclasses
 import math
 
@@ -1453,6 +1454,157 @@ def test_serve_captures_once_and_streams_equal_eager(cuda, kv_layout,
     assert moved == eager_moved
     assert eager_st["captures"] == 0 and st["captures"] == 1
     assert st["replays"] == calls - 1
+
+
+# the moe and enc-dec families' captured decode: (arch, layout)
+FAMILY_GRAPHS = [("mixtral-8x7b", "slot"), ("mixtral-8x7b", "paged"),
+                 ("llama4-maverick-400b-a17b", "paged"),
+                 ("whisper-medium", "slot")]
+
+
+def _family_params(cuda, arch, seed):
+    """A smoke twin in bf16, 8:16+16:256 weights (the routed experts stay
+    dense), drawn from ``seed``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_smoke(arch), dtype=torch.bfloat16)
+    args = serve.parse_args(["--arch", arch, "--smoke-arch", "--sparse"])
+    params, _ = serve.build_params(
+        cfg, args, cuda, torch.Generator(device=cuda).manual_seed(seed))
+    return cfg, params
+
+
+def _family_engine(cfg, params, kv_layout):
+    from repro_torch.serving import ServingEngine
+    kw = (dict(max_ctx=24) if cfg.family == "encdec"
+          else dict(kv_layout=kv_layout, block_size=16))
+    return ServingEngine(cfg, params, device="cuda", n_slots=4, max_len=96,
+                         token_budget=32, **kw)
+
+
+def _family_kw(cfg, g):
+    """An enc-dec request's encoder frames (1..24 of them), else none."""
+    if cfg.family != "encdec":
+        return {}
+    n = int(torch.randint(1, 25, (1,), generator=g, device=g.device))
+    return {"embeds": torch.randn((n, cfg.d_model), generator=g,
+                                  device=g.device)}
+
+
+def _family_decoding(engine, g, n=3):
+    """``_all_decoding`` for any family: ``n`` requests (one lane stays
+    free), enc-dec ones with their frames."""
+    from repro_torch.serving import SamplingParams, Status
+    reqs = [engine.submit(torch.randint(0, engine.cfg.vocab, (20 + 7 * i,),
+                                        generator=g, device="cuda").tolist(),
+                          SamplingParams(max_new_tokens=40),
+                          **_family_kw(engine.cfg, g))
+            for i in range(n)]
+    while not all(r.status is Status.RUNNING for r in reqs):
+        engine.step()
+    active = engine._decode_rows()
+    if engine.kv_layout == "paged":
+        engine.pool.prepare_decode(active)
+    return engine._last_token[:, None].copy(), active
+
+
+@pytest.mark.parametrize("arch,kv_layout", FAMILY_GRAPHS)
+def test_family_decode_replays_equal_eager(cuda, arch, kv_layout):
+    """mixtral (top-2), maverick (top-1, a shared expert) and whisper: the
+    decode call under ``eager()``, then graphed, then replayed, on the
+    same inputs: the active lanes' logits are the same bits (a moe
+    batch's lanes are coupled through the routing, padding lanes
+    included) and every call moves the launch counters alike."""
+    from repro_torch.serving.families import eager
+    cfg, params = _family_params(cuda, arch, 0)
+    engine = _family_engine(cfg, params, kv_layout)
+    ad = engine.adapter
+    assert ad.graphed
+    tokens, active = _family_decoding(
+        engine, torch.Generator(device=cuda).manual_seed(1))
+    with eager():
+        want, launched = _decode_call(ad, tokens, active)
+    for _ in range(2):
+        got, moved = _decode_call(ad, tokens, active)
+        assert torch.equal(got[active], want[active])
+        assert moved == launched
+    st = ad.captured_decode.stats()
+    assert st["captures"] == 1 and st["replays"] >= 1
+    assert st["launches_per_replay"] == [sum(launched.values())]
+    engine.run()
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-medium"])
+def test_family_new_params_or_arenas_capture_anew(cuda, arch):
+    """Other params under the same adapter capture a graph of their own
+    whose logits are the eager call's on them; the first params replay
+    their own graph again; a replaced arena (KV, or whisper's context
+    rows) captures again."""
+    from repro_torch.serving.families import eager
+    cfg, params = _family_params(cuda, arch, 0)
+    _, other = _family_params(cuda, arch, 5)
+    engine = _family_engine(cfg, params, "slot")
+    ad = engine.adapter
+    tokens, active = _family_decoding(
+        engine, torch.Generator(device=cuda).manual_seed(3))
+    first, _ = _decode_call(ad, tokens, active)
+    n = len(ad.captured_decode.graphs)
+    ad.params = other
+    with eager():
+        want, _ = _decode_call(ad, tokens, active)
+    for _ in range(2):
+        got, _ = _decode_call(ad, tokens, active)
+        assert torch.equal(got[active], want[active])
+    assert len(ad.captured_decode.graphs) == n + 1
+    assert not torch.equal(got[active], first[active])
+    ad.params = params
+    back, _ = _decode_call(ad, tokens, active)
+    assert len(ad.captured_decode.graphs) == n + 1
+    assert torch.equal(back[active], first[active])
+    if cfg.family == "encdec":
+        ad.ctx.ck = ad.ctx.ck.clone()
+    else:
+        ad.pool.k = ad.pool.k.clone()
+    with eager():
+        want, _ = _decode_call(ad, tokens, active)
+    got, _ = _decode_call(ad, tokens, active)
+    assert torch.equal(got[active], want[active])
+    assert len(ad.captured_decode.graphs) == n + 2
+
+
+@pytest.mark.parametrize("arch,kv_layout", FAMILY_GRAPHS)
+def test_family_serve_captures_once_and_streams_equal_eager(cuda, arch,
+                                                            kv_layout):
+    """The same traffic served under ``eager()`` and replayed, on two
+    engines over the same params: identical streams, one capture, every
+    other decode call a replay, and the same launch counts."""
+    from repro_torch.kernels.common import launch_counts
+    from repro_torch.serving import SamplingParams, Status
+    from repro_torch.serving.families import eager
+    cfg, params = _family_params(cuda, arch, 0)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    traffic = [(torch.randint(0, cfg.vocab, (8 + 6 * i,), generator=g,
+                              device=cuda).tolist(), _family_kw(cfg, g))
+               for i in range(4)]
+    runs = []
+    for graphed in (False, True):
+        engine = _family_engine(cfg, params, kv_layout)
+        before = launch_counts()
+        reqs = [engine.submit(p, SamplingParams(max_new_tokens=40), **kw)
+                for p, kw in traffic]
+        with (contextlib.nullcontext() if graphed else eager()):
+            engine.run()
+        after = launch_counts()
+        assert all(r.status is Status.FINISHED and len(r.tokens) == 40
+                   for r in reqs)
+        runs.append(([r.tokens for r in reqs],
+                     {k: n - before[k] for k, n in after.items()},
+                     engine.adapter.captured_decode.stats()))
+    (eager_streams, eager_moved, eager_st), (streams, moved, st) = runs
+    assert streams == eager_streams
+    assert moved == eager_moved
+    assert eager_st["captures"] == 0 and st["captures"] == 1
+    assert st["replays"] >= 38
 
 
 def test_paged_engine_runs_the_kernel(cuda):
